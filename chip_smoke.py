@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: build, check, serve, time.
+"""Smoke run of the PyTorch port on one CUDA card: build, check, serve, train, time.
 
     python3 chip_smoke.py
 
 Drives ``image_generation_tpu_torch`` (never JAX) through its warm serving
 path on ``runs/models/tpu_digits_40_epochs`` (256 latents, the flagship
-checkpoint, at full width; the weights are the checkpoint's).  Phases:
+checkpoint, at full width; the weights are the checkpoint's) and through
+flagship training (256 latents on a freshly selected Advantage2_system1
+graph, batch 128, 8 replicas, 256 persistent chains, 16 sweeps per
+refresh; random initial weights from the config's seed) under plain Gibbs
+and under parallel tempering.  Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    nvcc; exits non-zero without a CUDA device;
@@ -29,10 +33,30 @@ checkpoint, at full width; the weights are the checkpoint's).  Phases:
    fed inputs;
 6. times (CUDA events for kernels, host clock for requests) and a
    ``torch.profiler`` breakdown of one request by kernel, each printed
-   with the card's name and power limit.
+   with the card's name and power limit;
+7. K1 with the energy carry (K1-ΔE) against its plain version, fed
+   uniforms, at 256 chains (β = 1) and 2,048 chains (the 8-rung ladder's
+   per-chain β), 16 and 80 sweeps, for the checkpoint's model and a
+   |J| ≤ 1 model on the fresh flagship plan: the chain rule above, and on
+   identical chains ΔE within 1e-4 (checkpoint) or 1e-3·(1 + |E|)
+   (|J| ≤ 1); in Philox mode ΔE against the f64 energy difference;
+8. flagship training, plain Gibbs: ``Trainer(device="cuda")`` selects the
+   graph and trains one epoch over the dataset (the synthetic pool of
+   4,096 images, 32 steps, unless MNIST files are in ``data/``): finite
+   losses, the last 8 steps' MSE below the first 8's, K1 launched, the
+   median step time; then the model is saved and served through
+   ``WarmGenerator``;
+9. flagship training, parallel tempering (8 rungs × 256 chains): one
+   epoch through K1-ΔE; the carried ladder energies against
+   ``ising_energies`` recomputed on the card;
+10. one unscheduled step of each sampler under ``torch.profiler``;
+11. K1 and K1-ΔE timed at the training shapes (CUDA events) beside the
+    plain version and the least time the card could take (``sweep_bound``).
 
-The line before the last is a JSON object describing the kernels; the
-last line is ``{"ok": true, "device": {...}}``.  Any failure raises.
+Each path (serving, plain training, PT training) runs with the launch
+counters set to 0 just before it and read just after.  The line before
+the last is a JSON object describing the kernels; the last line is
+``{"ok": true, "device": {...}}``.  Any failure raises.
 """
 
 from __future__ import annotations
@@ -41,6 +65,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -53,6 +78,10 @@ MODEL = ROOT / "runs" / "models" / "tpu_digits_40_epochs"
 CHAIN_RULE = 0.98  # least fraction of chains bit-identical to the plain version
 SERVING_CHAINS = (256, 512, 1024, 2048, 4096)  # 256·k chains, k = 1, 2, 4, 8, 16
 MOMENT_ATOL = 0.06  # ≈4σ of a ±1 mean over 4096 chains
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): f32 outside the tensor
+# cores, and HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -86,6 +115,30 @@ def identical_fraction(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a == b).all(dim=1).float().mean())
 
 
+def sweep_bound(coupling: torch.Tensor, chains: int, sweeps: int, delta_e: bool):
+    """(bound ms, "bytes" | "operations") of one sweep run: the field
+    products the coupling's nonzeros need (2 per nonzero, chain and sweep)
+    at the f32 peak, against each input read once and each output written
+    once (spins in and out, coupling, h, β, seed; ΔE) at HBM bandwidth."""
+    n_pad = coupling.shape[0]
+    ops = 2.0 * int((coupling != 0).sum()) * chains * sweeps
+    nbytes = 4.0 * (2 * chains * n_pad + n_pad * n_pad + n_pad + chains) + 8
+    if delta_e:
+        nbytes += 4.0 * chains
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def reset_counts(gibbs_cuda) -> None:
+    gibbs_cuda.gibbs_sweeps_cuda.launches = 0
+    gibbs_cuda.gibbs_sweeps_cuda.delta_e_launches = 0
+
+
+def read_counts(gibbs_cuda) -> dict:
+    k = gibbs_cuda.gibbs_sweeps_cuda
+    return {"K1": k.launches, "K1-dE": k.delta_e_launches}
+
+
 def main() -> int:
     from image_generation_tpu_torch.app.warm import WarmGenerator
     from image_generation_tpu_torch.config import TrainingConfig
@@ -95,9 +148,12 @@ def main() -> int:
     from image_generation_tpu_torch.ops import gibbs_cuda
     from image_generation_tpu_torch.ops.exact import exact_moments
     from image_generation_tpu_torch.ops.gibbs import (
-        build_plan, gibbs_sweeps_reference, permuted_model, random_spins, to_original,
+        build_plan, gibbs_sweeps_reference, ising_energies, permuted_model, random_spins,
+        to_original,
     )
     from image_generation_tpu_torch.training.step import make_sample_fns
+    from image_generation_tpu_torch.training.trainer import Trainer
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
 
     # ---- 1. the card -------------------------------------------------
     if not torch.cuda.is_available():
@@ -199,7 +255,7 @@ def main() -> int:
 
     # ---- 5. the slice ------------------------------------------------------
     w = WarmGenerator(ROOT / "runs", device=dev)
-    gibbs_cuda.gibbs_sweeps_cuda.launches = 0
+    reset_counts(gibbs_cuda)
     warmed = w.warm_buckets(MODEL, 4)
     t0 = time.perf_counter()
     lone = w.serve(MODEL)
@@ -217,7 +273,8 @@ def main() -> int:
     for t in threads:
         t.join(timeout=300)
     burst_s = time.perf_counter() - t0
-    launches = gibbs_cuda.gibbs_sweeps_cuda.launches
+    serving_counts = read_counts(gibbs_cuda)
+    launches = serving_counts["K1"]
     burst_dispatches = w.stats["dispatches"] - before
     trainer = w._trainer
     print(f"[5] warmed group sizes {warmed}; sampler {trainer.fns.sampler_impl}; "
@@ -312,18 +369,220 @@ def main() -> int:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[6]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<3d} {e.key[:90]}")
 
+    # ---- 7. K1-ΔE against the plain version -------------------------------
+    fgraph, _ = cached_latent_graph(cfg.QPU, cfg.N_LATENTS, cfg.RANDOM_SEED)
+    fplan = build_plan(fgraph)
+    hf = torch.tensor(rng.uniform(-0.5, 0.5, fgraph.n), dtype=torch.float32, device=dev)
+    jf = torch.tensor(rng.uniform(-1.0, 1.0, fgraph.n_edges), dtype=torch.float32, device=dev)
+    hp_f, a_f = permuted_model(fplan, hf, jf)
+    ladder = torch.tensor(cfg.initial_pt_betas(), dtype=torch.float32, device=dev)
+    de_err = 0.0
+    print(f"[7] fresh flagship plan: n={fplan.n} couplers={fgraph.n_edges} "
+          f"colors={len(fplan.blocks)} n_pad={fplan.n_pad}")
+    for name, mplan, hp, a, strong in (
+            ("checkpoint model, n_pad 640", plan, hp_ckpt, a_ckpt, False),
+            ("|J|<=1 model, fresh plan n_pad 768", fplan, hp_f, a_f, True)):
+        for n_c in (256, 2048):
+            beta = 1.0 if n_c == 256 else ladder.repeat_interleave(n_c // len(ladder))
+            for n_sw in (16, 80):
+                g7 = torch.Generator(device=dev)
+                g7.manual_seed(n_c + n_sw)
+                s7 = random_spins(g7, mplan, n_c, dev)
+                u7 = torch.rand((n_sw, n_c, mplan.n_pad), generator=g7, device=dev)
+                out, de = gibbs_cuda.gibbs_sweeps_cuda(hp, a, mplan, s7, n_sw, beta, uniforms=u7,
+                                                       track_delta_e=True)
+                ref, de_ref = gibbs_sweeps_reference(hp, a, mplan, s7, n_sw, beta, uniforms=u7,
+                                                     track_delta_e=True)
+                torch.cuda.synchronize()
+                same = (out == ref).all(dim=1)
+                err = (de - de_ref).abs()[same]
+                e_abs = ising_energies(hp, a, ref).abs()[same]
+                limit = 1e-3 * (1 + e_abs) if strong else torch.full_like(err, 1e-4)
+                de_err = max(de_err, float(err.max()))
+                print(f"[7] {name}, {n_c} chains (R={gibbs_cuda.default_rows(mplan, n_c)}), "
+                      f"{n_sw} sweeps: {int((~same).sum())}/{n_c} chains differ, "
+                      f"max|dE err| {float(err.max()):.3e} (|E| up to {float(e_abs.max()):.1f})")
+                check(float(same.float().mean()) >= CHAIN_RULE,
+                      f"K1-dE vs plain ({name}, {n_c} x {n_sw}): chains differ")
+                check(bool((err <= limit).all()), f"K1-dE vs plain ({name}, {n_c} x {n_sw}): dE")
+                del u7
+    for name, mplan, hp, a in (("checkpoint model", plan, hp_ckpt, a_ckpt),
+                               ("|J|<=1 model", fplan, hp_f, a_f)):
+        g7 = torch.Generator(device=dev)
+        g7.manual_seed(77)
+        s7 = random_spins(g7, mplan, 2048, dev)
+        out, de = gibbs_cuda.gibbs_sweeps_cuda(hp, a, mplan, s7, 16, ladder.repeat_interleave(256),
+                                               generator=g7, track_delta_e=True)
+        e64 = [x.double() @ hp.double() + 0.5 * (x.double() * (x.double() @ a.double())).sum(-1)
+               for x in (s7, out)]
+        diff = (de.double() - (e64[1] - e64[0])).abs()
+        tol = 1e-3 * (1 + e64[0].abs().max())
+        print(f"[7] Philox mode, {name}, 2048 chains x 16 sweeps: max|dE - (E_out - E_in)| "
+              f"{float(diff.max()):.3e} (f64 energies, limit {float(tol):.3e})")
+        check(bool((diff <= tol).all()), f"K1-dE Philox ({name}): dE is not the energy change")
+
+    # ---- 8. flagship training, plain Gibbs ---------------------------------
+    def timed_epoch(trainer, label):
+        """One epoch, a CUDA-synchronised host clock around every step."""
+        times, last, stats = [], [0.0], {}
+
+        def on_batch(_epoch, _done, _nb):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times.append(now - last[0])
+            last[0] = now
+
+        trainer.train_init(1)
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        trainer.train(1, batch_cb=on_batch, epoch_chunks=trainer.n_batches,
+                      epoch_cb=lambda _e, st: stats.update(st))
+        mses = trainer.losses["mse_losses"]
+        med = float(np.median(times[4:]))
+        print(f"[{label}] {len(mses)} steps on '{trainer.data_source.origin}' data: loss finite "
+              f"{bool(np.isfinite(trainer.losses['dvae_losses']).all())}; MSE first 8 "
+              f"{np.mean(mses[:8]):.5f}, last 8 {np.mean(mses[-8:]):.5f}; step median "
+              f"{med * 1e3:.3f} ms (after 4 warm-up steps, n = {len(times) - 4}), "
+              f"{trainer.config.BATCH_SIZE / med:.1f} images/s  [{card}]")
+        check(bool(np.isfinite(trainer.losses["dvae_losses"]).all()), f"[{label}] losses not finite")
+        check(np.mean(mses[-8:]) < np.mean(mses[:8]), f"[{label}] MSE did not fall")
+        return stats, med
+
+    reset_counts(gibbs_cuda)
+    flag = Trainer(device=dev)
+    flag.setup()
+    print(f"[8] setup: n={flag.graph.n} couplers={flag.graph.n_edges} "
+          f"colors={len(flag.plan.blocks)} n_pad={flag.plan.n_pad} "
+          f"sampler {flag.config.SAMPLER}, {flag.config.NUM_READS} chains")
+    check((flag.graph.n, flag.graph.n_edges, flag.plan.n_pad, len(flag.plan.blocks))
+          == (256, 2327, 768, 6), "the flagship graph or plan differs from the JAX package's")
+    _, gibbs_step_s = timed_epoch(flag, "8")
+    gibbs_counts = read_counts(gibbs_cuda)
+    print(f"[8] launches in plain-Gibbs training: {gibbs_counts}")
+    check(gibbs_counts["K1"] > 0, "plain-Gibbs training never launched K1")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        flag.save(tmp / "flagship_1_epoch")
+        served = WarmGenerator(tmp, device=dev)
+        reset_counts(gibbs_cuda)
+        img = served.serve(tmp / "flagship_1_epoch")["images"]
+        served_counts = read_counts(gibbs_cuda)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[8] the trained model saved and served: images {img.shape}, finite "
+          f"{bool(np.isfinite(img).all())}, in [0, 1] {bool(img.min() >= 0 and img.max() <= 1)}; "
+          f"launches {served_counts}")
+    check(img.shape == (256, 32, 32, 1) and bool(np.isfinite(img).all()), "served images")
+    check(served_counts["K1"] == 1, "serving the trained model did not go through K1")
+
+    # ---- 9. flagship training, parallel tempering ----------------------------
+    reset_counts(gibbs_cuda)
+    pt = Trainer(config=TrainingConfig(SAMPLER="pt"), device=dev)
+    pt.graph, pt.plan, pt.physical_nodes = flag.graph, flag.plan, flag.physical_nodes
+    pt.images, pt.data_source = flag.images, flag.data_source  # the same data
+    pt_stats, pt_step_s = timed_epoch(pt, "9")
+    pt_counts = read_counts(gibbs_cuda)
+    st = pt.state
+    e_rec = ising_energies(st.sampler_h, st.sampler_coupling, st.chains)
+    e_gap = float((st.chain_energies - e_rec).abs().max())
+    print(f"[9] launches in PT training: {pt_counts}; ladder {tuple(st.chains.shape)}; "
+          f"carried vs recomputed energies: max gap {e_gap:.3e} (|E| up to "
+          f"{float(e_rec.abs().max()):.2f}); acceptance min {pt_stats['pt_accept_min']:.4f} "
+          f"mean {pt_stats['pt_accept_mean']:.4f}, recommended rungs "
+          f"{pt_stats['pt_recommended_num_betas']}")
+    check(pt_counts["K1-dE"] > 0, "PT training never launched K1-dE")
+    check(e_gap <= 1e-3, "carried PT energies drifted from the recomputed ones")
+
+    # ---- 10. one step of each sampler under the profiler ----------------------
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    batch = flag.images[: flag.config.BATCH_SIZE]
+    for label, t in (("plain Gibbs", flag), ("PT", pt)):
+        t.step(batch, 99)  # epoch 99: an unscheduled step (no GRBM update)
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            t.step(batch, 99)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        print(f"[10] profiled {label} training step: wall {wall_ms:.3f} ms, device busy "
+              f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), idle share "
+              f"{1 - busy_ms / wall_ms:.1%}  [{card}]")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"[10]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:80]}")
+
+    # ---- kernel times at the training shapes ----------------------------------
+    gk = torch.Generator(device=dev)
+    gk.manual_seed(5)
+    hp8, a8 = flag.state.sampler_h, flag.state.sampler_coupling
+    s8 = flag.state.chains
+    sw = flag.config.GIBBS_SWEEPS
+    k1_train_ms = cuda_ms(lambda: gibbs_cuda.gibbs_sweeps_cuda(hp8, a8, flag.plan, s8, sw,
+                                                               generator=gk), 50)
+    k1_train_plain = cuda_ms(lambda: gibbs_sweeps_reference(hp8, a8, flag.plan, s8, sw,
+                                                            generator=gk), 10)
+    hp9, a9 = st.sampler_h, st.sampler_coupling
+    s9 = st.chains.reshape(-1, pt.plan.n_pad)
+    b9 = st.pt_betas.repeat_interleave(pt.config.NUM_READS)
+    de_ms = cuda_ms(lambda: gibbs_cuda.gibbs_sweeps_cuda(hp9, a9, pt.plan, s9, sw, b9,
+                                                         generator=gk, track_delta_e=True), 50)
+    de_plain = cuda_ms(lambda: gibbs_sweeps_reference(hp9, a9, pt.plan, s9, sw, b9,
+                                                      generator=gk, track_delta_e=True), 10)
+    k1_bound = sweep_bound(a8, s8.shape[0], sw, False)
+    de_bound = sweep_bound(a9, s9.shape[0], sw, True)
+    serve_bound = sweep_bound(a6, 256, sweeps, False)
+    print(f"[11] K1 {s8.shape[0]} chains x {sw} sweeps (training, n_pad {flag.plan.n_pad}): "
+          f"{k1_train_ms:.4f} ms, plain {k1_train_plain:.4f} ms, bound {k1_bound[0] * 1e3:.3f} us "
+          f"({k1_bound[1]})  [{card}]")
+    print(f"[11] K1-dE {s9.shape[0]} chains x {sw} sweeps (PT training): {de_ms:.4f} ms, plain "
+          f"{de_plain:.4f} ms, bound {de_bound[0] * 1e3:.3f} us ({de_bound[1]})  [{card}]")
+    print(f"[11] K1 256 chains x {sweeps} sweeps (serving, n_pad {plan.n_pad}): {k1_ms:.4f} ms, "
+          f"bound {serve_bound[0] * 1e3:.3f} us ({serve_bound[1]}); dense-product work "
+          f"{2 * 256 * sweeps * plan.n_pad ** 2 / 1e9:.2f} GFLOP = "
+          f"{2 * 256 * sweeps * plan.n_pad ** 2 / PEAK_F32_FLOPS * 1e3:.3f} ms at the f32 peak")
+    print(f"[11] step medians: plain Gibbs {gibbs_step_s * 1e3:.3f} ms, PT {pt_step_s * 1e3:.3f} ms"
+          f"  [{card}]")
+
     print(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "gibbs_sweeps (K1)",
-        "route": "cuda",
-        "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
-        "replaces": "image_generation_tpu/ops/gibbs_pallas.py:141",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "tolerance": f">= {CHAIN_RULE:.0%} of chains bit-identical to the plain version",
-        "ms": k1_ms,
-        "plain_ms": twin_ms,
-    }]}))
+    paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts}
+    print(json.dumps({"kernels": [
+        {
+            "name": "gibbs_sweeps (K1)",
+            "route": "cuda",
+            "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
+            "replaces": "image_generation_tpu/ops/gibbs_pallas.py:141",
+            "launches": gibbs_counts["K1"],
+            "launches_by_path": {k: v["K1"] for k, v in paths.items()},
+            "max_abs_err": max_abs_err,
+            "tolerance": f">= {CHAIN_RULE:.0%} of chains bit-identical to the plain version",
+            "ms": k1_train_ms,
+            "plain_ms": k1_train_plain,
+            "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1],
+            "library_ms": None,
+            "shape": f"{s8.shape[0]} chains x {sw} sweeps, n_pad {flag.plan.n_pad}",
+        },
+        {
+            "name": "gibbs_sweeps with the energy carry (K1-dE)",
+            "route": "cuda",
+            "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
+            "replaces": "image_generation_tpu/ops/gibbs_pallas.py:121",
+            "launches": pt_counts["K1-dE"],
+            "launches_by_path": {k: v["K1-dE"] for k, v in paths.items()},
+            "max_abs_err": de_err,
+            "tolerance": "chain rule as K1; dE within 1e-4 (checkpoint model), "
+                         "1e-3*(1+|E|) (|J|<=1 model) on identical chains",
+            "ms": de_ms,
+            "plain_ms": de_plain,
+            "bound_ms": de_bound[0],
+            "bound_by": de_bound[1],
+            "library_ms": None,
+            "shape": f"{s9.shape[0]} chains x {sw} sweeps, n_pad {pt.plan.n_pad}",
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

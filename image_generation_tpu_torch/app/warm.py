@@ -27,6 +27,7 @@ import torch
 
 from image_generation_tpu_torch.config import TrainingConfig
 from image_generation_tpu_torch.training.trainer import Trainer
+from image_generation_tpu_torch.utils.device import resolve_device
 from image_generation_tpu_torch.utils.grid import make_grid, sharpen as _sharpen
 
 
@@ -121,19 +122,18 @@ class _Coalescer:
 
 class WarmGenerator:
     def __init__(self, workdir, config_overrides: Optional[dict] = None,
-                 device=None, serve_max_batch: int = 16,
+                 device="cuda", serve_max_batch: int = 16,
                  serve_window_ms: float = 5.0):
         """``config_overrides``: TrainingConfig field overrides for the
         serving trainer (the checkpoint's parameters.json still decides
-        N_LATENTS).  ``device``: where the trainer runs (CUDA when one is
-        visible, else the CPU).  ``serve_max_batch`` / ``serve_window_ms``:
-        the most requests folded into one dispatch, and the batching
-        window the leader waits before each drain."""
+        N_LATENTS).  ``device``: where the trainer runs (the card unless
+        ``"cpu"``; with no card visible a CUDA server raises).
+        ``serve_max_batch`` / ``serve_window_ms``: the most requests
+        folded into one dispatch, and the batching window the leader
+        waits before each drain."""
         self.workdir = Path(workdir)
         self.config_overrides = dict(config_overrides or {})
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.lock = threading.Lock()
         self._trainer = None
         self._key = None  # (resolved model dir, dvae.pth mtime_ns)

@@ -134,6 +134,21 @@ class TrainingConfig:
                 f"PT_ADAPT must be 'off' or 'epoch', got {self.PT_ADAPT!r}"
             )
 
+    def initial_pt_betas(self):
+        """The initial parallel-tempering ladder as a float64 numpy array:
+        ``PT_BETAS`` if set, else geometric over [PT_BETA_MIN, 1]."""
+        import numpy as np
+
+        if self.PT_BETAS is not None:
+            return np.asarray(self.PT_BETAS, np.float64)
+        if self.PT_NUM_BETAS == "auto":
+            raise NotImplementedError(
+                "PT_NUM_BETAS='auto' (parallel tempering ladder sizing by an "
+                "acceptance probe, ops/pt_tune.size_ladder) is not ported; "
+                "pass an explicit PT_NUM_BETAS or PT_BETAS"
+            )
+        return np.geomspace(self.PT_BETA_MIN, 1.0, self.PT_NUM_BETAS)
+
     def for_serving(self, n_latents: int) -> "TrainingConfig":
         """Serving-surface resolution: under ``SAMPLER_MATMUL_DTYPE="auto"``
         models of at least ``SERVING_INT8_MIN_LATENTS`` latents serve from
@@ -164,6 +179,18 @@ class TrainingConfig:
         if self.SAMPLER_MATMUL_DTYPE in ("float32", "int8"):
             return None
         return torch.bfloat16
+
+    def resolved_block_sparse(self, plan) -> bool:
+        """Whether the packed block-sparse coupling applies to ``plan``:
+        "on", or under "auto" a plan of n_pad ≥ 2048 whose chunk occupancy
+        at ``SWEEP_BS_CHUNK`` is at most 0.75 (the JAX package's gate)."""
+        if self.SWEEP_BLOCK_SPARSE == "off":
+            return False
+        if self.SWEEP_BLOCK_SPARSE == "on":
+            return True
+        from image_generation_tpu_torch.ops.block_sparse import chunk_occupancy
+
+        return plan.n_pad >= 2048 and chunk_occupancy(plan, self.SWEEP_BS_CHUNK) <= 0.75
 
     @classmethod
     def from_yaml(cls, path, **overrides) -> "TrainingConfig":

@@ -15,6 +15,19 @@
 // chain row, sweep, 0), so the stream does not depend on the block size;
 // u = (bits >> 8) * 2^-24, as on the TPU.
 //
+// Energy carry (the Pallas kernels' de_ref, _color_update's track mode,
+// which parallel tempering uses to carry ladder energies across rounds):
+// with a non-null delta_e the kernel also writes, per chain, the energy
+// change of the run, sum over sweeps and color blocks of
+// fields . (new - old), with fields = S @ A[:, c0:c1] + h[c0:c1] (beta
+// excluded) and old the spin before the color step.  A color block has no
+// intra-block couplings, so that sum is exactly E(out) - E(in).  Each
+// thread keeps R partial sums in registers over the whole run (its own
+// columns); the block reduces them once at the end (warp shuffles, then
+// one shared-memory pass).  The summation order differs from the plain
+// version's (per block, then per sweep), so the two agree to f32
+// rounding.  Padding columns have h = 0 and zero coupling: they add 0.
+//
 // What bounds it on the H100.  The serving shape is C = 256 * bucket
 // chains over n_pad = 640 padded spins, 80 sweeps: 2*C*n_pad^2 FLOP per
 // sweep, 16.8 GFLOP for a 256-image request, at about 1 FLOP per byte of
@@ -43,6 +56,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 128;
 
 struct Bounds {
@@ -87,6 +101,7 @@ gibbs_sweeps_kernel(const float* __restrict__ spins_in,
                     const float* __restrict__ beta,
                     const float* __restrict__ uniforms,  // null: Philox
                     const int64_t* __restrict__ seed,    // null: fed
+                    float* __restrict__ delta_e,         // null: no carry
                     const Bounds bounds, const int n_blocks,
                     const int n_chains, const int n_pad, const int max_width,
                     const int n_sweeps) {
@@ -104,9 +119,11 @@ gibbs_sweeps_kernel(const float* __restrict__ spins_in,
     key1 = static_cast<uint32_t>(s >> 32);
   }
   float neg2beta[R];
+  float de[R];  // this thread's share of each row's energy change
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     neg2beta[r] = r < rows ? -2.0f * beta[row0 + r] : 0.0f;
+    de[r] = 0.0f;
   }
   // rows past the last chain hold zeros: they are computed, never stored
   for (int i = tid; i < R * n_pad; i += kThreads) {
@@ -145,7 +162,8 @@ gibbs_sweeps_kernel(const float* __restrict__ spins_in,
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (r < rows) {
-            const float x = neg2beta[r] * (acc[r] + hc);
+            const float f = acc[r] + hc;
+            const float x = neg2beta[r] * f;
             const float p = 1.0f / (1.0f + expf(-x));
             const int row = row0 + r;
             float u;
@@ -158,7 +176,12 @@ gibbs_sweeps_kernel(const float* __restrict__ spins_in,
                   static_cast<uint32_t>(sweep), 0u, key0, key1);
               u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
             }
-            stage[r * max_width + (c - c0)] = u < p ? 1.0f : -1.0f;
+            const float s_new = u < p ? 1.0f : -1.0f;
+            stage[r * max_width + (c - c0)] = s_new;
+            if (delta_e != nullptr) {
+              // f * (new - old) is exact: new - old is 0 or +-2
+              de[r] += f * (s_new - spins[r * n_pad + c]);
+            }
           }
         }
       }
@@ -178,14 +201,36 @@ gibbs_sweeps_kernel(const float* __restrict__ spins_in,
     spins_out[static_cast<size_t>(row0 + r) * n_pad + (i - r * n_pad)] =
         spins[i];
   }
+
+  if (delta_e != nullptr) {  // uniform across the block: barrier is safe
+    __shared__ float partial[R][kWarps];
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float v = de[r];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      }
+      if (lane == 0) partial[r][warp] = v;
+    }
+    __syncthreads();
+    if (tid < rows) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += partial[tid][w];
+      delta_e[row0 + tid] = sum;
+    }
+  }
 }
 
 template <int R>
 cudaError_t launch(const float* spins_in, float* spins_out,
                    const float* coupling, const float* h, const float* beta,
                    const float* uniforms, const int64_t* seed,
-                   const Bounds& bounds, int n_blocks, int n_chains,
-                   int n_pad, int max_width, int n_sweeps,
+                   float* delta_e, const Bounds& bounds, int n_blocks,
+                   int n_chains, int n_pad, int max_width, int n_sweeps,
                    cudaStream_t stream) {
   const size_t smem =
       static_cast<size_t>(R) * (n_pad + max_width) * sizeof(float);
@@ -195,8 +240,8 @@ cudaError_t launch(const float* spins_in, float* spins_out,
   if (err != cudaSuccess) return err;
   const int grid = (n_chains + R - 1) / R;
   gibbs_sweeps_kernel<R><<<grid, kThreads, smem, stream>>>(
-      spins_in, spins_out, coupling, h, beta, uniforms, seed, bounds,
-      n_blocks, n_chains, n_pad, max_width, n_sweeps);
+      spins_in, spins_out, coupling, h, beta, uniforms, seed, delta_e,
+      bounds, n_blocks, n_chains, n_pad, max_width, n_sweeps);
   return cudaGetLastError();
 }
 
@@ -211,12 +256,13 @@ const char* gibbs_sweeps_error_string(int err) {
 }
 
 // block_bounds: host array of n_blocks (c0, c1) pairs.  rows_per_block is
-// one of 1, 2, 4, 8.  Returns a cudaError_t (0 on success).
+// one of 1, 2, 4, 8.  delta_e: null, or (n_chains,) f32 for the energy
+// change of the run.  Returns a cudaError_t (0 on success).
 int gibbs_sweeps_f32(const float* spins_in, float* spins_out,
                      const float* coupling, const float* h, const float* beta,
                      const float* uniforms, const int64_t* seed,
-                     const int* block_bounds, int n_blocks, int n_chains,
-                     int n_pad, int max_width, int n_sweeps,
+                     float* delta_e, const int* block_bounds, int n_blocks,
+                     int n_chains, int n_pad, int max_width, int n_sweeps,
                      int rows_per_block, void* stream) {
   if (n_blocks < 1 || n_blocks > kMaxBlocks || n_pad % 4 != 0 ||
       n_chains < 1 || max_width < 1) {
@@ -232,23 +278,23 @@ int gibbs_sweeps_f32(const float* spins_in, float* spins_out,
   switch (rows_per_block) {
     case 1:
       err = launch<1>(spins_in, spins_out, coupling, h, beta, uniforms, seed,
-                      bounds, n_blocks, n_chains, n_pad, max_width, n_sweeps,
-                      s);
+                      delta_e, bounds, n_blocks, n_chains, n_pad, max_width,
+                      n_sweeps, s);
       break;
     case 2:
       err = launch<2>(spins_in, spins_out, coupling, h, beta, uniforms, seed,
-                      bounds, n_blocks, n_chains, n_pad, max_width, n_sweeps,
-                      s);
+                      delta_e, bounds, n_blocks, n_chains, n_pad, max_width,
+                      n_sweeps, s);
       break;
     case 4:
       err = launch<4>(spins_in, spins_out, coupling, h, beta, uniforms, seed,
-                      bounds, n_blocks, n_chains, n_pad, max_width, n_sweeps,
-                      s);
+                      delta_e, bounds, n_blocks, n_chains, n_pad, max_width,
+                      n_sweeps, s);
       break;
     case 8:
       err = launch<8>(spins_in, spins_out, coupling, h, beta, uniforms, seed,
-                      bounds, n_blocks, n_chains, n_pad, max_width, n_sweeps,
-                      s);
+                      delta_e, bounds, n_blocks, n_chains, n_pad, max_width,
+                      n_sweeps, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -8,6 +8,11 @@ has the reference's state-dict layout, so ``dvae.pth`` needs no converter;
 parameters, as numpy arrays, into the port's: the first is the inverse of
 the JAX converter's key map (flax HWIO kernels → torch OIHW; the decoder's
 flipped HWIO conv kernels → ``ConvTranspose2d`` (I, O, kh, kw) weights).
+A whole training state is carried by ``training.step.train_state_from_jax``.
+
+Writing: ``dvae_state_dict`` (the module's own state dict on the CPU),
+``grbm_state_dict`` and ``save_state_dict`` give the files the JAX package
+and the reference read.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ from image_generation_tpu_torch.models.grbm import GRBMGraph, GRBMParams
 
 __all__ = [
     "load_state_dict",
+    "save_state_dict",
+    "dvae_state_dict",
+    "grbm_state_dict",
     "grbm_from_state_dict",
     "grbm_from_jax",
     "dvae_state_dict_from_jax",
@@ -35,6 +43,39 @@ _DEC_BN_IDS = (1, 6, 11, 16)
 def load_state_dict(path) -> Dict[str, torch.Tensor]:
     """Read a ``.pth`` state dict (tensors only) onto the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_state_dict(path, sd: Dict[str, torch.Tensor]) -> None:
+    """Write a state dict of CPU tensors as a ``.pth`` file."""
+    torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()}, path)
+
+
+def dvae_state_dict(dvae: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The DVAE's ``dvae.pth`` tensors (its state dict on the CPU, f32,
+    ``num_batches_tracked`` 0 as the JAX writer stores it)."""
+    sd = {}
+    for k, v in dvae.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.zeros((), dtype=torch.int64)
+        else:
+            sd[k] = v.detach().to("cpu", torch.float32)
+    return sd
+
+
+def grbm_state_dict(params: GRBMParams, graph: GRBMGraph) -> Dict[str, torch.Tensor]:
+    """(GRBMParams, GRBMGraph) → the ``grbm.pth`` tensors."""
+    empty = torch.zeros(0, dtype=torch.int64)
+    return {
+        "_linear": params.linear.detach().to("cpu", torch.float32),
+        "_quadratic": params.quadratic.detach().to("cpu", torch.float32),
+        "_edge_idx_i": torch.from_numpy(np.asarray(graph.edge_i, np.int64)),
+        "_edge_idx_j": torch.from_numpy(np.asarray(graph.edge_j, np.int64)),
+        "_visible_idx": torch.from_numpy(graph.visible_idx),
+        "_hidden_idx": empty,
+        "_flat_adj": empty,
+        "_flat_j_idx": empty,
+        "_bin_idx": empty,
+    }
 
 
 def grbm_from_jax(linear, quadratic, edge_i, edge_j, device="cpu") -> Tuple[GRBMParams, GRBMGraph]:

@@ -4,7 +4,9 @@ Port of ``image_generation_tpu/ops/gibbs.py``.  The host half (the plan)
 is the same numpy code, so both packages put every spin at the same padded
 position.  The tensor half builds the permuted model and holds
 ``gibbs_sweeps_reference``, the plain PyTorch version of the sweep kernel
-(``ops/gibbs_cuda.py``).
+(``ops/gibbs_cuda.py``), ``ising_energies`` and parallel tempering
+(``pt_round``, ``pt_sample``), which carries its ladder energies across
+rounds through the sweep's ``track_delta_e`` mode.
 
 Spins live in a color-permuted, padded coordinate system: each color block
 of the plan is one contiguous column range, padded to ``pad_to``.  A color
@@ -37,6 +39,9 @@ __all__ = [
     "random_spins",
     "to_original",
     "gibbs_sweeps_reference",
+    "ising_energies",
+    "pt_round",
+    "pt_sample",
 ]
 
 
@@ -245,7 +250,8 @@ def gibbs_sweeps_reference(
     *,
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    track_delta_e: bool = False,
+):
     """``n_sweeps`` colored block-Gibbs sweeps in plain PyTorch.
 
     The twin of the sweep kernel, with the Pallas kernel's semantics
@@ -256,7 +262,11 @@ def gibbs_sweeps_reference(
     ``uniforms``: optional (n_sweeps, chains, n_pad) f32, read at
     ``[sweep, :, c0:c1]`` as the fed kernel reads them.  Without it the
     uniforms are drawn from ``generator`` (on the generator's device).
-    Returns new (chains, n_pad) f32 spins; the input is not modified.
+    ``track_delta_e``: also return the (chains,) f32 energy change of the
+    run, accumulated as the Pallas kernel's ``de_ref`` is: per block,
+    ``Σ fields·(new − old)`` (fields include h, exclude β).
+    Returns new (chains, n_pad) f32 spins, or (spins, delta_e); the input
+    is not modified.
     """
     chains, n_pad = spins_p.shape
     if n_pad != plan.n_pad:
@@ -269,6 +279,7 @@ def gibbs_sweeps_reference(
     beta_col = torch.as_tensor(beta, dtype=torch.float32, device=dev)
     beta_col = beta_col.reshape(-1, 1) if beta_col.ndim else beta_col
     s = spins_p.to(torch.float32).clone()
+    de = torch.zeros(chains, dtype=torch.float32, device=dev)
     for sweep in range(n_sweeps):
         for c0, _valid, c1 in plan.blocks:
             fields = s @ coupling_p[:, c0:c1] + hp[c0:c1]
@@ -280,5 +291,123 @@ def gibbs_sweeps_reference(
                     (chains, c1 - c0), generator=generator,
                     device=generator.device if generator is not None else dev,
                 ).to(dev)
-            s[:, c0:c1] = torch.where(u < p_plus, 1.0, -1.0)
-    return s
+            new = torch.where(u < p_plus, 1.0, -1.0)
+            if track_delta_e:
+                de = de + (fields * (new - s[:, c0:c1])).sum(-1)
+            s[:, c0:c1] = new
+    return (s, de) if track_delta_e else s
+
+
+def ising_energies(hp: torch.Tensor, coupling_p: torch.Tensor,
+                   spins_p: torch.Tensor) -> torch.Tensor:
+    """E(s) = h·s + ½ sᵀ A s in padded coordinates for (..., n_pad) spins
+    (padding contributes 0); f32 dense coupling only."""
+    sa = spins_p @ coupling_p
+    return spins_p @ hp + 0.5 * (spins_p * sa).sum(-1)
+
+
+def pt_round(
+    generator: Optional[torch.Generator],
+    hp: torch.Tensor,
+    coupling_p: torch.Tensor,
+    plan: GibbsPlan,
+    spins_p: torch.Tensor,
+    betas: torch.Tensor,
+    sweeps_per_round: int,
+    sweeps_fn=None,
+    energies: Optional[torch.Tensor] = None,
+    return_energies: bool = False,
+    return_accept: bool = False,
+    *,
+    uniforms: Optional[torch.Tensor] = None,
+    swap_uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """One parallel-tempering round: ``sweeps_per_round`` Gibbs sweeps at
+    every temperature, then replica exchange between adjacent rungs (even
+    pairs, then odd pairs), each chain column independently.
+
+    ``spins_p`` (T, C, n_pad); ``betas`` (T,) ascending (``betas[-1]`` is
+    the target).  ``sweeps_fn(generator, hp, coupling_p, chains, n_sweeps,
+    beta, uniforms=, track_delta_e=)`` runs the sweeps on ``plan`` (the
+    plain ``gibbs_sweeps_reference`` by default).  With carried ``energies``
+    (T, C) the sweeps track ΔE and the swap energies are ``energies + ΔE``,
+    so no energy product runs; without them the energies are computed once
+    after the sweeps.  Swaps permute the energies with the configurations.
+
+    ``uniforms`` (sweeps, T·C, n_pad) and ``swap_uniforms`` (two (T−1, C)
+    arrays, even pass then odd) replace the draws from ``generator``.
+
+    Returns spins; ``(spins, energies)`` with ``return_energies``;
+    ``(spins, energies, accept)`` with ``return_accept``, where ``accept``
+    is the (T−1,) per-pair mean analytic acceptance E[min(1, e^{Δβ·ΔE})].
+    """
+    t_dim, c_dim, n_pad = spins_p.shape
+    dev = spins_p.device
+    if sweeps_fn is None:
+        def sweeps_fn(g, h_, c_, s_, n_, beta_, uniforms=None, track_delta_e=False):
+            return gibbs_sweeps_reference(h_, c_, plan, s_, n_, beta_, generator=g,
+                                          uniforms=uniforms, track_delta_e=track_delta_e)
+    betas = torch.as_tensor(betas, dtype=torch.float32, device=dev)
+    flat = spins_p.reshape(t_dim * c_dim, n_pad)
+    beta_per_chain = betas.repeat_interleave(c_dim)
+    if energies is not None:
+        flat, de = sweeps_fn(generator, hp, coupling_p, flat, sweeps_per_round,
+                             beta_per_chain, uniforms=uniforms, track_delta_e=True)
+        e = energies + de.reshape(t_dim, c_dim)
+    else:
+        flat = sweeps_fn(generator, hp, coupling_p, flat, sweeps_per_round,
+                         beta_per_chain, uniforms=uniforms)
+    s = flat.reshape(t_dim, c_dim, n_pad)
+    if energies is None:
+        e = ising_energies(hp, coupling_p, s)
+
+    d_beta = (betas[:-1] - betas[1:])[:, None]
+    pairs = torch.arange(t_dim - 1, device=dev) % 2
+    pad = torch.zeros((1, c_dim), dtype=torch.bool, device=dev)
+    acc = torch.zeros(t_dim - 1, dtype=torch.float32, device=dev)
+    for parity in (0, 1):
+        delta = d_beta * (e[:-1] - e[1:])  # (T−1, C)
+        if swap_uniforms is not None:
+            u = swap_uniforms[parity]
+        else:
+            u = torch.rand(delta.shape, generator=generator, device=dev)
+        pair_mask = (pairs == parity)[:, None]
+        accept = (torch.log(u) < delta) & pair_mask
+        acc = acc + (torch.clamp(torch.exp(delta), max=1.0) * pair_mask).mean(1)
+        swap_next = torch.cat([accept, pad], 0)  # row t ↔ t+1
+        swap_prev = torch.cat([pad, accept], 0)  # row t ↔ t−1
+        s = torch.where(swap_next[..., None], torch.roll(s, -1, 0),
+                        torch.where(swap_prev[..., None], torch.roll(s, 1, 0), s))
+        e = torch.where(swap_next, torch.roll(e, -1, 0),
+                        torch.where(swap_prev, torch.roll(e, 1, 0), e))
+    if return_accept:
+        return s, e, acc
+    return (s, e) if return_energies else s
+
+
+def pt_sample(
+    generator: Optional[torch.Generator],
+    hp: torch.Tensor,
+    coupling_p: torch.Tensor,
+    plan: GibbsPlan,
+    n_chains: int,
+    betas: torch.Tensor,
+    n_rounds: int,
+    sweeps_per_round: int,
+    init_spins: Optional[torch.Tensor] = None,
+    sweeps_fn=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A full parallel-tempering run from optional ``init_spins``
+    (T, C, n_pad): the ladder energies are computed once and carried
+    through every round.  Returns ((C, n_pad) samples at ``betas[-1]``,
+    the (T, C, n_pad) ladder)."""
+    t_dim = int(torch.as_tensor(betas).shape[0])
+    if init_spins is None:
+        init_spins = random_spins(generator, plan, t_dim * n_chains, hp.device).reshape(
+            t_dim, n_chains, plan.n_pad
+        )
+    s, e = init_spins, ising_energies(hp, coupling_p, init_spins)
+    for _ in range(n_rounds):
+        s, e = pt_round(generator, hp, coupling_p, plan, s, betas, sweeps_per_round,
+                        sweeps_fn=sweeps_fn, energies=e, return_energies=True)
+    return s[-1], s

@@ -8,10 +8,15 @@ that.  It is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use, keyed on a hash of the source and
 the flags, under ``_build/`` in this package, and bound with ``ctypes``.
 
+The kernel also carries the energy change of the run (``track_delta_e``,
+the Pallas kernels' ``de_ref``), which parallel tempering uses to carry its
+ladder energies across rounds.
+
 ``gibbs_sweeps_cuda`` is the wrapper.  For a tensor on the CPU it runs the
 plain PyTorch version, ``ops.gibbs.gibbs_sweeps_reference``; for a CUDA
 tensor it launches the kernel or raises.  ``gibbs_sweeps_cuda.launches``
-counts kernel launches.
+counts its launches without the energy carry (K1) and
+``gibbs_sweeps_cuda.delta_e_launches`` those with it (K1-ΔE).
 
 ``philox_uniforms`` is the numpy twin of the kernel's in-kernel generator:
 fed to the plain version, it reproduces the kernel's Philox mode.
@@ -52,6 +57,7 @@ _NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+_STATIC_SMEM = 8 * 4 * 4  # the energy carry's per-warp partial sums (R ≤ 8)
 _MAX_BLOCKS = 128  # color blocks a launch takes (kMaxBlocks in the source)
 _ROWS = (8, 4, 2, 1)  # chain rows per thread block the source instantiates
 # The default R keeps at least this many thread blocks in flight.  On an
@@ -122,6 +128,7 @@ def load_library() -> KernelLibrary:
             ctypes.c_void_p,  # beta
             ctypes.c_void_p,  # uniforms (null: Philox)
             ctypes.c_void_p,  # seed (null: fed)
+            ctypes.c_void_p,  # delta_e (null: no energy carry)
             ctypes.c_void_p,  # host block bounds
             ctypes.c_int,  # n_blocks
             ctypes.c_int,  # n_chains
@@ -147,7 +154,7 @@ def _max_width(plan: GibbsPlan) -> int:
 
 
 def _smem_bytes(plan: GibbsPlan, rows: int) -> int:
-    return rows * (plan.n_pad + _max_width(plan)) * 4
+    return rows * (plan.n_pad + _max_width(plan)) * 4 + _STATIC_SMEM
 
 
 def default_rows(plan: GibbsPlan, n_chains: int) -> int:
@@ -212,29 +219,26 @@ def gibbs_sweeps_cuda(
     uniforms: Optional[torch.Tensor] = None,
     track_delta_e: bool = False,
     _rows_per_block: Optional[int] = None,
-) -> torch.Tensor:
+):
     """``n_sweeps`` colored block-Gibbs sweeps through K1.
 
     Same contract as ``gibbs_sweeps_reference``: ``hp`` (n_pad,),
     ``coupling_p`` (n_pad, n_pad), ``spins_p`` (chains, n_pad), all f32;
     ``beta`` scalar or (chains,); optional fed ``uniforms`` (n_sweeps,
     chains, n_pad).  Without them the kernel draws from its Philox stream,
-    keyed by a seed drawn from ``generator``.  Returns new spins.
+    keyed by a seed drawn from ``generator``.  Returns new spins, or
+    (spins, delta_e) with ``track_delta_e``: the (chains,) f32 energy
+    change of the run.
 
     A CPU ``spins_p`` runs the plain version.  A CUDA one launches the
     kernel; anything it does not take raises.  ``_rows_per_block``
     overrides the chain rows per thread block (``default_rows``) for
     measuring the kernel at each R.
     """
-    if track_delta_e:
-        raise NotImplementedError(
-            "track_delta_e (the parallel-tempering energy carry) is not "
-            "ported to the sweep kernel"
-        )
     if spins_p.device.type == "cpu":
         return gibbs_sweeps_reference(
             hp, coupling_p, plan, spins_p, n_sweeps, beta,
-            generator=generator, uniforms=uniforms,
+            generator=generator, uniforms=uniforms, track_delta_e=track_delta_e,
         )
     if spins_p.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {spins_p.device}")
@@ -263,6 +267,7 @@ def gibbs_sweeps_cuda(
     else:
         seed = draw_seed(generator, dev)
     out = torch.empty_like(spins_p)
+    delta_e = torch.empty(n_chains, dtype=torch.float32, device=dev) if track_delta_e else None
     flat = [c for c0, _v, c1 in plan.blocks for c in (c0, c1)]
     bounds = (ctypes.c_int * len(flat))(*flat)
     lib = load_library().lib
@@ -273,17 +278,22 @@ def gibbs_sweeps_cuda(
             hp.data_ptr(), beta_t.data_ptr(),
             uniforms.data_ptr() if uniforms is not None else None,
             seed.data_ptr() if seed is not None else None,
+            delta_e.data_ptr() if delta_e is not None else None,
             ctypes.cast(bounds, ctypes.c_void_p), len(plan.blocks), n_chains,
             n_pad, _max_width(plan), int(n_sweeps), rows, stream,
         )
     if err != 0:
         msg = lib.gibbs_sweeps_error_string(err).decode()
         raise RuntimeError(f"gibbs_sweeps_f32 launch failed: {msg} ({err})")
+    if track_delta_e:
+        gibbs_sweeps_cuda.delta_e_launches += 1
+        return out, delta_e
     gibbs_sweeps_cuda.launches += 1
     return out
 
 
 gibbs_sweeps_cuda.launches = 0
+gibbs_sweeps_cuda.delta_e_launches = 0
 
 
 # ---------------------------------------------------------------------------

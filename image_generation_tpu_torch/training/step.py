@@ -1,54 +1,157 @@
-"""The sampler part of ``image_generation_tpu/training/step.py``.
+"""The DVAE+GRBM training step and the sampler functions.
 
-``make_sample_fns`` builds what generation and serving need from the JAX
-``make_train_fns`` closure: ``build_sampler_model`` (scaled, clipped,
-permuted model), the single-device ``sweeps_fn`` dispatch and
-``sample_fn``.  The training step itself (DVAE update, MMD, the GRBM
-schedule) is not ported yet.
+Port of ``image_generation_tpu/training/step.py``.  ``make_sample_fns``
+builds what generation and serving need (the scaled, clipped, permuted
+sampler model, the sweep dispatch, ``sample_fn``); ``make_train_fns``
+adds the training step on top:
 
-Dispatch: a CUDA tensor goes to the sweep kernel K1 (``ops/gibbs_cuda.py``)
-and a CPU tensor to the plain ``gibbs_sweeps_reference``;
-``USE_PALLAS="off"`` selects the plain version everywhere.  Every case the
-JAX package sends to a path that is not ported raises
-``NotImplementedError`` naming it, at construction or, for per-shape
-gates, at the call.
+  1. negative phase #1: refresh the persistent chains under the cached
+     sampler model (plain Gibbs, or one parallel-tempering round whose
+     ladder energies are carried across steps through the sweep's ΔE);
+  2. DVAE forward with R replicas (BatchNorm batch statistics,
+     Dropout2d, stochastic straight-through spins), MSE + MMD, backward
+     and an Adam(+L2) update at the scheduled LR;
+  3. on scheduled steps (epoch < 6 and step % 10 == 0): negative phase
+     #2, the closed-form NLL gradient and an Adam(+L2) update of the
+     GRBM, then the sampler model and the ladder energies are rebuilt.
+
+JAX's ``lax.cond`` on the GRBM schedule is a Python ``if`` on host
+integers; its scanned epoch is a Python loop that keeps each step's
+metrics on the device and stacks them once at the end.  The train state
+is updated in place (modules, optimizers, tensors) instead of being
+returned anew, which keeps one copy of it.
+
+Dispatch: a CUDA tensor goes to the sweep kernel K1 (``ops/gibbs_cuda.py``,
+with its ΔE mode under parallel tempering) and a CPU tensor to the plain
+``gibbs_sweeps_reference``; ``USE_PALLAS="off"`` selects the plain
+version everywhere.  Every case the JAX package sends to a path that is
+not ported raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from image_generation_tpu_torch.config import TrainingConfig
-from image_generation_tpu_torch.models.grbm import GRBMGraph, GRBMParams, scaled_ising
+from image_generation_tpu_torch.io.torch_pth import dvae_state_dict_from_jax
+from image_generation_tpu_torch.models.dvae import DVAE
+from image_generation_tpu_torch.models.grbm import (
+    GRBMGraph,
+    GRBMParams,
+    nll_grads,
+    nll_value,
+    scaled_ising,
+)
 from image_generation_tpu_torch.ops.gibbs import (
     GibbsPlan,
     build_plan,
     gibbs_sweeps_reference,
+    ising_energies,
     permuted_model,
+    pt_round,
+    pt_sample,
     random_spins,
     to_original,
 )
 from image_generation_tpu_torch.ops.gibbs_cuda import gibbs_sweeps_cuda
+from image_generation_tpu_torch.ops.mmd import GaussianKernel, mmd_loss
+from image_generation_tpu_torch.training.schedules import geomspace_lr
+from image_generation_tpu_torch.utils.device import resolve_device
 
-__all__ = ["SampleFns", "make_sample_fns"]
+__all__ = [
+    "SampleFns",
+    "make_sample_fns",
+    "StepFeed",
+    "StepMetrics",
+    "TrainState",
+    "TrainStepFns",
+    "make_train_fns",
+    "train_state_from_jax",
+]
+
+_ADAM = dict(betas=(0.9, 0.999), eps=1e-8)  # optax.scale_by_adam's defaults
+
+
+@dataclass
+class TrainState:
+    """Everything one training step reads and updates.
+
+    ``dvae`` holds the DVAE parameters and BatchNorm running statistics;
+    the optimizers hold the Adam moments.  ``chains`` are the persistent
+    chains, (NUM_READS, n_pad) or under parallel tempering the
+    (T, NUM_READS, n_pad) ladder, with ``chain_energies`` (T, C) carried
+    under the cached sampler model ((0,) otherwise).  ``sampler_h`` /
+    ``sampler_coupling`` cache the permuted model of ``grbm_params``.
+    ``opt_step`` is a host integer; ``generator`` draws every random
+    number of the step on the state's device.  ``pt_betas`` is the live
+    (T,) ladder ((0,) outside PT)."""
+
+    dvae: DVAE
+    grbm_params: GRBMParams
+    dvae_opt: torch.optim.Adam
+    grbm_opt: torch.optim.Adam
+    chains: torch.Tensor
+    chain_energies: torch.Tensor
+    sampler_h: torch.Tensor
+    sampler_coupling: torch.Tensor
+    opt_step: int
+    generator: torch.Generator
+    pt_betas: torch.Tensor
+
+
+@dataclass
+class StepMetrics:
+    """One step's metrics, as device tensors (no host sync)."""
+
+    mse: torch.Tensor
+    mmd: torch.Tensor
+    dvae_loss: torch.Tensor
+    nll: torch.Tensor
+    grbm_trained: torch.Tensor
+    pt_accept: torch.Tensor  # (T-1,) under PT, (0,) otherwise
+
+
+@dataclass
+class StepFeed:
+    """Random numbers fed to one step in place of the generator's draws
+    (the parity tests replay the JAX package's draws through it).
+
+    ``sweeps1`` / ``sweeps2``: (GIBBS_SWEEPS, chains, n_pad) uniforms of
+    negative phases #1 and #2; ``swaps1`` / ``swaps2``: the PT swap
+    uniforms (even, odd), each (T−1, C); ``spin_uniforms``: (B, R, n);
+    ``dropout_masks``: four (B·R, C) multipliers; ``fresh_chains``: the
+    restart chains of ``PERSISTENT_CHAINS=False``."""
+
+    sweeps1: Optional[torch.Tensor] = None
+    swaps1: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    sweeps2: Optional[torch.Tensor] = None
+    swaps2: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    spin_uniforms: Optional[torch.Tensor] = None
+    dropout_masks: Optional[Sequence[torch.Tensor]] = None
+    fresh_chains: Optional[torch.Tensor] = None
 
 
 class SampleFns:
     """Sampler functions bound to one (config, graph, plan, device)."""
 
-    def __init__(self, cfg: TrainingConfig, graph: GRBMGraph, plan: GibbsPlan,
-                 device):
+    def __init__(self, cfg: TrainingConfig, graph: GRBMGraph, plan: GibbsPlan, device):
         self.config = cfg
         self.graph = graph
         self.plan = plan
         self.device = torch.device(device)
         self.use_kernel = cfg.USE_PALLAS != "off"
+        self.pt_mode = cfg.SAMPLER == "pt"
+        self.betas0 = (
+            torch.tensor(cfg.initial_pt_betas(), dtype=torch.float32, device=self.device)
+            if self.pt_mode else None
+        )
         # observability, as TrainStepFns.sampler_impl in the JAX package
         self.sampler_impl = (
-            "cuda_gibbs" if self.use_kernel and self.device.type == "cuda"
-            else "torch"
+            "cuda_gibbs" if self.use_kernel and self.device.type == "cuda" else "torch"
         )
 
     def build_sampler_model(self, grbm_params: GRBMParams):
@@ -59,51 +162,86 @@ class SampleFns:
         return permuted_model(self.plan, h, j)
 
     def sweeps_fn(self, generator, hp, coupling_p, chains, n_sweeps, beta=1.0,
-                  uniforms=None):
-        """One sweep run of ``chains`` (C, n_pad) under (hp, coupling_p)."""
+                  uniforms=None, track_delta_e=False):
+        """One sweep run of ``chains`` (C, n_pad) under (hp, coupling_p);
+        returns spins, or (spins, ΔE) with ``track_delta_e``."""
         if self.use_kernel:
             # CPU tensors run the plain version inside the wrapper; CUDA
             # shapes the kernel does not take raise there (K2 not ported)
             return gibbs_sweeps_cuda(
                 hp, coupling_p, self.plan, chains, n_sweeps, beta,
-                generator=generator, uniforms=uniforms,
+                generator=generator, uniforms=uniforms, track_delta_e=track_delta_e,
             )
         return gibbs_sweeps_reference(
             hp, coupling_p, self.plan, chains, n_sweeps, beta,
-            generator=generator, uniforms=uniforms,
+            generator=generator, uniforms=uniforms, track_delta_e=track_delta_e,
         )
+
+    def compute_energies(self, hp, coupling_p, chains) -> torch.Tensor:
+        """(T, C) ladder energies under the sampler model; (0,) outside PT."""
+        if not self.pt_mode:
+            return torch.zeros(0, device=chains.device)
+        return ising_energies(hp, coupling_p, chains)
+
+    def run_sweeps(self, generator, hp, coupling_p, chains, n_sweeps, energies=None,
+                   betas=None, uniforms=None, swap_uniforms=None):
+        """One negative-phase refresh: ``n_sweeps`` Gibbs sweeps, or under
+        PT one round (sweeps at every rung + replica exchange) at ``betas``
+        (the config ladder by default), carrying ``energies`` when given.
+        Returns (chains, energies, accept); the last two are (0,) outside
+        PT."""
+        if self.pt_mode:
+            return pt_round(
+                generator, hp, coupling_p, self.plan, chains,
+                self.betas0 if betas is None else betas, n_sweeps,
+                sweeps_fn=self.sweeps_fn, energies=energies, return_accept=True,
+                uniforms=uniforms, swap_uniforms=swap_uniforms,
+            )
+        empty = torch.zeros(0, device=chains.device)
+        return self.sweeps_fn(generator, hp, coupling_p, chains, n_sweeps,
+                              uniforms=uniforms), empty, empty
+
+    def chain_samples(self, chains) -> torch.Tensor:
+        """(NUM_READS, n) target-distribution samples in original order."""
+        return to_original(self.plan, chains[-1] if self.pt_mode else chains)
 
     def sample_fn(self, generator: Optional[torch.Generator],
                   grbm_params: GRBMParams, num_reads: int, n_sweeps: int, *,
                   init_spins: Optional[torch.Tensor] = None,
-                  uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  uniforms: Optional[torch.Tensor] = None,
+                  betas: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Standalone sampler call for generation (the ``grbm.sample``
         equivalent): ``num_reads`` fresh chains, ``n_sweeps`` sweeps.
         Returns (num_reads, n) spins in original coordinates.
 
-        ``init_spins`` (num_reads, n_pad) and ``uniforms`` (n_sweeps,
-        num_reads, n_pad) replace the random start and the random draws:
-        the entry the parity tests use."""
+        Under PT a fresh ladder runs ``max(1, n_sweeps // GIBBS_SWEEPS)``
+        rounds at ``betas`` (the config ladder by default) with carried
+        energies, and the target rung is returned.  ``init_spins`` and
+        ``uniforms`` (n_sweeps, num_reads, n_pad) replace the random start
+        and draws of plain Gibbs: the entry the parity tests use."""
+        cfg = self.config
+        hp, coupling_p = self.build_sampler_model(grbm_params)
+        if self.pt_mode:
+            if uniforms is not None:
+                raise ValueError("fed uniforms are taken by plain Gibbs sampling only")
+            target, _ = pt_sample(
+                generator, hp, coupling_p, self.plan, num_reads,
+                self.betas0 if betas is None else betas,
+                max(1, n_sweeps // max(cfg.GIBBS_SWEEPS, 1)), cfg.GIBBS_SWEEPS,
+                init_spins=init_spins, sweeps_fn=self.sweeps_fn,
+            )
+            return to_original(self.plan, target)
         if init_spins is None:
             init_spins = random_spins(generator, self.plan, num_reads, self.device)
-        hp, coupling_p = self.build_sampler_model(grbm_params)
         spins = self.sweeps_fn(generator, hp, coupling_p, init_spins, n_sweeps,
                                uniforms=uniforms)
         return to_original(self.plan, spins)
 
 
-def make_sample_fns(cfg: TrainingConfig, graph: GRBMGraph,
-                    plan: Optional[GibbsPlan] = None, device="cpu") -> SampleFns:
-    """Sampler functions for a config and coupling graph on ``device``.
-
-    Raises ``NotImplementedError`` for every configuration the JAX
-    ``make_train_fns`` sends to a sampler that is not ported."""
-    if plan is None:
-        plan = build_plan(graph)
-    if cfg.SAMPLER == "pt":
-        raise NotImplementedError(
-            "SAMPLER='pt' (parallel tempering: pt_round/pt_sample) is not ported"
-        )
+def _check_ported(cfg: TrainingConfig, plan: GibbsPlan) -> None:
+    """Raise for every configuration the JAX package sends to a sampler
+    path that is not ported (``PT_NUM_BETAS="auto"`` raises in
+    ``TrainingConfig.initial_pt_betas``)."""
     if cfg.SAMPLER_MATMUL_DTYPE == "int8":
         raise NotImplementedError(
             "SAMPLER_MATMUL_DTYPE='int8' (quantized coupling, ops/quant.py and "
@@ -115,9 +253,7 @@ def make_sample_fns(cfg: TrainingConfig, graph: GRBMGraph,
             f"SAMPLER_MATMUL_DTYPE={cfg.SAMPLER_MATMUL_DTYPE!r}; K1's bf16 "
             f"mode) is not ported"
         )
-    if cfg.SWEEP_BLOCK_SPARSE == "on" or (
-        cfg.SWEEP_BLOCK_SPARSE == "auto" and plan.n_pad >= 2048
-    ):
+    if cfg.resolved_block_sparse(plan):
         raise NotImplementedError(
             "block-sparse sweeps (ops/block_sparse.py, kernel K3) are not ported"
         )
@@ -126,4 +262,248 @@ def make_sample_fns(cfg: TrainingConfig, graph: GRBMGraph,
             "GRAPH_SHARDED='on' needs a multi-device mesh (kernel K4), "
             "which is not ported"
         )
+
+
+def make_sample_fns(cfg: TrainingConfig, graph: GRBMGraph,
+                    plan: Optional[GibbsPlan] = None, device="cuda") -> SampleFns:
+    """Sampler functions for a config and coupling graph on ``device``
+    (the card unless ``device="cpu"``).  Raises ``NotImplementedError``
+    for every configuration the JAX package sends to a sampler that is
+    not ported."""
+    device = resolve_device(device)
+    if plan is None:
+        plan = build_plan(graph)
+    _check_ported(cfg, plan)
     return SampleFns(cfg, graph, plan, device)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _flax_init_(dvae: DVAE, generator: torch.Generator) -> None:
+    """The JAX model's initialisers: LeCun-normal (truncated at ±2σ,
+    variance 1/fan_in) weights and zero biases for every convolution and
+    dense layer, ones and zeros for BatchNorm."""
+    for m in dvae.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)):
+            w = m.weight
+            if isinstance(m, torch.nn.ConvTranspose2d):
+                fan_in = w.shape[0] * w.shape[2] * w.shape[3]  # (I, O, kh, kw)
+            else:
+                fan_in = w[0].numel()
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978  # truncnorm(±2) std
+            t = torch.randn(w.shape, generator=generator)
+            out = t.abs() > 2.0
+            while out.any():  # redraw outside ±2σ: a truncated normal
+                t[out] = torch.randn(int(out.sum()), generator=generator)
+                out = t.abs() > 2.0
+            with torch.no_grad():
+                w.copy_(t * std)
+                m.bias.zero_()
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_parameters()
+
+
+class TrainStepFns(SampleFns):
+    """Training functions bound to one (config, graph, plan, device):
+    ``init``, ``step_body``, ``epoch``, ``rebuild_cache``,
+    ``rebuild_sampler``, the LR schedules, and the sampler functions."""
+
+    def __init__(self, cfg: TrainingConfig, graph: GRBMGraph, plan: GibbsPlan,
+                 device, total_steps: int):
+        super().__init__(cfg, graph, plan, device)
+        self.kernel = GaussianKernel(n_kernels=cfg.N_KERNELS)
+        self.dvae_lr = geomspace_lr(cfg.AUTOENCODER_INITIAL_LR, cfg.AUTOENCODER_FINAL_LR,
+                                    total_steps)
+        self.grbm_lr = geomspace_lr(cfg.BM_INITIAL_LR, cfg.BM_FINAL_LR, total_steps)
+
+    def new_dvae(self) -> DVAE:
+        cfg = self.config
+        return DVAE(cfg.N_LATENTS, cfg.LATENT_TO_DISCRETE,
+                    dtype=getattr(torch, cfg.COMPUTE_DTYPE)).to(self.device)
+
+    def new_optimizers(self, dvae: DVAE, grbm_params: GRBMParams):
+        """Adam with the L2 term added to the gradient (torch's
+        ``weight_decay``, which is optax's ``add_decayed_weights`` before
+        ``scale_by_adam``); the LR is set before every update."""
+        cfg = self.config
+        return (
+            torch.optim.Adam(dvae.parameters(), lr=cfg.AUTOENCODER_INITIAL_LR,
+                             weight_decay=cfg.AUTOENCODER_WEIGHT_DECAY, **_ADAM),
+            torch.optim.Adam([grbm_params.linear, grbm_params.quadratic],
+                             lr=cfg.BM_INITIAL_LR, weight_decay=cfg.BM_WEIGHT_DECAY, **_ADAM),
+        )
+
+    def new_chains(self, generator) -> torch.Tensor:
+        cfg = self.config
+        if self.pt_mode:
+            return random_spins(generator, self.plan, cfg.PT_NUM_BETAS * cfg.NUM_READS,
+                                self.device).reshape(cfg.PT_NUM_BETAS, cfg.NUM_READS, -1)
+        return random_spins(generator, self.plan, cfg.NUM_READS, self.device)
+
+    def init(self, seed: int) -> TrainState:
+        """A fresh state: the JAX model's initialisers, small random GRBM
+        parameters, random chains burned in for ``GIBBS_BURN_IN`` sweeps
+        (one PT round of that many sweeps under PT)."""
+        cfg = self.config
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(seed))
+        g_cpu = torch.Generator().manual_seed(int(seed))
+        dvae = self.new_dvae()
+        _flax_init_(dvae, g_cpu)
+        grbm_params = self.graph.init_params(g, device=self.device)
+        return self.state_from(dvae, grbm_params, self.new_chains(g), g, burn_in=True)
+
+    def state_from(self, dvae: DVAE, grbm_params: GRBMParams, chains: torch.Tensor,
+                   generator: torch.Generator, *, burn_in: bool,
+                   chain_energies: Optional[torch.Tensor] = None,
+                   pt_betas: Optional[torch.Tensor] = None, opt_step: int = 0) -> TrainState:
+        """A state around given weights and chains with fresh optimizers;
+        ``burn_in`` runs ``GIBBS_BURN_IN`` sweeps under the model first."""
+        hp, coupling_p = self.build_sampler_model(grbm_params)
+        if pt_betas is None:
+            pt_betas = (self.betas0.clone() if self.pt_mode
+                        else torch.zeros(0, device=self.device))
+        if burn_in:
+            chains, chain_energies, _ = self.run_sweeps(
+                generator, hp, coupling_p, chains, self.config.GIBBS_BURN_IN, betas=pt_betas)
+        elif chain_energies is None:
+            chain_energies = self.compute_energies(hp, coupling_p, chains)
+        dvae_opt, grbm_opt = self.new_optimizers(dvae, grbm_params)
+        return TrainState(dvae, grbm_params, dvae_opt, grbm_opt, chains, chain_energies,
+                          hp, coupling_p, opt_step, generator, pt_betas)
+
+    def step_body(self, state: TrainState, images: torch.Tensor, epoch: int,
+                  feed: Optional[StepFeed] = None) -> StepMetrics:
+        """One training step on ``images`` (B, S, S, 1); updates ``state``
+        in place and returns the step's metrics as device tensors."""
+        cfg = self.config
+        feed = feed or StepFeed()
+        g = state.generator
+        pt_carry = self.pt_mode and cfg.PERSISTENT_CHAINS
+
+        # ---- negative phase #1, under the cached sampler model ----
+        chains_in = state.chains
+        if not cfg.PERSISTENT_CHAINS:
+            flat = feed.fresh_chains
+            if flat is None:
+                flat = random_spins(g, self.plan, chains_in[..., 0].numel(), self.device)
+            chains_in = flat.reshape(chains_in.shape)
+        chains, chain_e, pt_accept = self.run_sweeps(
+            g, state.sampler_h, state.sampler_coupling, chains_in, cfg.GIBBS_SWEEPS,
+            energies=state.chain_energies if pt_carry else None, betas=state.pt_betas,
+            uniforms=feed.sweeps1, swap_uniforms=feed.swaps1,
+        )
+        samples = self.chain_samples(chains)
+
+        # ---- DVAE forward + MSE + MMD, backward, Adam ----
+        dvae = state.dvae.train()
+        state.dvae_opt.zero_grad(set_to_none=True)
+        _logits, spins, recon = dvae(images, cfg.N_REPLICAS, g,
+                                     spin_uniforms=feed.spin_uniforms,
+                                     dropout_masks=feed.dropout_masks)
+        mse = torch.square(recon - images[:, None]).mean()
+        flat_spins = spins.reshape(-1, spins.shape[-1])
+        mmd = mmd_loss(flat_spins, samples, self.kernel)
+        loss = mse + mmd
+        loss.backward()
+        for group in state.dvae_opt.param_groups:
+            group["lr"] = self.dvae_lr(state.opt_step)
+        state.dvae_opt.step()
+
+        # ---- scheduled GRBM update (host integers: no device sync) ----
+        train_grbm = epoch < 6 and state.opt_step % 10 == 0
+        nll = torch.zeros((), device=self.device)
+        if train_grbm:
+            data_spins = flat_spins.detach()
+            chains, chain_e2, _ = self.run_sweeps(
+                g, state.sampler_h, state.sampler_coupling, chains, cfg.GIBBS_SWEEPS,
+                energies=chain_e if self.pt_mode else None, betas=state.pt_betas,
+                uniforms=feed.sweeps2, swap_uniforms=feed.swaps2,
+            )
+            model_spins = self.chain_samples(chains)
+            params = state.grbm_params
+            nll = nll_value(params, self.graph, data_spins, model_spins)
+            grads = nll_grads(self.graph, data_spins, model_spins)
+            params.linear.grad, params.quadratic.grad = grads.linear, grads.quadratic
+            for group in state.grbm_opt.param_groups:
+                group["lr"] = self.grbm_lr(state.opt_step)
+            state.grbm_opt.step()
+            params.linear.grad = params.quadratic.grad = None
+            state.sampler_h, state.sampler_coupling = self.build_sampler_model(params)
+            # energies depend on the model: re-anchor under the new one
+            chain_e = self.compute_energies(state.sampler_h, state.sampler_coupling, chains)
+        state.chains, state.chain_energies = chains, chain_e
+        state.opt_step += 1
+        return StepMetrics(
+            mse=mse.detach(), mmd=mmd.detach(), dvae_loss=loss.detach(), nll=nll.detach(),
+            grbm_trained=torch.full((), float(train_grbm), device=self.device),
+            pt_accept=pt_accept,
+        )
+
+    def epoch(self, state: TrainState, batches: torch.Tensor, epoch: int):
+        """Every batch of (n_batches, B, S, S, 1) in turn; returns (state,
+        dict of per-step metrics stacked on the device)."""
+        out: List[StepMetrics] = [self.step_body(state, b, epoch) for b in batches]
+        return state, {
+            f: torch.stack([getattr(m, f) for m in out])
+            for f in StepMetrics.__dataclass_fields__
+        }
+
+    def rebuild_cache(self, state: TrainState) -> TrainState:
+        """Recompute only the cached sampler model from ``grbm_params``."""
+        state.sampler_h, state.sampler_coupling = self.build_sampler_model(state.grbm_params)
+        return state
+
+    def rebuild_sampler(self, state: TrainState) -> TrainState:
+        """Recompute the cached sampler model and re-burn the chains under
+        it (after swapping in other GRBM parameters)."""
+        self.rebuild_cache(state)
+        state.chains, state.chain_energies, _ = self.run_sweeps(
+            state.generator, state.sampler_h, state.sampler_coupling, state.chains,
+            self.config.GIBBS_BURN_IN, betas=state.pt_betas,
+        )
+        return state
+
+
+def make_train_fns(cfg: TrainingConfig, graph: GRBMGraph, total_steps: int,
+                   plan: Optional[GibbsPlan] = None, device="cuda") -> TrainStepFns:
+    """Training functions for a config and coupling graph on ``device``
+    (the card unless ``device="cpu"``); ``total_steps`` = epochs × batches
+    fixes the LR schedules.  Raises ``NotImplementedError`` for what is
+    not ported: the unported samplers (``make_sample_fns``), the gumbel
+    latent mode, bf16 or factored Adam moments."""
+    device = resolve_device(device)
+    if plan is None:
+        plan = build_plan(graph)
+    _check_ported(cfg, plan)
+    if cfg.ADAM_MOMENT_DTYPE != "float32" or cfg.ADAM_FACTORED_NU == "on":
+        raise NotImplementedError(
+            "ADAM_MOMENT_DTYPE='bfloat16' and ADAM_FACTORED_NU='on' "
+            "(training/optim.py scale_by_adam_moments) are not ported"
+        )
+    return TrainStepFns(cfg, graph, plan, device, total_steps)
+
+
+def train_state_from_jax(fns: TrainStepFns, state, seed: int = 0) -> TrainState:
+    """The port's ``TrainState`` from the JAX package's: ``state`` is read
+    through its leaves as numpy (``dvae_params``, ``batch_stats``,
+    ``grbm_params.linear/.quadratic``, ``chains``, ``chain_energies``,
+    ``pt_betas``, ``opt_step``).  Optimizer moments start fresh, as after
+    the JAX ``init``; ``seed`` seeds the state's generator."""
+    dev = fns.device
+    dvae = fns.new_dvae()
+    dvae.load_state_dict(dvae_state_dict_from_jax(state.dvae_params, state.batch_stats))
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    grbm_params = GRBMParams(t(state.grbm_params.linear), t(state.grbm_params.quadratic))
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(seed))
+    return fns.state_from(
+        dvae, grbm_params, t(state.chains), g, burn_in=False,
+        chain_energies=t(state.chain_energies), pt_betas=t(state.pt_betas),
+        opt_step=int(np.asarray(state.opt_step)),
+    )

@@ -1,9 +1,18 @@
-"""Trainer: the serving subset of ``image_generation_tpu/training/trainer.py``.
+"""Trainer: the reference ``ModelWrapper`` surface on PyTorch.
 
-``Trainer(config, device, seed)`` loads a reference-format model directory
-and samples from it.  Unlike the JAX ``load`` it reads no dataset: serving
-does not need one.  Training, ``generate_output`` and the ``samplers/``
-backends are not ported yet.
+Port of ``image_generation_tpu/training/trainer.py``: ``setup`` selects the
+latent coupling graph, ``train_init(n_epochs)`` builds the step functions,
+schedules and chains, ``step`` / ``train_epoch`` / ``train`` train, ``save``
+writes a reference-format model directory and ``load`` reads one.  Tuning
+(``load`` then ``train_init``) keeps the loaded weights, builds fresh
+optimizers and schedules and burns in fresh chains under the loaded GRBM.
+
+The trainer runs on the card unless it is given ``device="cpu"``; with no
+card visible a CUDA trainer raises.  The dataset lives on the trainer's
+device.  Not ported: ``save_native`` / ``resume_native`` (full-state
+checkpoints), ``metrics_log`` / ``profile_dir`` / ``checkpoint_dir`` of
+``train``, ``PT_NUM_BETAS="auto"``, ``generate_output`` and the
+``samplers/`` backends.
 
 Random streams: the JAX trainer splits one PRNG key per call; here each
 call gets a fresh ``torch.Generator`` on the trainer's device, seeded from
@@ -13,83 +22,283 @@ one numpy stream seeded with ``RANDOM_SEED`` (or ``seed``).
 from __future__ import annotations
 
 import threading
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from image_generation_tpu_torch.config import TrainingConfig
-from image_generation_tpu_torch.io.checkpoint import load_model_dir
+from image_generation_tpu_torch.io.checkpoint import (
+    load_model_dir,
+    make_parameters_json,
+    save_model_dir,
+)
 from image_generation_tpu_torch.models.dvae import DVAE
 from image_generation_tpu_torch.ops.gibbs import build_plan
-from image_generation_tpu_torch.training.step import make_sample_fns
+from image_generation_tpu_torch.training.step import (
+    TrainState,
+    make_sample_fns,
+    make_train_fns,
+)
+from image_generation_tpu_torch.utils.data import get_dataset, permuted_epoch
+from image_generation_tpu_torch.utils.device import resolve_device
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "TrainingError"]
+
+
+class TrainingError(Exception):
+    """Raised when stepping before initialization."""
 
 
 class Trainer:
-    def __init__(self, config: Optional[TrainingConfig] = None, device="cpu",
+    def __init__(self, config: Optional[TrainingConfig] = None, device="cuda",
                  seed: Optional[int] = None):
-        self.config = config if config is not None else TrainingConfig()
-        self.device = torch.device(device)
+        """``device`` is where everything runs (the card unless ``"cpu"``);
+        ``seed`` replaces ``RANDOM_SEED`` for the trainer's random streams."""
+        config = config if config is not None else TrainingConfig()
+        self.config = config
+        self.qpu = config.QPU
+        self.n_latents = config.N_LATENTS
+        self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 means f32: TF32 would keep ~3 decimal digits in the f32
-            # decode and in the plain sweep's matmul that the kernel is held
-            # against. The one reduced precision is COMPUTE_DTYPE's bf16
-            # decode, which DVAE asks for through autocast.
+            # paths and in the plain sweep the kernel is held against. The
+            # one reduced precision is COMPUTE_DTYPE's bf16, asked for
+            # through autocast.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.n_latents = self.config.N_LATENTS
         self.graph = None
         self.plan = None
         self.fns = None
+        self.state: Optional[TrainState] = None
         self.dvae: Optional[DVAE] = None
         self.grbm_params = None
+        self.images = None
+        self.data_source = None
         self.losses = {"mse_losses": [], "dvae_losses": []}
-        self._seeds = np.random.default_rng(
-            self.config.RANDOM_SEED if seed is None else seed
-        )
+        self.physical_nodes = None  # physical qubit id per logical spin
+        self._n_epochs = 0
+        self._init_done = False
+        self._seed = self.config.RANDOM_SEED if seed is None else seed
+        self._seeds = np.random.default_rng(self._seed)
         self._seeds_lock = threading.Lock()
+
+    def _next_seed(self) -> int:
+        with self._seeds_lock:
+            return int(self._seeds.integers(0, 2**63 - 1))
 
     def _next_generator(self) -> torch.Generator:
         """A fresh generator on the trainer's device (one per call, like
         the JAX trainer's key split)."""
-        with self._seeds_lock:
-            seed = int(self._seeds.integers(0, 2**63 - 1))
         g = torch.Generator(device=self.device)
-        g.manual_seed(seed)
+        g.manual_seed(self._next_seed())
         return g
 
-    def load(self, file_path) -> None:
-        """Load a reference-format model directory; the coupling graph
-        comes from the checkpoint itself."""
-        dvae_sd, grbm_params, graph, parameters, losses = load_model_dir(
-            file_path, self.device
+    # ------------------------------------------------------------------
+    # setup / data
+    # ------------------------------------------------------------------
+    def setup(self) -> None:
+        """Select the latent coupling graph for the configured QPU."""
+        cfg = self.config
+        if cfg.LATENT_TO_DISCRETE == "heaviside" and cfg.N_REPLICAS != 1:
+            raise ValueError("heaviside latent-to-discrete can only be used with n_replicas=1")
+        from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+        self.graph, self.physical_nodes = cached_latent_graph(
+            self.qpu, self.n_latents, cfg.RANDOM_SEED)
+        self.plan = build_plan(self.graph)
+
+    def _load_dataset(self) -> None:
+        cfg = self.config
+        self.images, self.data_source = get_dataset(cfg.IMAGE_SIZE, cfg.DATASET_SIZE,
+                                                    device=self.device)
+
+    @property
+    def n_batches(self) -> int:
+        return int(self.images.shape[0]) // self.config.BATCH_SIZE
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def train_init(self, n_epochs: int) -> None:
+        """Build schedules, optimizers and chains for an ``n_epochs`` run.
+        Weights already held (loaded, or from an earlier run) are kept."""
+        self.losses["mse_losses"].clear()
+        self.losses["dvae_losses"].clear()
+        self._seeds = np.random.default_rng(self._seed)
+        keep = self.dvae is not None
+        if self.graph is None:
+            self.setup()
+        if self.images is None:
+            self._load_dataset()
+        self._n_epochs = n_epochs
+        # PT_NUM_BETAS="auto" (the ladder-sizing probe) raises in here
+        self.fns = make_train_fns(self.config, self.graph, n_epochs * self.n_batches,
+                                  self.plan, device=self.device)
+        if keep:  # tune mode: fresh optimizers, chains burned in under the loaded GRBM
+            g = self._next_generator()
+            self.state = self.fns.state_from(self.dvae, self.grbm_params,
+                                             self.fns.new_chains(g), g, burn_in=True)
+        else:
+            self.state = self.fns.init(self._next_seed())
+        self.dvae, self.grbm_params = self.state.dvae, self.state.grbm_params
+        self._init_done = True
+
+    def step(self, batch, epoch: int) -> float:
+        """Train on one batch; returns its MSE loss."""
+        if not self._init_done:
+            raise TrainingError("Initialization required before training.")
+        images = batch[0] if isinstance(batch, (tuple, list)) else batch
+        metrics = self.fns.step_body(self.state, images.to(self.device), epoch)
+        mse = float(metrics.mse)
+        self.losses["mse_losses"].append(mse)
+        self.losses["dvae_losses"].append(float(metrics.dvae_loss))
+        return mse
+
+    def train_epoch(self, epoch: int, batch_cb=None, n_chunks: int = 1) -> dict:
+        """One epoch over a fresh permutation of the dataset.  The step
+        metrics stay on the device until the epoch ends.  ``n_chunks`` > 1
+        splits the epoch into equal chunks (the largest divisor of
+        n_batches ≤ n_chunks) and calls ``batch_cb(batches_done,
+        n_batches)`` between them."""
+        if not self._init_done:
+            raise TrainingError("Initialization required before training.")
+        batches = permuted_epoch(self.images, self.config.BATCH_SIZE, self._next_generator())
+        nb = int(batches.shape[0])
+        k = max(1, min(int(n_chunks), nb))
+        while nb % k:
+            k -= 1
+        chunk = nb // k
+        parts = []
+        for i in range(k):
+            _, m = self.fns.epoch(self.state, batches[i * chunk:(i + 1) * chunk], epoch)
+            parts.append(m)
+            if batch_cb is not None and k > 1:
+                batch_cb((i + 1) * chunk, nb)
+        metrics = {f: torch.cat([p[f] for p in parts]).cpu().numpy() for f in parts[0]}
+        mses, totals = metrics["mse"], metrics["dvae_loss"]
+        self.losses["mse_losses"].extend(mses.tolist())
+        self.losses["dvae_losses"].extend(totals.tolist())
+        stats = {"mse": float(mses.mean()), "dvae_loss": float(totals.mean())}
+        acc = metrics["pt_accept"]  # (n_batches, T-1); width 0 outside PT
+        if acc.size:
+            from image_generation_tpu_torch.ops.pt_tune import recommend_num_betas
+
+            acc = acc.mean(axis=0)
+            stats["pt_accept_min"] = float(acc.min())
+            stats["pt_accept_mean"] = float(acc.mean())
+            stats["pt_recommended_num_betas"] = recommend_num_betas(acc)
+            if self.config.PT_ADAPT == "epoch":
+                stats["pt_betas"] = self._adapt_pt_betas(acc)
+        return stats
+
+    def _adapt_pt_betas(self, accept) -> list:
+        """``PT_ADAPT="epoch"``: one equal-barrier re-spacing of the live
+        ladder from the epoch's mean per-pair acceptance.  The carried
+        energies stay valid: an Ising energy does not depend on β."""
+        from image_generation_tpu_torch.ops.pt_tune import respace_betas
+
+        cur = self.state.pt_betas.double().cpu().numpy()
+        new = respace_betas(cur, accept)
+        self.state.pt_betas = torch.tensor(new, dtype=torch.float32, device=self.device)
+        return [round(float(b), 5) for b in new]
+
+    def current_lrs(self) -> tuple:
+        """(DVAE LR, GRBM LR) at the current step."""
+        s = self.state.opt_step
+        return float(self.fns.dvae_lr(s)), float(self.fns.grbm_lr(s))
+
+    def train(self, n_epochs: int,
+              progress_cb: Optional[Callable[[int, int], None]] = None,
+              epoch_cb: Optional[Callable[[int, dict], None]] = None,
+              metrics_log=None, profile_dir: Optional[str] = None,
+              checkpoint_dir: Optional[str] = None,
+              batch_cb: Optional[Callable[[int, int, int], None]] = None,
+              epoch_chunks: int = 1, start_epoch: Optional[int] = None) -> dict:
+        """The full epoch loop.  ``start_epoch`` is the first epoch index
+        (0 by default).  ``metrics_log``, ``profile_dir`` and
+        ``checkpoint_dir`` are not ported and raise when given."""
+        for name, value in (("metrics_log", metrics_log), ("profile_dir", profile_dir),
+                            ("checkpoint_dir", checkpoint_dir)):
+            if value is not None:
+                raise NotImplementedError(f"Trainer.train({name}=...) is not ported")
+        if not self._init_done or self._n_epochs != n_epochs:
+            self.train_init(n_epochs)
+        for epoch in range(start_epoch or 0, n_epochs):
+            t0 = time.perf_counter()
+            cb = ((lambda done, nb, e=epoch: batch_cb(e, done, nb))
+                  if batch_cb is not None else None)
+            stats = self.train_epoch(epoch, batch_cb=cb, n_chunks=epoch_chunks)
+            # train_epoch ends in a device-to-host copy of the metrics, so
+            # this clock covers the epoch's device work
+            stats["epoch_time_s"] = time.perf_counter() - t0
+            stats["images_per_s"] = self.n_batches * self.config.BATCH_SIZE / stats["epoch_time_s"]
+            if progress_cb:
+                progress_cb(epoch + 1, n_epochs)
+            if epoch_cb:
+                epoch_cb(epoch, stats)
+        return {"final_mse": self.losses["mse_losses"][-1],
+                "final_dvae_loss": self.losses["dvae_losses"][-1]}
+
+    # ------------------------------------------------------------------
+    # persistence (reference checkpoint format)
+    # ------------------------------------------------------------------
+    def save(self, file_path, n_epochs: Optional[int] = None,
+             old_losses: Optional[dict] = None):
+        """Write the model directory; ``old_losses`` (tune mode) is
+        prepended to this run's loss history."""
+        cfg = self.config
+        losses = self.losses
+        if old_losses:
+            losses = {k: old_losses[k] + losses[k] for k in ("mse_losses", "dvae_losses")}
+        parameters = make_parameters_json(
+            n_latents=self.n_latents,
+            n_epochs=n_epochs if n_epochs is not None else self._n_epochs,
+            prefactor=cfg.PREFACTOR, qpu=self.qpu, num_reads=cfg.NUM_READS,
+            loss_function=cfg.LOSS_FUNCTION, image_size=cfg.IMAGE_SIZE,
+            batch_size=cfg.BATCH_SIZE, dataset_size=cfg.DATASET_SIZE,
+            random_seed=cfg.RANDOM_SEED,
         )
+        if self.physical_nodes is not None:
+            parameters["physical_nodes"] = [int(p) for p in self.physical_nodes]
+        if self.data_source is not None:
+            parameters["data_source"] = self.data_source.origin
+        return save_model_dir(file_path, self.dvae, self.grbm_params, self.graph,
+                              parameters, losses)
+
+    def load(self, file_path) -> None:
+        """Load a reference-format model directory for sampling (and for
+        tuning: ``train_init`` afterwards keeps these weights).  The
+        coupling graph comes from the checkpoint itself."""
+        dvae_sd, grbm_params, graph, parameters, losses = load_model_dir(
+            file_path, self.device)
         if parameters:
             self.n_latents = parameters.get("n_latents", self.n_latents)
             self.config = self.config.replace(N_LATENTS=self.n_latents)
+            if parameters.get("qpu"):
+                self.qpu = parameters["qpu"]
+            self.physical_nodes = parameters.get("physical_nodes")
         cfg = self.config
         self.graph = graph
         self.plan = build_plan(graph)
         self.losses = losses
         self.fns = make_sample_fns(cfg, graph, self.plan, self.device)
-        dvae = DVAE(
-            self.n_latents, cfg.LATENT_TO_DISCRETE,
-            dtype=getattr(torch, cfg.COMPUTE_DTYPE),
-        )
+        dvae = DVAE(self.n_latents, cfg.LATENT_TO_DISCRETE,
+                    dtype=getattr(torch, cfg.COMPUTE_DTYPE))
         dvae.load_state_dict(dvae_sd)
         self.dvae = dvae.to(self.device).eval()
         self.grbm_params = grbm_params
+        self.state = None
+        self._init_done = False
 
     def sample_spins(self, num_reads: Optional[int] = None,
                      n_sweeps: Optional[int] = None) -> torch.Tensor:
-        """(num_reads, n) ±1 spins in original coordinates from the loaded
-        GRBM, on the trainer's device."""
+        """(num_reads, n) ±1 spins in original coordinates from the current
+        GRBM, on the trainer's device (under PT, at the live ladder)."""
         cfg = self.config
+        betas = self.state.pt_betas if (self.state is not None and self.fns.pt_mode) else None
         return self.fns.sample_fn(
-            self._next_generator(),
-            self.grbm_params,
-            num_reads or cfg.NUM_READS,
-            n_sweeps or (cfg.GIBBS_BURN_IN + cfg.GIBBS_SWEEPS),
+            self._next_generator(), self.grbm_params, num_reads or cfg.NUM_READS,
+            n_sweeps or (cfg.GIBBS_BURN_IN + cfg.GIBBS_SWEEPS), betas=betas,
         )

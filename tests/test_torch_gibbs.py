@@ -198,8 +198,11 @@ def test_cuda_wrapper_on_cpu_runs_plain_version(ckpt):
     ref = tgibbs.gibbs_sweeps_reference(thp, ta, tplan, _t(s0), 2, uniforms=_t(u))
     assert torch.equal(out, ref)
     assert gibbs_cuda.gibbs_sweeps_cuda.launches == n0
-    with pytest.raises(NotImplementedError):
-        gibbs_cuda.gibbs_sweeps_cuda(thp, ta, tplan, _t(s0), 2, track_delta_e=True)
+    # the energy carry too: (spins, ΔE) from the plain version
+    out_de, de = gibbs_cuda.gibbs_sweeps_cuda(thp, ta, tplan, _t(s0), 2, uniforms=_t(u),
+                                              track_delta_e=True)
+    assert torch.equal(out_de, ref) and de.shape == (8,)
+    assert gibbs_cuda.gibbs_sweeps_cuda.launches == n0
 
 
 def test_kernel_gate_and_rows(ckpt):

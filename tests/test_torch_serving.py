@@ -92,7 +92,7 @@ def test_trainer_samples_spins(trainer):
 
 
 @pytest.mark.parametrize("overrides,missing", [
-    ({"SAMPLER": "pt"}, "parallel tempering"),
+    ({"SAMPLER": "pt", "PT_NUM_BETAS": "auto"}, "parallel tempering"),
     ({"SAMPLER_MATMUL_DTYPE": "int8"}, "quantized"),
     ({"SAMPLER_MATMUL_DTYPE": "bfloat16"}, "bf16"),
     ({"SWEEP_BLOCK_SPARSE": "on"}, "block-sparse"),
@@ -100,13 +100,14 @@ def test_trainer_samples_spins(trainer):
 ])
 def test_unported_sampler_paths_raise(trainer, overrides, missing):
     with pytest.raises(NotImplementedError, match=missing):
-        make_sample_fns(TrainingConfig(**overrides), trainer.graph, trainer.plan)
+        make_sample_fns(TrainingConfig(**overrides), trainer.graph, trainer.plan, device="cpu")
 
 
 def test_use_pallas_off_selects_plain_version(trainer):
-    fns = make_sample_fns(TrainingConfig(USE_PALLAS="off"), trainer.graph, trainer.plan)
+    fns = make_sample_fns(TrainingConfig(USE_PALLAS="off"), trainer.graph, trainer.plan,
+                          device="cpu")
     assert fns.sampler_impl == "torch" and not fns.use_kernel
-    assert make_sample_fns(TrainingConfig(), trainer.graph, trainer.plan).use_kernel
+    assert make_sample_fns(TrainingConfig(), trainer.graph, trainer.plan, device="cpu").use_kernel
 
 
 def test_warm_serve_coalesces_concurrent_requests(tmp_path):
@@ -196,9 +197,11 @@ def test_bf16_compute_dtype_decodes_in_f32_on_cpu(trainer):
 
 def test_serving_path_imports_no_jax_or_host_extras():
     code = (
-        "import sys, image_generation_tpu_torch.app.warm; "
-        "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn') "
-        "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
+        "import sys, image_generation_tpu_torch.app.warm, "
+        "image_generation_tpu_torch.training.trainer, image_generation_tpu_torch.ops.pt_tune, "
+        "image_generation_tpu_torch.utils.graph_cache; "
+        "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn', "
+        "'image_generation_tpu') if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
