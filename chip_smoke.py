@@ -9,12 +9,19 @@ checkpoint, at full width; the weights are the checkpoint's) and through
 flagship training (256 latents on a freshly selected Advantage2_system1
 graph, batch 128, 8 replicas, 256 persistent chains, 16 sweeps per
 refresh; random initial weights from the config's seed) under plain Gibbs
-and under parallel tempering.  Phases:
+and under parallel tempering; then through the scaled configuration
+(``bench.py --scaled``: 5,640 latents on the full Pegasus P16 fabric of
+Advantage_system6, batch 1024, 2 replicas, 32-rung parallel tempering
+over 64 chains each, 4 sweeps, a bf16 coupling packed into block-sparse
+panels; the decoder's Linear(5640 -> 22560) whole; depth cut to two epochs
+of the 4,096-image synthetic pool, 8 steps), trained, saved and served.
+Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    nvcc; exits non-zero without a CUDA device;
-2. builds the sweep kernel K1 from ``csrc/`` and prints the build time and
-   the ptxas report;
+2. builds the sweep kernels from ``csrc/`` (K1; K2 and K3; one ``nvcc``
+   per source, started together) and prints the build time and the ptxas
+   report (registers and spills of every instantiation);
 3. K1 against its plain PyTorch version with fed uniforms, on the
    checkpoint's plan at 80 sweeps and at 256·k chains for k = 1, 2, 4, 8,
    16 (the serving group sizes at which the default rows per thread
@@ -51,9 +58,36 @@ and under parallel tempering.  Phases:
    ``ising_energies`` recomputed on the card;
 10. one unscheduled step of each sampler under ``torch.profiler``;
 11. K1 and K1-ΔE timed at the training shapes (CUDA events) beside the
-    plain version and the least time the card could take (``sweep_bound``).
+    plain version and the least time the card could take (``sweep_bound``),
+    and K1 with fed uniforms (K1f) at the serving shape;
+12. K2 and K3 against their plain versions with fed uniforms on the
+    scaled plan (47 color blocks, chunk 256 with the final chunk clamped):
+    f32, bf16 and int8, each with and without ΔE, 256 chains at β = 1 and
+    2,048 chains at the 32-rung ladder's per-chain β, 4 sweeps and 3 (run
+    as 4), under the chain rule and the ΔE rule (1e-3·(1 + |E|)); K3
+    equal to K2 bit for bit on an integer-valued coupling; Philox mode
+    against ``philox_uniforms``; moments against exact enumeration on the
+    12-spin graph through both kernels;
+13. scaled PT training: ``Trainer(cfg, device="cuda")`` sets up the P16
+    graph and trains two epochs through K3-ΔE (``cuda_hbm+bs``, K1 never
+    launched, finite losses, carried ladder energies against energies
+    recomputed on the packed coupling); the step times and the peak
+    device memory; the model is saved;
+14. two unscheduled steps of the same configuration with
+    ``SWEEP_BLOCK_SPARSE="off"`` through K2-ΔE (``cuda_hbm``), the same
+    energy check;
+15. the saved scaled model served through ``WarmGenerator``: the serving
+    config resolves int8, every request runs K3-int8 (``cuda_hbm+int8+bs``),
+    256 finite images in [0, 1]; the lone-request latency over 10
+    requests;
+16. K2 and K3 in every mode timed at the path's shapes (2,048 chains × 4
+    sweeps; the served K3-int8 at 256 chains × 80 sweeps) beside the plain
+    version and ``sweep_bound`` on the stored form (packed or int8 bytes,
+    nonzeros from the plan's edge list); one scaled step under the
+    profiler.
 
-Each path (serving, plain training, PT training) runs with the launch
+Each path (serving, plain training, PT training, scaled training, the K2
+steps, scaled serving) runs with the launch
 counters set to 0 just before it and read just after.  The line before
 the last is a JSON object describing the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -82,6 +116,7 @@ MOMENT_ATOL = 0.06  # ≈4σ of a ±1 mean over 4096 chains
 # cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+PEAK_OPS = {"f32": PEAK_F32_FLOPS, "bf16": 989e12, "int8": 1979e12}  # tensor cores for bf16/int8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -115,28 +150,42 @@ def identical_fraction(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a == b).all(dim=1).float().mean())
 
 
-def sweep_bound(coupling: torch.Tensor, chains: int, sweeps: int, delta_e: bool):
+def sweep_bound(plan, stored_bytes: int, peak_ops: float, chains: int, sweeps: int,
+                delta_e: bool, meta_bytes: int = 0):
     """(bound ms, "bytes" | "operations") of one sweep run: the field
-    products the coupling's nonzeros need (2 per nonzero, chain and sweep)
-    at the f32 peak, against each input read once and each output written
-    once (spins in and out, coupling, h, β, seed; ΔE) at HBM bandwidth."""
-    n_pad = coupling.shape[0]
-    ops = 2.0 * int((coupling != 0).sum()) * chains * sweeps
-    nbytes = 4.0 * (2 * chains * n_pad + n_pad * n_pad + n_pad + chains) + 8
+    products the graph's couplings need (2 per nonzero of the symmetric
+    matrix, counted from the plan's edge list, per chain and sweep run) at
+    the peak rate of the coupling's type, against each input read once and
+    each output written once (spins in and out, the coupling in its stored
+    form, h, beta, the seed, the kernel's chunk lists; delta_e) at HBM
+    bandwidth."""
+    nnz = 2 * len(plan.perm_edge_i)
+    ops = 2.0 * nnz * chains * sweeps
+    nbytes = 4.0 * (2 * chains * plan.n_pad + plan.n_pad + chains) + 8 + stored_bytes + meta_bytes
     if delta_e:
         nbytes += 4.0 * chains
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def reset_counts(gibbs_cuda) -> None:
+def stored_bytes(coupling) -> int:
+    """Bytes of the coupling as the kernel reads it: dense, int8 or panels."""
+    t = getattr(coupling, "panels", None)
+    if t is None:
+        t = getattr(coupling, "q", coupling)
+    return t.numel() * t.element_size()
+
+
+def reset_counts(gibbs_cuda, gibbs_hbm_cuda) -> None:
     gibbs_cuda.gibbs_sweeps_cuda.launches = 0
     gibbs_cuda.gibbs_sweeps_cuda.delta_e_launches = 0
+    gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda.launches.clear()
 
 
-def read_counts(gibbs_cuda) -> dict:
+def read_counts(gibbs_cuda, gibbs_hbm_cuda) -> dict:
     k = gibbs_cuda.gibbs_sweeps_cuda
-    return {"K1": k.launches, "K1-dE": k.delta_e_launches}
+    return {"K1": k.launches, "K1-dE": k.delta_e_launches,
+            **gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda.launches}
 
 
 def main() -> int:
@@ -145,7 +194,8 @@ def main() -> int:
     from image_generation_tpu_torch.io.checkpoint import load_model_dir
     from image_generation_tpu_torch.models.dvae import DVAE
     from image_generation_tpu_torch.models.grbm import GRBMGraph, scaled_ising
-    from image_generation_tpu_torch.ops import gibbs_cuda
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.ops.cuda_build import load_libraries
     from image_generation_tpu_torch.ops.exact import exact_moments
     from image_generation_tpu_torch.ops.gibbs import (
         build_plan, gibbs_sweeps_reference, ising_energies, permuted_model, random_spins,
@@ -168,16 +218,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain twin in full f32
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 2. build K1 --------------------------------------------------
+    # ---- 2. build K1, K2 and K3 (one nvcc per source, started together) ----
     t0 = time.perf_counter()
-    built = gibbs_cuda.load_library()
-    how = (f"built by nvcc in {built.build_seconds:.2f} s" if built.build_seconds
-           else "found already built (no nvcc run)")
-    print(f"[2] K1 {how}, loaded after {time.perf_counter() - t0:.2f} s "
-          f"-> {built.path.relative_to(ROOT)}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[2] ptxas: {line.strip()}")
+    libs = load_libraries()
+    gibbs_cuda.load_library()
+    gibbs_hbm_cuda.load_library()
+    print(f"[2] kernels loaded after {time.perf_counter() - t0:.2f} s")
+    for name, built in libs.items():
+        how = (f"built by nvcc in {built.build_seconds:.2f} s" if built.build_seconds
+               else "found already built (no nvcc run)")
+        print(f"[2] {name} {how} -> {built.path.relative_to(ROOT)}")
+        for line in built.log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"[2] ptxas: {line.strip()}")
 
     # ---- 3. K1 against the plain version, fed uniforms -------------------
     cfg = TrainingConfig()
@@ -255,7 +308,7 @@ def main() -> int:
 
     # ---- 5. the slice ------------------------------------------------------
     w = WarmGenerator(ROOT / "runs", device=dev)
-    reset_counts(gibbs_cuda)
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
     warmed = w.warm_buckets(MODEL, 4)
     t0 = time.perf_counter()
     lone = w.serve(MODEL)
@@ -273,13 +326,13 @@ def main() -> int:
     for t in threads:
         t.join(timeout=300)
     burst_s = time.perf_counter() - t0
-    serving_counts = read_counts(gibbs_cuda)
+    serving_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
     launches = serving_counts["K1"]
     burst_dispatches = w.stats["dispatches"] - before
     trainer = w._trainer
     print(f"[5] warmed group sizes {warmed}; sampler {trainer.fns.sampler_impl}; "
           f"K1 launches {launches}; burst of 4 in {burst_dispatches} dispatch(es); stats {w.stats}")
-    check(trainer.fns.sampler_impl == "cuda_gibbs", "the warm server did not select K1")
+    check(trainer.fns.sampler_impl == "cuda_vmem", "the warm server did not select K1")
     check(launches > 0, "the main path never launched K1")
     check(all(not t.is_alive() for t in threads), "a burst request never returned")
     check(burst_dispatches < 4, "the 4-way burst was not coalesced")
@@ -448,7 +501,7 @@ def main() -> int:
         check(np.mean(mses[-8:]) < np.mean(mses[:8]), f"[{label}] MSE did not fall")
         return stats, med
 
-    reset_counts(gibbs_cuda)
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
     flag = Trainer(device=dev)
     flag.setup()
     print(f"[8] setup: n={flag.graph.n} couplers={flag.graph.n_edges} "
@@ -457,16 +510,16 @@ def main() -> int:
     check((flag.graph.n, flag.graph.n_edges, flag.plan.n_pad, len(flag.plan.blocks))
           == (256, 2327, 768, 6), "the flagship graph or plan differs from the JAX package's")
     _, gibbs_step_s = timed_epoch(flag, "8")
-    gibbs_counts = read_counts(gibbs_cuda)
+    gibbs_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
     print(f"[8] launches in plain-Gibbs training: {gibbs_counts}")
     check(gibbs_counts["K1"] > 0, "plain-Gibbs training never launched K1")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         flag.save(tmp / "flagship_1_epoch")
         served = WarmGenerator(tmp, device=dev)
-        reset_counts(gibbs_cuda)
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
         img = served.serve(tmp / "flagship_1_epoch")["images"]
-        served_counts = read_counts(gibbs_cuda)
+        served_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[8] the trained model saved and served: images {img.shape}, finite "
@@ -476,12 +529,12 @@ def main() -> int:
     check(served_counts["K1"] == 1, "serving the trained model did not go through K1")
 
     # ---- 9. flagship training, parallel tempering ----------------------------
-    reset_counts(gibbs_cuda)
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
     pt = Trainer(config=TrainingConfig(SAMPLER="pt"), device=dev)
     pt.graph, pt.plan, pt.physical_nodes = flag.graph, flag.plan, flag.physical_nodes
     pt.images, pt.data_source = flag.images, flag.data_source  # the same data
     pt_stats, pt_step_s = timed_epoch(pt, "9")
-    pt_counts = read_counts(gibbs_cuda)
+    pt_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
     st = pt.state
     e_rec = ising_energies(st.sampler_h, st.sampler_coupling, st.chains)
     e_gap = float((st.chain_energies - e_rec).abs().max())
@@ -494,30 +547,15 @@ def main() -> int:
     check(e_gap <= 1e-3, "carried PT energies drifted from the recomputed ones")
 
     # ---- 10. one step of each sampler under the profiler ----------------------
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
     batch = flag.images[: flag.config.BATCH_SIZE]
     for label, t in (("plain Gibbs", flag), ("PT", pt)):
-        t.step(batch, 99)  # epoch 99: an unscheduled step (no GRBM update)
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            t.step(batch, 99)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        print(f"[10] profiled {label} training step: wall {wall_ms:.3f} ms, device busy "
-              f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), idle share "
-              f"{1 - busy_ms / wall_ms:.1%}  [{card}]")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-            print(f"[10]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:80]}")
+        profile_step(t, batch, "10", label, card)
 
     # ---- kernel times at the training shapes ----------------------------------
     gk = torch.Generator(device=dev)
     gk.manual_seed(5)
     hp8, a8 = flag.state.sampler_h, flag.state.sampler_coupling
+    flag_n_pad = flag.plan.n_pad
     s8 = flag.state.chains
     sw = flag.config.GIBBS_SWEEPS
     k1_train_ms = cuda_ms(lambda: gibbs_cuda.gibbs_sweeps_cuda(hp8, a8, flag.plan, s8, sw,
@@ -531,9 +569,17 @@ def main() -> int:
                                                          generator=gk, track_delta_e=True), 50)
     de_plain = cuda_ms(lambda: gibbs_sweeps_reference(hp9, a9, pt.plan, s9, sw, b9,
                                                       generator=gk, track_delta_e=True), 10)
-    k1_bound = sweep_bound(a8, s8.shape[0], sw, False)
-    de_bound = sweep_bound(a9, s9.shape[0], sw, True)
-    serve_bound = sweep_bound(a6, 256, sweeps, False)
+    u_serve = torch.rand((sweeps, 256, plan.n_pad), generator=gk, device=dev)
+    k1f_ms = cuda_ms(lambda: gibbs_cuda.gibbs_sweeps_cuda(hp6, a6, plan, s6, sweeps,
+                                                          uniforms=u_serve), 20)
+    k1f_plain = cuda_ms(lambda: gibbs_sweeps_reference(hp6, a6, plan, s6, sweeps,
+                                                       uniforms=u_serve), 5)
+    del u_serve
+    k1_bound = sweep_bound(flag.plan, stored_bytes(a8), PEAK_F32_FLOPS, s8.shape[0], sw, False)
+    de_bound = sweep_bound(pt.plan, stored_bytes(a9), PEAK_F32_FLOPS, s9.shape[0], sw, True)
+    serve_bound = sweep_bound(plan, stored_bytes(a6), PEAK_F32_FLOPS, 256, sweeps, False)
+    k1f_bound = sweep_bound(plan, stored_bytes(a6), PEAK_F32_FLOPS, 256, sweeps, False,
+                            4 * sweeps * 256 * plan.n_pad)  # the fed uniforms
     print(f"[11] K1 {s8.shape[0]} chains x {sw} sweeps (training, n_pad {flag.plan.n_pad}): "
           f"{k1_train_ms:.4f} ms, plain {k1_train_plain:.4f} ms, bound {k1_bound[0] * 1e3:.3f} us "
           f"({k1_bound[1]})  [{card}]")
@@ -543,11 +589,18 @@ def main() -> int:
           f"bound {serve_bound[0] * 1e3:.3f} us ({serve_bound[1]}); dense-product work "
           f"{2 * 256 * sweeps * plan.n_pad ** 2 / 1e9:.2f} GFLOP = "
           f"{2 * 256 * sweeps * plan.n_pad ** 2 / PEAK_F32_FLOPS * 1e3:.3f} ms at the f32 peak")
+    print(f"[11] K1f (fed uniforms) 256 chains x {sweeps} sweeps (serving shape): {k1f_ms:.4f} ms, "
+          f"plain {k1f_plain:.4f} ms, bound {k1f_bound[0] * 1e3:.3f} us ({k1f_bound[1]})  [{card}]")
     print(f"[11] step medians: plain Gibbs {gibbs_step_s * 1e3:.3f} ms, PT {pt_step_s * 1e3:.3f} ms"
           f"  [{card}]")
+    del flag, pt, st, w, trainer
+    torch.cuda.empty_cache()
+
+    scaled = scaled_phases(dev, card, rng)
 
     print(card_line())
-    paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts}
+    paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts,
+             **scaled["paths"]}
     print(json.dumps({"kernels": [
         {
             "name": "gibbs_sweeps (K1)",
@@ -555,7 +608,7 @@ def main() -> int:
             "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
             "replaces": "image_generation_tpu/ops/gibbs_pallas.py:141",
             "launches": gibbs_counts["K1"],
-            "launches_by_path": {k: v["K1"] for k, v in paths.items()},
+            "launches_by_path": {k: v.get("K1", 0) for k, v in paths.items()},
             "max_abs_err": max_abs_err,
             "tolerance": f">= {CHAIN_RULE:.0%} of chains bit-identical to the plain version",
             "ms": k1_train_ms,
@@ -563,7 +616,7 @@ def main() -> int:
             "bound_ms": k1_bound[0],
             "bound_by": k1_bound[1],
             "library_ms": None,
-            "shape": f"{s8.shape[0]} chains x {sw} sweeps, n_pad {flag.plan.n_pad}",
+            "shape": f"{s8.shape[0]} chains x {sw} sweeps, n_pad {flag_n_pad}",
         },
         {
             "name": "gibbs_sweeps with the energy carry (K1-dE)",
@@ -571,7 +624,7 @@ def main() -> int:
             "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
             "replaces": "image_generation_tpu/ops/gibbs_pallas.py:121",
             "launches": pt_counts["K1-dE"],
-            "launches_by_path": {k: v["K1-dE"] for k, v in paths.items()},
+            "launches_by_path": {k: v.get("K1-dE", 0) for k, v in paths.items()},
             "max_abs_err": de_err,
             "tolerance": "chain rule as K1; dE within 1e-4 (checkpoint model), "
                          "1e-3*(1+|E|) (|J|<=1 model) on identical chains",
@@ -580,14 +633,347 @@ def main() -> int:
             "bound_ms": de_bound[0],
             "bound_by": de_bound[1],
             "library_ms": None,
-            "shape": f"{s9.shape[0]} chains x {sw} sweeps, n_pad {pt.plan.n_pad}",
+            "shape": f"{s9.shape[0]} chains x {sw} sweeps, n_pad {flag_n_pad}",
         },
+        *[dict(entry, launches_by_path={k: v.get(entry["mode"], 0) for k, v in paths.items()})
+          for entry in scaled["kernels"]],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+# the scaled configuration (bench.py --scaled): 5,640 latents on the full
+# Pegasus P16 fabric, 32-rung parallel tempering over 64 chains each
+SCALED = dict(QPU="Advantage_system6", N_LATENTS=5640, NUM_READS=64, BATCH_SIZE=1024,
+              N_REPLICAS=2, SAMPLER="pt", PT_NUM_BETAS=32, PT_BETA_MIN=0.2, GIBBS_SWEEPS=4,
+              GIBBS_BURN_IN=4)
+STREAM_MODES = [(kernel, dtype, de) for kernel in ("K2", "K3")
+                for dtype in ("f32", "bf16", "int8") for de in (False, True)]
+STREAM_REPLACES = {"K2": "image_generation_tpu/ops/gibbs_pallas_hbm.py:87",
+                   "K3": "image_generation_tpu/ops/gibbs_pallas_hbm.py:184"}
+
+
+def mode_name(kernel: str, dtype: str, de: bool) -> str:
+    return f"{kernel}-{dtype}" + ("-dE" if de else "")
+
+
+def profile_step(trainer, batch, tag: str, label: str, card: str) -> None:
+    """One unscheduled training step under ``torch.profiler``: device busy
+    share of the wall clock and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.step(batch, 99)  # epoch 99: an unscheduled step (no GRBM update)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batch, 99)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"[{tag}] profiled {label} training step: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), idle share {1 - busy_ms / wall_ms:.1%}"
+          f"  [{card}]")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    sweeps = [e for e in ranked[6:] if "gibbs_s" in e.key]  # the sweep kernels, if not in the top 6
+    for e in ranked[:6] + sweeps:
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:80]}")
+    if not any("gibbs_s" in e.key for e in ranked):
+        print(f"[{tag}]   the profiler recorded no sweep kernel (see the CUDA-event times)")
+
+
+def scaled_phases(dev, card: str, rng) -> dict:
+    """Phases 12-16, the scaled slice: K2 and K3 against their plain
+    versions, PT training through K3-dE, two steps through K2-dE, serving
+    through K3-int8, times.  Returns the launch counts of each path and
+    the kernels' JSON entries."""
+    from image_generation_tpu_torch.app.warm import WarmGenerator
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.models.grbm import GRBMGraph
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.ops.block_sparse import chunk_starts, pack_coupling, panel_offsets
+    from image_generation_tpu_torch.ops.exact import exact_moments
+    from image_generation_tpu_torch.ops.gibbs import (
+        build_plan, ising_energies, permuted_model, random_spins, to_original,
+    )
+    from image_generation_tpu_torch.ops.quant import quantize_coupling
+    from image_generation_tpu_torch.training.trainer import Trainer
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    stream = gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda
+    plain = gibbs_hbm_cuda.gibbs_sweeps_hbm_reference
+    cfg = TrainingConfig(**SCALED)
+
+    # ---- 12. K2 and K3 against their plain versions, scaled plan -------------
+    t0 = time.perf_counter()
+    graph, physical = cached_latent_graph(cfg.QPU, cfg.N_LATENTS, cfg.RANDOM_SEED)
+    plan = build_plan(graph)
+    chunk = cfg.SWEEP_BS_CHUNK
+    starts = chunk_starts(plan.n_pad, chunk)
+    tiles = panel_offsets(plan, chunk)[1]
+    print(f"[12] scaled graph and plan in {time.perf_counter() - t0:.2f} s: n={plan.n} "
+          f"couplers={graph.n_edges} n_pad={plan.n_pad} blocks={len(plan.blocks)}; chunk {chunk}: "
+          f"{tiles} of {len(plan.blocks) * len(starts)} tiles occupied, final chunk starts at "
+          f"{starts[-1]} (clamped: {starts[-1] % chunk != 0})")
+    check((plan.n, graph.n_edges, plan.n_pad, len(plan.blocks)) == (5640, 40484, 6016, 47),
+          "the scaled graph or plan differs from the one the JAX package builds")
+    hp, a = permuted_model(plan, torch.tensor(rng.uniform(-0.5, 0.5, plan.n), dtype=torch.float32,
+                                              device=dev),
+                           torch.tensor(rng.uniform(-1.0, 1.0, graph.n_edges), dtype=torch.float32,
+                                        device=dev))
+    forms = {"f32": a, "bf16": a.to(torch.bfloat16), "int8": quantize_coupling(a)}
+    couplings = {("K2", d): c for d, c in forms.items()}
+    couplings.update({("K3", d): pack_coupling(plan, c, chunk) for d, c in forms.items()})
+    ladder = torch.tensor(cfg.initial_pt_betas(), dtype=torch.float32,
+                          device=dev).repeat_interleave(cfg.NUM_READS)
+    errs = {mode_name(*m): 0.0 for m in STREAM_MODES}
+    for n_c, beta in ((256, 1.0), (2048, ladder)):
+        for n_sw in (4, 3):
+            g = torch.Generator(device=dev)
+            g.manual_seed(n_c + n_sw)
+            s0 = random_spins(g, plan, n_c, dev)
+            u = torch.rand((4, n_c, plan.n_pad), generator=g, device=dev)
+            line = []
+            for (kernel, dtype), c in couplings.items():
+                for de in (False, True):
+                    name = mode_name(kernel, dtype, de)
+                    out = stream(hp, c, plan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
+                    ref = plain(hp, c, plan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
+                    torch.cuda.synchronize()
+                    if de:
+                        (out, d_out), (ref, d_ref) = out, ref
+                    same = (out == ref).all(dim=1)
+                    check(float(same.float().mean()) >= CHAIN_RULE,
+                          f"{name} vs plain ({n_c} chains x {n_sw} sweeps): chains differ")
+                    note = f"{name} {int((~same).sum())}"
+                    if de:
+                        err = (d_out - d_ref).abs()[same]
+                        e_abs = ising_energies(hp, c, ref).abs()[same]
+                        check(bool((err <= 1e-3 * (1 + e_abs)).all()),
+                              f"{name} vs plain ({n_c} x {n_sw}): dE")
+                        errs[name] = max(errs[name], float(err.max()))
+                        note += f" (dE err {float(err.max()):.2e}, |E| <= {float(e_abs.max()):.0f})"
+                    else:
+                        errs[name] = max(errs[name], float((out - ref).abs().max()))
+                    line.append(note)
+            print(f"[12] {n_c} chains x {n_sw} sweeps (run as {gibbs_hbm_cuda.round_sweeps(n_sw)}),"
+                  f" chains differing from the plain version: {'; '.join(line)}")
+            del u
+    # integer couplings: every sum exact, so K3 equals K2 bit for bit
+    hi = torch.tensor(np.round(rng.normal(size=plan.n)), dtype=torch.float32, device=dev)
+    ji = torch.tensor(rng.choice([-1.0, 1.0], graph.n_edges), dtype=torch.float32, device=dev)
+    hp_i, a_i = permuted_model(plan, hi, ji)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    s0 = random_spins(g, plan, 2048, dev)
+    u = torch.rand((4, 2048, plan.n_pad), generator=g, device=dev)
+    for dtype, c in {"f32": a_i, "bf16": a_i.to(torch.bfloat16),
+                     "int8": quantize_coupling(a_i)}.items():
+        k2 = stream(hp_i, c, plan, s0, 3, ladder, uniforms=u, track_delta_e=True)
+        k3 = stream(hp_i, pack_coupling(plan, c, chunk), plan, s0, 3, ladder, uniforms=u,
+                    track_delta_e=True)
+        torch.cuda.synchronize()
+        check(torch.equal(k2[0], k3[0]) and torch.equal(k2[1], k3[1]),
+              f"K3 differs from K2 on an integer coupling ({dtype})")
+    print("[12] integer couplings, 2048 chains x 3 sweeps with dE: K3 equals K2 bit for bit "
+          "(f32, bf16, int8)")
+    del u
+    # Philox mode against the numpy twin
+    g = torch.Generator(device=dev)
+    g.manual_seed(99)
+    state = g.get_state()
+    probe = torch.Generator(device=dev)
+    probe.set_state(state)
+    seed = int(gibbs_cuda.draw_seed(probe, dev).item())
+    s0 = random_spins(probe, plan, 256, dev)
+    u_ph = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 256, plan.n_pad), device=dev)
+    line = []
+    for key in (("K2", "f32"), ("K3", "bf16"), ("K3", "int8")):
+        g.set_state(state)
+        out = stream(hp, couplings[key], plan, s0, 3, generator=g)
+        ref = plain(hp, couplings[key], plan, s0, 3, uniforms=u_ph)
+        frac = identical_fraction(out, ref)
+        check(frac >= CHAIN_RULE, f"{key} Philox stream: only {frac:.4f} of chains identical")
+        line.append(f"{'-'.join(key)} {int(round((1 - frac) * 256))}/256")
+    print(f"[12] Philox stream vs plain fed philox_uniforms (256 chains, 3 sweeps run as 4): "
+          f"chains differing {'; '.join(line)}")
+    del u_ph
+    small = GRBMGraph(n=12, edge_i=np.array(SMALL_EDGES)[:, 0], edge_j=np.array(SMALL_EDGES)[:, 1])
+    small_plan = build_plan(small)
+    hs = rng.uniform(-0.3, 0.3, small.n).astype(np.float32)
+    js = rng.uniform(-0.5, 0.5, small.n_edges).astype(np.float32)
+    hps, aps = permuted_model(small_plan, torch.tensor(hs, device=dev), torch.tensor(js, device=dev))
+    e1, e2 = exact_moments(hs, small.edge_i, small.edge_j, js)
+    for name, c in (("K2", aps), ("K3", pack_coupling(small_plan, aps, 128))):
+        gs = torch.Generator(device=dev)
+        gs.manual_seed(7)
+        sm = stream(hps, c, small_plan, random_spins(gs, small_plan, 4096, dev), 200, generator=gs)
+        sm = to_original(small_plan, sm).double().cpu().numpy()
+        d1 = float(np.abs(sm.mean(0) - e1).max())
+        d2 = float(np.abs((sm[:, small.edge_i] * sm[:, small.edge_j]).mean(0) - e2).max())
+        print(f"[12] {name} Philox moments vs exact (12 spins, 4096 chains, 200 sweeps): "
+              f"max|dm1| {d1:.4f} max|dm2| {d2:.4f} (atol {MOMENT_ATOL})")
+        check(d1 < MOMENT_ATOL and d2 < MOMENT_ATOL, f"{name} Philox moments disagree with exact")
+
+    # ---- 13. scaled PT training through K3-dE ---------------------------------
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(config=cfg, device=dev)
+    tr.setup()  # the full P16 fabric through the graph cache
+    check((tr.plan.n_pad, len(tr.plan.blocks), tr.graph.n_edges) == (plan.n_pad, len(plan.blocks),
+                                                                      graph.n_edges),
+          "Trainer.setup built another scaled plan")
+    times, last = [], [0.0]
+
+    def on_batch(_epoch, _done, _nb):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    tr.train_init(2)
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    tr.train(2, batch_cb=on_batch, epoch_chunks=tr.n_batches)
+    train_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+    st = tr.state
+    e_rec = ising_energies(st.sampler_h, st.sampler_coupling, st.chains)
+    e_gap = float((st.chain_energies - e_rec).abs().max())
+    losses = tr.losses["dvae_losses"]
+    med = float(np.median(times[2:]))
+    print(f"[13] scaled PT training: sampler {tr.fns.sampler_impl}, {len(losses)} steps on "
+          f"'{tr.data_source.origin}' data, ladder {tuple(st.chains.shape)}, coupling "
+          f"{type(st.sampler_coupling).__name__} {tuple(st.sampler_coupling.panels.shape)} "
+          f"{st.sampler_coupling.panels.dtype}; losses finite {bool(np.isfinite(losses).all())} "
+          f"(first {losses[0]:.5f}, last {losses[-1]:.5f}); launches {train_counts}")
+    print(f"[13] step times (ms): {', '.join(f'{t * 1e3:.3f}' for t in times)}; median after 2 "
+          f"{med * 1e3:.3f} ms = {cfg.BATCH_SIZE / med:.1f} images/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+    print(f"[13] carried vs recomputed ladder energies (packed coupling): max gap {e_gap:.3e} "
+          f"(|E| up to {float(e_rec.abs().max()):.2f})")
+    check(tr.fns.sampler_impl == "cuda_hbm+bs", "the scaled trainer did not select K3")
+    check(bool(np.isfinite(losses).all()) and len(losses) == 2 * tr.n_batches,
+          "scaled training losses")
+    check(train_counts.get("K3-bf16-dE", 0) > 0, "scaled PT training never launched K3-dE")
+    check(train_counts["K1"] == 0 and train_counts["K1-dE"] == 0, "scaled training launched K1")
+    check(e_gap <= 1e-3 * (1 + float(e_rec.abs().max())), "carried energies drifted")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_scaled_"))
+    model_dir = tmp / "scaled_pegasus16_2ep"
+    tr.save(model_dir)
+    batch = tr.images[: cfg.BATCH_SIZE]
+
+    # ---- 14. the same path through K2 (SWEEP_BLOCK_SPARSE="off") ---------------
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+    k2t = Trainer(config=cfg.replace(SWEEP_BLOCK_SPARSE="off"), device=dev)
+    k2t.graph, k2t.plan, k2t.physical_nodes = tr.graph, tr.plan, tr.physical_nodes
+    k2t.images, k2t.data_source = tr.images, tr.data_source
+    k2t.train_init(1)
+    k2_losses = [k2t.step(batch, 6) for _ in range(2)]  # epoch 6: no GRBM update
+    k2_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+    st2 = k2t.state
+    e_rec2 = ising_energies(st2.sampler_h, st2.sampler_coupling, st2.chains)
+    e_gap2 = float((st2.chain_energies - e_rec2).abs().max())
+    print(f"[14] K2 path: sampler {k2t.fns.sampler_impl}, coupling {st2.sampler_coupling.dtype} "
+          f"{tuple(st2.sampler_coupling.shape)}; MSE {k2_losses}; launches {k2_counts}; carried "
+          f"vs recomputed energies max gap {e_gap2:.3e}")
+    check(k2t.fns.sampler_impl == "cuda_hbm", "SWEEP_BLOCK_SPARSE='off' did not select K2")
+    check(k2_counts.get("K2-bf16-dE", 0) == 2, "the two steps did not run through K2-dE")
+    check(bool(np.isfinite(k2_losses).all()), "K2 path losses")
+    check(e_gap2 <= 1e-3 * (1 + float(e_rec2.abs().max())), "K2 carried energies drifted")
+    del k2t, st2
+    torch.cuda.empty_cache()
+
+    # ---- 15. serving the saved scaled model through K3-int8 -------------------
+    try:
+        w = WarmGenerator(tmp, device=dev)
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        t0 = time.perf_counter()
+        w.warm_buckets(model_dir, 1)
+        warm_s = time.perf_counter() - t0
+        lat, outs = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            outs.append(w.serve(model_dir)["images"])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        serve_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        sc = w._trainer.config
+        print(f"[15] scaled serving: config SAMPLER={sc.SAMPLER} NUM_READS={sc.NUM_READS} sweeps "
+              f"{sc.GIBBS_BURN_IN + sc.GIBBS_SWEEPS} SAMPLER_MATMUL_DTYPE={sc.SAMPLER_MATMUL_DTYPE}; "
+              f"sampler {w._trainer.fns.sampler_impl}; launches {serve_counts}; warm-up "
+              f"{warm_s * 1e3:.3f} ms; lone request over 10: median {np.median(lat):.3f} ms, "
+              f"max {max(lat):.3f} ms  [{card}]")
+        check(sc.SAMPLER_MATMUL_DTYPE == "int8", "the scaled serving config did not resolve int8")
+        check(w._trainer.fns.sampler_impl == "cuda_hbm+int8+bs", "scaled serving did not select K3")
+        check(serve_counts.get("K3-int8", 0) == 11, "scaled serving did not launch K3-int8")
+        for img in outs:
+            check(img.shape == (256, 32, 32, 1) and bool(np.isfinite(img).all())
+                  and img.min() >= 0.0 and img.max() <= 1.0, "scaled served images")
+        plan_s = w._trainer.plan  # the served checkpoint's own plan
+        hp_s, c_s = w._trainer.fns.build_sampler_model(w._trainer.grbm_params)
+        del w
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 16. times at the path's shapes ---------------------------------------
+    gk = torch.Generator(device=dev)
+    gk.manual_seed(6)
+    s_train = random_spins(gk, plan, 2048, dev)
+    s_serve = random_spins(gk, plan, 256, dev)
+    serve_sweeps = sc.GIBBS_BURN_IN + sc.GIBBS_SWEEPS
+    kernels = []
+    for kernel, dtype, de in STREAM_MODES:
+        name = mode_name(kernel, dtype, de)
+        c = couplings[(kernel, dtype)]
+        if name == "K3-int8":  # serving: the served model's own coupling
+            args, n_c, n_sw, reps = (hp_s, c_s, plan_s, s_serve, serve_sweeps, 1.0), 256, serve_sweeps, 5
+        else:
+            args, n_c, n_sw, reps = (hp, c, plan, s_train, cfg.GIBBS_SWEEPS, ladder), 2048, 4, 5
+        ms = cuda_ms(lambda: stream(*args, generator=gk, track_delta_e=de), reps, warmup=1)
+        plain_ms = cuda_ms(lambda: plain(*args, generator=gk, track_delta_e=de), 2, warmup=1)
+        meta = 4 * len(gibbs_hbm_cuda._meta_list(args[2], chunk if kernel == "K3" else None))
+        bound = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c,
+                            gibbs_hbm_cuda.round_sweeps(n_sw), de, meta)
+        print(f"[16] {name} {n_c} chains x {n_sw} sweeps: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound[0] * 1e3:.3f} us ({bound[1]})  [{card}]")
+        kernels.append({
+            "name": f"gibbs_stream ({name})",
+            "mode": name,
+            "route": "cuda",
+            "source": "image_generation_tpu_torch/csrc/gibbs_hbm.cu",
+            "replaces": STREAM_REPLACES[kernel],
+            "launches": sum(cnt.get(name, 0) for cnt in (train_counts, k2_counts, serve_counts)),
+            "max_abs_err": errs[name],
+            "tolerance": f">= {CHAIN_RULE:.0%} of chains bit-identical to the plain version"
+                         + ("; dE within 1e-3*(1+|E|) on identical chains" if de else ""),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "library_ms": None,
+            "shape": f"{n_c} chains x {n_sw} sweeps, n_pad {plan.n_pad}, {len(plan.blocks)} blocks"
+                     + (f", chunk {chunk}" if kernel == "K3" else ""),
+        })
+    # the rows per thread block at the two path shapes (measured, not tuned)
+    for name, dtype, args in (
+            ("K3-bf16-dE", torch.bfloat16,
+             (hp, couplings[("K3", "bf16")], plan, s_train, cfg.GIBBS_SWEEPS, ladder)),
+            ("K3-int8", torch.int8, (hp_s, c_s, plan_s, s_serve, serve_sweeps, 1.0))):
+        row = []
+        for r in sorted(gibbs_hbm_cuda._ROWS):
+            ms_r = cuda_ms(lambda: stream(*args, generator=gk, track_delta_e=name.endswith("-dE"),
+                                          _rows_per_block=r), 2, warmup=1)
+            row.append(f"R={r}: {ms_r:.4f} ms")
+        n_c = args[3].shape[0]
+        print(f"[16] {name} {n_c} chains x {args[4]} sweeps by rows per block (default R="
+              f"{gibbs_hbm_cuda.default_rows(args[2], n_c, dtype, chunk)}): {'; '.join(row)}"
+              f"  [{card}]")
+    profile_step(tr, batch, "16", "scaled PT", card)
+    return {"paths": {"train_scaled": train_counts, "train_scaled_k2": k2_counts,
+                      "serve_scaled": serve_counts},
+            "kernels": kernels}
 
 
 # a 12-spin test graph: a ring plus chords (unique, no self-loops)

@@ -6,7 +6,10 @@ position.  The tensor half builds the permuted model and holds
 ``gibbs_sweeps_reference``, the plain PyTorch version of the sweep kernel
 (``ops/gibbs_cuda.py``), ``ising_energies`` and parallel tempering
 (``pt_round``, ``pt_sample``), which carries its ladder energies across
-rounds through the sweep's ``track_delta_e`` mode.
+rounds through the sweep's ``track_delta_e`` mode.  The sweep, the
+energies and parallel tempering take every form the cached coupling is
+stored in: dense f32 or bf16, int8 (``ops/quant.py``) and packed
+block-sparse panels (``ops/block_sparse.py``).
 
 Spins live in a color-permuted, padded coordinate system: each color block
 of the plan is one contiguous column range, padded to ``pad_to``.  A color
@@ -29,6 +32,13 @@ import numpy as np
 import torch
 
 from image_generation_tpu_torch.models.grbm import GRBMGraph
+from image_generation_tpu_torch.ops.block_sparse import (
+    BlockSparseCoupling,
+    color_fields,
+    ising_energies_block_sparse,
+    panel_offsets,
+)
+from image_generation_tpu_torch.ops.quant import QuantCoupling
 from image_generation_tpu_torch.utils.coloring import greedy_coloring
 
 __all__ = [
@@ -38,6 +48,8 @@ __all__ = [
     "permuted_model",
     "random_spins",
     "to_original",
+    "block_products",
+    "sweep_blocks",
     "gibbs_sweeps_reference",
     "ising_energies",
     "pt_round",
@@ -240,9 +252,71 @@ def to_original(plan: GibbsPlan, spins_p: torch.Tensor) -> torch.Tensor:
     return spins_p[..., idx]
 
 
+def block_products(coupling_p, plan: GibbsPlan, scaled: bool = True):
+    """``fn(s, b)``: the (chains, width) f32 products ``s @ A[:, c0:c1]``
+    of color block ``b`` for every stored form of the coupling, or None
+    for a block nothing couples into.
+
+    f32 is the plain product.  bf16 is read as f32 (f32 accumulation of
+    exact ±1 × bf16 products).  A ``QuantCoupling`` or int8 panels give
+    the exact integer products (f32 holds them exactly below 2²⁴),
+    multiplied by the scale unless ``scaled`` is False, which leaves them
+    in the streaming kernel's quantized units.  A ``BlockSparseCoupling``
+    reads only its packed chunk panels."""
+    if isinstance(coupling_p, BlockSparseCoupling):
+        if coupling_p.plan is not plan:
+            raise ValueError("the packed coupling was cut for another plan")
+        offs, _ = panel_offsets(plan, coupling_p.chunk)
+        return lambda s, b: color_fields(coupling_p, s, b, offs, scaled)
+    if isinstance(coupling_p, QuantCoupling):
+        q, scale = coupling_p
+
+        def quant(s, b):
+            c0, _v, c1 = plan.blocks[b]
+            f = s @ q[:, c0:c1].to(torch.float32)
+            return f * scale if scaled else f
+
+        return quant
+    if coupling_p.dtype == torch.float32:
+        return lambda s, b: s @ coupling_p[:, plan.blocks[b][0] : plan.blocks[b][2]]
+    return lambda s, b: s @ coupling_p[:, plan.blocks[b][0] : plan.blocks[b][2]].to(
+        torch.float32)
+
+
+def sweep_blocks(hp: torch.Tensor, products, plan: GibbsPlan, spins_p: torch.Tensor,
+                 n_sweeps: int, beta, generator: Optional[torch.Generator],
+                 uniforms: Optional[torch.Tensor], track_delta_e: bool):
+    """The colored sweep loop both plain versions share: per sweep, per
+    block of ``plan.blocks`` in order, ``fields = products(s, b) + h``,
+    then the Bernoulli update (and ΔE); see ``gibbs_sweeps_reference``."""
+    chains, n_pad = spins_p.shape
+    dev = spins_p.device
+    beta_col = torch.as_tensor(beta, dtype=torch.float32, device=dev)
+    beta_col = beta_col.reshape(-1, 1) if beta_col.ndim else beta_col
+    s = spins_p.to(torch.float32).clone()
+    de = torch.zeros(chains, dtype=torch.float32, device=dev)
+    for sweep in range(n_sweeps):
+        for b, (c0, _valid, c1) in enumerate(plan.blocks):
+            f = products(s, b)
+            fields = hp[c0:c1].expand(chains, c1 - c0) if f is None else f + hp[c0:c1]
+            p_plus = torch.sigmoid(-2.0 * beta_col * fields)
+            if uniforms is not None:
+                u = uniforms[sweep, :, c0:c1]
+            else:
+                u = torch.rand(
+                    (chains, c1 - c0), generator=generator,
+                    device=generator.device if generator is not None else dev,
+                ).to(dev)
+            new = torch.where(u < p_plus, 1.0, -1.0)
+            if track_delta_e:
+                de = de + (fields * (new - s[:, c0:c1])).sum(-1)
+            s[:, c0:c1] = new
+    return (s, de) if track_delta_e else s
+
+
 def gibbs_sweeps_reference(
     hp: torch.Tensor,
-    coupling_p: torch.Tensor,
+    coupling_p,
     plan: GibbsPlan,
     spins_p: torch.Tensor,
     n_sweeps: int,
@@ -254,9 +328,12 @@ def gibbs_sweeps_reference(
 ):
     """``n_sweeps`` colored block-Gibbs sweeps in plain PyTorch.
 
-    The twin of the sweep kernel, with the Pallas kernel's semantics
-    (``gibbs_pallas.py`` ``_color_update``): one update per block of
-    ``plan.blocks``, in order, padding columns included.
+    For a dense f32 coupling this is the twin of the sweep kernel K1, with
+    the Pallas kernel's semantics (``gibbs_pallas.py`` ``_color_update``):
+    one update per block of ``plan.blocks``, in order, padding columns
+    included.  It takes every stored form of the coupling (bf16, a
+    ``QuantCoupling``, a ``BlockSparseCoupling``) with the JAX package's
+    XLA sweep semantics: fields = products (× scale for int8) + h.
 
     ``beta``: scalar or (chains,) per-chain inverse temperature.
     ``uniforms``: optional (n_sweeps, chains, n_pad) f32, read at
@@ -275,41 +352,28 @@ def gibbs_sweeps_reference(
         raise ValueError(
             f"uniforms must be {(n_sweeps, chains, n_pad)}, got {tuple(uniforms.shape)}"
         )
-    dev = spins_p.device
-    beta_col = torch.as_tensor(beta, dtype=torch.float32, device=dev)
-    beta_col = beta_col.reshape(-1, 1) if beta_col.ndim else beta_col
-    s = spins_p.to(torch.float32).clone()
-    de = torch.zeros(chains, dtype=torch.float32, device=dev)
-    for sweep in range(n_sweeps):
-        for c0, _valid, c1 in plan.blocks:
-            fields = s @ coupling_p[:, c0:c1] + hp[c0:c1]
-            p_plus = torch.sigmoid(-2.0 * beta_col * fields)
-            if uniforms is not None:
-                u = uniforms[sweep, :, c0:c1]
-            else:
-                u = torch.rand(
-                    (chains, c1 - c0), generator=generator,
-                    device=generator.device if generator is not None else dev,
-                ).to(dev)
-            new = torch.where(u < p_plus, 1.0, -1.0)
-            if track_delta_e:
-                de = de + (fields * (new - s[:, c0:c1])).sum(-1)
-            s[:, c0:c1] = new
-    return (s, de) if track_delta_e else s
+    return sweep_blocks(hp, block_products(coupling_p, plan), plan, spins_p, n_sweeps,
+                        beta, generator, uniforms, track_delta_e)
 
 
-def ising_energies(hp: torch.Tensor, coupling_p: torch.Tensor,
-                   spins_p: torch.Tensor) -> torch.Tensor:
+def ising_energies(hp: torch.Tensor, coupling_p, spins_p: torch.Tensor) -> torch.Tensor:
     """E(s) = h·s + ½ sᵀ A s in padded coordinates for (..., n_pad) spins
-    (padding contributes 0); f32 dense coupling only."""
-    sa = spins_p @ coupling_p
+    (padding contributes 0), for every stored form of the coupling: f32;
+    bf16 with f32 accumulation; a ``QuantCoupling`` exactly in integers,
+    scaled out once; a ``BlockSparseCoupling`` from its panels."""
+    if isinstance(coupling_p, BlockSparseCoupling):
+        return ising_energies_block_sparse(hp, coupling_p, spins_p)
+    if isinstance(coupling_p, QuantCoupling):
+        sa = (spins_p @ coupling_p.q.to(torch.float32)) * coupling_p.scale
+    else:
+        sa = spins_p @ coupling_p.to(torch.float32)
     return spins_p @ hp + 0.5 * (spins_p * sa).sum(-1)
 
 
 def pt_round(
     generator: Optional[torch.Generator],
     hp: torch.Tensor,
-    coupling_p: torch.Tensor,
+    coupling_p,
     plan: GibbsPlan,
     spins_p: torch.Tensor,
     betas: torch.Tensor,
@@ -388,7 +452,7 @@ def pt_round(
 def pt_sample(
     generator: Optional[torch.Generator],
     hp: torch.Tensor,
-    coupling_p: torch.Tensor,
+    coupling_p,
     plan: GibbsPlan,
     n_chains: int,
     betas: torch.Tensor,

@@ -4,9 +4,12 @@ Replaces ``image_generation_tpu/ops/gibbs_pallas.py`` (``_kernel``,
 ``_kernel_fed``, ``_color_update``; wrapper ``gibbs_sweeps_pallas``, gate
 ``supported_by_pallas``).  The kernel source is ``csrc/gibbs_sweeps.cu``;
 its header note says what bounds it on the H100 and how the design meets
-that.  It is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use, keyed on a hash of the source and
-the flags, under ``_build/`` in this package, and bound with ``ctypes``.
+that.  ``ops/cuda_build.py`` compiles it with ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface at first use, and it is bound
+here with ``ctypes``.
+
+``selects_k1`` keeps the JAX package's VMEM gate as the dispatch rule
+between K1 and the streaming kernels (``ops/gibbs_hbm_cuda.py``).
 
 The kernel also carries the energy change of the run (``track_delta_e``,
 the Pallas kernels' ``de_ref``), which parallel tempering uses to carry its
@@ -25,37 +28,24 @@ fed to the plain version, it reproduces the kernel's Philox mode.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
-from dataclasses import dataclass
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from image_generation_tpu_torch.ops.cuda_build import KernelLibrary, load_libraries
 from image_generation_tpu_torch.ops.gibbs import GibbsPlan, gibbs_sweeps_reference
 
 __all__ = [
     "gibbs_sweeps_cuda",
     "supported_by_kernel",
+    "selects_k1",
     "load_library",
     "draw_seed",
     "philox_uniforms",
 ]
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "gibbs_sweeps.cu"
-_BUILD_DIR = _PKG / "_build"
-# no --use_fast_math: expf stays within an ulp of torch.sigmoid's exp
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _STATIC_SMEM = 8 * 4 * 4  # the energy carry's per-warp partial sums (R ≤ 8)
 _MAX_BLOCKS = 128  # color blocks a launch takes (kMaxBlocks in the source)
@@ -66,60 +56,22 @@ _ROWS = (8, 4, 2, 1)  # chain rows per thread block the source instantiates
 # blocks); fewer, fatter blocks leave SMs idle, more re-read the coupling
 # from L2 (PERF.md).  Serving (256·k chains, k <= 16) selects every R.
 _MIN_GRID = 512
-
-
-@dataclass
-class KernelLibrary:
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc/ptxas output of the build ("" when not rebuilt)
-
+# The JAX package's VMEM budget, kept only as the dispatch rule (selects_k1)
+_VMEM_BUDGET = 12 * 1024 * 1024
 
 _library: Optional[KernelLibrary] = None
 _library_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(cuda_home, "bin", "nvcc") if cuda_home else None,
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (looked on PATH, in $CUDA_HOME/bin and in "
-        "/usr/local/cuda/bin): the Gibbs sweep kernel cannot be built"
-    )
-
-
 def load_library() -> KernelLibrary:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash, with the other kernels) and load K1's
+    library."""
     global _library
     with _library_lock:
         if _library is not None:
             return _library
-        digest = hashlib.sha256(
-            _SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        so = _BUILD_DIR / f"gibbs_sweeps_{digest}.so"
-        seconds, log = 0.0, ""
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = _BUILD_DIR / f".gibbs_sweeps_{digest}.{os.getpid()}.so"
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-                )
-            os.replace(tmp, so)  # atomic: a concurrent build never loads half a file
-        lib = ctypes.CDLL(str(so))
+        built = load_libraries()["gibbs_sweeps"]
+        lib = built.lib
         lib.gibbs_sweeps_f32.argtypes = [
             ctypes.c_void_p,  # spins_in
             ctypes.c_void_p,  # spins_out
@@ -145,8 +97,27 @@ def load_library() -> KernelLibrary:
         lib.gibbs_sweeps_max_blocks.restype = ctypes.c_int
         if lib.gibbs_sweeps_max_blocks() != _MAX_BLOCKS:
             raise RuntimeError("kernel library and wrapper disagree on kMaxBlocks")
-        _library = KernelLibrary(lib, so, seconds, log)
+        _library = built
         return _library
+
+
+def selects_k1(plan: GibbsPlan, n_chains: int, coupling_itemsize: int = 4) -> bool:
+    """Whether the JAX package sends this problem to its on-chip kernel
+    (``gibbs_pallas.py`` ``supported_by_pallas``), whose counterpart is K1:
+    the coupling in its resident dtype plus a chain block's spins and
+    fields within the TPU's 12 MB VMEM budget.  Kept as the dispatch rule
+    only: K2 and K3 round the sweep count up to even and K1 does not, so
+    a call has to reach the counterpart of the kernel the JAX package
+    picks.  ``n_chains`` is the effective chain count of one call."""
+    if plan.n_pad % 128 != 0:
+        return False
+    block = min(n_chains, 256)  # the Pallas wrapper's default chain block
+    while n_chains % block:
+        block -= 1
+    coupling_bytes = plan.n_pad * plan.n_pad * coupling_itemsize
+    spins_bytes = 2 * block * plan.n_pad * 4
+    fields_bytes = block * _max_width(plan) * 4
+    return coupling_bytes + spins_bytes + 3 * fields_bytes < _VMEM_BUDGET
 
 
 def _max_width(plan: GibbsPlan) -> int:
@@ -170,8 +141,7 @@ def supported_by_kernel(plan: GibbsPlan, n_chains: int) -> bool:
     """Whether K1 takes this problem: the chain rows of one thread block
     plus one color block of staging fit Hopper's 227 KB of shared memory,
     the padded width is a multiple of 4 (float4 spin reads), and the plan
-    has at most ``_MAX_BLOCKS`` color blocks.  Larger graphs need the
-    streaming kernel (K2), which is not ported."""
+    has at most ``_MAX_BLOCKS`` color blocks."""
     return _fits(plan, n_chains, default_rows(plan, n_chains))
 
 
@@ -195,12 +165,13 @@ def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
     return seed.to(device)
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+def _check(name: str, t: torch.Tensor, shape: tuple, device, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (what a kernel's pointer arguments need)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the spins on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 (bf16/int8 coupling modes "
-                        f"are not ported), got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -251,10 +222,10 @@ def gibbs_sweeps_cuda(
     _check("hp", hp, (n_pad,), dev)
     rows = _rows_per_block or default_rows(plan, n_chains)
     if not _fits(plan, n_chains, rows):
-        raise NotImplementedError(
+        raise ValueError(
             f"plan (n_pad={n_pad}, {len(plan.blocks)} blocks) at {n_chains} "
-            f"chains does not fit the on-chip sweep kernel; the streaming "
-            f"kernel (K2, gibbs_pallas_hbm) is not ported"
+            f"chains does not fit K1's shared memory; the streaming kernels "
+            f"(ops/gibbs_hbm_cuda.py) take it"
         )
     beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
     if beta_t.ndim == 0:

@@ -21,11 +21,14 @@ metrics on the device and stacks them once at the end.  The train state
 is updated in place (modules, optimizers, tensors) instead of being
 returned anew, which keeps one copy of it.
 
-Dispatch: a CUDA tensor goes to the sweep kernel K1 (``ops/gibbs_cuda.py``,
-with its ΔE mode under parallel tempering) and a CPU tensor to the plain
-``gibbs_sweeps_reference``; ``USE_PALLAS="off"`` selects the plain
-version everywhere.  Every case the JAX package sends to a path that is
-not ported raises ``NotImplementedError`` naming it.
+Dispatch (``SampleFns``): the JAX package's single-device choice between
+the on-chip sweep kernel K1 (``ops/gibbs_cuda.py``) and the streaming
+kernels K2 / K3 (``ops/gibbs_hbm_cuda.py``), each with its ΔE mode under
+parallel tempering.  A CUDA tensor launches the kernel, a CPU tensor runs
+its plain version; ``USE_PALLAS="off"`` selects the plain XLA-semantics
+``gibbs_sweeps_reference`` everywhere.  Every case the JAX package sends
+to a path that is not ported (K1 with a bf16 or int8 coupling, the
+graph-sharded sampler) raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -57,8 +60,11 @@ from image_generation_tpu_torch.ops.gibbs import (
     random_spins,
     to_original,
 )
-from image_generation_tpu_torch.ops.gibbs_cuda import gibbs_sweeps_cuda
+from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+from image_generation_tpu_torch.ops.gibbs_cuda import gibbs_sweeps_cuda, selects_k1
+from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
 from image_generation_tpu_torch.ops.mmd import GaussianKernel, mmd_loss
+from image_generation_tpu_torch.ops.quant import quantize_coupling
 from image_generation_tpu_torch.training.schedules import geomspace_lr
 from image_generation_tpu_torch.utils.device import resolve_device
 
@@ -86,6 +92,8 @@ class TrainState:
     (T, NUM_READS, n_pad) ladder, with ``chain_energies`` (T, C) carried
     under the cached sampler model ((0,) otherwise).  ``sampler_h`` /
     ``sampler_coupling`` cache the permuted model of ``grbm_params``.
+    ``sampler_coupling`` is stored as the dispatch reads it: an f32 or
+    bf16 tensor, a ``QuantCoupling`` or a ``BlockSparseCoupling``.
     ``opt_step`` is a host integer; ``generator`` draws every random
     number of the step on the state's device.  ``pt_betas`` is the live
     (T,) ladder ((0,) outside PT)."""
@@ -97,7 +105,7 @@ class TrainState:
     chains: torch.Tensor
     chain_energies: torch.Tensor
     sampler_h: torch.Tensor
-    sampler_coupling: torch.Tensor
+    sampler_coupling: object
     opt_step: int
     generator: torch.Generator
     pt_betas: torch.Tensor
@@ -136,7 +144,21 @@ class StepFeed:
 
 
 class SampleFns:
-    """Sampler functions bound to one (config, graph, plan, device)."""
+    """Sampler functions bound to one (config, graph, plan, device).
+
+    The dispatch is the JAX package's single-device one
+    (``training/step.py`` ``make_train_fns``): the cached coupling is
+    stored int8 (``SAMPLER_MATMUL_DTYPE="int8"``), in the resolved matmul
+    dtype (bf16 from n_pad 2048 under "auto") or f32, then packed into
+    block-sparse panels where ``resolved_block_sparse`` holds.  The
+    on-chip kernel K1 takes a call when ``selects_k1`` (the JAX VMEM gate,
+    on the effective chain count T·C at build time and again per call)
+    holds and the coupling is not packed; the streaming kernels K2 (dense)
+    and K3 (packed) take the rest.  ``sampler_impl`` names the choice as
+    the JAX package does, ``pallas`` spelled ``cuda``: ``cuda_vmem``,
+    ``cuda_hbm``, ``torch`` (``USE_PALLAS="off"``, the JAX ``xla``), with
+    ``+int8`` and ``+bs``.  It names the dispatch on either device: on the
+    CPU each wrapper runs its kernel's plain version."""
 
     def __init__(self, cfg: TrainingConfig, graph: GRBMGraph, plan: GibbsPlan, device):
         self.config = cfg
@@ -149,33 +171,61 @@ class SampleFns:
             torch.tensor(cfg.initial_pt_betas(), dtype=torch.float32, device=self.device)
             if self.pt_mode else None
         )
-        # observability, as TrainStepFns.sampler_impl in the JAX package
-        self.sampler_impl = (
-            "cuda_gibbs" if self.use_kernel and self.device.type == "cuda" else "torch"
-        )
+        if cfg.GRAPH_SHARDED == "on":
+            raise NotImplementedError(
+                "GRAPH_SHARDED='on' needs a multi-device mesh (kernel K4), "
+                "which is not ported"
+            )
+        self.int8 = cfg.SAMPLER_MATMUL_DTYPE == "int8"
+        self.mm_dtype = cfg.resolved_sampler_matmul_dtype(plan.n_pad)
+        # the resident coupling's itemsize, which the K1 gate sizes against
+        self.coupling_itemsize = 1 if self.int8 else (2 if self.mm_dtype is not None else 4)
+        eff_chains = cfg.PT_NUM_BETAS * cfg.NUM_READS if self.pt_mode else cfg.NUM_READS
+        self.block_sparse = cfg.resolved_block_sparse(plan)
+        # the packed form replaces the dense cache K1 reads: block-sparse
+        # wins and the sweep streams the panels (K3)
+        self.vmem = (selects_k1(plan, eff_chains, self.coupling_itemsize)
+                     and not self.block_sparse)
+        if self.use_kernel and self.vmem and (self.int8 or self.mm_dtype is not None):
+            mode = "K1-int8" if self.int8 else "K1-bf16"
+            raise NotImplementedError(
+                f"the on-chip sweep kernel with a {'quantized int8' if self.int8 else 'bf16'} "
+                f"coupling ({mode}: gibbs_pallas.py with SAMPLER_MATMUL_DTYPE="
+                f"{cfg.SAMPLER_MATMUL_DTYPE!r} at n_pad={plan.n_pad}) is not ported"
+            )
+        impl = ("cuda_vmem" if self.vmem else "cuda_hbm") if self.use_kernel else "torch"
+        self.sampler_impl = impl + ("+int8" if self.int8 else "") + (
+            "+bs" if self.block_sparse else "")
 
     def build_sampler_model(self, grbm_params: GRBMParams):
         """(hp, coupling_p) of the prefactor-scaled, range-clipped model in
-        padded, color-permuted coordinates (f32)."""
+        padded, color-permuted coordinates, the coupling stored as the
+        dispatch reads it: quantized, then cast, then packed (the JAX
+        order)."""
         cfg = self.config
         h, j = scaled_ising(grbm_params, cfg.PREFACTOR, cfg.H_RANGE, cfg.J_RANGE)
-        return permuted_model(self.plan, h, j)
+        hp, coupling_p = permuted_model(self.plan, h, j)
+        if self.int8:
+            coupling_p = quantize_coupling(coupling_p)
+        elif self.mm_dtype is not None:
+            coupling_p = coupling_p.to(self.mm_dtype)
+        if self.block_sparse:
+            coupling_p = pack_coupling(self.plan, coupling_p, cfg.SWEEP_BS_CHUNK)
+        return hp, coupling_p
 
     def sweeps_fn(self, generator, hp, coupling_p, chains, n_sweeps, beta=1.0,
                   uniforms=None, track_delta_e=False):
         """One sweep run of ``chains`` (C, n_pad) under (hp, coupling_p);
-        returns spins, or (spins, ΔE) with ``track_delta_e``."""
-        if self.use_kernel:
-            # CPU tensors run the plain version inside the wrapper; CUDA
-            # shapes the kernel does not take raise there (K2 not ported)
-            return gibbs_sweeps_cuda(
-                hp, coupling_p, self.plan, chains, n_sweeps, beta,
-                generator=generator, uniforms=uniforms, track_delta_e=track_delta_e,
-            )
-        return gibbs_sweeps_reference(
-            hp, coupling_p, self.plan, chains, n_sweeps, beta,
-            generator=generator, uniforms=uniforms, track_delta_e=track_delta_e,
-        )
+        returns spins, or (spins, ΔE) with ``track_delta_e``.  The K1 gate
+        is checked again per call, on this call's chain count (a serving
+        call folds coalesced requests into the chains)."""
+        kw = dict(generator=generator, uniforms=uniforms, track_delta_e=track_delta_e)
+        args = (hp, coupling_p, self.plan, chains, n_sweeps, beta)
+        if not self.use_kernel:
+            return gibbs_sweeps_reference(*args, **kw)
+        if self.vmem and selects_k1(self.plan, chains.shape[0], self.coupling_itemsize):
+            return gibbs_sweeps_cuda(*args, **kw)
+        return gibbs_sweeps_hbm_cuda(*args, **kw)
 
     def compute_energies(self, hp, coupling_p, chains) -> torch.Tensor:
         """(T, C) ladder energies under the sampler model; (0,) outside PT."""
@@ -238,32 +288,6 @@ class SampleFns:
         return to_original(self.plan, spins)
 
 
-def _check_ported(cfg: TrainingConfig, plan: GibbsPlan) -> None:
-    """Raise for every configuration the JAX package sends to a sampler
-    path that is not ported (``PT_NUM_BETAS="auto"`` raises in
-    ``TrainingConfig.initial_pt_betas``)."""
-    if cfg.SAMPLER_MATMUL_DTYPE == "int8":
-        raise NotImplementedError(
-            "SAMPLER_MATMUL_DTYPE='int8' (quantized coupling, ops/quant.py and "
-            "K1's int8 mode) is not ported"
-        )
-    if cfg.resolved_sampler_matmul_dtype(plan.n_pad) is not None:
-        raise NotImplementedError(
-            f"bf16 sampler coupling (n_pad={plan.n_pad}, "
-            f"SAMPLER_MATMUL_DTYPE={cfg.SAMPLER_MATMUL_DTYPE!r}; K1's bf16 "
-            f"mode) is not ported"
-        )
-    if cfg.resolved_block_sparse(plan):
-        raise NotImplementedError(
-            "block-sparse sweeps (ops/block_sparse.py, kernel K3) are not ported"
-        )
-    if cfg.GRAPH_SHARDED == "on":
-        raise NotImplementedError(
-            "GRAPH_SHARDED='on' needs a multi-device mesh (kernel K4), "
-            "which is not ported"
-        )
-
-
 def make_sample_fns(cfg: TrainingConfig, graph: GRBMGraph,
                     plan: Optional[GibbsPlan] = None, device="cuda") -> SampleFns:
     """Sampler functions for a config and coupling graph on ``device``
@@ -273,7 +297,6 @@ def make_sample_fns(cfg: TrainingConfig, graph: GRBMGraph,
     device = resolve_device(device)
     if plan is None:
         plan = build_plan(graph)
-    _check_ported(cfg, plan)
     return SampleFns(cfg, graph, plan, device)
 
 
@@ -477,7 +500,6 @@ def make_train_fns(cfg: TrainingConfig, graph: GRBMGraph, total_steps: int,
     device = resolve_device(device)
     if plan is None:
         plan = build_plan(graph)
-    _check_ported(cfg, plan)
     if cfg.ADAM_MOMENT_DTYPE != "float32" or cfg.ADAM_FACTORED_NU == "on":
         raise NotImplementedError(
             "ADAM_MOMENT_DTYPE='bfloat16' and ADAM_FACTORED_NU='on' "
@@ -490,8 +512,11 @@ def train_state_from_jax(fns: TrainStepFns, state, seed: int = 0) -> TrainState:
     """The port's ``TrainState`` from the JAX package's: ``state`` is read
     through its leaves as numpy (``dvae_params``, ``batch_stats``,
     ``grbm_params.linear/.quadratic``, ``chains``, ``chain_energies``,
-    ``pt_betas``, ``opt_step``).  Optimizer moments start fresh, as after
-    the JAX ``init``; ``seed`` seeds the state's generator."""
+    ``pt_betas``, ``opt_step``).  The cached sampler model is rebuilt from
+    ``grbm_params`` in the form the dispatch stores (quantized, cast,
+    packed), as the JAX package rebuilds it on restore.  Optimizer moments
+    start fresh, as after the JAX ``init``; ``seed`` seeds the state's
+    generator."""
     dev = fns.device
     dvae = fns.new_dvae()
     dvae.load_state_dict(dvae_state_dict_from_jax(state.dvae_params, state.batch_stats))

@@ -1,4 +1,5 @@
-"""Kernel K1 on the card: the CUDA sweep kernel against its plain version.
+"""Kernels K1, K2 and K3 on the card: the CUDA sweep kernels against their
+plain versions.
 
 These tests need a CUDA device and ``nvcc``; without a card they skip.
 This file imports no JAX, so on the GPU machine (which has none) it runs
@@ -10,7 +11,10 @@ Tolerance: K1 and the plain version sum the fields in another order and
 compute the sigmoid with different code, so they differ by about an ulp;
 a draw whose uniform falls within that ulp of its probability flips
 (probability ~1e-7 per draw) and its chain then diverges.  So the rule is
-that at least 98% of the chains come out bit-identical.
+that at least 98% of the chains come out bit-identical.  On identical
+chains ΔE agrees within 1e-4 (checkpoint model) or 1e-3·(1 + |E|)
+(|J| ≤ 1); on integer-valued couplings every sum is exact, so the packed
+kernel K3 equals the dense K2 bit for bit.
 """
 
 from pathlib import Path
@@ -196,7 +200,7 @@ def test_warm_server_runs_through_kernel(dev, tmp_path):
     n0 = gibbs_cuda.gibbs_sweeps_cuda.launches
     out = w.serve(MODEL)
     assert gibbs_cuda.gibbs_sweeps_cuda.launches == n0 + 1
-    assert w._trainer.fns.sampler_impl == "cuda_gibbs"
+    assert w._trainer.fns.sampler_impl == "cuda_vmem"
     img = out["images"]
     assert img.shape == (16, 32, 32, 1) and np.isfinite(img).all()
     assert img.min() >= 0.0 and img.max() <= 1.0
@@ -281,3 +285,128 @@ def test_training_step_on_card_matches_cpu(dev, sampler):
         assert np.isfinite(a) and abs(a - b) <= rtol * abs(b) + atol, (name, a, b)
     same = (s_card.chains.cpu() == s_cpu.chains).all(-1).float().mean()
     assert float(same) >= CHAIN_RULE
+
+
+# ---------------------------------------------------------------------------
+# the streaming kernels K2 (dense) and K3 (packed)
+# ---------------------------------------------------------------------------
+
+def _stream_coupling(a, form, chunk, plan):
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+    from image_generation_tpu_torch.ops.quant import quantize_coupling
+
+    c = {"f32": a, "bf16": a.to(torch.bfloat16), "int8": quantize_coupling(a)}[form]
+    return pack_coupling(plan, c, chunk) if chunk else c
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("chunk", [None, 128, 256])  # None: dense (K2); 256 clamps at n_pad 640
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+def test_stream_kernel_matches_plain(dev, ckpt, form, chunk, track):
+    """Every mode of K2 and K3 on the checkpoint's plan (blocks up to 512
+    wide, so a block takes several 128-column passes), |J| ≤ 1, per-chain
+    β, 1,030 chains (R = 4, a partial last block at R = 8), 3 sweeps run
+    as 4."""
+    from image_generation_tpu_torch.ops.gibbs import ising_energies
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import (
+        gibbs_sweeps_hbm_cuda,
+        gibbs_sweeps_hbm_reference,
+    )
+
+    plan, _, (hp, a) = ckpt
+    coupling = _stream_coupling(a, form, chunk, plan)
+    rng = np.random.default_rng(7)
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (1030, plan.n_pad)), dtype=torch.float32, device=dev)
+    u = torch.tensor(rng.random((4, 1030, plan.n_pad), dtype=np.float32), device=dev)
+    beta = torch.tensor(rng.uniform(0.5, 2.0, 1030), dtype=torch.float32, device=dev)
+    ref = gibbs_sweeps_hbm_reference(hp, coupling, plan, s0, 3, beta, uniforms=u,
+                                     track_delta_e=track)
+    for rows in (None, 8, 1):
+        out = gibbs_sweeps_hbm_cuda(hp, coupling, plan, s0, 3, beta, uniforms=u,
+                                    track_delta_e=track, _rows_per_block=rows)
+        torch.cuda.synchronize()
+        if not track:
+            assert _identical(out, ref) >= CHAIN_RULE
+            continue
+        same = (out[0] == ref[0]).all(dim=1)
+        assert float(same.float().mean()) >= CHAIN_RULE
+        e_abs = ising_energies(hp, coupling, ref[0]).abs()[same]
+        assert bool(((out[1] - ref[1]).abs()[same] <= 1e-3 * (1 + e_abs)).all())
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+def test_stream_k3_equals_k2_on_integer_couplings(dev, ckpt, form):
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
+
+    plan = ckpt[0]
+    rng = np.random.default_rng(8)
+    graph_n = int(plan.valid_mask.sum())
+    h = torch.tensor(np.round(rng.normal(size=graph_n)), dtype=torch.float32, device=dev)
+    j = torch.tensor(rng.choice([-1.0, 1.0], len(plan.perm_edge_i)), dtype=torch.float32,
+                     device=dev)
+    hp, a = permuted_model(plan, h, j)
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (512, plan.n_pad)), dtype=torch.float32, device=dev)
+    u = torch.tensor(rng.random((4, 512, plan.n_pad), dtype=np.float32), device=dev)
+    k2 = gibbs_sweeps_hbm_cuda(hp, _stream_coupling(a, form, None, plan), plan, s0, 4,
+                               uniforms=u, track_delta_e=True)
+    for chunk in (128, 256):
+        k3 = gibbs_sweeps_hbm_cuda(hp, _stream_coupling(a, form, chunk, plan), plan, s0, 4,
+                                   uniforms=u, track_delta_e=True)
+        torch.cuda.synchronize()
+        assert torch.equal(k2[0], k3[0]) and torch.equal(k2[1], k3[1])
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+def test_stream_philox_matches_numpy_twin(dev, ckpt, form):
+    """Philox mode of K3 against its plain version fed ``philox_uniforms``
+    for the even sweep count, and ΔE against the f64 energy change."""
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import (
+        gibbs_sweeps_hbm_cuda,
+        gibbs_sweeps_hbm_reference,
+    )
+
+    plan, _, (hp, a) = ckpt
+    coupling = _stream_coupling(a, form, 256, plan)
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    probe = torch.Generator(device=dev)
+    probe.set_state(g.get_state())
+    seed = int(gibbs_cuda.draw_seed(probe, dev).item())
+    s0 = random_spins(probe, plan, 256, dev)
+    out, de = gibbs_sweeps_hbm_cuda(hp, coupling, plan, s0, 3, generator=g, track_delta_e=True)
+    u = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 256, plan.n_pad), device=dev)
+    ref = gibbs_sweeps_hbm_reference(hp, coupling, plan, s0, 3, uniforms=u)
+    assert _identical(out, ref) >= CHAIN_RULE
+
+
+def test_stream_unoccupied_color_and_counters(dev):
+    """A packed plan with a color nothing couples into (fields = h) against
+    the dense kernel, bit for bit on integer couplings; the counters move
+    once per launch by kernel and mode; refusals launch nothing."""
+    from image_generation_tpu_torch.ops.block_sparse import color_chunk_rows, pack_coupling
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda as k
+
+    rng = np.random.default_rng(9)
+    ring = np.array([(i, (i + 1) % 200) for i in range(200)])
+    graph = GRBMGraph(n=264, edge_i=ring[:, 0], edge_j=ring[:, 1])  # 64 isolated spins
+    plan = build_plan(graph, pad_to=64, max_class=64)
+    assert () in color_chunk_rows(plan, 64)
+    h = torch.tensor(np.round(rng.normal(size=264)), dtype=torch.float32, device=dev)
+    j = torch.tensor(rng.choice([-1.0, 1.0], 200), dtype=torch.float32, device=dev)
+    hp, a = permuted_model(plan, h, j)
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (300, plan.n_pad)), dtype=torch.float32, device=dev)
+    u = torch.tensor(rng.random((2, 300, plan.n_pad), dtype=np.float32), device=dev)
+    k.launches.clear()
+    k2 = k(hp, a, plan, s0, 2, uniforms=u, track_delta_e=True)
+    k3 = k(hp, pack_coupling(plan, a, 64), plan, s0, 2, uniforms=u, track_delta_e=True)
+    k3b = k(hp, pack_coupling(plan, a.to(torch.bfloat16), 64), plan, s0, 2, uniforms=u)
+    torch.cuda.synchronize()
+    assert torch.equal(k2[0], k3[0]) and torch.equal(k2[1], k3[1]) and torch.equal(k3b, k3[0])
+    assert dict(k.launches) == {"K2-f32-dE": 1, "K3-f32-dE": 1, "K3-bf16": 1}
+    with pytest.raises(TypeError):
+        k(hp, a.double(), plan, s0, 2, uniforms=u)
+    with pytest.raises(ValueError):
+        k(hp, a, plan, s0, 3, uniforms=u)  # 3 sweeps run as 4: u is too short
+    with pytest.raises(ValueError):
+        k(hp, a.t(), plan, s0, 2, uniforms=u)
+    assert sum(k.launches.values()) == 3

@@ -80,7 +80,7 @@ def test_slice_matches_jax_composition(trainer):
 def test_trainer_samples_spins(trainer):
     s = trainer.sample_spins(num_reads=8, n_sweeps=2)
     assert s.shape == (8, 256) and set(s.unique().tolist()) <= {-1.0, 1.0}
-    assert trainer.fns.sampler_impl == "torch"
+    assert trainer.fns.sampler_impl == "cuda_vmem"  # K1; its plain version on the CPU
     assert trainer.plan.n_pad == 640 and trainer.config.N_LATENTS == 256
     # fresh generator per call, so two calls differ; the same seed repeats
     t2 = Trainer(config=trainer.config, device="cpu", seed=0)
@@ -92,15 +92,31 @@ def test_trainer_samples_spins(trainer):
 
 
 @pytest.mark.parametrize("overrides,missing", [
-    ({"SAMPLER": "pt", "PT_NUM_BETAS": "auto"}, "parallel tempering"),
-    ({"SAMPLER_MATMUL_DTYPE": "int8"}, "quantized"),
-    ({"SAMPLER_MATMUL_DTYPE": "bfloat16"}, "bf16"),
-    ({"SWEEP_BLOCK_SPARSE": "on"}, "block-sparse"),
-    ({"GRAPH_SHARDED": "on"}, "mesh"),
+    pytest.param({"SAMPLER": "pt", "PT_NUM_BETAS": "auto"}, "parallel tempering",
+                 id="overrides0-parallel tempering"),
+    pytest.param({"SAMPLER_MATMUL_DTYPE": "int8"}, "K1-int8", id="overrides1-quantized"),
+    pytest.param({"SAMPLER_MATMUL_DTYPE": "bfloat16"}, "K1-bf16", id="overrides2-bf16"),
+    pytest.param({"GRAPH_SHARDED": "on"}, "mesh", id="overrides4-mesh"),
 ])
 def test_unported_sampler_paths_raise(trainer, overrides, missing):
+    """On the 640-wide plan the JAX package sends a bf16 or int8 coupling
+    to its on-chip kernel, whose bf16 / int8 modes are not ported."""
     with pytest.raises(NotImplementedError, match=missing):
         make_sample_fns(TrainingConfig(**overrides), trainer.graph, trainer.plan, device="cpu")
+
+
+def test_block_sparse_on_builds_the_packed_streaming_path(trainer):
+    """``SWEEP_BLOCK_SPARSE="on"`` packs the coupling and streams it (K3),
+    as the JAX package's ``pallas_hbm+bs``; the sampler draws ±1 spins."""
+    from image_generation_tpu_torch.ops.block_sparse import BlockSparseCoupling
+
+    fns = make_sample_fns(TrainingConfig(SWEEP_BLOCK_SPARSE="on"), trainer.graph, trainer.plan,
+                          device="cpu")
+    assert fns.sampler_impl == "cuda_hbm+bs"
+    _, coupling = fns.build_sampler_model(trainer.grbm_params)
+    assert isinstance(coupling, BlockSparseCoupling) and coupling.panels.dtype == torch.float32
+    s = fns.sample_fn(torch.Generator().manual_seed(0), trainer.grbm_params, 8, 3)
+    assert s.shape == (8, 256) and set(s.unique().tolist()) <= {-1.0, 1.0}
 
 
 def test_use_pallas_off_selects_plain_version(trainer):
@@ -199,7 +215,9 @@ def test_serving_path_imports_no_jax_or_host_extras():
     code = (
         "import sys, image_generation_tpu_torch.app.warm, "
         "image_generation_tpu_torch.training.trainer, image_generation_tpu_torch.ops.pt_tune, "
-        "image_generation_tpu_torch.utils.graph_cache; "
+        "image_generation_tpu_torch.utils.graph_cache, image_generation_tpu_torch.ops.quant, "
+        "image_generation_tpu_torch.ops.block_sparse, image_generation_tpu_torch.ops.gibbs_hbm_cuda, "
+        "image_generation_tpu_torch.ops.cuda_build; "
         "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn', "
         "'image_generation_tpu') if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -491,7 +491,8 @@ def test_entry_points_default_to_the_card(monkeypatch, graphs, tmp_path):
 def test_resolved_block_sparse_matches_jax(mode, chunk):
     """On 2,048- and 4,096-spin random sparse plans (dense enough that
     "auto" refuses at one size and engages at the other): both packages
-    agree, and the port's dispatcher raises exactly where it is True."""
+    agree, and the port's dispatcher packs the coupling (``cuda_hbm+bs``)
+    exactly where it is True."""
     for n, deg in ((2048, 8), (4096, 2)):
         rng = np.random.default_rng(n)
         ei = rng.integers(0, n, n * deg // 2)
@@ -505,11 +506,8 @@ def test_resolved_block_sparse_matches_jax(mode, chunk):
         ours = TrainingConfig(**kw).resolved_block_sparse(tplan)
         assert ours == JaxConfig(**kw).resolved_block_sparse(jplan)
         assert tplan.n_pad >= 2048
-        if ours:
-            with pytest.raises(NotImplementedError, match="block-sparse"):
-                make_sample_fns(TrainingConfig(**kw), tg, tplan, device="cpu")
-        else:
-            make_sample_fns(TrainingConfig(**kw), tg, tplan, device="cpu")
+        impl = make_sample_fns(TrainingConfig(**kw), tg, tplan, device="cpu").sampler_impl
+        assert impl == ("cuda_hbm+bs" if ours else "cuda_hbm")
 
 
 def test_block_sparse_helpers_match_jax():
