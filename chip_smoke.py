@@ -14,8 +14,12 @@ and under parallel tempering; then through the scaled configuration
 Advantage_system6, batch 1024, 2 replicas, 32-rung parallel tempering
 over 64 chains each, 4 sweeps, a bf16 coupling packed into block-sparse
 panels; the decoder's Linear(5640 -> 22560) whole; depth cut to two epochs
-of the 4,096-image synthetic pool, 8 steps), trained, saved and served.
-Phases:
+of the 4,096-image synthetic pool, 8 steps), trained, saved and served;
+then K1 with a bf16 and an int8 coupling: a 2,048-latent model on
+Advantage_system6 (the config defaults otherwise: a bf16 coupling streamed
+through K2 in training; served int8 through K1-int8; one epoch, resumed for
+a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
+"int8" (one epoch each).  Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    nvcc; exits non-zero without a CUDA device;
@@ -84,11 +88,36 @@ Phases:
     sweeps; the served K3-int8 at 256 chains × 80 sweeps) beside the plain
     version and ``sweep_bound`` on the stored form (packed or int8 bytes,
     nonzeros from the plan's edge list); one scaled step under the
-    profiler.
+    profiler;
+17. K1-bf16 and K1-int8 against their plain versions with fed uniforms,
+    with and without dE: on the fresh flagship plan at 256 chains (beta =
+    1) and 2,048 (the 8-rung ladder's per-chain beta) x 16 sweeps, and on
+    the 2,048-latent plan (n_pad 2,432) at 256·k chains, k = 1, 2, 4, 8,
+    16 (every R serving selects) x 80 sweeps; the chain rule and the dE
+    rule (1e-3·(1 + |E|)); Philox mode against ``philox_uniforms``;
+    moments against exact enumeration of the model each mode samples (the
+    bf16-rounded and the dequantized couplings) on the 12-spin graph;
+18. the 2,048-latent model trained one epoch through K2-bf16
+    (``cuda_hbm``, K1 never launched) with ``metrics_log``,
+    ``profile_dir`` and ``checkpoint_dir``; ``resume_native`` in a fresh
+    Trainer continues at epoch 1; the model is saved;
+19. the saved model served through ``WarmGenerator``: the serving config
+    resolves int8 (``cuda_vmem+int8``), every dispatch launches K1-int8
+    and nothing else (``warm_buckets`` up to 16, 10 lone requests, a 4-way
+    burst); under ``SAMPLER="pt"`` every round launches K1-int8-dE; images
+    finite in [0, 1];
+20. flagship epochs with a bf16 coupling, plain Gibbs (K1-bf16) and PT
+    (K1-bf16-dE), and with int8 under ``PT_NUM_BETAS="auto"`` (the probe
+    through K1-int8-dE, then K1-int8-dE): finite losses, carried ladder
+    energies against energies recomputed on the card;
+21. K1-bf16, K1-bf16-dE, K1-int8 and K1-int8-dE timed at the paths'
+    shapes beside the plain version and ``sweep_bound``, and K1 by rows
+    per block at the 2,048-latent serving shape.
 
 Each path (serving, plain training, PT training, scaled training, the K2
-steps, scaled serving) runs with the launch
-counters set to 0 just before it and read just after.  The line before
+steps, scaled serving, the 2,048-latent training, resume and serving, the
+flagship bf16 / int8 epochs) runs with the launch counters set to 0 just
+before it and read just after.  The line before
 the last is a JSON object describing the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises.
 """
@@ -177,14 +206,14 @@ def stored_bytes(coupling) -> int:
 
 
 def reset_counts(gibbs_cuda, gibbs_hbm_cuda) -> None:
-    gibbs_cuda.gibbs_sweeps_cuda.launches = 0
-    gibbs_cuda.gibbs_sweeps_cuda.delta_e_launches = 0
+    gibbs_cuda.gibbs_sweeps_cuda.launches.clear()
     gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda.launches.clear()
 
 
 def read_counts(gibbs_cuda, gibbs_hbm_cuda) -> dict:
-    k = gibbs_cuda.gibbs_sweeps_cuda
-    return {"K1": k.launches, "K1-dE": k.delta_e_launches,
+    """Launches by kernel and mode since the last reset: "K1-f32",
+    "K1-int8-dE", "K3-bf16-dE", ..."""
+    return {**gibbs_cuda.gibbs_sweeps_cuda.launches,
             **gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda.launches}
 
 
@@ -327,7 +356,7 @@ def main() -> int:
         t.join(timeout=300)
     burst_s = time.perf_counter() - t0
     serving_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
-    launches = serving_counts["K1"]
+    launches = serving_counts.get("K1-f32", 0)
     burst_dispatches = w.stats["dispatches"] - before
     trainer = w._trainer
     print(f"[5] warmed group sizes {warmed}; sampler {trainer.fns.sampler_impl}; "
@@ -409,18 +438,7 @@ def main() -> int:
           f"median {np.median(burst_ms):.3f} ms, max {max(burst_ms):.3f} ms  [{card}]")
 
     # device time of one warm request by kernel (torch.profiler)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        w.serve(MODEL)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[6] profiled warm request: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({busy_ms / wall_ms:.1%}), idle share {1 - busy_ms / wall_ms:.1%}  [{card}]")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[6]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<3d} {e.key[:90]}")
+    profile_request(lambda: w.serve(MODEL), "6", "flagship", card)
 
     # ---- 7. K1-ΔE against the plain version -------------------------------
     fgraph, _ = cached_latent_graph(cfg.QPU, cfg.N_LATENTS, cfg.RANDOM_SEED)
@@ -512,7 +530,7 @@ def main() -> int:
     _, gibbs_step_s = timed_epoch(flag, "8")
     gibbs_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
     print(f"[8] launches in plain-Gibbs training: {gibbs_counts}")
-    check(gibbs_counts["K1"] > 0, "plain-Gibbs training never launched K1")
+    check(gibbs_counts.get("K1-f32", 0) > 0, "plain-Gibbs training never launched K1")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         flag.save(tmp / "flagship_1_epoch")
@@ -526,7 +544,7 @@ def main() -> int:
           f"{bool(np.isfinite(img).all())}, in [0, 1] {bool(img.min() >= 0 and img.max() <= 1)}; "
           f"launches {served_counts}")
     check(img.shape == (256, 32, 32, 1) and bool(np.isfinite(img).all()), "served images")
-    check(served_counts["K1"] == 1, "serving the trained model did not go through K1")
+    check(served_counts == {"K1-f32": 1}, "serving the trained model did not go through K1")
 
     # ---- 9. flagship training, parallel tempering ----------------------------
     reset_counts(gibbs_cuda, gibbs_hbm_cuda)
@@ -543,7 +561,7 @@ def main() -> int:
           f"{float(e_rec.abs().max()):.2f}); acceptance min {pt_stats['pt_accept_min']:.4f} "
           f"mean {pt_stats['pt_accept_mean']:.4f}, recommended rungs "
           f"{pt_stats['pt_recommended_num_betas']}")
-    check(pt_counts["K1-dE"] > 0, "PT training never launched K1-dE")
+    check(pt_counts.get("K1-f32-dE", 0) > 0, "PT training never launched K1-dE")
     check(e_gap <= 1e-3, "carried PT energies drifted from the recomputed ones")
 
     # ---- 10. one step of each sampler under the profiler ----------------------
@@ -597,18 +615,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     scaled = scaled_phases(dev, card, rng)
+    torch.cuda.empty_cache()
+    k1_dtypes = k1_dtype_phases(dev, card, rng)
 
     print(card_line())
     paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts,
-             **scaled["paths"]}
+             **scaled["paths"], **k1_dtypes["paths"]}
     print(json.dumps({"kernels": [
         {
             "name": "gibbs_sweeps (K1)",
             "route": "cuda",
             "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
             "replaces": "image_generation_tpu/ops/gibbs_pallas.py:141",
-            "launches": gibbs_counts["K1"],
-            "launches_by_path": {k: v.get("K1", 0) for k, v in paths.items()},
+            "launches": gibbs_counts["K1-f32"],
+            "launches_by_path": {k: v.get("K1-f32", 0) for k, v in paths.items()},
             "max_abs_err": max_abs_err,
             "tolerance": f">= {CHAIN_RULE:.0%} of chains bit-identical to the plain version",
             "ms": k1_train_ms,
@@ -623,8 +643,8 @@ def main() -> int:
             "route": "cuda",
             "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
             "replaces": "image_generation_tpu/ops/gibbs_pallas.py:121",
-            "launches": pt_counts["K1-dE"],
-            "launches_by_path": {k: v.get("K1-dE", 0) for k, v in paths.items()},
+            "launches": pt_counts["K1-f32-dE"],
+            "launches_by_path": {k: v.get("K1-f32-dE", 0) for k, v in paths.items()},
             "max_abs_err": de_err,
             "tolerance": "chain rule as K1; dE within 1e-4 (checkpoint model), "
                          "1e-3*(1+|E|) (|J|<=1 model) on identical chains",
@@ -636,7 +656,7 @@ def main() -> int:
             "shape": f"{s9.shape[0]} chains x {sw} sweeps, n_pad {flag_n_pad}",
         },
         *[dict(entry, launches_by_path={k: v.get(entry["mode"], 0) for k, v in paths.items()})
-          for entry in scaled["kernels"]],
+          for entry in scaled["kernels"] + k1_dtypes["kernels"]],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -658,6 +678,24 @@ STREAM_REPLACES = {"K2": "image_generation_tpu/ops/gibbs_pallas_hbm.py:87",
 
 def mode_name(kernel: str, dtype: str, de: bool) -> str:
     return f"{kernel}-{dtype}" + ("-dE" if de else "")
+
+
+def profile_request(serve, tag: str, label: str, card: str) -> None:
+    """One warm request under ``torch.profiler``: device busy share of the
+    wall clock and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"[{tag}] profiled {label} warm request: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), idle share {1 - busy_ms / wall_ms:.1%}"
+          f"  [{card}]")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<3d} {e.key[:90]}")
 
 
 def profile_step(trainer, batch, tag: str, label: str, card: str) -> None:
@@ -858,7 +896,7 @@ def scaled_phases(dev, card: str, rng) -> dict:
     check(bool(np.isfinite(losses).all()) and len(losses) == 2 * tr.n_batches,
           "scaled training losses")
     check(train_counts.get("K3-bf16-dE", 0) > 0, "scaled PT training never launched K3-dE")
-    check(train_counts["K1"] == 0 and train_counts["K1-dE"] == 0, "scaled training launched K1")
+    check(not any(k.startswith("K1") for k in train_counts), "scaled training launched K1")
     check(e_gap <= 1e-3 * (1 + float(e_rec.abs().max())), "carried energies drifted")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_scaled_"))
     model_dir = tmp / "scaled_pegasus16_2ep"
@@ -974,6 +1012,394 @@ def scaled_phases(dev, card: str, rng) -> dict:
     return {"paths": {"train_scaled": train_counts, "train_scaled_k2": k2_counts,
                       "serve_scaled": serve_counts},
             "kernels": kernels}
+
+
+# the 2,048-latent configuration: Advantage_system6's Pegasus fabric cut to
+# 2,048 latents, the config defaults otherwise (bf16 coupling under "auto":
+# K2-bf16 in training; served int8 through K1-int8)
+SERVE2K = dict(QPU="Advantage_system6", N_LATENTS=2048)
+K1_MODES = [(dtype, de) for dtype in ("bf16", "int8") for de in (False, True)]
+K1_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}  # the stored coupling's type
+
+
+def k1_mode(dtype: str, de: bool) -> str:
+    return f"K1-{dtype}" + ("-dE" if de else "")
+
+
+def k1_forms(a):
+    """The coupling ``a`` as K1-bf16 and K1-int8 take it."""
+    from image_generation_tpu_torch.ops.quant import quantize_coupling
+
+    return {"bf16": a.to(torch.bfloat16), "int8": quantize_coupling(a)}
+
+
+def k1_dtype_phases(dev, card: str, rng) -> dict:
+    """Phases 17-21: K1 with a bf16 and an int8 coupling.  K1-bf16 and
+    K1-int8 against their plain versions; the 2,048-latent model trained
+    through K2-bf16 with the metrics log, profiler and native checkpoints,
+    resumed, saved and served through K1-int8 (and K1-int8-dE under PT);
+    flagship epochs through K1-bf16, K1-bf16-dE and, after the
+    PT_NUM_BETAS="auto" probe, K1-int8-dE; times, bounds and an R sweep.
+    Returns the launch counts of each path and the kernels' JSON entries."""
+    from image_generation_tpu_torch.app.warm import WarmGenerator
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.models.grbm import GRBMGraph
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.ops.exact import exact_moments
+    from image_generation_tpu_torch.ops.gibbs import (
+        build_plan, gibbs_sweeps_kernel_reference, ising_energies, permuted_model,
+        random_spins, to_original,
+    )
+    from image_generation_tpu_torch.ops.quant import dequantize_coupling
+    from image_generation_tpu_torch.training.observability import MetricsLog
+    from image_generation_tpu_torch.training.trainer import Trainer
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    k1 = gibbs_cuda.gibbs_sweeps_cuda
+    plain = gibbs_sweeps_kernel_reference
+    flag_cfg = TrainingConfig()
+    cfg2k = TrainingConfig(**SERVE2K)
+
+    # ---- 17. K1-bf16 and K1-int8 against their plain versions ----------------
+    fgraph, _ = cached_latent_graph(flag_cfg.QPU, flag_cfg.N_LATENTS, flag_cfg.RANDOM_SEED)
+    fplan = build_plan(fgraph)
+    graph2k, _ = cached_latent_graph(cfg2k.QPU, cfg2k.N_LATENTS, cfg2k.RANDOM_SEED)
+    plan2k = build_plan(graph2k)
+    print(f"[17] 2,048-latent plan: n={plan2k.n} couplers={graph2k.n_edges} n_pad={plan2k.n_pad} "
+          f"block widths {[c1 - c0 for c0, _v, c1 in plan2k.blocks]}; K1 gate (256 chains) "
+          f"f32/bf16/int8: {[gibbs_cuda.selects_k1(plan2k, 256, it) for it in (4, 2, 1)]}")
+    check((plan2k.n, graph2k.n_edges, plan2k.n_pad, len(plan2k.blocks)) == (2048, 14559, 2432, 7),
+          "the 2,048-latent graph or plan differs from the one the JAX package builds")
+
+    def random_model(mplan, graph):
+        return permuted_model(
+            mplan, torch.tensor(rng.uniform(-0.5, 0.5, graph.n), dtype=torch.float32, device=dev),
+            torch.tensor(rng.uniform(-1.0, 1.0, graph.n_edges), dtype=torch.float32, device=dev))
+
+    ladder8 = torch.tensor(flag_cfg.initial_pt_betas(), dtype=torch.float32, device=dev)
+    errs = {k1_mode(*m): 0.0 for m in K1_MODES}
+    rows_checked = {"bf16": set(), "int8": set()}
+    cases = [("fresh flagship plan", fplan, fgraph, n_c, 16) for n_c in (256, 2048)]
+    cases += [("2,048-latent plan", plan2k, graph2k, n_c, 80) for n_c in SERVING_CHAINS]
+    models = {}
+    for label, mplan, graph, n_c, n_sw in cases:
+        if label not in models:
+            models[label] = random_model(mplan, graph)
+        hp, a = models[label]
+        forms = k1_forms(a)
+        g = torch.Generator(device=dev)
+        g.manual_seed(n_c + n_sw)
+        s0 = random_spins(g, mplan, n_c, dev)
+        u = torch.rand((n_sw, n_c, mplan.n_pad), generator=g, device=dev)
+        beta = (1.0 if n_c == 256 else ladder8.repeat_interleave(n_c // len(ladder8))
+                if mplan is fplan else 0.5 + 1.5 * torch.rand(n_c, generator=g, device=dev))
+        line = []
+        for dtype, de in K1_MODES:
+            c = forms[dtype]
+            name = k1_mode(dtype, de)
+            out = k1(hp, c, mplan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
+            ref = plain(hp, c, mplan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
+            torch.cuda.synchronize()
+            if de:
+                (out, d_out), (ref, d_ref) = out, ref
+            same = (out == ref).all(dim=1)
+            check(float(same.float().mean()) >= CHAIN_RULE,
+                  f"{name} vs plain ({label}, {n_c} x {n_sw}): chains differ")
+            note = f"{name} {int((~same).sum())}"
+            if de:
+                err = (d_out - d_ref).abs()[same]
+                e_abs = ising_energies(hp, c, ref).abs()[same]
+                check(bool((err <= 1e-3 * (1 + e_abs)).all()), f"{name} vs plain ({label}): dE")
+                errs[name] = max(errs[name], float(err.max()))
+                note += f" (dE err {float(err.max()):.2e}, |E| <= {float(e_abs.max()):.0f})"
+            else:
+                errs[name] = max(errs[name], float((out - ref).abs().max()))
+            line.append(note)
+            if mplan is plan2k:
+                rows_checked[dtype].add(gibbs_cuda.default_rows(mplan, n_c, K1_DTYPES[dtype]))
+        print(f"[17] {label}, {n_c} chains x {n_sw} sweeps, fed uniforms; chains differing "
+              f"from the plain version: {'; '.join(line)}")
+        del u
+    for dtype, seen in rows_checked.items():
+        check(seen == set(gibbs_cuda._ROWS),
+              f"K1-{dtype}: rows per block checked {sorted(seen)}, built {sorted(gibbs_cuda._ROWS)}")
+    print(f"[17] rows per block checked on the serving chain counts: "
+          f"{ {d: sorted(v) for d, v in rows_checked.items()} }")
+    # Philox mode against the numpy twin, on the 2,048-latent plan
+    hp2k, a2k = models["2,048-latent plan"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(41)
+    state = g.get_state()
+    probe = torch.Generator(device=dev)
+    probe.set_state(state)
+    seed = int(gibbs_cuda.draw_seed(probe, dev).item())
+    s0 = random_spins(probe, plan2k, 256, dev)
+    u_ph = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 256, plan2k.n_pad), device=dev)
+    line = []
+    for dtype, c in k1_forms(a2k).items():
+        g.set_state(state)
+        out = k1(hp2k, c, plan2k, s0, 4, generator=g)
+        frac = identical_fraction(out, plain(hp2k, c, plan2k, s0, 4, uniforms=u_ph))
+        check(frac >= CHAIN_RULE, f"K1-{dtype} Philox stream: only {frac:.4f} of chains identical")
+        line.append(f"K1-{dtype} {int(round((1 - frac) * 256))}/256")
+    print(f"[17] Philox stream vs plain fed philox_uniforms (2,048-latent plan, 256 chains, "
+          f"4 sweeps): chains differing {'; '.join(line)}")
+    del u_ph
+    # moments against exact enumeration of the model each mode samples
+    small = GRBMGraph(n=12, edge_i=np.array(SMALL_EDGES)[:, 0], edge_j=np.array(SMALL_EDGES)[:, 1])
+    small_plan = build_plan(small)
+    hs = rng.uniform(-0.3, 0.3, small.n).astype(np.float32)
+    js = rng.uniform(-0.5, 0.5, small.n_edges).astype(np.float32)
+    hps, aps = permuted_model(small_plan, torch.tensor(hs, device=dev), torch.tensor(js, device=dev))
+    ei = torch.as_tensor(small_plan.perm_edge_i, device=dev)
+    ej = torch.as_tensor(small_plan.perm_edge_j, device=dev)
+    for dtype, c in k1_forms(aps).items():
+        dense = dequantize_coupling(c) if dtype == "int8" else c.to(torch.float32)
+        j_model = dense[ei, ej].double().cpu().numpy()  # the couplings this mode samples
+        gs = torch.Generator(device=dev)
+        gs.manual_seed(7)
+        sm = k1(hps, c, small_plan, random_spins(gs, small_plan, 4096, dev), 200, generator=gs)
+        sm = to_original(small_plan, sm).double().cpu().numpy()
+        e1, e2 = exact_moments(hs, small.edge_i, small.edge_j, j_model)
+        d1 = float(np.abs(sm.mean(0) - e1).max())
+        d2 = float(np.abs((sm[:, small.edge_i] * sm[:, small.edge_j]).mean(0) - e2).max())
+        print(f"[17] K1-{dtype} Philox moments vs exact ({'dequantized' if dtype == 'int8' else 'bf16'}"
+              f" model, 12 spins, 4096 chains, 200 sweeps): max|dm1| {d1:.4f} max|dm2| {d2:.4f} "
+              f"(atol {MOMENT_ATOL})")
+        check(d1 < MOMENT_ATOL and d2 < MOMENT_ATOL, f"K1-{dtype} Philox moments disagree with exact")
+
+    # ---- 18. the 2,048-latent model trained through K2-bf16 --------------------
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_2k_"))
+    try:
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        tr = Trainer(config=cfg2k, device=dev)
+        log = MetricsLog(tmp / "metrics.jsonl")
+        t0 = time.perf_counter()
+        tr.train(1, metrics_log=log, profile_dir=str(tmp / "profile"),
+                 checkpoint_dir=tmp / "ckpt")
+        train_s = time.perf_counter() - t0
+        train2k_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        rec = log.read()
+        traces = sorted((tmp / "profile").glob("*.json"))
+        ckpts = sorted(p.name for p in (tmp / "ckpt").iterdir())
+        losses = tr.losses["dvae_losses"]
+        print(f"[18] 2,048-latent training: sampler {tr.fns.sampler_impl}, coupling "
+              f"{tr.state.sampler_coupling.dtype} {tuple(tr.state.sampler_coupling.shape)}, "
+              f"{len(losses)} steps on '{tr.data_source.origin}' data in {train_s:.3f} s (profiled), "
+              f"losses finite {bool(np.isfinite(losses).all())}; launches {train2k_counts}; "
+              f"metrics log {rec}; trace {[p.name for p in traces]} "
+              f"({sum(p.stat().st_size for p in traces) / 2**20:.1f} MiB); checkpoints {ckpts}")
+        check(tr.fns.sampler_impl == "cuda_hbm", "2,048-latent training did not select K2")
+        check(train2k_counts.get("K2-bf16", 0) > 0, "2,048-latent training never launched K2-bf16")
+        check(not any(k.startswith("K1") for k in train2k_counts), "2,048-latent training ran K1")
+        check(bool(np.isfinite(losses).all()), "2,048-latent training losses")
+        check(len(rec) == 1 and rec[0]["event"] == "epoch" and rec[0]["epoch"] == 0,
+              "the metrics log holds no epoch record")
+        check(len(traces) == 1 and traces[0].stat().st_size > 0, "no profiler trace was written")
+        check(f"step_{tr.n_batches:08d}.pt" in ckpts, "no native checkpoint after the epoch")
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        resumed = Trainer(config=cfg2k, device=dev)
+        step = resumed.resume_native(tmp / "ckpt", n_epochs=2)
+        check(step == tr.n_batches, f"resume_native restored step {step}, not {tr.n_batches}")
+        check(torch.equal(resumed.state.chains, tr.state.chains)
+              and torch.equal(resumed.state.grbm_params.quadratic, tr.state.grbm_params.quadratic),
+              "the resumed state differs from the saved one")
+        ran = []
+        resumed.train(2, epoch_cb=lambda e, _st: ran.append(e))
+        resume_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        print(f"[18] resumed in a fresh Trainer at step {step}: ran epochs {ran}, "
+              f"{len(resumed.losses['mse_losses'])} losses in its history; launches {resume_counts}")
+        check(ran == [1], f"the resumed run ran epochs {ran}, not [1]")
+        check(bool(np.isfinite(resumed.losses["dvae_losses"]).all()), "resumed losses")
+        model_dir = tmp / "pegasus_2048_2ep"
+        resumed.save(model_dir)
+        del tr, resumed
+        torch.cuda.empty_cache()
+
+        # ---- 19. served through K1-int8 ---------------------------------------
+        w = WarmGenerator(tmp, device=dev)
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        t0 = time.perf_counter()
+        warmed = w.warm_buckets(model_dir, 16)
+        warm_s = time.perf_counter() - t0
+        lat, outs = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            outs.append(w.serve(model_dir)["images"])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        before = w.stats["dispatches"]
+        burst = [None] * 4
+
+        def call(i):
+            burst[i] = w.serve(model_dir)["images"]
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        burst_ms = (time.perf_counter() - t0) * 1e3
+        burst_dispatches = w.stats["dispatches"] - before
+        serve2k_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        sc = w._trainer.config
+        print(f"[19] 2,048-latent serving: SAMPLER_MATMUL_DTYPE={sc.SAMPLER_MATMUL_DTYPE}, sampler "
+              f"{w._trainer.fns.sampler_impl}; warm_buckets {warmed[0]}..{warmed[-1]} in "
+              f"{warm_s * 1e3:.3f} ms; lone request over 10: median {np.median(lat):.3f} ms, "
+              f"max {max(lat):.3f} ms; 4-way burst {burst_ms:.3f} ms in {burst_dispatches} "
+              f"dispatch(es); launches {serve2k_counts}  [{card}]")
+        check(sc.SAMPLER_MATMUL_DTYPE == "int8", "the 2,048-latent serving config did not resolve int8")
+        check(w._trainer.fns.sampler_impl == "cuda_vmem+int8", "2,048-latent serving did not select K1")
+        check(all(not t.is_alive() for t in threads), "a burst request never returned")
+        n_dispatch = len(warmed) + 10 + burst_dispatches
+        check(serve2k_counts == {"K1-int8": n_dispatch},
+              f"every serving dispatch must launch K1-int8 once and nothing else: {serve2k_counts}")
+        for img in outs + burst:
+            check(img.shape == (sc.NUM_READS, 32, 32, 1) and bool(np.isfinite(img).all())
+                  and img.min() >= 0.0 and img.max() <= 1.0, "2,048-latent served images")
+        profile_request(lambda: w.serve(model_dir), "19", "2,048-latent", card)
+        plan_s = w._trainer.plan
+        hp_s, c_s = w._trainer.fns.build_sampler_model(w._trainer.grbm_params)
+        del w
+        w_pt = WarmGenerator(tmp, device=dev, config_overrides={"SAMPLER": "pt"})
+        w_pt.serve(model_dir)  # load and first use
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        lat_pt = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = w_pt.serve(model_dir)["images"]
+            lat_pt.append((time.perf_counter() - t0) * 1e3)
+            check(img.shape == (sc.NUM_READS, 32, 32, 1) and bool(np.isfinite(img).all())
+                  and img.min() >= 0.0 and img.max() <= 1.0, "PT-served images")
+        serve2k_pt_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        pcfg = w_pt._trainer.config
+        rounds = max(1, (pcfg.GIBBS_BURN_IN + pcfg.GIBBS_SWEEPS) // pcfg.GIBBS_SWEEPS)
+        print(f"[19] served under PT ({pcfg.PT_NUM_BETAS} rungs x {pcfg.NUM_READS} chains, "
+              f"{rounds} rounds of {pcfg.GIBBS_SWEEPS} sweeps): sampler "
+              f"{w_pt._trainer.fns.sampler_impl}; 3 requests, median {np.median(lat_pt):.3f} ms; "
+              f"launches {serve2k_pt_counts}  [{card}]")
+        check(serve2k_pt_counts == {"K1-int8-dE": 3 * rounds},
+              f"PT serving must run K1-int8-dE only: {serve2k_pt_counts}")
+        del w_pt
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- 20. flagship epochs through K1-bf16, K1-bf16-dE, K1-int8-dE ----------
+    base = Trainer(config=flag_cfg, device=dev)
+    base.setup()
+    base._load_dataset()
+    flag_paths, flag_states = {}, {}
+    for label, overrides in (("bf16", dict(SAMPLER_MATMUL_DTYPE="bfloat16")),
+                             ("bf16 PT", dict(SAMPLER_MATMUL_DTYPE="bfloat16", SAMPLER="pt")),
+                             ("int8 PT auto", dict(SAMPLER_MATMUL_DTYPE="int8", SAMPLER="pt",
+                                                   PT_NUM_BETAS="auto"))):
+        t = Trainer(config=flag_cfg.replace(**overrides), device=dev)
+        t.graph, t.plan, t.physical_nodes = base.graph, base.plan, base.physical_nodes
+        t.images, t.data_source = base.images, base.data_source
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        t.train_init(1)  # under "auto" the ladder probe runs in here
+        init_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train(1)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        losses = t.losses["dvae_losses"]
+        st = t.state
+        msg = (f"[20] flagship {label}: sampler {t.fns.sampler_impl}; init launches {init_counts}; "
+               f"epoch of {len(losses)} steps {epoch_s * 1e3:.3f} ms; losses finite "
+               f"{bool(np.isfinite(losses).all())} (MSE first {t.losses['mse_losses'][0]:.5f}, "
+               f"last {t.losses['mse_losses'][-1]:.5f}); launches {counts}")
+        if t.config.SAMPLER == "pt":
+            e_rec = ising_energies(st.sampler_h, st.sampler_coupling, st.chains)
+            e_gap = float((st.chain_energies - e_rec).abs().max())
+            msg += (f"; ladder {tuple(st.chains.shape)}; carried vs recomputed energies max gap "
+                    f"{e_gap:.3e} (|E| up to {float(e_rec.abs().max()):.2f})")
+            check(e_gap <= 1e-3 * (1 + float(e_rec.abs().max())),
+                  f"flagship {label}: carried energies drifted")
+        if t.pt_auto_info is not None:
+            msg += f"; auto ladder {t.pt_auto_info}, betas {[round(b, 4) for b in t.config.PT_BETAS]}"
+        print(msg + f"  [{card}]")
+        check(bool(np.isfinite(losses).all()), f"flagship {label}: losses")
+        want = {"bf16": "K1-bf16", "bf16 PT": "K1-bf16-dE", "int8 PT auto": "K1-int8-dE"}[label]
+        check(t.fns.sampler_impl == "cuda_vmem" + ("+int8" if "int8" in label else ""),
+              f"flagship {label} did not select K1")
+        check(set(counts) == {want} and counts[want] > 0, f"flagship {label} must run {want} only")
+        if "auto" in label:
+            check(init_counts.get("K1-int8-dE", 0) > 0, "the auto-ladder probe never launched K1")
+        flag_paths[f"train_flagship_{label.replace(' ', '_')}"] = counts
+        flag_paths[f"init_flagship_{label.replace(' ', '_')}"] = init_counts
+        flag_states[label] = (t.plan, st)
+    del base
+
+    # ---- 21. times and bounds at the paths' shapes ----------------------------
+    gk = torch.Generator(device=dev)
+    gk.manual_seed(8)
+    serve_sweeps = cfg2k.GIBBS_BURN_IN + cfg2k.GIBBS_SWEEPS
+    pt_serve = torch.tensor(cfg2k.initial_pt_betas(), dtype=torch.float32,
+                            device=dev).repeat_interleave(cfg2k.NUM_READS)
+    plan_b, st_b = flag_states["bf16"]
+    plan_pt, st_pt = flag_states["bf16 PT"]
+    shapes = {  # mode: (args, description)
+        "K1-bf16": ((st_b.sampler_h, st_b.sampler_coupling, plan_b, st_b.chains,
+                     flag_cfg.GIBBS_SWEEPS, 1.0), "flagship training"),
+        "K1-bf16-dE": ((st_pt.sampler_h, st_pt.sampler_coupling, plan_pt,
+                        st_pt.chains.reshape(-1, plan_pt.n_pad), flag_cfg.GIBBS_SWEEPS,
+                        st_pt.pt_betas.repeat_interleave(flag_cfg.NUM_READS)),
+                       "flagship PT training"),
+        "K1-int8": ((hp_s, c_s, plan_s, random_spins(gk, plan_s, 256, dev), serve_sweeps, 1.0),
+                    "2,048-latent serving"),
+        "K1-int8-dE": ((hp_s, c_s, plan_s, random_spins(gk, plan_s, pt_serve.shape[0], dev),
+                        cfg2k.GIBBS_SWEEPS, pt_serve), "2,048-latent PT serving round"),
+    }
+    kernels = []
+    for dtype, de in K1_MODES:
+        name = k1_mode(dtype, de)
+        args, what = shapes[name]
+        n_c, n_sw = args[3].shape[0], args[4]
+        ms = cuda_ms(lambda: k1(*args, generator=gk, track_delta_e=de), 10, warmup=2)
+        plain_ms = cuda_ms(lambda: plain(*args, generator=gk, track_delta_e=de), 3, warmup=1)
+        bound = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_sw, de)
+        rows = gibbs_cuda.default_rows(args[2], n_c, K1_DTYPES[dtype])
+        print(f"[21] {name} {n_c} chains x {n_sw} sweeps ({what}, n_pad {args[2].n_pad}, R={rows}): "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0] * 1e3:.3f} us ({bound[1]}); "
+              f"dense-product work {2 * n_c * n_sw * args[2].n_pad ** 2 / 1e9:.2f} G  [{card}]")
+        kernels.append({
+            "name": f"gibbs_sweeps ({name})",
+            "mode": name,
+            "route": "cuda",
+            "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
+            "replaces": "image_generation_tpu/ops/gibbs_pallas.py:" + ("121" if de else "141"),
+            "launches": 0,  # filled in from the paths below
+            "max_abs_err": errs[name],
+            "tolerance": f">= {CHAIN_RULE:.0%} of chains bit-identical to the plain version"
+                         + ("; dE within 1e-3*(1+|E|) on identical chains" if de else ""),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "library_ms": None,
+            "shape": f"{n_c} chains x {n_sw} sweeps, n_pad {args[2].n_pad} ({what})",
+        })
+    # rows per thread block at the 2,048-latent serving shape (measured, not tuned)
+    s_serve = random_spins(gk, plan_s, 256, dev)
+    for dtype, c in (("int8", c_s), ("bf16", dequantize_coupling(c_s).to(torch.bfloat16))):
+        row = []
+        for r in sorted(gibbs_cuda._ROWS):
+            ms_r = cuda_ms(lambda: k1(hp_s, c, plan_s, s_serve, serve_sweeps, generator=gk,
+                                      _rows_per_block=r), 3, warmup=1)
+            row.append(f"R={r}: {ms_r:.4f} ms")
+        dflt = gibbs_cuda.default_rows(plan_s, 256, K1_DTYPES[dtype])
+        print(f"[21] K1-{dtype} 256 chains x {serve_sweeps} sweeps (2,048-latent serving shape) by "
+              f"rows per block (default R={dflt}): {'; '.join(row)}  [{card}]")
+    paths = {"train_2k": train2k_counts, "resume_2k": resume_counts, "serve_2k": serve2k_counts,
+             "serve_2k_pt": serve2k_pt_counts, **flag_paths}
+    for entry in kernels:
+        entry["launches"] = sum(cnt.get(entry["mode"], 0) for cnt in paths.values())
+    return {"paths": paths, "kernels": kernels}
 
 
 # a 12-spin test graph: a ring plus chords (unique, no self-loops)

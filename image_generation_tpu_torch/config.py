@@ -51,7 +51,8 @@ class TrainingConfig:
     GIBBS_SWEEPS: int = 16
     GIBBS_BURN_IN: int = 64
     PERSISTENT_CHAINS: bool = True
-    PT_NUM_BETAS: int = 8  # or "auto"
+    PT_NUM_BETAS: int = 8  # or "auto": the Trainer sizes the ladder by a
+    # swap-acceptance probe (ops/pt_tune.size_ladder) and freezes PT_BETAS
     PT_BETA_MIN: float = 0.25
     PT_BETAS: Optional[tuple] = None
     PT_ADAPT: str = "off"  # "off" | "epoch"
@@ -142,10 +143,10 @@ class TrainingConfig:
         if self.PT_BETAS is not None:
             return np.asarray(self.PT_BETAS, np.float64)
         if self.PT_NUM_BETAS == "auto":
-            raise NotImplementedError(
-                "PT_NUM_BETAS='auto' (parallel tempering ladder sizing by an "
-                "acceptance probe, ops/pt_tune.size_ladder) is not ported; "
-                "pass an explicit PT_NUM_BETAS or PT_BETAS"
+            raise RuntimeError(
+                "PT_NUM_BETAS='auto' has not been resolved yet: the Trainer "
+                "sizes the ladder at train_init/load (or pass an explicit "
+                "PT_BETAS ladder)"
             )
         return np.geomspace(self.PT_BETA_MIN, 1.0, self.PT_NUM_BETAS)
 

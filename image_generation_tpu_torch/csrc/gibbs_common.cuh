@@ -1,0 +1,185 @@
+// Pieces the sweep kernels share (K1 in gibbs_sweeps.cu, K2 and K3 in
+// gibbs_hbm.cu): the in-kernel Philox generator and, per coupling type, how
+// spins are held and how kStep coupling rows meet R spin rows.
+//
+// Coupling types: f32; bf16 stored as its 16 bits (read with shifts, no
+// bf16 conversion intrinsics needed); int8 in quantized units.  Spins are
+// held in the coupling's type (+-1 and 0 are exact in each).  f32 and bf16
+// products accumulate in f32, int8 products exactly in int32 (__dp4a).
+// Each step adds coupling rows k .. k + kStep - 1 of one column (read at
+// stride ld, coalesced across the threads that own neighbouring columns)
+// into R accumulators, in row order, against spins read from shared memory
+// as broadcast vectors.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kStep = 8;  // coupling rows a thread loads before using them
+
+typedef uint16_t bf16_bits;  // bf16 stored as its 16 bits
+
+__device__ __forceinline__ uint32_t mulhilo32(uint32_t a, uint32_t b,
+                                              uint32_t* hi) {
+  const uint64_t p = static_cast<uint64_t>(a) * static_cast<uint64_t>(b);
+  *hi = static_cast<uint32_t>(p >> 32);
+  return static_cast<uint32_t>(p);
+}
+
+// First 32-bit word of Philox4x32-10(counter, key) (Salmon et al., SC'11).
+__device__ __forceinline__ uint32_t philox4x32_10(uint32_t c0, uint32_t c1,
+                                                  uint32_t c2, uint32_t c3,
+                                                  uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    uint32_t hi0, hi1;
+    const uint32_t lo0 = mulhilo32(0xD2511F53u, c0, &hi0);
+    const uint32_t lo1 = mulhilo32(0xCD9E8D57u, c2, &hi1);
+    const uint32_t n0 = hi1 ^ c1 ^ k0;
+    const uint32_t n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
+}
+
+// The uniform of (column, chain row, sweep): fed ([sweep, row, column] of a
+// (n_sweeps, n_chains, n_pad) array) or drawn from Philox with the counter
+// (column, row, sweep, 0), u = (bits >> 8) * 2^-24, as on the TPU.
+__device__ __forceinline__ float draw_uniform(const float* uniforms, int c,
+                                              int row, int sweep, int n_chains,
+                                              int n_pad, uint32_t key0,
+                                              uint32_t key1) {
+  if (uniforms != nullptr) {
+    return uniforms[(static_cast<size_t>(sweep) * n_chains + row) * n_pad + c];
+  }
+  const uint32_t bits = philox4x32_10(static_cast<uint32_t>(c),
+                                      static_cast<uint32_t>(row),
+                                      static_cast<uint32_t>(sweep), 0u, key0,
+                                      key1);
+  return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+// Per coupling type: the accumulator, +-1 and 0 in the spin type, the spin
+// as f32, and kStep coupling rows times R spin rows accumulated into acc.
+template <typename T>
+struct Ops;
+
+template <>
+struct Ops<float> {
+  typedef float Acc;
+  static __device__ __forceinline__ float spin(bool up) { return up ? 1.0f : -1.0f; }
+  static __device__ __forceinline__ float zero() { return 0.0f; }
+  static __device__ __forceinline__ float to_f32(float s) { return s; }
+  static __device__ __forceinline__ float from_f32(float s) { return s; }
+  static __device__ __forceinline__ float acc_f32(float a) { return a; }
+  template <int R>
+  static __device__ __forceinline__ void step(float (&acc)[R], const float* a,
+                                              size_t ld, const float* s,
+                                              int n_pad) {
+    float av[kStep];
+#pragma unroll
+    for (int j = 0; j < kStep; ++j) av[j] = __ldg(a + j * ld);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 x = *reinterpret_cast<const float4*>(s + r * n_pad);
+      const float4 y = *reinterpret_cast<const float4*>(s + r * n_pad + 4);
+      acc[r] = fmaf(x.x, av[0], acc[r]);
+      acc[r] = fmaf(x.y, av[1], acc[r]);
+      acc[r] = fmaf(x.z, av[2], acc[r]);
+      acc[r] = fmaf(x.w, av[3], acc[r]);
+      acc[r] = fmaf(y.x, av[4], acc[r]);
+      acc[r] = fmaf(y.y, av[5], acc[r]);
+      acc[r] = fmaf(y.z, av[6], acc[r]);
+      acc[r] = fmaf(y.w, av[7], acc[r]);
+    }
+  }
+};
+
+template <>
+struct Ops<bf16_bits> {
+  typedef float Acc;
+  static __device__ __forceinline__ bf16_bits spin(bool up) {
+    return up ? 0x3F80u : 0xBF80u;  // +1.0, -1.0
+  }
+  static __device__ __forceinline__ bf16_bits zero() { return 0u; }
+  static __device__ __forceinline__ float to_f32(bf16_bits s) {
+    return __uint_as_float(static_cast<uint32_t>(s) << 16);
+  }
+  static __device__ __forceinline__ bf16_bits from_f32(float s) {
+    return static_cast<bf16_bits>(__float_as_uint(s) >> 16);  // exact for +-1, 0
+  }
+  static __device__ __forceinline__ float acc_f32(float a) { return a; }
+  template <int R>
+  static __device__ __forceinline__ void step(float (&acc)[R],
+                                              const bf16_bits* a, size_t ld,
+                                              const bf16_bits* s, int n_pad) {
+    float av[kStep];
+#pragma unroll
+    for (int j = 0; j < kStep; ++j) {
+      av[j] = __uint_as_float(static_cast<uint32_t>(__ldg(a + j * ld)) << 16);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uint4 w = *reinterpret_cast<const uint4*>(s + r * n_pad);
+      acc[r] = fmaf(bf16_lo(w.x), av[0], acc[r]);
+      acc[r] = fmaf(bf16_hi(w.x), av[1], acc[r]);
+      acc[r] = fmaf(bf16_lo(w.y), av[2], acc[r]);
+      acc[r] = fmaf(bf16_hi(w.y), av[3], acc[r]);
+      acc[r] = fmaf(bf16_lo(w.z), av[4], acc[r]);
+      acc[r] = fmaf(bf16_hi(w.z), av[5], acc[r]);
+      acc[r] = fmaf(bf16_lo(w.w), av[6], acc[r]);
+      acc[r] = fmaf(bf16_hi(w.w), av[7], acc[r]);
+    }
+  }
+};
+
+template <>
+struct Ops<int8_t> {
+  typedef int Acc;
+  static __device__ __forceinline__ int8_t spin(bool up) { return up ? 1 : -1; }
+  static __device__ __forceinline__ int8_t zero() { return 0; }
+  static __device__ __forceinline__ float to_f32(int8_t s) {
+    return static_cast<float>(s);
+  }
+  static __device__ __forceinline__ int8_t from_f32(float s) {
+    return static_cast<int8_t>(s);  // +-1 or 0
+  }
+  static __device__ __forceinline__ float acc_f32(int a) {
+    return static_cast<float>(a);  // exact: |a| <= n_pad * 127 < 2^24
+  }
+  template <int R>
+  static __device__ __forceinline__ void step(int (&acc)[R], const int8_t* a,
+                                              size_t ld, const int8_t* s,
+                                              int n_pad) {
+    const unsigned char* au = reinterpret_cast<const unsigned char*>(a);
+    uint32_t b[kStep];
+#pragma unroll
+    for (int j = 0; j < kStep; ++j) b[j] = __ldg(au + j * ld);
+    // byte j of lo / hi is coupling row k + j (k + 4 + j), like the spins'
+    const int lo = static_cast<int>(b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24));
+    const int hi = static_cast<int>(b[4] | (b[5] << 8) | (b[6] << 16) | (b[7] << 24));
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int2 w = *reinterpret_cast<const int2*>(s + r * n_pad);
+      acc[r] = __dp4a(w.x, lo, acc[r]);
+      acc[r] = __dp4a(w.y, hi, acc[r]);
+    }
+  }
+};
+
+}  // namespace

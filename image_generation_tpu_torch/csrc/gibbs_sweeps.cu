@@ -1,11 +1,12 @@
-// Fused multi-sweep colored block-Gibbs for Hopper (sm_90a), f32.
+// Fused multi-sweep colored block-Gibbs for Hopper (sm_90a): kernel K1,
+// with an f32, bf16 or int8 coupling.
 //
 // Replaces the Pallas TPU kernel image_generation_tpu/ops/gibbs_pallas.py
 // (_kernel, _kernel_fed and their shared body _color_update).  It computes
 // exactly what they compute: n_sweeps sweeps, each updating the color
 // blocks of the plan in order,
 //
-//     fields = S[:, :] @ A[:, c0:c1] + h[c0:c1]      (f32 accumulation)
+//     fields = S[:, :] @ A[:, c0:c1] + h[c0:c1]
 //     p      = sigmoid(-2 * beta_chain * fields)
 //     S[:, c0:c1] = u < p ? +1 : -1
 //
@@ -14,6 +15,14 @@
 // Philox4x32-10 keyed by a 64-bit seed with the counter (column, global
 // chain row, sweep, 0), so the stream does not depend on the block size;
 // u = (bits >> 8) * 2^-24, as on the TPU.
+//
+// Coupling types (_color_update's three cases, gibbs_common.cuh's Ops<T>):
+// f32; bf16, the +-1 spins times bf16 couplings accumulated in f32; int8,
+// products accumulated exactly in int32 (__dp4a) in the quantized units of
+// gibbs_sweeps_pallas: the caller passes h / scale and beta * scale, so the
+// body never sees the scale, and multiplies delta_e by the scale.  Spins
+// are held in the coupling's type in shared memory (+-1 is exact in each)
+// and come back as f32.
 //
 // Energy carry (the Pallas kernels' de_ref, _color_update's track mode,
 // which parallel tempering uses to carry ladder energies across rounds):
@@ -28,23 +37,26 @@
 // version's (per block, then per sweep), so the two agree to f32
 // rounding.  Padding columns have h = 0 and zero coupling: they add 0.
 //
-// What bounds it on the H100.  The serving shape is C = 256 * bucket
+// What bounds it on the H100.  The f32 serving shape is C = 256 * bucket
 // chains over n_pad = 640 padded spins, 80 sweeps: 2*C*n_pad^2 FLOP per
 // sweep, 16.8 GFLOP for a 256-image request, at about 1 FLOP per byte of
-// coupling read.  The TPU kernel held the whole coupling (1.64 MB in f32)
-// in VMEM; a Hopper block has 227 KB of shared memory, so here the
-// coupling stays in global memory and lives in the 50 MB L2, and every
-// color step streams its column panel A[:, c0:c1] from there, coalesced
-// across columns.  The chains are independent: one thread block owns R
-// chain rows and keeps their spins in shared memory for the whole run
-// (R * n_pad * 4 B, 20 KB at R = 8), plus a staging row block for the
-// new spins of one color, so the fields of a color step are computed from
-// the spins as they were when the step began.  Each thread owns columns
-// and accumulates R fields in registers; a coupling value read from L2
-// feeds R FMAs, and the spins are read from shared memory as broadcast
-// float4.  R trades L2 traffic (every block re-reads the whole coupling
+// coupling read.  The int8 serving shape of a 2,048-latent model is
+// n_pad = 2,432: 242 G integer operations per 256-image request over a
+// 5.9 MB int8 matrix.  The TPU kernel held the whole coupling in VMEM; a
+// Hopper block has 227 KB of shared memory, so here the coupling stays in
+// global memory and lives in the 50 MB L2, and every color step streams
+// its column panel A[:, c0:c1] from there, coalesced across columns.  The
+// chains are independent: one thread block owns R chain rows and keeps
+// their spins in shared memory for the whole run (R * n_pad values of the
+// coupling's type), plus a staging row block for the new spins of one
+// color, so the fields of a color step are computed from the spins as they
+// were when the step began.  Each thread owns columns and accumulates R
+// fields in registers; a coupling value read from L2 feeds R
+// multiply-adds, and the spins are read from shared memory as broadcast
+// vectors.  R trades L2 traffic (every block re-reads the whole coupling
 // once per sweep) against filled SMs (C / R blocks); the wrapper picks it.
-// Tensor cores, a smaller pad and block sparsity are left to later work.
+// Tensor cores, TMA, a smaller pad and block sparsity are left to later
+// work.
 //
 // Plain C interface for ctypes: the wrapper allocates everything, the
 // kernel launches on the caller's stream, does not synchronise, and the
@@ -52,6 +64,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gibbs_common.cuh"  // Philox, the uniform draw, Ops<T>, kStep
 
 namespace {
 
@@ -64,39 +78,11 @@ struct Bounds {
   int c1[kMaxBlocks];
 };
 
-__device__ __forceinline__ uint32_t mulhilo32(uint32_t a, uint32_t b,
-                                              uint32_t* hi) {
-  const uint64_t p = static_cast<uint64_t>(a) * static_cast<uint64_t>(b);
-  *hi = static_cast<uint32_t>(p >> 32);
-  return static_cast<uint32_t>(p);
-}
-
-// First 32-bit word of Philox4x32-10(counter, key) (Salmon et al., SC'11).
-__device__ __forceinline__ uint32_t philox4x32_10(uint32_t c0, uint32_t c1,
-                                                  uint32_t c2, uint32_t c3,
-                                                  uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    uint32_t hi0, hi1;
-    const uint32_t lo0 = mulhilo32(0xD2511F53u, c0, &hi0);
-    const uint32_t lo1 = mulhilo32(0xCD9E8D57u, c2, &hi1);
-    const uint32_t n0 = hi1 ^ c1 ^ k0;
-    const uint32_t n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c0;
-}
-
-template <int R>
+template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 gibbs_sweeps_kernel(const float* __restrict__ spins_in,
                     float* __restrict__ spins_out,
-                    const float* __restrict__ coupling,
+                    const T* __restrict__ coupling,
                     const float* __restrict__ h,
                     const float* __restrict__ beta,
                     const float* __restrict__ uniforms,  // null: Philox
@@ -105,9 +91,10 @@ gibbs_sweeps_kernel(const float* __restrict__ spins_in,
                     const Bounds bounds, const int n_blocks,
                     const int n_chains, const int n_pad, const int max_width,
                     const int n_sweeps) {
+  typedef typename Ops<T>::Acc Acc;
   extern __shared__ float4 smem4[];
-  float* spins = reinterpret_cast<float*>(smem4);  // R x n_pad
-  float* stage = spins + R * n_pad;                 // R x max_width
+  T* spins = reinterpret_cast<T*>(smem4);  // R x n_pad
+  T* stage = spins + R * n_pad;            // R x max_width
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * R;
   const int rows = min(R, n_chains - row0);
@@ -129,8 +116,8 @@ gibbs_sweeps_kernel(const float* __restrict__ spins_in,
   for (int i = tid; i < R * n_pad; i += kThreads) {
     const int r = i / n_pad;
     spins[i] = r < rows
-        ? spins_in[static_cast<size_t>(row0 + r) * n_pad + (i - r * n_pad)]
-        : 0.0f;
+        ? Ops<T>::from_f32(spins_in[static_cast<size_t>(row0 + r) * n_pad + (i - r * n_pad)])
+        : Ops<T>::zero();
   }
   __syncthreads();
 
@@ -139,48 +126,28 @@ gibbs_sweeps_kernel(const float* __restrict__ spins_in,
       const int c0 = bounds.c0[b];
       const int c1 = bounds.c1[b];
       for (int c = c0 + tid; c < c1; c += kThreads) {
-        float acc[R];
+        Acc acc[R];
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-        const float* a_col = coupling + c;
-        for (int k = 0; k < n_pad; k += 4) {
-          const float a0 = __ldg(a_col + static_cast<size_t>(k) * n_pad);
-          const float a1 = __ldg(a_col + static_cast<size_t>(k + 1) * n_pad);
-          const float a2 = __ldg(a_col + static_cast<size_t>(k + 2) * n_pad);
-          const float a3 = __ldg(a_col + static_cast<size_t>(k + 3) * n_pad);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float4 s =
-                *reinterpret_cast<const float4*>(spins + r * n_pad + k);
-            acc[r] = fmaf(s.x, a0, acc[r]);
-            acc[r] = fmaf(s.y, a1, acc[r]);
-            acc[r] = fmaf(s.z, a2, acc[r]);
-            acc[r] = fmaf(s.w, a3, acc[r]);
-          }
+        for (int r = 0; r < R; ++r) acc[r] = 0;
+        const T* a_col = coupling + c;
+        for (int k = 0; k < n_pad; k += kStep) {
+          Ops<T>::template step<R>(acc, a_col + static_cast<size_t>(k) * n_pad,
+                                   static_cast<size_t>(n_pad), spins + k, n_pad);
         }
         const float hc = h[c];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (r < rows) {
-            const float f = acc[r] + hc;
+            const float f = Ops<T>::acc_f32(acc[r]) + hc;
             const float x = neg2beta[r] * f;
             const float p = 1.0f / (1.0f + expf(-x));
-            const int row = row0 + r;
-            float u;
-            if (uniforms != nullptr) {
-              u = uniforms[(static_cast<size_t>(sweep) * n_chains + row) *
-                               n_pad + c];
-            } else {
-              const uint32_t bits = philox4x32_10(
-                  static_cast<uint32_t>(c), static_cast<uint32_t>(row),
-                  static_cast<uint32_t>(sweep), 0u, key0, key1);
-              u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
-            }
-            const float s_new = u < p ? 1.0f : -1.0f;
-            stage[r * max_width + (c - c0)] = s_new;
+            const float u = draw_uniform(uniforms, c, row0 + r, sweep, n_chains, n_pad,
+                                         key0, key1);
+            const bool up = u < p;
+            stage[r * max_width + (c - c0)] = Ops<T>::spin(up);
             if (delta_e != nullptr) {
               // f * (new - old) is exact: new - old is 0 or +-2
-              de[r] += f * (s_new - spins[r * n_pad + c]);
+              de[r] += f * ((up ? 1.0f : -1.0f) - Ops<T>::to_f32(spins[r * n_pad + c]));
             }
           }
         }
@@ -199,7 +166,7 @@ gibbs_sweeps_kernel(const float* __restrict__ spins_in,
   for (int i = tid; i < rows * n_pad; i += kThreads) {
     const int r = i / n_pad;
     spins_out[static_cast<size_t>(row0 + r) * n_pad + (i - r * n_pad)] =
-        spins[i];
+        Ops<T>::to_f32(spins[i]);
   }
 
   if (delta_e != nullptr) {  // uniform across the block: barrier is safe
@@ -225,24 +192,49 @@ gibbs_sweeps_kernel(const float* __restrict__ spins_in,
   }
 }
 
-template <int R>
-cudaError_t launch(const float* spins_in, float* spins_out,
-                   const float* coupling, const float* h, const float* beta,
-                   const float* uniforms, const int64_t* seed,
-                   float* delta_e, const Bounds& bounds, int n_blocks,
-                   int n_chains, int n_pad, int max_width, int n_sweeps,
-                   cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(R) * (n_pad + max_width) * sizeof(float);
+template <typename T>
+size_t smem_bytes(int rows_per_block, int n_pad, int max_width) {
+  return static_cast<size_t>(rows_per_block) * (n_pad + max_width) * sizeof(T);
+}
+
+struct Args {
+  const float* spins_in;
+  float* spins_out;
+  const void* coupling;
+  const float* h;
+  const float* beta;
+  const float* uniforms;
+  const int64_t* seed;
+  float* delta_e;
+  Bounds bounds;
+  int n_blocks, n_chains, n_pad, max_width, n_sweeps;
+  cudaStream_t stream;
+};
+
+template <typename T, int R>
+cudaError_t launch(const Args& a) {
+  const size_t smem = smem_bytes<T>(R, a.n_pad, a.max_width);
   cudaError_t err = cudaFuncSetAttribute(
-      gibbs_sweeps_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gibbs_sweeps_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int grid = (n_chains + R - 1) / R;
-  gibbs_sweeps_kernel<R><<<grid, kThreads, smem, stream>>>(
-      spins_in, spins_out, coupling, h, beta, uniforms, seed, delta_e,
-      bounds, n_blocks, n_chains, n_pad, max_width, n_sweeps);
+  const int grid = (a.n_chains + R - 1) / R;
+  gibbs_sweeps_kernel<T, R><<<grid, kThreads, smem, a.stream>>>(
+      a.spins_in, a.spins_out, static_cast<const T*>(a.coupling), a.h, a.beta,
+      a.uniforms, a.seed, a.delta_e, a.bounds, a.n_blocks, a.n_chains, a.n_pad,
+      a.max_width, a.n_sweeps);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_rows(const Args& a, int rows_per_block) {
+  switch (rows_per_block) {
+    case 1: return launch<T, 1>(a);
+    case 2: return launch<T, 2>(a);
+    case 4: return launch<T, 4>(a);
+    case 8: return launch<T, 8>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -251,53 +243,50 @@ extern "C" {
 
 int gibbs_sweeps_max_blocks() { return kMaxBlocks; }
 
+int gibbs_sweeps_step() { return kStep; }
+
 const char* gibbs_sweeps_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// block_bounds: host array of n_blocks (c0, c1) pairs.  rows_per_block is
-// one of 1, 2, 4, 8.  delta_e: null, or (n_chains,) f32 for the energy
-// change of the run.  Returns a cudaError_t (0 on success).
-int gibbs_sweeps_f32(const float* spins_in, float* spins_out,
-                     const float* coupling, const float* h, const float* beta,
-                     const float* uniforms, const int64_t* seed,
-                     float* delta_e, const int* block_bounds, int n_blocks,
-                     int n_chains, int n_pad, int max_width, int n_sweeps,
-                     int rows_per_block, void* stream) {
-  if (n_blocks < 1 || n_blocks > kMaxBlocks || n_pad % 4 != 0 ||
+// Dynamic shared memory one thread block needs, in bytes (0 for an unknown
+// dtype): the wrapper checks it against the card's limit.
+long long gibbs_sweeps_smem_bytes(int dtype, int rows_per_block, int n_pad,
+                                  int max_width) {
+  switch (dtype) {
+    case 0: return smem_bytes<float>(rows_per_block, n_pad, max_width);
+    case 1: return smem_bytes<bf16_bits>(rows_per_block, n_pad, max_width);
+    case 2: return smem_bytes<int8_t>(rows_per_block, n_pad, max_width);
+    default: return 0;
+  }
+}
+
+// dtype: 0 f32, 1 bf16 (its 16 bits), 2 int8 (quantized units: h / scale,
+// beta * scale).  block_bounds: host array of n_blocks (c0, c1) pairs.
+// rows_per_block is one of 1, 2, 4, 8.  delta_e: null, or (n_chains,) f32
+// for the energy change of the run.  Returns a cudaError_t (0 on success).
+int gibbs_sweeps(int dtype, const float* spins_in, float* spins_out,
+                 const void* coupling, const float* h, const float* beta,
+                 const float* uniforms, const int64_t* seed, float* delta_e,
+                 const int* block_bounds, int n_blocks, int n_chains, int n_pad,
+                 int max_width, int n_sweeps, int rows_per_block, void* stream) {
+  if (n_blocks < 1 || n_blocks > kMaxBlocks || n_pad % kStep != 0 ||
       n_chains < 1 || max_width < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Bounds bounds;
+  Args a{spins_in, spins_out, coupling, h, beta, uniforms, seed, delta_e,
+         Bounds{}, n_blocks, n_chains, n_pad, max_width, n_sweeps,
+         static_cast<cudaStream_t>(stream)};
   for (int b = 0; b < n_blocks; ++b) {
-    bounds.c0[b] = block_bounds[2 * b];
-    bounds.c1[b] = block_bounds[2 * b + 1];
+    a.bounds.c0[b] = block_bounds[2 * b];
+    a.bounds.c1[b] = block_bounds[2 * b + 1];
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (rows_per_block) {
-    case 1:
-      err = launch<1>(spins_in, spins_out, coupling, h, beta, uniforms, seed,
-                      delta_e, bounds, n_blocks, n_chains, n_pad, max_width,
-                      n_sweeps, s);
-      break;
-    case 2:
-      err = launch<2>(spins_in, spins_out, coupling, h, beta, uniforms, seed,
-                      delta_e, bounds, n_blocks, n_chains, n_pad, max_width,
-                      n_sweeps, s);
-      break;
-    case 4:
-      err = launch<4>(spins_in, spins_out, coupling, h, beta, uniforms, seed,
-                      delta_e, bounds, n_blocks, n_chains, n_pad, max_width,
-                      n_sweeps, s);
-      break;
-    case 8:
-      err = launch<8>(spins_in, spins_out, coupling, h, beta, uniforms, seed,
-                      delta_e, bounds, n_blocks, n_chains, n_pad, max_width,
-                      n_sweeps, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: err = launch_rows<float>(a, rows_per_block); break;
+    case 1: err = launch_rows<bf16_bits>(a, rows_per_block); break;
+    case 2: err = launch_rows<int8_t>(a, rows_per_block); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

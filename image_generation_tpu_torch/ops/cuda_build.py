@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into
+Every ``.cu`` source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, under ``_build/`` in this
 package, and bound with ``ctypes`` by its wrapper module.  The libraries
-are keyed on one hash of every source and the flags.  The first call
-builds whatever is missing, one ``nvcc`` per source, all started together,
-and loads every library; later calls return the loaded ones.
+are keyed on one hash of every source, the headers they include and the
+flags.  The first call builds whatever is missing, one ``nvcc`` per
+source, all started together, and loads every library; later calls return
+the loaded ones.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ SOURCES = {  # library name -> source
     "gibbs_sweeps": _PKG / "csrc" / "gibbs_sweeps.cu",  # K1
     "gibbs_hbm": _PKG / "csrc" / "gibbs_hbm.cu",  # K2, K3
 }
+_HEADERS = (_PKG / "csrc" / "gibbs_common.cuh",)  # included by the sources above
 _BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: expf stays within an ulp of torch.sigmoid's exp
 _NVCC_FLAGS = (
@@ -72,6 +74,8 @@ def load_libraries() -> Dict[str, KernelLibrary]:
         h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
         for name in sorted(SOURCES):
             h.update(name.encode() + SOURCES[name].read_bytes())
+        for header in sorted(_HEADERS):
+            h.update(header.name.encode() + header.read_bytes())
         digest = h.hexdigest()[:16]
         targets = {name: _BUILD_DIR / f"{name}_{digest}.so" for name in SOURCES}
         jobs = {}

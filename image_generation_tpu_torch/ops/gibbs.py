@@ -2,14 +2,15 @@
 
 Port of ``image_generation_tpu/ops/gibbs.py``.  The host half (the plan)
 is the same numpy code, so both packages put every spin at the same padded
-position.  The tensor half builds the permuted model and holds
-``gibbs_sweeps_reference``, the plain PyTorch version of the sweep kernel
-(``ops/gibbs_cuda.py``), ``ising_energies`` and parallel tempering
-(``pt_round``, ``pt_sample``), which carries its ladder energies across
-rounds through the sweep's ``track_delta_e`` mode.  The sweep, the
-energies and parallel tempering take every form the cached coupling is
-stored in: dense f32 or bf16, int8 (``ops/quant.py``) and packed
-block-sparse panels (``ops/block_sparse.py``).
+position.  The tensor half builds the permuted model and holds the plain
+sweeps (``gibbs_sweeps_reference`` with the XLA semantics,
+``gibbs_sweeps_kernel_reference`` with the Pallas kernels', the twin of
+the sweep kernel K1 in ``ops/gibbs_cuda.py``), ``ising_energies`` and
+parallel tempering (``pt_round``, ``pt_sample``), which carries its ladder
+energies across rounds through the sweep's ``track_delta_e`` mode.  The
+sweep, the energies and parallel tempering take every form the cached
+coupling is stored in: dense f32 or bf16, int8 (``ops/quant.py``) and
+packed block-sparse panels (``ops/block_sparse.py``).
 
 Spins live in a color-permuted, padded coordinate system: each color block
 of the plan is one contiguous column range, padded to ``pad_to``.  A color
@@ -51,6 +52,9 @@ __all__ = [
     "block_products",
     "sweep_blocks",
     "gibbs_sweeps_reference",
+    "gibbs_sweeps_kernel_reference",
+    "sweeps_in_kernel_units",
+    "is_quantized",
     "ising_energies",
     "pt_round",
     "pt_sample",
@@ -314,6 +318,69 @@ def sweep_blocks(hp: torch.Tensor, products, plan: GibbsPlan, spins_p: torch.Ten
     return (s, de) if track_delta_e else s
 
 
+def _check_uniforms(uniforms, n_sweeps: int, chains: int, n_pad: int) -> None:
+    if uniforms is not None and tuple(uniforms.shape) != (n_sweeps, chains, n_pad):
+        raise ValueError(
+            f"uniforms must be {(n_sweeps, chains, n_pad)}, got {tuple(uniforms.shape)}"
+        )
+
+
+def is_quantized(coupling_p) -> bool:
+    """Whether the stored coupling is int8: a ``QuantCoupling`` or int8
+    block-sparse panels."""
+    return isinstance(coupling_p, QuantCoupling) or (
+        isinstance(coupling_p, BlockSparseCoupling) and coupling_p.quantized)
+
+
+def sweeps_in_kernel_units(hp: torch.Tensor, coupling_p, plan: GibbsPlan,
+                           spins_p: torch.Tensor, n_sweeps: int, beta,
+                           generator: Optional[torch.Generator],
+                           uniforms: Optional[torch.Tensor], track_delta_e: bool):
+    """The sweep loop in the Pallas kernels' units: for an int8 coupling
+    fields = exact integer products + h / scale, β · scale, and ΔE × scale
+    at the end (``gibbs_sweeps_pallas`` L234-246, L290-297); every other
+    form as ``gibbs_sweeps_reference``.  Shared by the plain versions of
+    K1 (``gibbs_sweeps_kernel_reference``) and of K2 / K3."""
+    quant = is_quantized(coupling_p)
+    if quant:
+        scale = coupling_p.scale
+        hp = hp / scale
+        beta = torch.as_tensor(beta, dtype=torch.float32, device=spins_p.device) * scale
+    out = sweep_blocks(hp, block_products(coupling_p, plan, scaled=False), plan, spins_p,
+                       n_sweeps, beta, generator, uniforms, track_delta_e)
+    if track_delta_e and quant:
+        return out[0], out[1] * scale
+    return out
+
+
+def gibbs_sweeps_kernel_reference(
+    hp: torch.Tensor,
+    coupling_p,
+    plan: GibbsPlan,
+    spins_p: torch.Tensor,
+    n_sweeps: int,
+    beta=1.0,
+    *,
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,
+    track_delta_e: bool = False,
+):
+    """The plain version of the sweep kernel K1 in every mode
+    (``ops/gibbs_cuda.py``), with the Pallas kernel's semantics
+    (``gibbs_pallas.py`` ``_color_update``): per block of ``plan.blocks`` in
+    order, padding columns included; f32 and bf16 couplings as
+    ``gibbs_sweeps_reference`` (a bf16 coupling read as f32: f32
+    accumulation of exact ±1 × bf16 products), and a ``QuantCoupling`` in
+    quantized units (``sweeps_in_kernel_units``).  Same arguments and
+    returns as ``gibbs_sweeps_reference``."""
+    chains, n_pad = spins_p.shape
+    if n_pad != plan.n_pad:
+        raise ValueError(f"spins have {n_pad} columns, the plan {plan.n_pad}")
+    _check_uniforms(uniforms, n_sweeps, chains, n_pad)
+    return sweeps_in_kernel_units(hp, coupling_p, plan, spins_p, n_sweeps, beta, generator,
+                                  uniforms, track_delta_e)
+
+
 def gibbs_sweeps_reference(
     hp: torch.Tensor,
     coupling_p,
@@ -326,14 +393,16 @@ def gibbs_sweeps_reference(
     uniforms: Optional[torch.Tensor] = None,
     track_delta_e: bool = False,
 ):
-    """``n_sweeps`` colored block-Gibbs sweeps in plain PyTorch.
-
-    For a dense f32 coupling this is the twin of the sweep kernel K1, with
-    the Pallas kernel's semantics (``gibbs_pallas.py`` ``_color_update``):
-    one update per block of ``plan.blocks``, in order, padding columns
-    included.  It takes every stored form of the coupling (bf16, a
-    ``QuantCoupling``, a ``BlockSparseCoupling``) with the JAX package's
-    XLA sweep semantics: fields = products (× scale for int8) + h.
+    """``n_sweeps`` colored block-Gibbs sweeps in plain PyTorch, with the
+    JAX package's XLA sweep semantics for every stored form of the
+    coupling (bf16, a ``QuantCoupling``, a ``BlockSparseCoupling``):
+    fields = products (× scale for int8) + h.  This is the sweep of
+    ``USE_PALLAS="off"``, one update per block of ``plan.blocks``, in
+    order, padding columns included (the Pallas kernel's order).  For an
+    f32 or bf16 coupling it is also the twin of the sweep kernel K1; the
+    twin of K1-int8, which works in quantized units, is
+    ``gibbs_sweeps_kernel_reference``, and K2 / K3's is
+    ``gibbs_hbm_cuda.gibbs_sweeps_hbm_reference``.
 
     ``beta``: scalar or (chains,) per-chain inverse temperature.
     ``uniforms``: optional (n_sweeps, chains, n_pad) f32, read at
@@ -348,10 +417,7 @@ def gibbs_sweeps_reference(
     chains, n_pad = spins_p.shape
     if n_pad != plan.n_pad:
         raise ValueError(f"spins have {n_pad} columns, the plan {plan.n_pad}")
-    if uniforms is not None and tuple(uniforms.shape) != (n_sweeps, chains, n_pad):
-        raise ValueError(
-            f"uniforms must be {(n_sweeps, chains, n_pad)}, got {tuple(uniforms.shape)}"
-        )
+    _check_uniforms(uniforms, n_sweeps, chains, n_pad)
     return sweep_blocks(hp, block_products(coupling_p, plan), plan, spins_p, n_sweeps,
                         beta, generator, uniforms, track_delta_e)
 
@@ -385,6 +451,7 @@ def pt_round(
     *,
     uniforms: Optional[torch.Tensor] = None,
     swap_uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    aux: Optional[dict] = None,
 ):
     """One parallel-tempering round: ``sweeps_per_round`` Gibbs sweeps at
     every temperature, then replica exchange between adjacent rungs (even
@@ -401,9 +468,13 @@ def pt_round(
     ``uniforms`` (sweeps, T·C, n_pad) and ``swap_uniforms`` (two (T−1, C)
     arrays, even pass then odd) replace the draws from ``generator``.
 
+    ``aux``: optional dict of per-replica (T, C) payloads, permuted by the
+    same accepted swaps (``pt_tune.round_trip_count``'s replica labels).
+
     Returns spins; ``(spins, energies)`` with ``return_energies``;
     ``(spins, energies, accept)`` with ``return_accept``, where ``accept``
-    is the (T−1,) per-pair mean analytic acceptance E[min(1, e^{Δβ·ΔE})].
+    is the (T−1,) per-pair mean analytic acceptance E[min(1, e^{Δβ·ΔE})];
+    with ``aux``, ``(spins, energies, aux[, accept])``.
     """
     t_dim, c_dim, n_pad = spins_p.shape
     dev = spins_p.device
@@ -440,10 +511,18 @@ def pt_round(
         acc = acc + (torch.clamp(torch.exp(delta), max=1.0) * pair_mask).mean(1)
         swap_next = torch.cat([accept, pad], 0)  # row t ↔ t+1
         swap_prev = torch.cat([pad, accept], 0)  # row t ↔ t−1
-        s = torch.where(swap_next[..., None], torch.roll(s, -1, 0),
-                        torch.where(swap_prev[..., None], torch.roll(s, 1, 0), s))
-        e = torch.where(swap_next, torch.roll(e, -1, 0),
-                        torch.where(swap_prev, torch.roll(e, 1, 0), e))
+
+        def permute(x):
+            m_next = swap_next.reshape(swap_next.shape + (1,) * (x.ndim - 2))
+            m_prev = swap_prev.reshape(swap_prev.shape + (1,) * (x.ndim - 2))
+            return torch.where(m_next, torch.roll(x, -1, 0),
+                               torch.where(m_prev, torch.roll(x, 1, 0), x))
+
+        s, e = permute(s), permute(e)
+        if aux is not None:
+            aux = {k: permute(v) for k, v in aux.items()}
+    if aux is not None:
+        return (s, e, aux, acc) if return_accept else (s, e, aux)
     if return_accept:
         return s, e, acc
     return (s, e) if return_energies else s

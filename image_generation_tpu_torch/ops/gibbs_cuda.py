@@ -2,11 +2,11 @@
 
 Replaces ``image_generation_tpu/ops/gibbs_pallas.py`` (``_kernel``,
 ``_kernel_fed``, ``_color_update``; wrapper ``gibbs_sweeps_pallas``, gate
-``supported_by_pallas``).  The kernel source is ``csrc/gibbs_sweeps.cu``;
-its header note says what bounds it on the H100 and how the design meets
-that.  ``ops/cuda_build.py`` compiles it with ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface at first use, and it is bound
-here with ``ctypes``.
+``supported_by_pallas``) with an f32, bf16 or int8 coupling.  The kernel
+source is ``csrc/gibbs_sweeps.cu``; its header note says what bounds it on
+the H100 and how the design meets that.  ``ops/cuda_build.py`` compiles it
+with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface at first use, and it is bound here with ``ctypes``.
 
 ``selects_k1`` keeps the JAX package's VMEM gate as the dispatch rule
 between K1 and the streaming kernels (``ops/gibbs_hbm_cuda.py``).
@@ -15,11 +15,14 @@ The kernel also carries the energy change of the run (``track_delta_e``,
 the Pallas kernels' ``de_ref``), which parallel tempering uses to carry its
 ladder energies across rounds.
 
-``gibbs_sweeps_cuda`` is the wrapper.  For a tensor on the CPU it runs the
-plain PyTorch version, ``ops.gibbs.gibbs_sweeps_reference``; for a CUDA
-tensor it launches the kernel or raises.  ``gibbs_sweeps_cuda.launches``
-counts its launches without the energy carry (K1) and
-``gibbs_sweeps_cuda.delta_e_launches`` those with it (K1-ΔE).
+``gibbs_sweeps_cuda`` is the wrapper.  It takes a dense f32 or bf16
+coupling or a ``QuantCoupling``; an int8 coupling works in the Pallas
+wrapper's quantized units (h / scale and β · scale go in, computed on the
+device, and ΔE comes back × scale).  For a tensor on the CPU it runs the
+plain PyTorch version, ``ops.gibbs.gibbs_sweeps_kernel_reference``; for a
+CUDA tensor it launches the kernel or raises.
+``gibbs_sweeps_cuda.launches`` counts its launches by mode: ``"K1-f32"``,
+``"K1-bf16-dE"``, ``"K1-int8"``, ...
 
 ``philox_uniforms`` is the numpy twin of the kernel's in-kernel generator:
 fed to the plain version, it reproduces the kernel's Philox mode.
@@ -27,6 +30,7 @@ fed to the plain version, it reproduces the kernel's Philox mode.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from typing import Optional
@@ -35,12 +39,14 @@ import numpy as np
 import torch
 
 from image_generation_tpu_torch.ops.cuda_build import KernelLibrary, load_libraries
-from image_generation_tpu_torch.ops.gibbs import GibbsPlan, gibbs_sweeps_reference
+from image_generation_tpu_torch.ops.gibbs import GibbsPlan, gibbs_sweeps_kernel_reference
+from image_generation_tpu_torch.ops.quant import QuantCoupling
 
 __all__ = [
     "gibbs_sweeps_cuda",
     "supported_by_kernel",
     "selects_k1",
+    "default_rows",
     "load_library",
     "draw_seed",
     "philox_uniforms",
@@ -49,7 +55,11 @@ __all__ = [
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _STATIC_SMEM = 8 * 4 * 4  # the energy carry's per-warp partial sums (R ≤ 8)
 _MAX_BLOCKS = 128  # color blocks a launch takes (kMaxBlocks in the source)
+_STEP = 8  # coupling rows per step (kStep in csrc/gibbs_common.cuh)
 _ROWS = (8, 4, 2, 1)  # chain rows per thread block the source instantiates
+# coupling dtype -> (code of the C entry, mode name, itemsize of the held spins)
+_DTYPES = {torch.float32: (0, "f32", 4), torch.bfloat16: (1, "bf16", 2),
+           torch.int8: (2, "int8", 1)}
 # The default R keeps at least this many thread blocks in flight.  On an
 # H100 SXM (700 W), 80 sweeps of the 640-spin checkpoint plan ran fastest
 # at R=1 for 256 chains (256 blocks) and at R=8 for 4096 chains (512
@@ -72,12 +82,13 @@ def load_library() -> KernelLibrary:
             return _library
         built = load_libraries()["gibbs_sweeps"]
         lib = built.lib
-        lib.gibbs_sweeps_f32.argtypes = [
+        lib.gibbs_sweeps.argtypes = [
+            ctypes.c_int,  # dtype: 0 f32, 1 bf16, 2 int8
             ctypes.c_void_p,  # spins_in
             ctypes.c_void_p,  # spins_out
             ctypes.c_void_p,  # coupling
-            ctypes.c_void_p,  # h
-            ctypes.c_void_p,  # beta
+            ctypes.c_void_p,  # h (h / scale for int8)
+            ctypes.c_void_p,  # beta (β · scale for int8)
             ctypes.c_void_p,  # uniforms (null: Philox)
             ctypes.c_void_p,  # seed (null: fed)
             ctypes.c_void_p,  # delta_e (null: no energy carry)
@@ -90,13 +101,22 @@ def load_library() -> KernelLibrary:
             ctypes.c_int,  # rows_per_block
             ctypes.c_void_p,  # stream
         ]
-        lib.gibbs_sweeps_f32.restype = ctypes.c_int
+        lib.gibbs_sweeps.restype = ctypes.c_int
         lib.gibbs_sweeps_error_string.argtypes = [ctypes.c_int]
         lib.gibbs_sweeps_error_string.restype = ctypes.c_char_p
         lib.gibbs_sweeps_max_blocks.argtypes = []
         lib.gibbs_sweeps_max_blocks.restype = ctypes.c_int
-        if lib.gibbs_sweeps_max_blocks() != _MAX_BLOCKS:
-            raise RuntimeError("kernel library and wrapper disagree on kMaxBlocks")
+        lib.gibbs_sweeps_step.argtypes = []
+        lib.gibbs_sweeps_step.restype = ctypes.c_int
+        lib.gibbs_sweeps_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.gibbs_sweeps_smem_bytes.restype = ctypes.c_longlong
+        if lib.gibbs_sweeps_max_blocks() != _MAX_BLOCKS or lib.gibbs_sweeps_step() != _STEP:
+            raise RuntimeError("kernel library and wrapper disagree on kMaxBlocks or kStep")
+        for code, _name, size in _DTYPES.values():
+            for r in _ROWS:
+                if lib.gibbs_sweeps_smem_bytes(code, r, 2432, 512) != _dynamic_smem(
+                        size, r, 2432, 512):
+                    raise RuntimeError("kernel library and wrapper disagree on shared memory")
         _library = built
         return _library
 
@@ -124,34 +144,42 @@ def _max_width(plan: GibbsPlan) -> int:
     return max(c1 - c0 for c0, _v, c1 in plan.blocks)
 
 
-def _smem_bytes(plan: GibbsPlan, rows: int) -> int:
-    return rows * (plan.n_pad + _max_width(plan)) * 4 + _STATIC_SMEM
+def _dynamic_smem(itemsize: int, rows: int, n_pad: int, max_width: int) -> int:
+    """``smem_bytes`` in the source: R rows of spins plus R rows of one
+    color's staged spins, in the coupling's type."""
+    return rows * (n_pad + max_width) * itemsize
 
 
-def default_rows(plan: GibbsPlan, n_chains: int) -> int:
+def _smem_bytes(plan: GibbsPlan, rows: int, dtype=torch.float32) -> int:
+    return _dynamic_smem(_DTYPES[dtype][2], rows, plan.n_pad, _max_width(plan)) + _STATIC_SMEM
+
+
+def default_rows(plan: GibbsPlan, n_chains: int, dtype=torch.float32) -> int:
     """Chain rows per thread block: the largest R whose grid still holds
-    ``_MIN_GRID`` blocks and whose spins fit shared memory (1 otherwise)."""
+    ``_MIN_GRID`` blocks and whose spins, held in the coupling's
+    ``dtype``, fit shared memory (1 otherwise)."""
     for r in _ROWS:
-        if -(-n_chains // r) >= _MIN_GRID and _smem_bytes(plan, r) <= _SMEM_LIMIT:
+        if -(-n_chains // r) >= _MIN_GRID and _smem_bytes(plan, r, dtype) <= _SMEM_LIMIT:
             return r
     return 1
 
 
-def supported_by_kernel(plan: GibbsPlan, n_chains: int) -> bool:
+def supported_by_kernel(plan: GibbsPlan, n_chains: int, dtype=torch.float32) -> bool:
     """Whether K1 takes this problem: the chain rows of one thread block
-    plus one color block of staging fit Hopper's 227 KB of shared memory,
-    the padded width is a multiple of 4 (float4 spin reads), and the plan
-    has at most ``_MAX_BLOCKS`` color blocks."""
-    return _fits(plan, n_chains, default_rows(plan, n_chains))
+    plus one color block of staging, in the coupling's ``dtype``, fit
+    Hopper's 227 KB of shared memory, the padded width is a multiple of 8
+    (the kernel's step), and the plan has at most ``_MAX_BLOCKS`` color
+    blocks."""
+    return _fits(plan, n_chains, default_rows(plan, n_chains, dtype), dtype)
 
 
-def _fits(plan: GibbsPlan, n_chains: int, rows: int) -> bool:
+def _fits(plan: GibbsPlan, n_chains: int, rows: int, dtype=torch.float32) -> bool:
     return (
         n_chains >= 1
         and rows in _ROWS
-        and plan.n_pad % 4 == 0
+        and plan.n_pad % _STEP == 0
         and 1 <= len(plan.blocks) <= _MAX_BLOCKS
-        and _smem_bytes(plan, rows) <= _SMEM_LIMIT
+        and _smem_bytes(plan, rows, dtype) <= _SMEM_LIMIT
     )
 
 
@@ -180,7 +208,7 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device, dtype=torch.float32
 
 def gibbs_sweeps_cuda(
     hp: torch.Tensor,
-    coupling_p: torch.Tensor,
+    coupling_p,
     plan: GibbsPlan,
     spins_p: torch.Tensor,
     n_sweeps: int,
@@ -193,13 +221,13 @@ def gibbs_sweeps_cuda(
 ):
     """``n_sweeps`` colored block-Gibbs sweeps through K1.
 
-    Same contract as ``gibbs_sweeps_reference``: ``hp`` (n_pad,),
-    ``coupling_p`` (n_pad, n_pad), ``spins_p`` (chains, n_pad), all f32;
-    ``beta`` scalar or (chains,); optional fed ``uniforms`` (n_sweeps,
-    chains, n_pad).  Without them the kernel draws from its Philox stream,
-    keyed by a seed drawn from ``generator``.  Returns new spins, or
-    (spins, delta_e) with ``track_delta_e``: the (chains,) f32 energy
-    change of the run.
+    Same contract as ``gibbs_sweeps_kernel_reference``: ``hp`` (n_pad,)
+    and ``spins_p`` (chains, n_pad) f32; ``coupling_p`` (n_pad, n_pad) f32
+    or bf16, or a ``QuantCoupling``; ``beta`` scalar or (chains,);
+    optional fed ``uniforms`` (n_sweeps, chains, n_pad).  Without them the
+    kernel draws from its Philox stream, keyed by a seed drawn from
+    ``generator``.  Returns new f32 spins, or (spins, delta_e) with
+    ``track_delta_e``: the (chains,) f32 energy change of the run.
 
     A CPU ``spins_p`` runs the plain version.  A CUDA one launches the
     kernel; anything it does not take raises.  ``_rows_per_block``
@@ -207,7 +235,7 @@ def gibbs_sweeps_cuda(
     measuring the kernel at each R.
     """
     if spins_p.device.type == "cpu":
-        return gibbs_sweeps_reference(
+        return gibbs_sweeps_kernel_reference(
             hp, coupling_p, plan, spins_p, n_sweeps, beta,
             generator=generator, uniforms=uniforms, track_delta_e=track_delta_e,
         )
@@ -217,11 +245,17 @@ def gibbs_sweeps_cuda(
     n_chains, n_pad = spins_p.shape
     if n_pad != plan.n_pad:
         raise ValueError(f"spins have {n_pad} columns, the plan {plan.n_pad}")
+    quant = isinstance(coupling_p, QuantCoupling)
+    mat = coupling_p.q if quant else coupling_p
+    if mat.dtype not in _DTYPES or (mat.dtype == torch.int8) != quant:
+        raise TypeError(f"K1 takes an f32 or bf16 coupling or a QuantCoupling, "
+                        f"got a {mat.dtype} {type(coupling_p).__name__}")
+    code, dname, _size = _DTYPES[mat.dtype]
     _check("spins_p", spins_p, (n_chains, n_pad), dev)
-    _check("coupling_p", coupling_p, (n_pad, n_pad), dev)
+    _check("coupling_p", mat, (n_pad, n_pad), dev, mat.dtype)
     _check("hp", hp, (n_pad,), dev)
-    rows = _rows_per_block or default_rows(plan, n_chains)
-    if not _fits(plan, n_chains, rows):
+    rows = _rows_per_block or default_rows(plan, n_chains, mat.dtype)
+    if not _fits(plan, n_chains, rows, mat.dtype):
         raise ValueError(
             f"plan (n_pad={n_pad}, {len(plan.blocks)} blocks) at {n_chains} "
             f"chains does not fit K1's shared memory; the streaming kernels "
@@ -230,6 +264,9 @@ def gibbs_sweeps_cuda(
     beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
     if beta_t.ndim == 0:
         beta_t = beta_t.expand(n_chains)
+    if quant:  # quantized units, as the Pallas wrapper passes them (no host sync)
+        hp = hp / coupling_p.scale
+        beta_t = beta_t * coupling_p.scale
     beta_t = beta_t.contiguous()
     _check("beta", beta_t, (n_chains,), dev)
     if uniforms is not None:
@@ -244,8 +281,8 @@ def gibbs_sweeps_cuda(
     lib = load_library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gibbs_sweeps_f32(
-            spins_p.data_ptr(), out.data_ptr(), coupling_p.data_ptr(),
+        err = lib.gibbs_sweeps(
+            code, spins_p.data_ptr(), out.data_ptr(), mat.data_ptr(),
             hp.data_ptr(), beta_t.data_ptr(),
             uniforms.data_ptr() if uniforms is not None else None,
             seed.data_ptr() if seed is not None else None,
@@ -255,16 +292,14 @@ def gibbs_sweeps_cuda(
         )
     if err != 0:
         msg = lib.gibbs_sweeps_error_string(err).decode()
-        raise RuntimeError(f"gibbs_sweeps_f32 launch failed: {msg} ({err})")
+        raise RuntimeError(f"gibbs_sweeps (K1, {dname}) launch failed: {msg} ({err})")
+    gibbs_sweeps_cuda.launches[f"K1-{dname}" + ("-dE" if track_delta_e else "")] += 1
     if track_delta_e:
-        gibbs_sweeps_cuda.delta_e_launches += 1
-        return out, delta_e
-    gibbs_sweeps_cuda.launches += 1
+        return out, (delta_e * coupling_p.scale if quant else delta_e)
     return out
 
 
-gibbs_sweeps_cuda.launches = 0
-gibbs_sweeps_cuda.delta_e_launches = 0
+gibbs_sweeps_cuda.launches = collections.Counter()
 
 
 # ---------------------------------------------------------------------------

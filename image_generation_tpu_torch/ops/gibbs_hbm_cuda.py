@@ -37,7 +37,7 @@ from image_generation_tpu_torch.ops.block_sparse import (
     panel_offsets,
 )
 from image_generation_tpu_torch.ops.cuda_build import KernelLibrary, load_libraries
-from image_generation_tpu_torch.ops.gibbs import GibbsPlan, block_products, sweep_blocks
+from image_generation_tpu_torch.ops.gibbs import GibbsPlan, is_quantized, sweeps_in_kernel_units
 from image_generation_tpu_torch.ops.gibbs_cuda import _SMEM_LIMIT, _check, _max_width, draw_seed
 from image_generation_tpu_torch.ops.quant import QuantCoupling
 
@@ -176,11 +176,6 @@ def default_rows(plan: GibbsPlan, n_chains: int, dtype=torch.float32,
     return fits[-1] if fits else 0
 
 
-def _is_quant(coupling_p) -> bool:
-    return isinstance(coupling_p, QuantCoupling) or (
-        isinstance(coupling_p, BlockSparseCoupling) and coupling_p.quantized)
-
-
 def gibbs_sweeps_hbm_reference(
     hp: torch.Tensor,
     coupling_p,
@@ -209,16 +204,8 @@ def gibbs_sweeps_hbm_reference(
                                  or tuple(uniforms.shape[1:]) != (chains, n_pad)):
         raise ValueError(f"uniforms must be (>= {n_run}, {chains}, {n_pad}), "
                          f"got {tuple(uniforms.shape)}")
-    quant = _is_quant(coupling_p)
-    if quant:
-        scale = coupling_p.scale
-        hp = hp / scale
-        beta = torch.as_tensor(beta, dtype=torch.float32, device=spins_p.device) * scale
-    out = sweep_blocks(hp, block_products(coupling_p, plan, scaled=False), plan, spins_p,
-                       n_run, beta, generator, uniforms, track_delta_e)
-    if track_delta_e and quant:
-        return out[0], out[1] * scale
-    return out
+    return sweeps_in_kernel_units(hp, coupling_p, plan, spins_p, n_run, beta, generator,
+                                  uniforms, track_delta_e)
 
 
 def gibbs_sweeps_hbm_cuda(
@@ -269,7 +256,7 @@ def gibbs_sweeps_hbm_cuda(
         chunk = None
         mat = coupling_p.q if isinstance(coupling_p, QuantCoupling) else coupling_p
         shape, ld, seg_len, kernel = (n_pad, n_pad), n_pad, n_pad, "K2"
-    quant = _is_quant(coupling_p)
+    quant = is_quantized(coupling_p)
     if mat.dtype not in _DTYPES or (mat.dtype == torch.int8) != quant:
         raise TypeError(f"no streaming kernel for a {mat.dtype} coupling "
                         f"(f32, bf16, or int8 with its scale)")

@@ -22,13 +22,14 @@ is updated in place (modules, optimizers, tensors) instead of being
 returned anew, which keeps one copy of it.
 
 Dispatch (``SampleFns``): the JAX package's single-device choice between
-the on-chip sweep kernel K1 (``ops/gibbs_cuda.py``) and the streaming
-kernels K2 / K3 (``ops/gibbs_hbm_cuda.py``), each with its ΔE mode under
-parallel tempering.  A CUDA tensor launches the kernel, a CPU tensor runs
-its plain version; ``USE_PALLAS="off"`` selects the plain XLA-semantics
-``gibbs_sweeps_reference`` everywhere.  Every case the JAX package sends
-to a path that is not ported (K1 with a bf16 or int8 coupling, the
-graph-sharded sampler) raises ``NotImplementedError`` naming it.
+the on-chip sweep kernel K1 (``ops/gibbs_cuda.py``, with an f32, bf16 or
+int8 coupling) and the streaming kernels K2 / K3
+(``ops/gibbs_hbm_cuda.py``), each with its ΔE mode under parallel
+tempering.  A CUDA tensor launches the kernel, a CPU tensor runs its plain
+version (``gibbs_sweeps_kernel_reference`` for K1: the Pallas kernels'
+quantized units for int8); ``USE_PALLAS="off"`` selects the plain
+XLA-semantics ``gibbs_sweeps_reference`` everywhere.  The graph-sharded
+sampler, which the port does not have, raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -161,6 +162,13 @@ class SampleFns:
     CPU each wrapper runs its kernel's plain version."""
 
     def __init__(self, cfg: TrainingConfig, graph: GRBMGraph, plan: GibbsPlan, device):
+        if cfg.SAMPLER == "pt" and isinstance(cfg.PT_NUM_BETAS, str):
+            raise ValueError(
+                "PT_NUM_BETAS='auto' must be resolved to a concrete ladder before the "
+                "sampler functions are built: the Trainer does this at train_init/load "
+                "(Trainer._resolve_auto_ladder); direct callers pass an explicit "
+                "PT_NUM_BETAS or PT_BETAS"
+            )
         self.config = cfg
         self.graph = graph
         self.plan = plan
@@ -186,13 +194,6 @@ class SampleFns:
         # wins and the sweep streams the panels (K3)
         self.vmem = (selects_k1(plan, eff_chains, self.coupling_itemsize)
                      and not self.block_sparse)
-        if self.use_kernel and self.vmem and (self.int8 or self.mm_dtype is not None):
-            mode = "K1-int8" if self.int8 else "K1-bf16"
-            raise NotImplementedError(
-                f"the on-chip sweep kernel with a {'quantized int8' if self.int8 else 'bf16'} "
-                f"coupling ({mode}: gibbs_pallas.py with SAMPLER_MATMUL_DTYPE="
-                f"{cfg.SAMPLER_MATMUL_DTYPE!r} at n_pad={plan.n_pad}) is not ported"
-            )
         impl = ("cuda_vmem" if self.vmem else "cuda_hbm") if self.use_kernel else "torch"
         self.sampler_impl = impl + ("+int8" if self.int8 else "") + (
             "+bs" if self.block_sparse else "")
@@ -292,8 +293,8 @@ def make_sample_fns(cfg: TrainingConfig, graph: GRBMGraph,
                     plan: Optional[GibbsPlan] = None, device="cuda") -> SampleFns:
     """Sampler functions for a config and coupling graph on ``device``
     (the card unless ``device="cpu"``).  Raises ``NotImplementedError``
-    for every configuration the JAX package sends to a sampler that is
-    not ported."""
+    for the graph-sharded sampler, which is not ported, and
+    ``ValueError`` for an unresolved ``PT_NUM_BETAS="auto"``."""
     device = resolve_device(device)
     if plan is None:
         plan = build_plan(graph)

@@ -6,23 +6,33 @@ schedules and chains, ``step`` / ``train_epoch`` / ``train`` train, ``save``
 writes a reference-format model directory and ``load`` reads one.  Tuning
 (``load`` then ``train_init``) keeps the loaded weights, builds fresh
 optimizers and schedules and burns in fresh chains under the loaded GRBM.
+``train`` writes a per-epoch JSONL record (``metrics_log``), a profiler
+trace (``profile_dir``) and a native checkpoint per epoch
+(``checkpoint_dir``); ``save_native`` / ``resume_native`` are the
+full-state checkpoints (``io/native_ckpt.py``).  ``PT_NUM_BETAS="auto"``
+is resolved at ``train_init`` and ``load`` by a swap-acceptance probe of
+the model the sampler will run (``ops/pt_tune.size_ladder``), through the
+sweep dispatch.  Not ported yet: ``generate_output`` and the ``samplers/``
+backends.
 
 The trainer runs on the card unless it is given ``device="cpu"``; with no
 card visible a CUDA trainer raises.  The dataset lives on the trainer's
-device.  Not ported: ``save_native`` / ``resume_native`` (full-state
-checkpoints), ``metrics_log`` / ``profile_dir`` / ``checkpoint_dir`` of
-``train``, ``PT_NUM_BETAS="auto"``, ``generate_output`` and the
-``samplers/`` backends.
+device.
 
 Random streams: the JAX trainer splits one PRNG key per call; here each
 call gets a fresh ``torch.Generator`` on the trainer's device, seeded from
-one numpy stream seeded with ``RANDOM_SEED`` (or ``seed``).
+one numpy stream seeded with ``RANDOM_SEED`` (or ``seed``).  A native
+checkpoint holds that stream's state too, so a resumed run draws what the
+uninterrupted run would have drawn (the JAX trainer restarts its key at
+resume).
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
@@ -80,6 +90,8 @@ class Trainer:
         self.physical_nodes = None  # physical qubit id per logical spin
         self._n_epochs = 0
         self._init_done = False
+        self._resume_start_epoch = 0  # set by resume_native, consumed by train
+        self.pt_auto_info = None  # the PT_NUM_BETAS="auto" probe's summary
         self._seed = self.config.RANDOM_SEED if seed is None else seed
         self._seeds = np.random.default_rng(self._seed)
         self._seeds_lock = threading.Lock()
@@ -133,17 +145,65 @@ class Trainer:
         if self.images is None:
             self._load_dataset()
         self._n_epochs = n_epochs
-        # PT_NUM_BETAS="auto" (the ladder-sizing probe) raises in here
+        self._resume_start_epoch = 0
+        seed = self._next_seed()  # the state's: its generator, a fresh run's init
+        self._resolve_auto_ladder(self.grbm_params if keep else None, init_seed=seed)
         self.fns = make_train_fns(self.config, self.graph, n_epochs * self.n_batches,
                                   self.plan, device=self.device)
         if keep:  # tune mode: fresh optimizers, chains burned in under the loaded GRBM
-            g = self._next_generator()
+            g = torch.Generator(device=self.device)
+            g.manual_seed(seed)
             self.state = self.fns.state_from(self.dvae, self.grbm_params,
                                              self.fns.new_chains(g), g, burn_in=True)
         else:
-            self.state = self.fns.init(self._next_seed())
+            self.state = self.fns.init(seed)
         self.dvae, self.grbm_params = self.state.dvae, self.state.grbm_params
         self._init_done = True
+
+    def _resolve_auto_ladder(self, grbm_params=None, init_seed: Optional[int] = None) -> None:
+        """``PT_NUM_BETAS="auto"``: size the ladder by a short swap-acceptance
+        probe of the model (``ops/pt_tune.size_ladder``) and freeze it into
+        the config (``PT_BETAS``, hence ``PT_NUM_BETAS``) before the step
+        functions are built; records ``pt_auto_info``.  No-op unless
+        ``SAMPLER="pt"`` and ``PT_NUM_BETAS="auto"``.
+
+        ``grbm_params``: the model to probe (a loaded or tuned model), or
+        None for the small random initial model a fresh run starts from,
+        drawn as ``init(init_seed)`` draws it.  The probe samples that
+        model as training will: built by the dispatch's
+        ``build_sampler_model`` (quantized under int8, cast under bf16,
+        packed where block sparsity applies) and swept through its
+        ``sweeps_fn``, so on the card it launches the kernel training
+        would."""
+        cfg = self.config
+        if cfg.SAMPLER != "pt" or cfg.PT_NUM_BETAS != "auto":
+            return
+        if cfg.GRAPH_SHARDED == "on":
+            raise ValueError(
+                "PT_NUM_BETAS='auto' cannot probe a graph-sharded (beyond-HBM) model at "
+                "init; size it offline and pass the ladder as PT_BETAS"
+            )
+        from image_generation_tpu_torch.ops.pt_tune import size_ladder
+
+        t_probe = 16  # size_ladder's default probe ladder
+        probe_fns = make_sample_fns(cfg.replace(PT_NUM_BETAS=t_probe), self.graph, self.plan,
+                                    self.device)
+        if grbm_params is None:
+            g = torch.Generator(device=self.device)
+            g.manual_seed(self._next_seed() if init_seed is None else init_seed)
+            grbm_params = self.graph.init_params(g, device=self.device)
+        hp, coupling = probe_fns.build_sampler_model(grbm_params)
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(np.random.default_rng([self._seed, 73]).integers(2**63 - 1)))
+        betas, diag = size_ladder(g, hp, coupling, self.plan, beta_min=cfg.PT_BETA_MIN,
+                                  t_probe=t_probe, sweeps_fn=probe_fns.sweeps_fn)
+        self.pt_auto_info = {
+            "num_betas": int(len(betas)),
+            "probe_barrier": round(float(diag.barrier), 4),
+            "probe_rungs": int(len(diag.betas)),
+            "probe_sampler": probe_fns.sampler_impl,
+        }
+        self.config = cfg.replace(PT_BETAS=tuple(float(b) for b in betas))
 
     def step(self, batch, epoch: int) -> float:
         """Train on one batch; returns its MSE loss."""
@@ -216,28 +276,42 @@ class Trainer:
               checkpoint_dir: Optional[str] = None,
               batch_cb: Optional[Callable[[int, int, int], None]] = None,
               epoch_chunks: int = 1, start_epoch: Optional[int] = None) -> dict:
-        """The full epoch loop.  ``start_epoch`` is the first epoch index
-        (0 by default).  ``metrics_log``, ``profile_dir`` and
-        ``checkpoint_dir`` are not ported and raise when given."""
-        for name, value in (("metrics_log", metrics_log), ("profile_dir", profile_dir),
-                            ("checkpoint_dir", checkpoint_dir)):
-            if value is not None:
-                raise NotImplementedError(f"Trainer.train({name}=...) is not ported")
+        """The full epoch loop.
+
+        ``metrics_log``: an ``observability.MetricsLog`` that gets one
+        ``"epoch"`` record per epoch; ``profile_dir``: a ``torch.profiler``
+        trace of the run written there; ``checkpoint_dir``: a native
+        checkpoint (``save_native``) after every epoch.  ``start_epoch``:
+        the first epoch index; by default the epoch a ``resume_native``-d
+        run stopped in, else 0.  That resume hint is consumed by the first
+        ``train`` call after ``resume_native`` whether or not it passes
+        ``start_epoch``, so a later call starts at 0 again."""
+        from image_generation_tpu_torch.training.observability import profile
+
         if not self._init_done or self._n_epochs != n_epochs:
             self.train_init(n_epochs)
-        for epoch in range(start_epoch or 0, n_epochs):
-            t0 = time.perf_counter()
-            cb = ((lambda done, nb, e=epoch: batch_cb(e, done, nb))
-                  if batch_cb is not None else None)
-            stats = self.train_epoch(epoch, batch_cb=cb, n_chunks=epoch_chunks)
-            # train_epoch ends in a device-to-host copy of the metrics, so
-            # this clock covers the epoch's device work
-            stats["epoch_time_s"] = time.perf_counter() - t0
-            stats["images_per_s"] = self.n_batches * self.config.BATCH_SIZE / stats["epoch_time_s"]
-            if progress_cb:
-                progress_cb(epoch + 1, n_epochs)
-            if epoch_cb:
-                epoch_cb(epoch, stats)
+        hint, self._resume_start_epoch = self._resume_start_epoch, 0
+        if start_epoch is None:
+            start_epoch = hint
+        with profile(profile_dir):
+            for epoch in range(start_epoch, n_epochs):
+                t0 = time.perf_counter()
+                cb = ((lambda done, nb, e=epoch: batch_cb(e, done, nb))
+                      if batch_cb is not None else None)
+                stats = self.train_epoch(epoch, batch_cb=cb, n_chunks=epoch_chunks)
+                # train_epoch ends in a device-to-host copy of the metrics,
+                # so this clock covers the epoch's device work
+                stats["epoch_time_s"] = time.perf_counter() - t0
+                stats["images_per_s"] = (self.n_batches * self.config.BATCH_SIZE
+                                         / stats["epoch_time_s"])
+                if metrics_log is not None:
+                    metrics_log.log("epoch", epoch=epoch, **stats)
+                if checkpoint_dir is not None:
+                    self.save_native(checkpoint_dir)
+                if progress_cb:
+                    progress_cb(epoch + 1, n_epochs)
+                if epoch_cb:
+                    epoch_cb(epoch, stats)
         return {"final_mse": self.losses["mse_losses"][-1],
                 "final_dvae_loss": self.losses["dvae_losses"][-1]}
 
@@ -267,6 +341,49 @@ class Trainer:
         return save_model_dir(file_path, self.dvae, self.grbm_params, self.graph,
                               parameters, losses)
 
+    def save_native(self, directory) -> Path:
+        """A native checkpoint of the full train state (``io/native_ckpt.py``:
+        weights, optimizers, chains and ladder energies, ``pt_betas``,
+        ``opt_step``, the state's generator and the trainer's seed stream)
+        under ``directory/step_<opt_step>.pt``, the loss history beside it
+        as ``losses_step_<opt_step>.json``.  Returns the checkpoint's path."""
+        from image_generation_tpu_torch.io.native_ckpt import save_train_state
+
+        if not self._init_done:
+            raise TrainingError("Initialization required before saving the train state.")
+        path = save_train_state(directory, self.state,
+                                extra={"seed_stream": self._seeds.bit_generator.state})
+        (path.parent / f"losses_{path.stem}.json").write_text(json.dumps(self.losses))
+        return path
+
+    def resume_native(self, directory, n_epochs: int) -> int:
+        """Resume an interrupted run: build the step functions for
+        ``n_epochs`` (the LR schedules depend on it), restore the latest
+        native checkpoint under ``directory`` over the fresh state (the
+        sampler cache is rebuilt from the restored GRBM), its loss history
+        and seed stream; the next ``train`` starts at the epoch the run
+        stopped in.  Returns the restored ``opt_step``."""
+        from image_generation_tpu_torch.io.native_ckpt import (
+            latest_step,
+            load_payload,
+            restore_payload,
+        )
+
+        if not self._init_done or self._n_epochs != n_epochs:
+            self.train_init(n_epochs)
+        step = latest_step(directory)
+        payload = load_payload(directory, step, map_location=self.device)
+        self.state = restore_payload(payload, self.state, rebuild_cache=self.fns.rebuild_cache)
+        self.dvae, self.grbm_params = self.state.dvae, self.state.grbm_params
+        seeds = payload["extra"].get("seed_stream")
+        if seeds is not None:
+            self._seeds.bit_generator.state = seeds
+        losses = Path(directory) / f"losses_step_{step:08d}.json"
+        if losses.exists():
+            self.losses = json.loads(losses.read_text())
+        self._resume_start_epoch = self.state.opt_step // max(self.n_batches, 1)
+        return self.state.opt_step
+
     def load(self, file_path) -> None:
         """Load a reference-format model directory for sampling (and for
         tuning: ``train_init`` afterwards keeps these weights).  The
@@ -279,10 +396,11 @@ class Trainer:
             if parameters.get("qpu"):
                 self.qpu = parameters["qpu"]
             self.physical_nodes = parameters.get("physical_nodes")
-        cfg = self.config
         self.graph = graph
         self.plan = build_plan(graph)
         self.losses = losses
+        self._resolve_auto_ladder(grbm_params)
+        cfg = self.config
         self.fns = make_sample_fns(cfg, graph, self.plan, self.device)
         dvae = DVAE(self.n_latents, cfg.LATENT_TO_DISCRETE,
                     dtype=getattr(torch, cfg.COMPUTE_DTYPE))

@@ -193,16 +193,16 @@ def test_cuda_wrapper_on_cpu_runs_plain_version(ckpt):
     _, tplan, models = ckpt
     thp, ta = tgibbs.permuted_model(tplan, *map(_t, models["strong"]))
     s0, u, _ = _inputs(tplan, 8, 2, 4, "one")
-    n0 = gibbs_cuda.gibbs_sweeps_cuda.launches
+    n0 = dict(gibbs_cuda.gibbs_sweeps_cuda.launches)
     out = gibbs_cuda.gibbs_sweeps_cuda(thp, ta, tplan, _t(s0), 2, uniforms=_t(u))
     ref = tgibbs.gibbs_sweeps_reference(thp, ta, tplan, _t(s0), 2, uniforms=_t(u))
     assert torch.equal(out, ref)
-    assert gibbs_cuda.gibbs_sweeps_cuda.launches == n0
+    assert dict(gibbs_cuda.gibbs_sweeps_cuda.launches) == n0
     # the energy carry too: (spins, ΔE) from the plain version
     out_de, de = gibbs_cuda.gibbs_sweeps_cuda(thp, ta, tplan, _t(s0), 2, uniforms=_t(u),
                                               track_delta_e=True)
     assert torch.equal(out_de, ref) and de.shape == (8,)
-    assert gibbs_cuda.gibbs_sweeps_cuda.launches == n0
+    assert dict(gibbs_cuda.gibbs_sweeps_cuda.launches) == n0
 
 
 def test_kernel_gate_and_rows(ckpt):

@@ -1,5 +1,5 @@
-"""Kernels K1, K2 and K3 on the card: the CUDA sweep kernels against their
-plain versions.
+"""Kernels K1 (f32, bf16, int8), K2 and K3 on the card: the CUDA sweep
+kernels against their plain versions.
 
 These tests need a CUDA device and ``nvcc``; without a card they skip.
 This file imports no JAX, so on the GPU machine (which has none) it runs
@@ -171,25 +171,30 @@ def test_philox_moments_match_exact(dev):
 
 
 def test_launch_counter_and_refusals(dev, ckpt):
+    """One count per launch, keyed by mode; refusals launch nothing."""
+    from image_generation_tpu_torch.ops.quant import quantize_coupling
+
     plan, (hp, a), _ = ckpt
     s0 = torch.ones((32, plan.n_pad), device=dev)
-    n0 = gibbs_cuda.gibbs_sweeps_cuda.launches
-    gibbs_cuda.gibbs_sweeps_cuda(hp, a, plan, s0, 1)
-    assert gibbs_cuda.gibbs_sweeps_cuda.launches == n0 + 1
+    k = gibbs_cuda.gibbs_sweeps_cuda
+    k.launches.clear()
+    k(hp, a, plan, s0, 1)
     with pytest.raises(TypeError):
-        gibbs_cuda.gibbs_sweeps_cuda(hp, a.to(torch.bfloat16), plan, s0, 1)
-    with pytest.raises(ValueError):
-        gibbs_cuda.gibbs_sweeps_cuda(hp, a.t(), plan, s0, 1)
-    with pytest.raises(ValueError):
-        gibbs_cuda.gibbs_sweeps_cuda(hp, a, plan, s0[:, :-4], 1, track_delta_e=True)
+        k(hp, a.double(), plan, s0, 1)
     with pytest.raises(TypeError):
-        gibbs_cuda.gibbs_sweeps_cuda(hp.double(), a, plan, s0, 1, track_delta_e=True)
-    assert gibbs_cuda.gibbs_sweeps_cuda.launches == n0 + 1
-    d0 = gibbs_cuda.gibbs_sweeps_cuda.delta_e_launches
-    out, de = gibbs_cuda.gibbs_sweeps_cuda(hp, a, plan, s0, 1, track_delta_e=True)
-    assert gibbs_cuda.gibbs_sweeps_cuda.launches == n0 + 1
-    assert gibbs_cuda.gibbs_sweeps_cuda.delta_e_launches == d0 + 1
+        k(hp, a.to(torch.int8), plan, s0, 1)  # int8 comes with its scale
+    with pytest.raises(ValueError):
+        k(hp, a.t(), plan, s0, 1)
+    with pytest.raises(ValueError):
+        k(hp, a, plan, s0[:, :-4], 1, track_delta_e=True)
+    with pytest.raises(TypeError):
+        k(hp.double(), a, plan, s0, 1, track_delta_e=True)
+    out, de = k(hp, a, plan, s0, 1, track_delta_e=True)
+    k(hp, a.to(torch.bfloat16), plan, s0, 1)
+    q_out, q_de = k(hp, quantize_coupling(a), plan, s0, 1, track_delta_e=True)
+    assert dict(k.launches) == {"K1-f32": 1, "K1-f32-dE": 1, "K1-bf16": 1, "K1-int8-dE": 1}
     assert out.shape == s0.shape and de.shape == (32,) and de.dtype == torch.float32
+    assert q_out.dtype == torch.float32 and q_de.dtype == torch.float32
 
 
 def test_warm_server_runs_through_kernel(dev, tmp_path):
@@ -197,9 +202,9 @@ def test_warm_server_runs_through_kernel(dev, tmp_path):
 
     w = WarmGenerator(tmp_path, config_overrides={"NUM_READS": 16, "GIBBS_BURN_IN": 4},
                       device=dev)
-    n0 = gibbs_cuda.gibbs_sweeps_cuda.launches
+    gibbs_cuda.gibbs_sweeps_cuda.launches.clear()
     out = w.serve(MODEL)
-    assert gibbs_cuda.gibbs_sweeps_cuda.launches == n0 + 1
+    assert dict(gibbs_cuda.gibbs_sweeps_cuda.launches) == {"K1-f32": 1}
     assert w._trainer.fns.sampler_impl == "cuda_vmem"
     img = out["images"]
     assert img.shape == (16, 32, 32, 1) and np.isfinite(img).all()
@@ -273,11 +278,11 @@ def test_training_step_on_card_matches_cpu(dev, sampler):
                         swaps2=tuple(map(t, w2)) if w2 else None,
                         spin_uniforms=t(spin_u), dropout_masks=[t(m) for m in masks])
 
-    n0 = gibbs_cuda.gibbs_sweeps_cuda.launches + gibbs_cuda.gibbs_sweeps_cuda.delta_e_launches
+    n0 = sum(gibbs_cuda.gibbs_sweeps_cuda.launches.values())
     m_cpu = cpu.step_body(s_cpu, torch.tensor(images), 0, feed("cpu"))
     m_card = card.step_body(s_card, torch.tensor(images, device=dev), 0, feed(dev))
     torch.cuda.synchronize()
-    n1 = gibbs_cuda.gibbs_sweeps_cuda.launches + gibbs_cuda.gibbs_sweeps_cuda.delta_e_launches
+    n1 = sum(gibbs_cuda.gibbs_sweeps_cuda.launches.values())
     assert n1 == n0 + 2  # both negative phases through the kernel
     for name, rtol, atol in (("mse", 2e-2, 1e-4), ("mmd", 2e-2, 1e-4),
                              ("dvae_loss", 2e-2, 1e-4), ("nll", 0.2, 2e-2)):
@@ -285,6 +290,92 @@ def test_training_step_on_card_matches_cpu(dev, sampler):
         assert np.isfinite(a) and abs(a - b) <= rtol * abs(b) + atol, (name, a, b)
     same = (s_card.chains.cpu() == s_cpu.chains).all(-1).float().mean()
     assert float(same) >= CHAIN_RULE
+
+
+# ---------------------------------------------------------------------------
+# K1 with a bf16 and an int8 coupling
+# ---------------------------------------------------------------------------
+
+def _k1_coupling(a, form):
+    from image_generation_tpu_torch.ops.quant import quantize_coupling
+
+    return a.to(torch.bfloat16) if form == "bf16" else quantize_coupling(a)
+
+
+@pytest.fixture(scope="module")
+def plan2k(dev):
+    """The 2,048-latent Advantage_system6 plan (n_pad 2,432, blocks up to
+    512 wide) with a |J| ≤ 1 model: the plan K1-int8 serves."""
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    graph, _ = cached_latent_graph("Advantage_system6", 2048, 775321899904)
+    plan = build_plan(graph)
+    rng = np.random.default_rng(2)
+    hs = torch.tensor(rng.uniform(-0.5, 0.5, graph.n), dtype=torch.float32, device=dev)
+    js = torch.tensor(rng.uniform(-1, 1, graph.n_edges), dtype=torch.float32, device=dev)
+    return plan, permuted_model(plan, hs, js)
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+@pytest.mark.parametrize("chains", [256, 1030, 37])
+def test_k1_modes_match_plain(dev, ckpt, plan2k, form, chains, track):
+    """K1-bf16 / K1-int8 (and their ΔE modes) against the plain version,
+    fed uniforms and per-chain β, on the checkpoint's plan and the
+    2,048-latent plan, at every R; chains by the chain rule, ΔE within
+    1e-3·(1 + |E|) on identical chains."""
+    from image_generation_tpu_torch.ops.gibbs import gibbs_sweeps_kernel_reference, ising_energies
+
+    for plan, (hp, a) in ((ckpt[0], ckpt[2]), plan2k):
+        coupling = _k1_coupling(a, form)
+        rng = np.random.default_rng(chains)
+        s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32,
+                          device=dev)
+        u = torch.tensor(rng.random((3, chains, plan.n_pad), dtype=np.float32), device=dev)
+        beta = torch.tensor(rng.uniform(0.5, 2.0, chains), dtype=torch.float32, device=dev)
+        ref = gibbs_sweeps_kernel_reference(hp, coupling, plan, s0, 3, beta, uniforms=u,
+                                            track_delta_e=track)
+        for rows in (None, 1, 2, 4, 8):
+            out = gibbs_cuda.gibbs_sweeps_cuda(hp, coupling, plan, s0, 3, beta, uniforms=u,
+                                               track_delta_e=track, _rows_per_block=rows)
+            torch.cuda.synchronize()
+            if not track:
+                assert _identical(out, ref) >= CHAIN_RULE
+                continue
+            same = (out[0] == ref[0]).all(dim=1)
+            assert float(same.float().mean()) >= CHAIN_RULE
+            e_abs = ising_energies(hp, coupling, ref[0]).abs()[same]
+            assert bool(((out[1] - ref[1]).abs()[same] <= 1e-3 * (1 + e_abs)).all())
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_k1_modes_philox_match_numpy_twin(dev, plan2k, form):
+    """Philox mode against the plain version fed ``philox_uniforms``, and
+    ΔE against the f64 energy change of the model the mode samples."""
+    from image_generation_tpu_torch.ops.gibbs import gibbs_sweeps_kernel_reference
+    from image_generation_tpu_torch.ops.quant import dequantize_coupling
+
+    plan, (hp, a) = plan2k
+    coupling = _k1_coupling(a, form)
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    probe = torch.Generator(device=dev)
+    probe.set_state(g.get_state())
+    seed = int(gibbs_cuda.draw_seed(probe, dev).item())
+    s0 = random_spins(probe, plan, 256, dev)
+    out, de = gibbs_cuda.gibbs_sweeps_cuda(hp, coupling, plan, s0, 4, generator=g,
+                                           track_delta_e=True)
+    u = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 256, plan.n_pad), device=dev)
+    ref = gibbs_sweeps_kernel_reference(hp, coupling, plan, s0, 4, uniforms=u)
+    assert _identical(out, ref) >= CHAIN_RULE
+    dense = (dequantize_coupling(coupling) if form == "int8" else coupling.float()).double()
+
+    def e64(s):
+        s = s.double()
+        return s @ hp.double() + 0.5 * (s * (s @ dense)).sum(-1)
+
+    diff = (de.double() - (e64(out) - e64(s0))).abs()
+    assert float(diff.max()) <= 1e-3 * (1 + float(e64(s0).abs().max()))
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,8 @@ on a packed bf16 / int8 coupling, on the CPU.
 
 Dispatch: the port's ``sampler_impl`` against the JAX package's
 ``make_train_fns(..., USE_PALLAS="on").sampler_impl`` (built only), with
-``pallas`` spelled ``cuda``; where the JAX package picks its on-chip kernel
-with a bf16 or int8 coupling (K1-bf16, K1-int8, not ported) the port
-raises and names it.
+``pallas`` spelled ``cuda``, including the cases where the JAX package
+picks its on-chip kernel with a bf16 or int8 coupling (K1-bf16, K1-int8).
 
 The step: the scaled configuration's sampler settings (bf16 or int8
 coupling, packed panels at a chunk that clamps, PT with carried
@@ -98,12 +97,6 @@ def test_dispatch_matches_jax(request, case):
     jg, jplan, tg, tplan = request.getfixturevalue(fixture)
     jax_impl = jstep.make_train_fns(JaxConfig(**kw, USE_PALLAS="on"), jg, 10, jplan).sampler_impl
     assert jax_impl == want
-    if jax_impl.startswith("pallas_vmem") and (
-            "int8" in jax_impl or TrainingConfig(**kw).resolved_sampler_matmul_dtype(tplan.n_pad)):
-        name = "K1-int8" if "int8" in jax_impl else "K1-bf16"
-        with pytest.raises(NotImplementedError, match=name):
-            make_sample_fns(TrainingConfig(**kw), tg, tplan, device="cpu")
-        return
     fns = make_sample_fns(TrainingConfig(**kw), tg, tplan, device="cpu")
     assert fns.sampler_impl == jax_impl.replace("pallas", "cuda")
     off = make_sample_fns(TrainingConfig(**kw, USE_PALLAS="off"), tg, tplan, device="cpu")

@@ -92,17 +92,32 @@ def test_trainer_samples_spins(trainer):
 
 
 @pytest.mark.parametrize("overrides,missing", [
-    pytest.param({"SAMPLER": "pt", "PT_NUM_BETAS": "auto"}, "parallel tempering",
-                 id="overrides0-parallel tempering"),
-    pytest.param({"SAMPLER_MATMUL_DTYPE": "int8"}, "K1-int8", id="overrides1-quantized"),
-    pytest.param({"SAMPLER_MATMUL_DTYPE": "bfloat16"}, "K1-bf16", id="overrides2-bf16"),
     pytest.param({"GRAPH_SHARDED": "on"}, "mesh", id="overrides4-mesh"),
 ])
 def test_unported_sampler_paths_raise(trainer, overrides, missing):
-    """On the 640-wide plan the JAX package sends a bf16 or int8 coupling
-    to its on-chip kernel, whose bf16 / int8 modes are not ported."""
+    """The graph-sharded sampler (kernel K4, multi-device) is not ported."""
     with pytest.raises(NotImplementedError, match=missing):
         make_sample_fns(TrainingConfig(**overrides), trainer.graph, trainer.plan, device="cpu")
+
+
+def test_unresolved_auto_ladder_is_refused(trainer):
+    """``PT_NUM_BETAS="auto"`` is resolved by the Trainer (a ladder probe);
+    the sampler functions refuse it unresolved, as the JAX package's do."""
+    with pytest.raises(ValueError, match="resolved"):
+        make_sample_fns(TrainingConfig(SAMPLER="pt", PT_NUM_BETAS="auto"), trainer.graph,
+                        trainer.plan, device="cpu")
+
+
+@pytest.mark.parametrize("dtype,impl", [("int8", "cuda_vmem+int8"), ("bfloat16", "cuda_vmem")])
+def test_k1_modes_serve_the_checkpoint(trainer, dtype, impl):
+    """On the 640-wide plan the JAX package sends a bf16 or int8 coupling
+    to its on-chip kernel: the port serves the checkpoint through K1-bf16 /
+    K1-int8 (on the CPU, their plain version), ±1 spins in original order."""
+    fns = make_sample_fns(TrainingConfig(SAMPLER_MATMUL_DTYPE=dtype), trainer.graph, trainer.plan,
+                          device="cpu")
+    assert fns.sampler_impl == impl
+    spins = fns.sample_fn(torch.Generator().manual_seed(0), trainer.grbm_params, 8, 4)
+    assert spins.shape == (8, trainer.graph.n) and set(spins.unique().tolist()) <= {-1.0, 1.0}
 
 
 def test_block_sparse_on_builds_the_packed_streaming_path(trainer):
@@ -217,7 +232,8 @@ def test_serving_path_imports_no_jax_or_host_extras():
         "image_generation_tpu_torch.training.trainer, image_generation_tpu_torch.ops.pt_tune, "
         "image_generation_tpu_torch.utils.graph_cache, image_generation_tpu_torch.ops.quant, "
         "image_generation_tpu_torch.ops.block_sparse, image_generation_tpu_torch.ops.gibbs_hbm_cuda, "
-        "image_generation_tpu_torch.ops.cuda_build; "
+        "image_generation_tpu_torch.ops.cuda_build, image_generation_tpu_torch.io.native_ckpt, "
+        "image_generation_tpu_torch.training.observability; "
         "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn', "
         "'image_generation_tpu') if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )

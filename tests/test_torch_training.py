@@ -461,12 +461,12 @@ def test_trainer_refusals():
     t = Trainer(config=TrainingConfig(**SMALL), device="cpu")
     with pytest.raises(TrainingError):
         t.step(torch.zeros((8, 32, 32, 1)), 0)
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        t.train(1, profile_dir="x")
-    auto = Trainer(config=TrainingConfig(**dict(SMALL, SAMPLER="pt", PT_NUM_BETAS="auto")),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="auto"):
-        auto.train_init(1)
+    with pytest.raises(TrainingError):
+        t.save_native("unused")
+    sharded = Trainer(config=TrainingConfig(**dict(SMALL, SAMPLER="pt", PT_NUM_BETAS="auto",
+                                                   GRAPH_SHARDED="on")), device="cpu")
+    with pytest.raises(ValueError, match="graph-sharded"):
+        sharded.train_init(1)
 
 
 def test_entry_points_default_to_the_card(monkeypatch, graphs, tmp_path):
