@@ -112,12 +112,40 @@ a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
     energies against energies recomputed on the card;
 21. K1-bf16, K1-bf16-dE, K1-int8 and K1-int8-dE timed at the paths'
     shapes beside the plain version and ``sweep_bound``, and K1 by rows
-    per block at the 2,048-latent serving shape.
+    per block at the 2,048-latent serving shape;
+22. the span-update kernel K4 against its plain version: the fed entry
+    bit-identical at 1, 37 and 2,048 chain rows over every class-span
+    width of the scaled plan and a 23,936-wide row (the P32 fabric's
+    n_pad), with per-chain beta; the Philox entry equal to the plain
+    version fed ``philox_span_uniforms`` at a global row, column and sweep
+    offset;
+23. the scaled configuration with ``GRAPH_SHARDED="on"`` on a (1, 4) mesh:
+    4 processes on cuda:0 (``torch.multiprocessing``), joined by a gloo
+    process group (NCCL refuses two ranks on one device; gloo stages CUDA
+    tensors through the host, so this is a real distributed run but not a
+    multi-GPU measurement), each with TF32 off.  Each rank holds a quarter
+    of the coupling rows (packed on its shard-local grid, bf16) and of the
+    chain columns; one epoch (4 steps plus burn-in) through K4
+    (``torch_graph_sharded+plrng+bs``), saved on rank 0, ``sample_spins(64)``;
+    on every rank K4 launched and K1/K2/K3 never, finite losses equal on
+    all ranks; the 4-rank sweep with fed uniforms against the
+    single-device K3 on the same chains (chain rule); two steps with
+    ``SWEEP_BLOCK_SPARSE="off"`` (dense bf16 row blocks of 1,504 x 6,016);
+24. the ideal Pegasus P32 fabric (23,560 spins, n_pad 23,936; the whole f32
+    coupling is 2.29 GB) on the same 4 ranks, each building only its rows
+    from the edge list: 64 chains x 2 sweeps dense bf16, then packed at
+    chunk 128 in bf16 and in int8 (1 sweep), energies finite; each rank's
+    coupling bytes and peak device memory below the whole f32 matrix;
+25. K4 per launch at the scaled path's shapes (CUDA events) beside its
+    bound and its plain version; the sharded step's median and the host
+    clock's share of the collectives in it (gloo, 4 processes on one
+    card).
 
 Each path (serving, plain training, PT training, scaled training, the K2
 steps, scaled serving, the 2,048-latent training, resume and serving, the
-flagship bf16 / int8 epochs) runs with the launch counters set to 0 just
-before it and read just after.  The line before
+flagship bf16 / int8 epochs, and on every rank the graph-sharded epoch,
+its sampling, its dense steps and the P32 sweeps) runs with the launch
+counters set to 0 just before it and read just after.  The line before
 the last is a JSON object describing the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises.
 """
@@ -617,10 +645,12 @@ def main() -> int:
     scaled = scaled_phases(dev, card, rng)
     torch.cuda.empty_cache()
     k1_dtypes = k1_dtype_phases(dev, card, rng)
+    torch.cuda.empty_cache()
+    sharded = graph_sharded_phases(dev, card)
 
     print(card_line())
     paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts,
-             **scaled["paths"], **k1_dtypes["paths"]}
+             **scaled["paths"], **k1_dtypes["paths"], **sharded["paths"]}
     print(json.dumps({"kernels": [
         {
             "name": "gibbs_sweeps (K1)",
@@ -656,7 +686,7 @@ def main() -> int:
             "shape": f"{s9.shape[0]} chains x {sw} sweeps, n_pad {flag_n_pad}",
         },
         *[dict(entry, launches_by_path={k: v.get(entry["mode"], 0) for k, v in paths.items()})
-          for entry in scaled["kernels"] + k1_dtypes["kernels"]],
+          for entry in scaled["kernels"] + k1_dtypes["kernels"] + sharded["kernels"]],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1400,6 +1430,449 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
     for entry in kernels:
         entry["launches"] = sum(cnt.get(entry["mode"], 0) for cnt in paths.values())
     return {"paths": paths, "kernels": kernels}
+
+
+# the scaled configuration with its graph split over 4 ranks on one card
+GS_RANKS = 4
+GS_SCALED = dict(SCALED, GRAPH_SHARDED="on")
+K4_REPLACES = "image_generation_tpu/ops/gibbs_graph_sharded_pallas.py:127"
+
+
+def span_bound(rows: int, width: int, per_row_beta: bool, fed: bool):
+    """(bound ms, "bytes") of one K4 launch: fields in and spins out (and
+    the fed uniforms), 4 B each, plus beta and the seed, at HBM bandwidth;
+    its handful of f32 operations per element take far less."""
+    nbytes = 4.0 * rows * width * (3 if fed else 2) + 4.0 * (rows if per_row_beta else 1) + 8
+    return nbytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last reset: K1-K3 by mode, K4 and
+    K4f."""
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import span_update
+
+    return {**read_counts(gibbs_cuda, gibbs_hbm_cuda), **span_update.launches}
+
+
+def reset_launch_counts() -> None:
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import span_update
+
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+    span_update.launches.clear()
+
+
+def _gs_rank(rank: int, world: int, port: int, out_dir: str, task: str, task_arg) -> None:
+    """One rank of the graph-sharded phases: joins the gloo world on
+    cuda:0, builds the (1, world) mesh, runs ``task`` and writes its
+    result to ``out_dir/<task>_<rank>.json``."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from image_generation_tpu_torch.parallel.mesh import create_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # not inherited from the parent
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=300))
+    try:
+        mesh = create_mesh(shape=(1, world), backend="gloo")
+        result = {"scaled": _gs_scaled, "p32": _gs_p32}[task](mesh, task_arg)
+        (Path(out_dir) / f"{task}_{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def _gs_scaled(mesh, model_dir: str) -> dict:
+    """Phase 23 on one rank: the scaled model trained one epoch with its
+    graph split over the mesh, saved, sampled; the fed cross-check against
+    the single-device K3; two dense steps."""
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.models.grbm import scaled_ising
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+    from image_generation_tpu_torch.ops.gibbs import permuted_model
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded import gibbs_sweeps_graph_sharded
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    dev = torch.device("cuda", 0)
+    cfg = TrainingConfig(**GS_SCALED)
+    tr = Trainer(cfg, device=dev, mesh=mesh)
+    tr.setup()
+    plan = tr.plan
+    lo, hi = mesh.window(plan.n_pad)
+    times, last = [], [0.0]
+
+    def on_batch(_epoch, _done, _nb):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tr.train_init(1)  # burn-in: part of the path
+    torch.cuda.synchronize()
+    mesh.comm_seconds, mesh.comm_calls = 0.0, 0
+    t0 = last[0] = time.perf_counter()
+    tr.train(1, batch_cb=on_batch, epoch_chunks=tr.n_batches)
+    epoch_s = time.perf_counter() - t0
+    comm_s, comm_calls = mesh.comm_seconds, mesh.comm_calls
+    counts = launch_counts()
+    st = tr.state
+    cp = st.sampler_coupling
+    out = {
+        "impl": tr.fns.sampler_impl, "losses": tr.losses["dvae_losses"],
+        "mse": tr.losses["mse_losses"], "step_s": times, "epoch_s": epoch_s,
+        "comm_s": comm_s, "comm_calls": comm_calls, "counts": counts,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "chains": list(st.chains.shape), "window": [lo, hi],
+        "coupling": f"{type(cp).__name__} shard {cp.shard} of {cp.n_shards}, panels "
+                    f"{tuple(cp.panels.shape)} {cp.panels.dtype}, {stored_bytes(cp)} bytes",
+        "coupling_bytes": stored_bytes(cp), "n_batches": tr.n_batches,
+    }
+    reset_launch_counts()
+    tr.save(model_dir)
+    spins = tr.sample_spins(64)
+    out["sample_counts"] = launch_counts()
+    out["sample"] = [list(spins.shape), float(spins.abs().min()), float(spins.abs().max()),
+                     float(spins.double().sum())]
+    out["saved"] = sorted(q.name for q in Path(model_dir).iterdir())
+
+    # the 4-rank sweep with fed uniforms against the single-device K3
+    l_loc = hi - lo
+    flat = st.chains.reshape(-1, l_loc)
+    beta = st.pt_betas.repeat_interleave(cfg.NUM_READS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(123)  # the same uniforms on every rank
+    u = torch.rand((4, flat.shape[0], plan.n_pad), generator=g, device=dev)
+    sharded = gibbs_sweeps_graph_sharded(st.sampler_h, cp, plan, flat, 4, mesh, beta,
+                                         uniforms=u, matmul_dtype=tr.fns.mm_dtype)
+    gathered = mesh.all_gather(sharded, dim=-1)
+    whole = tr.fns.gather(flat)
+    if mesh.graph_index == 0:
+        h, j = scaled_ising(st.grbm_params, cfg.PREFACTOR, cfg.H_RANGE, cfg.J_RANGE)
+        hp, a = permuted_model(plan, h, j)
+        packed = pack_coupling(plan, a.to(tr.fns.mm_dtype), cfg.SWEEP_BS_CHUNK)
+        del a
+        single = gibbs_sweeps_hbm_cuda(hp, packed, plan, whole, 4, beta, uniforms=u)
+        torch.cuda.synchronize()
+        out["cross_identical"] = identical_fraction(gathered, single)
+        out["cross_max_abs"] = float((gathered - single).abs().max())
+        del packed, single
+    del u, sharded, gathered, whole
+    graph, physical, images, source = tr.graph, tr.physical_nodes, tr.images, tr.data_source
+    batch = images[: cfg.BATCH_SIZE]
+    del tr, st, cp, flat
+    torch.cuda.empty_cache()
+
+    # two unscheduled steps with dense row blocks (SWEEP_BLOCK_SPARSE="off")
+    k2 = Trainer(cfg.replace(SWEEP_BLOCK_SPARSE="off"), device=dev, mesh=mesh)
+    k2.graph, k2.plan, k2.physical_nodes = graph, plan, physical
+    k2.images, k2.data_source = images, source
+    reset_launch_counts()
+    k2.train_init(1)
+    dense_losses, dense_times = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense_losses.append(k2.step(batch, 6))  # epoch 6: no GRBM update
+        torch.cuda.synchronize()
+        dense_times.append(time.perf_counter() - t0)
+    c2 = k2.state.sampler_coupling
+    out.update(dense_impl=k2.fns.sampler_impl, dense_losses=dense_losses,
+               dense_step_s=dense_times, dense_counts=launch_counts(),
+               dense_coupling=[list(c2.shape), str(c2.dtype)])
+    return out
+
+
+def _gs_p32(mesh, graph) -> dict:
+    """Phase 24 on one rank: the ideal Pegasus P32 fabric, this rank's rows
+    built from the edge list; dense bf16 sweeps, then packed bf16 and int8."""
+    from image_generation_tpu_torch.ops.block_sparse_sharded import pack_coupling_graph_sharded
+    from image_generation_tpu_torch.ops.gibbs import build_plan, permuted_model_rows, random_spins
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded import (
+        gibbs_sweeps_graph_sharded,
+        ising_energies_graph_sharded,
+    )
+    from image_generation_tpu_torch.ops.quant import quantize_coupling
+
+    dev = torch.device("cuda", 0)
+    plan = build_plan(graph)
+    lo, hi = mesh.window(plan.n_pad)
+    q = torch.tensor(0.1 * np.random.default_rng(0).normal(size=graph.n_edges),
+                     dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hp, rows = permuted_model_rows(plan, torch.zeros(graph.n, device=dev), q, lo, hi)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    s0 = random_spins(g, plan, 64, dev)[:, lo:hi].contiguous()
+    out = {"n": plan.n, "n_pad": plan.n_pad, "blocks": len(plan.blocks),
+           "couplers": int(graph.n_edges), "rows_f32_bytes": stored_bytes(rows)}
+    packed_i8 = pack_coupling_graph_sharded(plan, quantize_coupling(rows, mesh=mesh), mesh, 128)
+    bf16 = rows.to(torch.bfloat16)
+    del rows
+    packed = pack_coupling_graph_sharded(plan, bf16, mesh, 128)
+    build_s = time.perf_counter() - t0
+    for name, c, n_sw in (("dense bf16", bf16, 2), ("packed bf16", packed, 2),
+                          ("packed int8", packed_i8, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = gibbs_sweeps_graph_sharded(hp, c, plan, s0, n_sw, mesh, generator=g,
+                                       matmul_dtype=torch.bfloat16)
+        e = ising_energies_graph_sharded(hp, c, s, mesh, matmul_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        out[name] = {"bytes": stored_bytes(c), "sweeps": n_sw,
+                     "seconds": time.perf_counter() - t0,
+                     "energies_finite": bool(torch.isfinite(e).all()),
+                     "e_mean": float(e.mean()), "spins_ok": bool((s.abs() == 1).all())}
+    out.update(build_s=build_s, peak_bytes=torch.cuda.max_memory_allocated(),
+               counts=launch_counts())
+    return out
+
+
+def _spawn_ranks(task: str, task_arg, out_dir: Path) -> list:
+    """Run ``task`` on GS_RANKS processes on cuda:0 (gloo) and return each
+    rank's result; an exception in any rank fails the run."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mp.start_processes(_gs_rank, args=(GS_RANKS, port, str(out_dir), task, task_arg),
+                       nprocs=GS_RANKS, join=True, start_method="spawn")
+    return [json.loads((out_dir / f"{task}_{r}.json").read_text()) for r in range(GS_RANKS)]
+
+
+def graph_sharded_phases(dev, card: str) -> dict:
+    """Phases 22-25: K4 against its plain version; the scaled model trained
+    with GRAPH_SHARDED="on" on 4 gloo ranks on this card; the P32 fabric on
+    them; K4's times.  Returns the launch counts of each path and K4's JSON
+    entry."""
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.ops.gibbs import build_plan, class_spans
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import (
+        load_library,
+        philox_span_uniforms,
+        span_update,
+        span_update_reference,
+    )
+    from image_generation_tpu_torch.utils.graph_cache import (
+        cached_latent_graph,
+        graph_from_topology,
+    )
+    from image_generation_tpu_torch.utils.subgraph import select_latent_graph
+    from image_generation_tpu_torch.utils.topology import pegasus_graph
+
+    cfg = TrainingConfig(**GS_SCALED)
+    graph, _ = cached_latent_graph(cfg.QPU, cfg.N_LATENTS, cfg.RANDOM_SEED)
+    plan = build_plan(graph)
+    widths = [b - a for a, b, _b0, _b1 in class_spans(plan)]
+    c_path = cfg.PT_NUM_BETAS * cfg.NUM_READS
+
+    # ---- 22. K4 against its plain version --------------------------------------
+    load_library()
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    max_err, checked = 0.0, 0
+    for rows in (1, 37, c_path):
+        u_all = torch.rand((2, rows, plan.n_pad), generator=g, device=dev)
+        beta = 0.2 + 1.8 * torch.rand(rows, generator=g, device=dev)
+        for (start, stop, _b0, _b1) in class_spans(plan):
+            f = 3.0 * torch.randn((rows, stop - start), generator=g, device=dev)
+            for b in (1.0, beta):
+                u = u_all[1, :, start:stop]  # the span's columns of a sweep: a strided view
+                out = span_update(f, b, uniforms=u)
+                ref = span_update_reference(f, b, uniforms=u)
+                torch.cuda.synchronize()
+                check(torch.equal(out, ref), f"K4 fed != plain ({rows} x {stop - start})")
+                max_err = max(max_err, float((out - ref).abs().max()))
+                checked += 1
+        del u_all
+    for rows in (1, 64):
+        f = 3.0 * torch.randn((rows, 23936), generator=g, device=dev)
+        u = torch.rand((rows, 23936), generator=g, device=dev)
+        check(torch.equal(span_update(f, 0.9, uniforms=u),
+                          span_update_reference(f, 0.9, uniforms=u)),
+              f"K4 fed != plain ({rows} x 23936)")
+        checked += 1
+    f = 3.0 * torch.randn((c_path, max(widths)), generator=g, device=dev)
+    beta = 0.2 + 1.8 * torch.rand(c_path, generator=g, device=dev)
+    seed = torch.tensor([0x5EED5EED1234], dtype=torch.int64, device=dev)
+    out = span_update(f, beta, seed=seed, row0=64, col0=2816, sweep=3)
+    u = torch.tensor(philox_span_uniforms(0x5EED5EED1234, 3, 64, c_path, 2816, max(widths)),
+                     device=dev)
+    check(torch.equal(out, span_update_reference(f, beta, uniforms=u)),
+          "K4 Philox != plain fed philox_span_uniforms")
+    print(f"[22] K4 fed entry bit-identical to the plain version in {checked} checks (rows 1, 37, "
+          f"{c_path} x span widths {widths}, scalar and per-chain beta, strided uniforms; rows "
+          f"1 and 64 x 23936); Philox entry at row 64, column 2816, sweep 3 equal to the plain "
+          f"version fed philox_span_uniforms ({c_path} x {max(widths)})")
+
+    # ---- 23. the scaled slice, graph-sharded on 4 gloo ranks on this card -------
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gs_"))
+    try:
+        t0 = time.perf_counter()
+        res = _spawn_ranks("scaled", str(tmp / "scaled_sharded"), tmp)
+        spawn_s = time.perf_counter() - t0
+        r0 = res[0]
+        print(f"[23] 4 ranks (gloo, 4 processes on cuda:0, mesh (1, 4)) in {spawn_s:.1f} s: "
+              f"sampler {r0['impl']}; rank windows {[r['window'] for r in res]}; chains "
+              f"{r0['chains']} a rank; coupling {r0['coupling']}")
+        for r, x in enumerate(res):
+            print(f"[23] rank {r}: losses {x['losses']}; launches {x['counts']}; step times (ms) "
+                  f"{', '.join(f'{t * 1e3:.3f}' for t in x['step_s'])}; collectives "
+                  f"{x['comm_calls']} calls, {x['comm_s']:.3f} s of the {x['epoch_s']:.3f} s "
+                  f"epoch; peak memory {x['peak_gib']:.3f} GiB  [{card}]")
+        check(all(x["impl"] == "torch_graph_sharded+plrng+bs" for x in res),
+              "the graph-sharded scaled trainer did not select K4 with packed shards")
+        check([x["window"] for x in res] == [[r * plan.n_pad // 4, (r + 1) * plan.n_pad // 4]
+                                             for r in range(GS_RANKS)],
+              "rank windows are not the quarters of n_pad")
+        check(all(x["chains"][-1] == plan.n_pad // 4 for x in res), "chains are not a quarter")
+        for x in res:
+            check(len(x["losses"]) == x["n_batches"] and bool(np.isfinite(x["losses"]).all()),
+                  "sharded training losses")
+            check(x["losses"] == r0["losses"] and x["mse"] == r0["mse"],
+                  "the ranks' losses differ")
+            check(x["counts"].get("K4", 0) > 0, "a rank never launched K4")
+            check(not any(k.startswith(("K1", "K2", "K3")) for k in x["counts"]),
+                  "a rank launched K1, K2 or K3 on the graph-sharded path")
+            check(x["sample_counts"].get("K4", 0) > 0
+                  and not any(k.startswith(("K1", "K2", "K3")) for k in x["sample_counts"]),
+                  "sample_spins did not run through K4 alone")
+            check(x["sample"] == r0["sample"], "the ranks sampled different spins")
+            check(x["dense_impl"] == "torch_graph_sharded+plrng", "dense steps: sampler")
+            check(x["dense_coupling"] == [[plan.n_pad // 4, plan.n_pad], "torch.bfloat16"],
+                  "dense row block is not a quarter of the coupling")
+            check(x["dense_counts"].get("K4", 0) > 0
+                  and not any(k.startswith(("K1", "K2", "K3")) for k in x["dense_counts"]),
+                  "dense steps did not run through K4 alone")
+            check(bool(np.isfinite(x["dense_losses"]).all())
+                  and x["dense_losses"] == r0["dense_losses"], "dense step losses")
+        check(r0["sample"][0] == [64, plan.n] and r0["sample"][1:3] == [1.0, 1.0],
+              "sample_spins(64) shape or values")
+        check(r0["saved"] == ["dvae.pth", "grbm.pth", "losses.json", "parameters.json"],
+              "rank 0 did not save the model directory")
+        print(f"[23] saved on rank 0: {r0['saved']}; sample_spins(64): {r0['sample'][0]} "
+              f"on every rank alike; launches {r0['sample_counts']}")
+        print(f"[23] fed 4-rank sweep vs single-device K3 ({c_path} chains x 4 sweeps, same "
+              f"chains and uniforms): {r0['cross_identical']:.4f} of chains identical, "
+              f"max|diff| {r0['cross_max_abs']}")
+        check(r0["cross_identical"] >= CHAIN_RULE, "4-rank sweep vs single-device K3")
+        print(f"[23] SWEEP_BLOCK_SPARSE='off': {r0['dense_impl']}, coupling {r0['dense_coupling']}"
+              f" a rank; MSE {r0['dense_losses']}; launches {r0['dense_counts']}; step times (ms) "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in r0['dense_step_s'])}  [{card}]")
+
+        # ---- 24. the P32 fabric beyond one card's dense coupling -----------------
+        full = pegasus_graph(32)
+        latent, _ = select_latent_graph(full, full.number_of_nodes(), 7)
+        res32 = _spawn_ranks("p32", graph_from_topology(latent), tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    x0 = res32[0]
+    whole_f32 = 4 * x0["n_pad"] ** 2
+    print(f"[24] P32: n={x0['n']} couplers={x0['couplers']} n_pad={x0['n_pad']} "
+          f"blocks={x0['blocks']}; the whole f32 coupling {whole_f32 / 1e9:.3f} GB")
+    for r, x in enumerate(res32):
+        line = "; ".join(f"{k} {x[k]['bytes'] / 1e9:.3f} GB, {x[k]['sweeps']} sweeps "
+                         f"{x[k]['seconds']:.3f} s, E finite {x[k]['energies_finite']}"
+                         for k in ("dense bf16", "packed bf16", "packed int8"))
+        print(f"[24] rank {r}: f32 rows {x['rows_f32_bytes'] / 1e9:.3f} GB (built in "
+              f"{x['build_s']:.3f} s); {line}; peak memory {x['peak_bytes'] / 1e9:.3f} GB; "
+              f"launches {x['counts']}  [{card}]")
+        check((x["n"], x["couplers"], x["n_pad"], x["blocks"]) == (23560, 172964, 23936, 187),
+              "the P32 fabric differs from the JAX demo's")
+        check(x["rows_f32_bytes"] * GS_RANKS == whole_f32, "a rank's rows are not a quarter")
+        check(x["peak_bytes"] < whole_f32, "a rank's peak memory reached the whole matrix")
+        for k in ("dense bf16", "packed bf16", "packed int8"):
+            check(x[k]["energies_finite"] and x[k]["spins_ok"], f"P32 {k}: energies or spins")
+            check(x[k]["bytes"] < whole_f32, f"P32 {k}: coupling bytes")
+        check(x["counts"].get("K4", 0) > 0
+              and not any(k.startswith(("K1", "K2", "K3")) for k in x["counts"]),
+              "the P32 sweeps did not run through K4 alone")
+
+    # ---- 25. times ------------------------------------------------------------
+    g.manual_seed(25)
+    per_span, tot_ms, tot_plain, tot_bound = [], 0.0, 0.0, 0.0
+    beta = torch.tensor(cfg.initial_pt_betas(), dtype=torch.float32,
+                        device=dev).repeat_interleave(cfg.NUM_READS)
+    for w in widths:
+        f = 3.0 * torch.randn((c_path, w), generator=g, device=dev)
+        u = torch.rand((c_path, w), generator=g, device=dev)
+        ms = cuda_ms(lambda: span_update(f, beta, seed=seed), 50, warmup=3)
+        plain_ms = cuda_ms(lambda: span_update_reference(f, beta, uniforms=u), 20, warmup=2)
+        bound = span_bound(c_path, w, True, False)[0]
+        per_span.append(f"{w}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound * 1e3:.3f} us)")
+        tot_ms, tot_plain, tot_bound = tot_ms + ms, tot_plain + plain_ms, tot_bound + bound
+    n_spans = len(widths)
+    # the device's own time per launch: back-to-back launches of a kernel
+    # this short can be paced by the wrapper's host work, not the card
+    from torch.profiler import ProfilerActivity, profile
+
+    f = 3.0 * torch.randn((c_path, max(widths)), generator=g, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            span_update(f, beta, seed=seed)
+        torch.cuda.synchronize()
+    k4_events = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "span_update" in e.key]
+    n_ev = sum(e.count for e in k4_events)
+    device_us = sum(e.self_device_time_total for e in k4_events) / n_ev if n_ev else None
+    print(f"[25] K4 device time per launch by torch.profiler at {c_path} x {max(widths)}: "
+          + (f"{device_us:.3f} us over {n_ev} launches" if n_ev else "not recorded")
+          + f"  [{card}]")
+    steps = [t for x in res for t in x["step_s"]]
+    med = float(np.median(r0["step_s"]))
+    share = [x["comm_s"] / x["epoch_s"] for x in res]
+    print(f"[25] K4 (Philox, per-chain beta) per launch at {c_path} rows by span width: "
+          f"{'; '.join(per_span)}; mean over the {n_spans} spans of a sweep {tot_ms / n_spans:.4f}"
+          f" ms, plain {tot_plain / n_spans:.4f} ms, bound {tot_bound / n_spans * 1e3:.3f} us "
+          f"(bytes)  [{card}]")
+    print(f"[25] graph-sharded scaled step (gloo, 4 processes on one card; not a multi-GPU "
+          f"number): rank 0 median {med * 1e3:.3f} ms over {len(r0['step_s'])} steps (all ranks' "
+          f"steps {min(steps) * 1e3:.3f}-{max(steps) * 1e3:.3f} ms); host-clock share of the "
+          f"collectives in the epoch by rank {', '.join(f'{s:.1%}' for s in share)}  [{card}]")
+    paths = {"train_scaled_sharded": _sum_counts(x["counts"] for x in res),
+             "sample_scaled_sharded": _sum_counts(x["sample_counts"] for x in res),
+             "train_scaled_sharded_dense": _sum_counts(x["dense_counts"] for x in res),
+             "p32_sharded": _sum_counts(x["counts"] for x in res32)}
+    kernel = {
+        "name": "span_update (K4)",
+        "mode": "K4",
+        "route": "cuda",
+        "source": "image_generation_tpu_torch/csrc/span_update.cu",
+        "replaces": K4_REPLACES,
+        "launches": paths["train_scaled_sharded"].get("K4", 0),
+        "launches_by_rank": [x["counts"].get("K4", 0) for x in res],
+        "max_abs_err": max_err,
+        "tolerance": "bit-identical to the plain version (fed and Philox)",
+        "ms": tot_ms / n_spans,
+        "plain_ms": tot_plain / n_spans,
+        "bound_ms": tot_bound / n_spans,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "device_us_by_profiler": device_us,
+        "shape": f"{c_path} rows x a class span of the scaled plan (widths {widths}), Philox, "
+                 f"per-chain beta; mean per launch over a sweep's {n_spans} spans",
+    }
+    return {"paths": paths, "kernels": [kernel]}
+
+
+def _sum_counts(counts) -> dict:
+    total: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 # a 12-spin test graph: a ring plus chords (unique, no self-loops)

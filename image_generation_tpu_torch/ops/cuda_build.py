@@ -28,6 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {  # library name -> source
     "gibbs_sweeps": _PKG / "csrc" / "gibbs_sweeps.cu",  # K1
     "gibbs_hbm": _PKG / "csrc" / "gibbs_hbm.cu",  # K2, K3
+    "span_update": _PKG / "csrc" / "span_update.cu",  # K4
 }
 _HEADERS = (_PKG / "csrc" / "gibbs_common.cuh",)  # included by the sources above
 _BUILD_DIR = _PKG / "_build"

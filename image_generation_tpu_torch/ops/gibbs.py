@@ -47,6 +47,7 @@ __all__ = [
     "build_plan",
     "class_spans",
     "permuted_model",
+    "permuted_model_rows",
     "random_spins",
     "to_original",
     "block_products",
@@ -228,6 +229,28 @@ def permuted_model(
     a = torch.zeros((plan.n_pad, plan.n_pad), dtype=torch.float32, device=dev)
     a.index_put_((ei, ej), q, accumulate=True)
     a.index_put_((ej, ei), q, accumulate=True)
+    hp = torch.zeros(plan.n_pad, dtype=torch.float32, device=dev)
+    hp[torch.as_tensor(plan.orig_to_perm, dtype=torch.long, device=dev)] = h.to(
+        torch.float32
+    )
+    return hp, a
+
+
+def permuted_model_rows(
+    plan: GibbsPlan, h: torch.Tensor, quadratic: torch.Tensor, lo: int, hi: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h_p, A_p[lo:hi]): ``permuted_model``'s fields and rows [lo, hi) of
+    its coupling, built from the plan's edge list (``perm_edge_i/j``)
+    without the whole matrix: a graph-sharded rank's row block.  Equal to
+    the slice of ``permuted_model``'s coupling bit for bit."""
+    dev = h.device
+    ei = torch.as_tensor(plan.perm_edge_i, dtype=torch.long, device=dev)
+    ej = torch.as_tensor(plan.perm_edge_j, dtype=torch.long, device=dev)
+    q = quadratic.to(torch.float32)
+    a = torch.zeros((hi - lo, plan.n_pad), dtype=torch.float32, device=dev)
+    for rows, cols in ((ei, ej), (ej, ei)):
+        own = (rows >= lo) & (rows < hi)
+        a.index_put_((rows[own] - lo, cols[own]), q[own], accumulate=True)
     hp = torch.zeros(plan.n_pad, dtype=torch.float32, device=dev)
     hp[torch.as_tensor(plan.orig_to_perm, dtype=torch.long, device=dev)] = h.to(
         torch.float32
@@ -449,6 +472,7 @@ def pt_round(
     return_energies: bool = False,
     return_accept: bool = False,
     *,
+    energies_fn=None,
     uniforms: Optional[torch.Tensor] = None,
     swap_uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     aux: Optional[dict] = None,
@@ -463,7 +487,10 @@ def pt_round(
     plain ``gibbs_sweeps_reference`` by default).  With carried ``energies``
     (T, C) the sweeps track ΔE and the swap energies are ``energies + ΔE``,
     so no energy product runs; without them the energies are computed once
-    after the sweeps.  Swaps permute the energies with the configurations.
+    after the sweeps, by ``energies_fn(hp, coupling_p, spins)`` (default
+    ``ising_energies``; graph-sharded training passes
+    ``ising_energies_graph_sharded``, and ``spins_p`` is then a rank's
+    column window).  Swaps permute the energies with the configurations.
 
     ``uniforms`` (sweeps, T·C, n_pad) and ``swap_uniforms`` (two (T−1, C)
     arrays, even pass then odd) replace the draws from ``generator``.
@@ -494,7 +521,7 @@ def pt_round(
                          beta_per_chain, uniforms=uniforms)
     s = flat.reshape(t_dim, c_dim, n_pad)
     if energies is None:
-        e = ising_energies(hp, coupling_p, s)
+        e = (energies_fn or ising_energies)(hp, coupling_p, s)
 
     d_beta = (betas[:-1] - betas[1:])[:, None]
     pairs = torch.arange(t_dim - 1, device=dev) % 2
@@ -539,18 +566,21 @@ def pt_sample(
     sweeps_per_round: int,
     init_spins: Optional[torch.Tensor] = None,
     sweeps_fn=None,
+    energies_fn=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A full parallel-tempering run from optional ``init_spins``
-    (T, C, n_pad): the ladder energies are computed once and carried
-    through every round.  Returns ((C, n_pad) samples at ``betas[-1]``,
-    the (T, C, n_pad) ladder)."""
+    (T, C, n_pad): the ladder energies are computed once (by
+    ``energies_fn``, as in ``pt_round``) and carried through every round.
+    Returns ((C, n_pad) samples at ``betas[-1]``, the (T, C, n_pad)
+    ladder)."""
     t_dim = int(torch.as_tensor(betas).shape[0])
     if init_spins is None:
         init_spins = random_spins(generator, plan, t_dim * n_chains, hp.device).reshape(
             t_dim, n_chains, plan.n_pad
         )
-    s, e = init_spins, ising_energies(hp, coupling_p, init_spins)
+    s, e = init_spins, (energies_fn or ising_energies)(hp, coupling_p, init_spins)
     for _ in range(n_rounds):
         s, e = pt_round(generator, hp, coupling_p, plan, s, betas, sweeps_per_round,
-                        sweeps_fn=sweeps_fn, energies=e, return_energies=True)
+                        sweeps_fn=sweeps_fn, energies=e, return_energies=True,
+                        energies_fn=energies_fn)
     return s[-1], s

@@ -6,6 +6,10 @@ scale maps the coupling onto 255 levels:
     scale = max|A| / 127          A_q = round(A / scale)  ∈ [-127, 127]
 
 (rounding half to even, as ``jnp.round``; a zero matrix gets scale 1).
+Under graph sharding each rank quantizes its own row block with the scale
+of the whole matrix: max|A| is all-reduced (MAX) over the mesh's graph
+axis first, so every shard holds the rows of the whole matrix's
+quantization.
 The sampler then samples the quantized model A' = scale · A_q exactly:
 ±1 spins times int8 couplings accumulate exactly in int32, and fields and
 energies scale out once in f32.
@@ -27,13 +31,19 @@ class QuantCoupling(NamedTuple):
     scale: torch.Tensor  # () f32: the dequantized coupling is q · scale
 
 
-def quantize_coupling(a: torch.Tensor) -> QuantCoupling:
-    """Symmetric int8 quantization of a (n_pad, n_pad) coupling matrix."""
+def quantize_coupling(a: torch.Tensor, mesh=None) -> QuantCoupling:
+    """Symmetric int8 quantization of a (n_pad, n_pad) coupling matrix, or
+    with ``mesh`` (``parallel/mesh.py``) of this rank's row block of it,
+    at the scale of the whole matrix."""
     a = a.to(torch.float32)
-    amax = a.abs().max()
+    lo, hi = torch.aminmax(a)  # max|A| without an |A| temporary
+    amax = torch.maximum(-lo, hi)
+    if mesh is not None:
+        amax = mesh.all_reduce(amax.reshape(1), op="max").reshape(())
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    q = torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8)
-    return QuantCoupling(q=q, scale=scale)
+    q = a / scale  # one temporary the size of ``a``: a row block may be GBs
+    q.round_().clamp_(-127, 127)
+    return QuantCoupling(q=q.to(torch.int8), scale=scale)
 
 
 def dequantize_coupling(qc: QuantCoupling) -> torch.Tensor:

@@ -28,8 +28,19 @@ int8 coupling) and the streaming kernels K2 / K3
 tempering.  A CUDA tensor launches the kernel, a CPU tensor runs its plain
 version (``gibbs_sweeps_kernel_reference`` for K1: the Pallas kernels'
 quantized units for int8); ``USE_PALLAS="off"`` selects the plain
-XLA-semantics ``gibbs_sweeps_reference`` everywhere.  The graph-sharded
-sampler, which the port does not have, raises ``NotImplementedError``.
+XLA-semantics ``gibbs_sweeps_reference`` everywhere.
+
+Graph sharding (``GRAPH_SHARDED``, the JAX dispatch of
+``training/step.py:280-425``): given a ``Mesh`` (``parallel/mesh.py``)
+whose graph axis tiles n_pad, every rank runs these functions on its own
+part.  It builds only its row block of the cached coupling (quantized
+with the whole matrix's scale, or cast, then packed on its shard-local
+grid), holds its column window of the chains, sweeps through
+``ops/gibbs_graph_sharded.py`` (one all-reduce per class span, the update
+in kernel K4), computes ladder energies there too, and all-gathers the
+target rung's columns where the loss and the NLL statistics read the
+samples.  The DVAE, the GRBM and their optimizers are replicated: every
+rank computes the same step from the same draws.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ from image_generation_tpu_torch.ops.gibbs import (
     gibbs_sweeps_reference,
     ising_energies,
     permuted_model,
+    permuted_model_rows,
     pt_round,
     pt_sample,
     random_spins,
@@ -159,9 +171,20 @@ class SampleFns:
     the JAX package does, ``pallas`` spelled ``cuda``: ``cuda_vmem``,
     ``cuda_hbm``, ``torch`` (``USE_PALLAS="off"``, the JAX ``xla``), with
     ``+int8`` and ``+bs``.  It names the dispatch on either device: on the
-    CPU each wrapper runs its kernel's plain version."""
+    CPU each wrapper runs its kernel's plain version.
 
-    def __init__(self, cfg: TrainingConfig, graph: GRBMGraph, plan: GibbsPlan, device):
+    With a ``mesh`` the JAX graph-sharded gate applies: ``GRAPH_SHARDED``
+    "on", or "auto" with a resident coupling over 2 GiB, on a graph axis
+    of size > 1 that tiles n_pad (``ValueError`` for "on" without one).
+    ``sampler_impl`` is then ``torch_graph_sharded`` (the JAX
+    ``xla_graph_sharded``), ``+plrng`` (``+plrng_rs`` under
+    ``PLRNG_ROW_SEED``) when the update runs in K4, then ``+int8`` and
+    ``+bs``; block sparsity is decided on the padded per-shard occupancy.
+    A mesh that does not graph-shard (the JAX chain-sharded kernels) raises
+    ``NotImplementedError``."""
+
+    def __init__(self, cfg: TrainingConfig, graph: GRBMGraph, plan: GibbsPlan, device,
+                 mesh=None):
         if cfg.SAMPLER == "pt" and isinstance(cfg.PT_NUM_BETAS, str):
             raise ValueError(
                 "PT_NUM_BETAS='auto' must be resolved to a concrete ladder before the "
@@ -179,32 +202,111 @@ class SampleFns:
             torch.tensor(cfg.initial_pt_betas(), dtype=torch.float32, device=self.device)
             if self.pt_mode else None
         )
-        if cfg.GRAPH_SHARDED == "on":
-            raise NotImplementedError(
-                "GRAPH_SHARDED='on' needs a multi-device mesh (kernel K4), "
-                "which is not ported"
-            )
+        self.mesh = mesh
         self.int8 = cfg.SAMPLER_MATMUL_DTYPE == "int8"
         self.mm_dtype = cfg.resolved_sampler_matmul_dtype(plan.n_pad)
-        # the resident coupling's itemsize, which the K1 gate sizes against
+        # the resident coupling's itemsize, which the K1 gate and the
+        # graph-sharded auto gate size against
         self.coupling_itemsize = 1 if self.int8 else (2 if self.mm_dtype is not None else 4)
         eff_chains = cfg.PT_NUM_BETAS * cfg.NUM_READS if self.pt_mode else cfg.NUM_READS
+        self.graph_sharded = self._graph_sharded(cfg, plan, mesh)
         self.block_sparse = cfg.resolved_block_sparse(plan)
+        if self.block_sparse and self.graph_sharded:
+            self.block_sparse = self._sharded_block_sparse(cfg, plan, mesh.graph)
         # the packed form replaces the dense cache K1 reads: block-sparse
         # wins and the sweep streams the panels (K3)
-        self.vmem = (selects_k1(plan, eff_chains, self.coupling_itemsize)
-                     and not self.block_sparse)
-        impl = ("cuda_vmem" if self.vmem else "cuda_hbm") if self.use_kernel else "torch"
+        self.vmem = (not self.graph_sharded and not self.block_sparse
+                     and selects_k1(plan, eff_chains, self.coupling_itemsize))
+        if self.graph_sharded:
+            impl = "torch_graph_sharded" + (
+                ("+plrng_rs" if cfg.PLRNG_ROW_SEED == "on" else "+plrng")
+                if self.use_kernel else "")
+        else:
+            impl = ("cuda_vmem" if self.vmem else "cuda_hbm") if self.use_kernel else "torch"
         self.sampler_impl = impl + ("+int8" if self.int8 else "") + (
             "+bs" if self.block_sparse else "")
+
+    def _graph_sharded(self, cfg: TrainingConfig, plan: GibbsPlan, mesh) -> bool:
+        """The JAX gate: whether the coupling rows and spin columns are
+        split over the mesh's graph axis."""
+        sharded_ctx = mesh is not None and mesh.size > 1
+        tiles = sharded_ctx and mesh.graph > 1 and plan.n_pad % mesh.graph == 0
+        if cfg.GRAPH_SHARDED == "on" and not tiles:
+            where = (
+                f"the mesh 'graph' axis ({mesh.graph}) cannot partition n_pad={plan.n_pad}: "
+                f"it must have size > 1 and divide n_pad"
+                if sharded_ctx else "there is no multi-device mesh to partition over"
+            )
+            raise ValueError(
+                f"GRAPH_SHARDED='on' but {where}. Provide a mesh whose 'graph' axis fits "
+                f"(create_mesh(shape=(1, graph))) or use GRAPH_SHARDED='off'."
+            )
+        on = tiles and (cfg.GRAPH_SHARDED == "on" or (
+            cfg.GRAPH_SHARDED == "auto"
+            and plan.n_pad * plan.n_pad * self.coupling_itemsize > (2 << 30)))
+        if sharded_ctx and not on:
+            raise NotImplementedError(
+                "a mesh without graph sharding (the JAX package's chain-sharded kernels: "
+                "chains over the mesh, the coupling replicated) is not ported yet: "
+                "ROADMAP.md queue 1 item 7"
+            )
+        return on
+
+    @staticmethod
+    def _sharded_block_sparse(cfg: TrainingConfig, plan: GibbsPlan, n_shards: int) -> bool:
+        """Block sparsity on the shard-local grid: the chunk must fit a row
+        shard ("on" raises otherwise), and "auto" asks for a padded
+        per-shard occupancy of at most 0.75."""
+        from image_generation_tpu_torch.ops.block_sparse_sharded import (
+            sharded_chunk_meta,
+            supports_sharded_block_sparse,
+        )
+
+        chunk = cfg.SWEEP_BS_CHUNK
+        if not supports_sharded_block_sparse(plan, n_shards, chunk):
+            if cfg.SWEEP_BLOCK_SPARSE == "on":
+                raise ValueError(
+                    f"SWEEP_BLOCK_SPARSE='on' under GRAPH_SHARDED, but chunk={chunk} does "
+                    f"not fit the {n_shards}-way row shard of n_pad={plan.n_pad} "
+                    f"(= {plan.n_pad // n_shards} rows/shard). Lower SWEEP_BS_CHUNK or the "
+                    f"graph-axis size, or use SWEEP_BLOCK_SPARSE='auto'."
+                )
+            return False
+        if cfg.SWEEP_BLOCK_SPARSE == "auto":
+            return sharded_chunk_meta(plan, n_shards, chunk).occupancy <= 0.75
+        return True
+
+    def local(self, spins: torch.Tensor) -> torch.Tensor:
+        """This rank's column window of whole-width (..., n_pad) spins under
+        graph sharding; the spins themselves otherwise."""
+        if not self.graph_sharded or spins.shape[-1] != self.plan.n_pad:
+            return spins
+        lo, hi = self.mesh.window(self.plan.n_pad)
+        return spins[..., lo:hi].contiguous()
 
     def build_sampler_model(self, grbm_params: GRBMParams):
         """(hp, coupling_p) of the prefactor-scaled, range-clipped model in
         padded, color-permuted coordinates, the coupling stored as the
         dispatch reads it: quantized, then cast, then packed (the JAX
-        order)."""
+        order).  Under graph sharding: this rank's row block only, quantized
+        at the whole matrix's scale, packed on its shard-local grid."""
         cfg = self.config
         h, j = scaled_ising(grbm_params, cfg.PREFACTOR, cfg.H_RANGE, cfg.J_RANGE)
+        if self.graph_sharded:
+            from image_generation_tpu_torch.ops.block_sparse_sharded import (
+                pack_coupling_graph_sharded,
+            )
+
+            hp, coupling_p = permuted_model_rows(self.plan, h, j,
+                                                 *self.mesh.window(self.plan.n_pad))
+            if self.int8:
+                coupling_p = quantize_coupling(coupling_p, mesh=self.mesh)
+            elif self.mm_dtype is not None:
+                coupling_p = coupling_p.to(self.mm_dtype)
+            if self.block_sparse:
+                coupling_p = pack_coupling_graph_sharded(self.plan, coupling_p, self.mesh,
+                                                         cfg.SWEEP_BS_CHUNK)
+            return hp, coupling_p
         hp, coupling_p = permuted_model(self.plan, h, j)
         if self.int8:
             coupling_p = quantize_coupling(coupling_p)
@@ -222,6 +324,14 @@ class SampleFns:
         call folds coalesced requests into the chains)."""
         kw = dict(generator=generator, uniforms=uniforms, track_delta_e=track_delta_e)
         args = (hp, coupling_p, self.plan, chains, n_sweeps, beta)
+        if self.graph_sharded:
+            from image_generation_tpu_torch.ops.gibbs_graph_sharded import (
+                gibbs_sweeps_graph_sharded,
+            )
+
+            return gibbs_sweeps_graph_sharded(*args[:5], self.mesh, beta, **kw,
+                                              matmul_dtype=self.mm_dtype,
+                                              use_kernel=self.use_kernel)
         if not self.use_kernel:
             return gibbs_sweeps_reference(*args, **kw)
         if self.vmem and selects_k1(self.plan, chains.shape[0], self.coupling_itemsize):
@@ -232,7 +342,19 @@ class SampleFns:
         """(T, C) ladder energies under the sampler model; (0,) outside PT."""
         if not self.pt_mode:
             return torch.zeros(0, device=chains.device)
-        return ising_energies(hp, coupling_p, chains)
+        return self.energies(hp, coupling_p, chains)
+
+    def energies(self, hp, coupling_p, spins) -> torch.Tensor:
+        """Ising energies of (..., n_pad) spins, or under graph sharding of
+        this rank's column window (``ising_energies_graph_sharded``)."""
+        if self.graph_sharded:
+            from image_generation_tpu_torch.ops.gibbs_graph_sharded import (
+                ising_energies_graph_sharded,
+            )
+
+            return ising_energies_graph_sharded(hp, coupling_p, spins, self.mesh,
+                                                matmul_dtype=self.mm_dtype)
+        return ising_energies(hp, coupling_p, spins)
 
     def run_sweeps(self, generator, hp, coupling_p, chains, n_sweeps, energies=None,
                    betas=None, uniforms=None, swap_uniforms=None):
@@ -246,15 +368,22 @@ class SampleFns:
                 generator, hp, coupling_p, self.plan, chains,
                 self.betas0 if betas is None else betas, n_sweeps,
                 sweeps_fn=self.sweeps_fn, energies=energies, return_accept=True,
-                uniforms=uniforms, swap_uniforms=swap_uniforms,
+                uniforms=uniforms, swap_uniforms=swap_uniforms, energies_fn=self.energies,
             )
         empty = torch.zeros(0, device=chains.device)
         return self.sweeps_fn(generator, hp, coupling_p, chains, n_sweeps,
                               uniforms=uniforms), empty, empty
 
     def chain_samples(self, chains) -> torch.Tensor:
-        """(NUM_READS, n) target-distribution samples in original order."""
-        return to_original(self.plan, chains[-1] if self.pt_mode else chains)
+        """(NUM_READS, n) target-distribution samples in original order
+        (under graph sharding the ranks' columns all-gathered first)."""
+        return to_original(self.plan, self.gather(chains[-1] if self.pt_mode else chains))
+
+    def gather(self, spins: torch.Tensor) -> torch.Tensor:
+        """Whole-width spins from the ranks' column windows (graph
+        sharding: an all-gather over the graph axis); as they are
+        otherwise."""
+        return self.mesh.all_gather(spins, dim=-1) if self.graph_sharded else spins
 
     def sample_fn(self, generator: Optional[torch.Generator],
                   grbm_params: GRBMParams, num_reads: int, n_sweeps: int, *,
@@ -275,30 +404,35 @@ class SampleFns:
         if self.pt_mode:
             if uniforms is not None:
                 raise ValueError("fed uniforms are taken by plain Gibbs sampling only")
+            betas = self.betas0 if betas is None else betas
+            if init_spins is None and self.graph_sharded:
+                init_spins = random_spins(generator, self.plan, len(betas) * num_reads,
+                                          self.device).reshape(len(betas), num_reads, -1)
             target, _ = pt_sample(
-                generator, hp, coupling_p, self.plan, num_reads,
-                self.betas0 if betas is None else betas,
+                generator, hp, coupling_p, self.plan, num_reads, betas,
                 max(1, n_sweeps // max(cfg.GIBBS_SWEEPS, 1)), cfg.GIBBS_SWEEPS,
-                init_spins=init_spins, sweeps_fn=self.sweeps_fn,
+                init_spins=None if init_spins is None else self.local(init_spins),
+                sweeps_fn=self.sweeps_fn, energies_fn=self.energies,
             )
-            return to_original(self.plan, target)
+            return to_original(self.plan, self.gather(target))
         if init_spins is None:
             init_spins = random_spins(generator, self.plan, num_reads, self.device)
-        spins = self.sweeps_fn(generator, hp, coupling_p, init_spins, n_sweeps,
+        spins = self.sweeps_fn(generator, hp, coupling_p, self.local(init_spins), n_sweeps,
                                uniforms=uniforms)
-        return to_original(self.plan, spins)
+        return to_original(self.plan, self.gather(spins))
 
 
 def make_sample_fns(cfg: TrainingConfig, graph: GRBMGraph,
-                    plan: Optional[GibbsPlan] = None, device="cuda") -> SampleFns:
+                    plan: Optional[GibbsPlan] = None, device="cuda", mesh=None) -> SampleFns:
     """Sampler functions for a config and coupling graph on ``device``
-    (the card unless ``device="cpu"``).  Raises ``NotImplementedError``
-    for the graph-sharded sampler, which is not ported, and
-    ``ValueError`` for an unresolved ``PT_NUM_BETAS="auto"``."""
+    (the card unless ``device="cpu"``), graph-sharded over ``mesh`` where
+    the JAX gate says so (``SampleFns``).  Raises ``ValueError`` for an
+    unresolved ``PT_NUM_BETAS="auto"`` and for ``GRAPH_SHARDED="on"``
+    without a graph axis that tiles n_pad."""
     device = resolve_device(device)
     if plan is None:
         plan = build_plan(graph)
-    return SampleFns(cfg, graph, plan, device)
+    return SampleFns(cfg, graph, plan, device, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -335,8 +469,8 @@ class TrainStepFns(SampleFns):
     ``rebuild_sampler``, the LR schedules, and the sampler functions."""
 
     def __init__(self, cfg: TrainingConfig, graph: GRBMGraph, plan: GibbsPlan,
-                 device, total_steps: int):
-        super().__init__(cfg, graph, plan, device)
+                 device, total_steps: int, mesh=None):
+        super().__init__(cfg, graph, plan, device, mesh)
         self.kernel = GaussianKernel(n_kernels=cfg.N_KERNELS)
         self.dvae_lr = geomspace_lr(cfg.AUTOENCODER_INITIAL_LR, cfg.AUTOENCODER_FINAL_LR,
                                     total_steps)
@@ -360,11 +494,14 @@ class TrainStepFns(SampleFns):
         )
 
     def new_chains(self, generator) -> torch.Tensor:
+        """Fresh random chains (this rank's columns of them under graph
+        sharding)."""
         cfg = self.config
         if self.pt_mode:
-            return random_spins(generator, self.plan, cfg.PT_NUM_BETAS * cfg.NUM_READS,
-                                self.device).reshape(cfg.PT_NUM_BETAS, cfg.NUM_READS, -1)
-        return random_spins(generator, self.plan, cfg.NUM_READS, self.device)
+            return self.local(random_spins(
+                generator, self.plan, cfg.PT_NUM_BETAS * cfg.NUM_READS,
+                self.device).reshape(cfg.PT_NUM_BETAS, cfg.NUM_READS, -1))
+        return self.local(random_spins(generator, self.plan, cfg.NUM_READS, self.device))
 
     def init(self, seed: int) -> TrainState:
         """A fresh state: the JAX model's initialisers, small random GRBM
@@ -384,8 +521,11 @@ class TrainStepFns(SampleFns):
                    chain_energies: Optional[torch.Tensor] = None,
                    pt_betas: Optional[torch.Tensor] = None, opt_step: int = 0) -> TrainState:
         """A state around given weights and chains with fresh optimizers;
-        ``burn_in`` runs ``GIBBS_BURN_IN`` sweeps under the model first."""
+        ``burn_in`` runs ``GIBBS_BURN_IN`` sweeps under the model first.
+        Whole-width chains are cut to this rank's columns under graph
+        sharding."""
         hp, coupling_p = self.build_sampler_model(grbm_params)
+        chains = self.local(chains)
         if pt_betas is None:
             pt_betas = (self.betas0.clone() if self.pt_mode
                         else torch.zeros(0, device=self.device))
@@ -413,7 +553,7 @@ class TrainStepFns(SampleFns):
             flat = feed.fresh_chains
             if flat is None:
                 flat = random_spins(g, self.plan, chains_in[..., 0].numel(), self.device)
-            chains_in = flat.reshape(chains_in.shape)
+            chains_in = self.local(flat).reshape(chains_in.shape)
         chains, chain_e, pt_accept = self.run_sweeps(
             g, state.sampler_h, state.sampler_coupling, chains_in, cfg.GIBBS_SWEEPS,
             energies=state.chain_energies if pt_carry else None, betas=state.pt_betas,
@@ -492,12 +632,14 @@ class TrainStepFns(SampleFns):
 
 
 def make_train_fns(cfg: TrainingConfig, graph: GRBMGraph, total_steps: int,
-                   plan: Optional[GibbsPlan] = None, device="cuda") -> TrainStepFns:
+                   plan: Optional[GibbsPlan] = None, device="cuda",
+                   mesh=None) -> TrainStepFns:
     """Training functions for a config and coupling graph on ``device``
-    (the card unless ``device="cpu"``); ``total_steps`` = epochs × batches
-    fixes the LR schedules.  Raises ``NotImplementedError`` for what is
-    not ported: the unported samplers (``make_sample_fns``), the gumbel
-    latent mode, bf16 or factored Adam moments."""
+    (the card unless ``device="cpu"``), graph-sharded over ``mesh`` as
+    ``make_sample_fns`` says; ``total_steps`` = epochs × batches fixes the
+    LR schedules.  Raises ``NotImplementedError`` for what is not ported:
+    a mesh without graph sharding, the gumbel latent mode, bf16 or
+    factored Adam moments."""
     device = resolve_device(device)
     if plan is None:
         plan = build_plan(graph)
@@ -506,7 +648,7 @@ def make_train_fns(cfg: TrainingConfig, graph: GRBMGraph, total_steps: int,
             "ADAM_MOMENT_DTYPE='bfloat16' and ADAM_FACTORED_NU='on' "
             "(training/optim.py scale_by_adam_moments) are not ported"
         )
-    return TrainStepFns(cfg, graph, plan, device, total_steps)
+    return TrainStepFns(cfg, graph, plan, device, total_steps, mesh)
 
 
 def train_state_from_jax(fns: TrainStepFns, state, seed: int = 0) -> TrainState:
@@ -515,7 +657,8 @@ def train_state_from_jax(fns: TrainStepFns, state, seed: int = 0) -> TrainState:
     ``grbm_params.linear/.quadratic``, ``chains``, ``chain_energies``,
     ``pt_betas``, ``opt_step``).  The cached sampler model is rebuilt from
     ``grbm_params`` in the form the dispatch stores (quantized, cast,
-    packed), as the JAX package rebuilds it on restore.  Optimizer moments
+    packed; this rank's rows under graph sharding, with its columns of
+    the chains), as the JAX package rebuilds it on restore.  Optimizer moments
     start fresh, as after the JAX ``init``; ``seed`` seeds the state's
     generator."""
     dev = fns.device

@@ -15,6 +15,14 @@ the model the sampler will run (``ops/pt_tune.size_ladder``), through the
 sweep dispatch.  Not ported yet: ``generate_output`` and the ``samplers/``
 backends.
 
+On a mesh (``mesh=``, ``parallel/mesh.py``) every rank of the world runs
+its own Trainer with the same config and seed: ``GRAPH_SHARDED`` splits
+the coupling rows and chain columns over the graph axis
+(``training/step.py``), the DVAE and the GRBM are replicated (cuDNN is
+set deterministic, so every rank computes the same bits), ``save`` writes
+on rank 0 only, and ``sample_spins`` samples through the partitioned
+sampler.  Native checkpoints of a sharded state are not ported yet.
+
 The trainer runs on the card unless it is given ``device="cpu"``; with no
 card visible a CUDA trainer raises.  The dataset lives on the trainer's
 device.
@@ -51,6 +59,7 @@ from image_generation_tpu_torch.training.step import (
     make_sample_fns,
     make_train_fns,
 )
+from image_generation_tpu_torch.parallel.mesh import auto_mesh
 from image_generation_tpu_torch.utils.data import get_dataset, permuted_epoch
 from image_generation_tpu_torch.utils.device import resolve_device
 
@@ -63,9 +72,11 @@ class TrainingError(Exception):
 
 class Trainer:
     def __init__(self, config: Optional[TrainingConfig] = None, device="cuda",
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, mesh=None):
         """``device`` is where everything runs (the card unless ``"cpu"``);
-        ``seed`` replaces ``RANDOM_SEED`` for the trainer's random streams."""
+        ``seed`` replaces ``RANDOM_SEED`` for the trainer's random streams;
+        ``mesh``: None (one device), a ``Mesh``, or ``"auto"``
+        (``parallel.mesh.auto_mesh``: the initialised world, or None)."""
         config = config if config is not None else TrainingConfig()
         self.config = config
         self.qpu = config.QPU
@@ -78,6 +89,12 @@ class Trainer:
             # through autocast.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        self.mesh = auto_mesh() if mesh == "auto" else mesh
+        if self.mesh is not None and self.device.type == "cuda":
+            # the ranks compute the replicated DVAE step each on its own:
+            # deterministic cuDNN keeps their weights the same bits
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
         self.graph = None
         self.plan = None
         self.fns = None
@@ -149,7 +166,7 @@ class Trainer:
         seed = self._next_seed()  # the state's: its generator, a fresh run's init
         self._resolve_auto_ladder(self.grbm_params if keep else None, init_seed=seed)
         self.fns = make_train_fns(self.config, self.graph, n_epochs * self.n_batches,
-                                  self.plan, device=self.device)
+                                  self.plan, device=self.device, mesh=self.mesh)
         if keep:  # tune mode: fresh optimizers, chains burned in under the loaded GRBM
             g = torch.Generator(device=self.device)
             g.manual_seed(seed)
@@ -178,7 +195,7 @@ class Trainer:
         cfg = self.config
         if cfg.SAMPLER != "pt" or cfg.PT_NUM_BETAS != "auto":
             return
-        if cfg.GRAPH_SHARDED == "on":
+        if cfg.GRAPH_SHARDED == "on" or self.mesh is not None:
             raise ValueError(
                 "PT_NUM_BETAS='auto' cannot probe a graph-sharded (beyond-HBM) model at "
                 "init; size it offline and pass the ladder as PT_BETAS"
@@ -321,7 +338,8 @@ class Trainer:
     def save(self, file_path, n_epochs: Optional[int] = None,
              old_losses: Optional[dict] = None):
         """Write the model directory; ``old_losses`` (tune mode) is
-        prepended to this run's loss history."""
+        prepended to this run's loss history.  On a mesh only rank 0
+        writes (the weights are replicated), and every rank waits for it."""
         cfg = self.config
         losses = self.losses
         if old_losses:
@@ -338,8 +356,15 @@ class Trainer:
             parameters["physical_nodes"] = [int(p) for p in self.physical_nodes]
         if self.data_source is not None:
             parameters["data_source"] = self.data_source.origin
-        return save_model_dir(file_path, self.dvae, self.grbm_params, self.graph,
-                              parameters, losses)
+        if self.mesh is None:
+            return save_model_dir(file_path, self.dvae, self.grbm_params, self.graph,
+                                  parameters, losses)
+        out = None
+        if self.mesh.graph_index == 0:
+            out = save_model_dir(file_path, self.dvae, self.grbm_params, self.graph,
+                                 parameters, losses)
+        self.mesh.barrier()
+        return out if out is not None else Path(file_path)
 
     def save_native(self, directory) -> Path:
         """A native checkpoint of the full train state (``io/native_ckpt.py``:
@@ -351,6 +376,7 @@ class Trainer:
 
         if not self._init_done:
             raise TrainingError("Initialization required before saving the train state.")
+        self._refuse_native_on_mesh()
         path = save_train_state(directory, self.state,
                                 extra={"seed_stream": self._seeds.bit_generator.state})
         (path.parent / f"losses_{path.stem}.json").write_text(json.dumps(self.losses))
@@ -369,6 +395,7 @@ class Trainer:
             restore_payload,
         )
 
+        self._refuse_native_on_mesh()
         if not self._init_done or self._n_epochs != n_epochs:
             self.train_init(n_epochs)
         step = latest_step(directory)
@@ -383,6 +410,13 @@ class Trainer:
             self.losses = json.loads(losses.read_text())
         self._resume_start_epoch = self.state.opt_step // max(self.n_batches, 1)
         return self.state.opt_step
+
+    def _refuse_native_on_mesh(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "native checkpoints of a mesh's sharded train state are not ported yet "
+                "(ROADMAP.md queue 1 item 7); save() writes the model directory"
+            )
 
     def load(self, file_path) -> None:
         """Load a reference-format model directory for sampling (and for
@@ -401,7 +435,7 @@ class Trainer:
         self.losses = losses
         self._resolve_auto_ladder(grbm_params)
         cfg = self.config
-        self.fns = make_sample_fns(cfg, graph, self.plan, self.device)
+        self.fns = make_sample_fns(cfg, graph, self.plan, self.device, mesh=self.mesh)
         dvae = DVAE(self.n_latents, cfg.LATENT_TO_DISCRETE,
                     dtype=getattr(torch, cfg.COMPUTE_DTYPE))
         dvae.load_state_dict(dvae_sd)
@@ -413,7 +447,8 @@ class Trainer:
     def sample_spins(self, num_reads: Optional[int] = None,
                      n_sweeps: Optional[int] = None) -> torch.Tensor:
         """(num_reads, n) ±1 spins in original coordinates from the current
-        GRBM, on the trainer's device (under PT, at the live ladder)."""
+        GRBM, on the trainer's device (under PT, at the live ladder); on a
+        mesh through the partitioned sampler, the same on every rank."""
         cfg = self.config
         betas = self.state.pt_betas if (self.state is not None and self.fns.pt_mode) else None
         return self.fns.sample_fn(

@@ -10,6 +10,7 @@ package's own ``_cache/`` directory, beside ``_build/``.
 from __future__ import annotations
 
 import os
+import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -59,10 +60,14 @@ def cached_latent_graph(qpu: str, n_latents: int,
     for phys, logical in mapping.items():
         physical[logical] = phys
     if use_cache:
+        # written aside and renamed: the ranks of a mesh may build the same
+        # entry at once, and none may read another's half-written file
+        tmp = path.with_name(f".{path.stem}.{os.getpid()}.{threading.get_ident()}.npz")
         try:
             path.parent.mkdir(parents=True, exist_ok=True)
-            np.savez_compressed(path, n=graph.n, edge_i=graph.edge_i, edge_j=graph.edge_j,
+            np.savez_compressed(tmp, n=graph.n, edge_i=graph.edge_i, edge_j=graph.edge_j,
                                 physical=np.asarray(physical, np.int64))
+            os.replace(tmp, path)
         except OSError:
-            pass
+            tmp.unlink(missing_ok=True)
     return graph, physical

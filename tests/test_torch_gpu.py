@@ -501,3 +501,158 @@ def test_stream_unoccupied_color_and_counters(dev):
     with pytest.raises(ValueError):
         k(hp, a.t(), plan, s0, 2, uniforms=u)
     assert sum(k.launches.values()) == 3
+
+
+# ---------------------------------------------------------------------------
+# the span update K4 and the graph-sharded sweep
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [1, 37, 2048])
+@pytest.mark.parametrize("per_chain", [False, True])
+def test_span_update_fed_matches_plain(dev, rows, per_chain):
+    """K4's fed entry against ``span_update_reference`` bit for bit, with
+    the uniforms a strided view of a (sweeps, rows, n_pad) array (the span's
+    columns) and a 600-wide span (three column tiles, a ragged edge)."""
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import (
+        span_update,
+        span_update_reference,
+    )
+
+    rng = np.random.default_rng(rows)
+    fields = torch.tensor(rng.uniform(-4, 4, (rows, 600)), dtype=torch.float32, device=dev)
+    u_all = torch.tensor(rng.random((2, rows, 1000), dtype=np.float32), device=dev)
+    u = u_all[1, :, 300:900]
+    beta = (torch.tensor(rng.uniform(0.2, 2.0, rows), dtype=torch.float32, device=dev)
+            if per_chain else 0.7)
+    span_update.launches.clear()
+    out = span_update(fields, beta, uniforms=u)
+    ref = span_update_reference(fields, beta, uniforms=u)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert dict(span_update.launches) == {"K4f": 1}
+
+
+def test_span_update_philox_matches_numpy_twin(dev):
+    """K4's Philox entry draws ``philox_uniforms`` at the span's global
+    rows, columns and sweep."""
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import (
+        philox_span_uniforms,
+        span_update,
+        span_update_reference,
+    )
+
+    rng = np.random.default_rng(3)
+    fields = torch.tensor(rng.uniform(-3, 3, (64, 300)), dtype=torch.float32, device=dev)
+    seed = torch.tensor([987654321987], dtype=torch.int64, device=dev)
+    out = span_update(fields, 1.3, seed=seed, row0=128, col0=1000, sweep=3)
+    u = torch.tensor(philox_span_uniforms(987654321987, 3, 128, 64, 1000, 300), device=dev)
+    assert torch.equal(out, span_update_reference(fields, 1.3, uniforms=u))
+    assert torch.equal(out, span_update_reference(fields, 1.3, seed=seed, row0=128, col0=1000,
+                                                  sweep=3))
+
+
+def test_span_update_refuses_without_fallback(dev):
+    """Anything K4 does not take raises, and nothing launches."""
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import span_update
+
+    fields = torch.zeros((8, 16), device=dev)
+    u = torch.rand((8, 16), device=dev)
+    seed = torch.tensor([1], dtype=torch.int64, device=dev)
+    span_update.launches.clear()
+    for kwargs in (dict(uniforms=u, seed=seed), dict(), dict(uniforms=u.t().contiguous()),
+                   dict(uniforms=u[:, ::2]), dict(seed=seed.to(torch.int32))):
+        with pytest.raises(ValueError):
+            span_update(fields, 1.0, **kwargs)
+    with pytest.raises(ValueError):
+        span_update(fields.t(), 1.0, uniforms=u)  # not contiguous
+    with pytest.raises(ValueError):
+        span_update(fields, torch.ones(3, device=dev), uniforms=u)  # beta rows
+    with pytest.raises(ValueError):
+        span_update(fields.double(), 1.0, uniforms=u)
+    assert not span_update.launches
+
+
+def _gloo_ranks(n_ranks, fn):
+    """``fn(mesh)`` on ``n_ranks`` threads, each a graph rank of a
+    (1, n_ranks) mesh over its own gloo group (the CPU tests' harness)."""
+    import threading
+    import uuid
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from image_generation_tpu_torch.parallel.mesh import Mesh
+
+    store, prefix = dist.HashStore(), uuid.uuid4().hex
+    out, errors = [None] * n_ranks, []
+
+    def work(rank):
+        try:
+            pg = dist.ProcessGroupGloo(dist.PrefixStore(prefix, store), rank, n_ranks,
+                                       timedelta(seconds=60))
+            out[rank] = fn(Mesh((1, n_ranks), graph_index=rank, graph_group=pg,
+                                backend="gloo"))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(r,)) for r in range(n_ranks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if errors:
+        raise errors[0]
+    return out
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_two_rank_gloo_sweep_on_the_card(dev, ckpt, form):
+    """Two gloo ranks on cuda:0 sweep the checkpoint's plan (|J| ≤ 1,
+    per-chain β) through K4 with fed uniforms: the gathered chains follow
+    the chain rule against the single-device plain sweep (blocks of one
+    class are independent, so span and block updates agree up to the
+    order of the sums), ΔE agrees on identical chains, and every rank
+    launched K4; in Philox mode the two ranks' energies agree."""
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded import (
+        gibbs_sweeps_graph_sharded,
+        ising_energies_graph_sharded,
+    )
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import span_update
+    from image_generation_tpu_torch.ops.gibbs import ising_energies
+    from image_generation_tpu_torch.ops.quant import quantize_coupling
+
+    plan, _, (hp, a) = ckpt
+    rng = np.random.default_rng(21)
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (512, plan.n_pad)), dtype=torch.float32, device=dev)
+    u = torch.tensor(rng.random((3, 512, plan.n_pad), dtype=np.float32), device=dev)
+    beta = torch.tensor(rng.uniform(0.5, 2.0, 512), dtype=torch.float32, device=dev)
+    whole = a.to(torch.bfloat16) if form == "bf16" else quantize_coupling(a)
+    ref, de_ref = gibbs_sweeps_reference(hp, whole, plan, s0, 3, beta, uniforms=u,
+                                         track_delta_e=True)
+    span_update.launches.clear()
+
+    def rank(mesh):
+        lo, hi = mesh.window(plan.n_pad)
+        rows = (a[lo:hi].to(torch.bfloat16) if form == "bf16"
+                else quantize_coupling(a[lo:hi].contiguous(), mesh=mesh))
+        mm = torch.bfloat16 if form == "bf16" else None
+        out, de = gibbs_sweeps_graph_sharded(hp, rows, plan, s0[:, lo:hi].contiguous(), 3, mesh,
+                                             beta, uniforms=u, track_delta_e=True,
+                                             matmul_dtype=mm)
+        g = torch.Generator(device=dev)
+        g.manual_seed(4)
+        s_ph = gibbs_sweeps_graph_sharded(hp, rows, plan, s0[:, lo:hi].contiguous(), 2, mesh,
+                                          generator=g, matmul_dtype=mm)
+        e_ph = ising_energies_graph_sharded(hp, rows, s_ph, mesh, matmul_dtype=mm)
+        torch.cuda.synchronize()
+        return out, de, e_ph
+
+    outs = _gloo_ranks(2, rank)
+    got = torch.cat([o[0] for o in outs], 1)
+    same = (got == ref).all(dim=1)
+    assert float(same.float().mean()) >= CHAIN_RULE
+    e_abs = ising_energies(hp, whole, ref).abs()[same]
+    assert bool(((outs[0][1] - de_ref).abs()[same] <= 1e-3 * (1 + e_abs)).all())
+    assert torch.equal(outs[0][1], outs[1][1]) and torch.equal(outs[0][2], outs[1][2])
+    assert bool(torch.isfinite(outs[0][2]).all())
+    assert span_update.launches["K4f"] > 0 and span_update.launches["K4"] > 0

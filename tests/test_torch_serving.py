@@ -95,9 +95,14 @@ def test_trainer_samples_spins(trainer):
     pytest.param({"GRAPH_SHARDED": "on"}, "mesh", id="overrides4-mesh"),
 ])
 def test_unported_sampler_paths_raise(trainer, overrides, missing):
-    """The graph-sharded sampler (kernel K4, multi-device) is not ported."""
+    """The graph-sharded sampler runs on a mesh of one data row; a mesh
+    with a data axis (data-parallel batches, the PT ladder over 'data')
+    is not ported yet."""
+    from image_generation_tpu_torch.parallel.mesh import Mesh
+
     with pytest.raises(NotImplementedError, match=missing):
-        make_sample_fns(TrainingConfig(**overrides), trainer.graph, trainer.plan, device="cpu")
+        make_sample_fns(TrainingConfig(**overrides), trainer.graph, trainer.plan, device="cpu",
+                        mesh=Mesh((2, 2), graph_group=object()))
 
 
 def test_unresolved_auto_ladder_is_refused(trainer):
@@ -233,7 +238,10 @@ def test_serving_path_imports_no_jax_or_host_extras():
         "image_generation_tpu_torch.utils.graph_cache, image_generation_tpu_torch.ops.quant, "
         "image_generation_tpu_torch.ops.block_sparse, image_generation_tpu_torch.ops.gibbs_hbm_cuda, "
         "image_generation_tpu_torch.ops.cuda_build, image_generation_tpu_torch.io.native_ckpt, "
-        "image_generation_tpu_torch.training.observability; "
+        "image_generation_tpu_torch.training.observability, "
+        "image_generation_tpu_torch.parallel.mesh, image_generation_tpu_torch.ops.gibbs_graph_sharded, "
+        "image_generation_tpu_torch.ops.block_sparse_sharded, "
+        "image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda; "
         "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn', "
         "'image_generation_tpu') if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )
