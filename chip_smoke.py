@@ -23,8 +23,9 @@ a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    nvcc; exits non-zero without a CUDA device;
-2. builds the sweep kernels from ``csrc/`` (K1; K2 and K3; one ``nvcc``
-   per source, started together) and prints the build time and the ptxas
+2. builds the kernels from ``csrc/`` (K1; K2 and K3; K4; the int8 gather
+   kernel that takes K1's, K2's and K3's int8 modes; one ``nvcc`` per
+   source, started together) and prints the build time and the ptxas
    report (registers and spills of every instantiation);
 3. K1 against its plain PyTorch version with fed uniforms, on the
    checkpoint's plan at 80 sweeps and at 256·k chains for k = 1, 2, 4, 8,
@@ -68,10 +69,13 @@ a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
     scaled plan (47 color blocks, chunk 256 with the final chunk clamped):
     f32, bf16 and int8, each with and without ΔE, 256 chains at β = 1 and
     2,048 chains at the 32-rung ladder's per-chain β, 4 sweeps and 3 (run
-    as 4), under the chain rule and the ΔE rule (1e-3·(1 + |E|)); K3
-    equal to K2 bit for bit on an integer-valued coupling; Philox mode
-    against ``philox_uniforms``; moments against exact enumeration on the
-    12-spin graph through both kernels;
+    as 4), under the chain rule and the ΔE rule (1e-3·(1 + |E|)), the int8
+    modes (the gather kernel) against the gather's plain version; K3
+    equal to K2 bit for bit on an integer-valued coupling; K3-int8 against
+    the dense plain version at 256 chains x 80 sweeps (>= 99.9 % of chains
+    identical, the fraction printed); Philox mode against
+    ``philox_uniforms``; moments against exact enumeration on the 12-spin
+    graph through both kernels;
 13. scaled PT training: ``Trainer(cfg, device="cuda")`` sets up the P16
     graph and trains two epochs through K3-ΔE (``cuda_hbm+bs``, K1 never
     launched, finite losses, carried ladder energies against energies
@@ -87,14 +91,19 @@ a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
 16. K2 and K3 in every mode timed at the path's shapes (2,048 chains × 4
     sweeps; the served K3-int8 at 256 chains × 80 sweeps) beside the plain
     version and ``sweep_bound`` on the stored form (packed or int8 bytes,
-    nonzeros from the plan's edge list); one scaled step under the
-    profiler;
+    nonzeros from the plan's edge list), the int8 modes also on the bytes
+    the gather reads (its table and the nonzeros); K3-bf16-dE by rows per
+    block; the gather by launch shape at 256 and 1,024 chains x 80 sweeps
+    and 2,048 x 4; one scaled step under the profiler;
 17. K1-bf16 and K1-int8 against their plain versions with fed uniforms,
     with and without dE: on the fresh flagship plan at 256 chains (beta =
     1) and 2,048 (the 8-rung ladder's per-chain beta) x 16 sweeps, and on
     the 2,048-latent plan (n_pad 2,432) at 256·k chains, k = 1, 2, 4, 8,
-    16 (every R serving selects) x 80 sweeps; the chain rule and the dE
-    rule (1e-3·(1 + |E|)); Philox mode against ``philox_uniforms``;
+    16 (every R and gather launch shape serving selects) x 80 sweeps, the
+    int8 modes (the gather kernel) against the gather's plain version; the
+    chain rule and the dE rule (1e-3·(1 + |E|)); K1-int8 against the dense
+    plain version at 256 chains x 80 sweeps (>= 99.9 %, printed); Philox
+    mode against ``philox_uniforms``;
     moments against exact enumeration of the model each mode samples (the
     bf16-rounded and the dequantized couplings) on the 12-spin graph;
 18. the 2,048-latent model trained one epoch through K2-bf16
@@ -111,8 +120,10 @@ a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
     through K1-int8-dE, then K1-int8-dE): finite losses, carried ladder
     energies against energies recomputed on the card;
 21. K1-bf16, K1-bf16-dE, K1-int8 and K1-int8-dE timed at the paths'
-    shapes beside the plain version and ``sweep_bound``, and K1 by rows
-    per block at the 2,048-latent serving shape;
+    shapes beside the plain version and ``sweep_bound`` (int8 on both the
+    gather's bytes and the stored form), K1-bf16 by rows per block and the
+    gather by launch shape at 256 and 1,024 chains x 80 sweeps and 2,048 x
+    16 on the 2,048-latent plan;
 22. the span-update kernel K4 against its plain version: the fed entry
     bit-identical at 1, 37 and 2,048 chain rows over every class-span
     width of the scaled plan and a 23,936-wide row (the P32 fabric's
@@ -225,6 +236,46 @@ def sweep_bound(plan, stored_bytes: int, peak_ops: float, chains: int, sweeps: i
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def gather_bytes(plan, chunk=None) -> int:
+    """Bytes the int8 gather kernel must read of the coupling: its
+    neighbour table (two int32 words a slot), the nonzeros (one byte each,
+    both directions of every edge) and the class spans."""
+    from image_generation_tpu_torch.ops.gibbs import class_spans
+    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import neighbor_table
+
+    nbr, _off = neighbor_table(plan, chunk)
+    return 8 * nbr.size + 2 * len(plan.perm_edge_i) + 8 * len(class_spans(plan))
+
+
+def shape_sweep(run, plan, tag: str, label: str, cases, card: str) -> None:
+    """Time the int8 gather kernel at every launch shape (chains per block
+    G, threads per block) for each (chains, sweeps) of ``cases``, on spins
+    drawn here; ``run(spins, sweeps, shape)`` launches it once.  Prints one
+    line per chain count beside the default ``launch_shape``."""
+    from image_generation_tpu_torch.ops import gibbs_sparse_int8
+    from image_generation_tpu_torch.ops.gibbs import random_spins
+
+    gk = torch.Generator(device="cuda")
+    gk.manual_seed(23)
+    for n_c, n_sw in cases:
+        s = random_spins(gk, plan, n_c, "cuda")
+        row = []
+        for g in sorted(gibbs_sparse_int8._CHAINS):
+            for threads in (512, 1024):
+                ms = cuda_ms(lambda: run(s, n_sw, (g, threads)), 2, warmup=1)
+                row.append(f"G={g}/T={threads}: {ms:.4f} ms")
+        print(f"[{tag}] {label} {n_c} chains x {n_sw} sweeps by launch shape (default "
+              f"{launch_shape(plan, n_c)}): {'; '.join(row)}  [{card}]")
+
+
+def launch_shape(plan, n_chains: int):
+    """The int8 gather's default launch shape on this card's SM count."""
+    from image_generation_tpu_torch.ops import gibbs_sparse_int8
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return gibbs_sparse_int8.launch_shape(plan, n_chains, sms)
+
+
 def stored_bytes(coupling) -> int:
     """Bytes of the coupling as the kernel reads it: dense, int8 or panels."""
     t = getattr(coupling, "panels", None)
@@ -251,7 +302,7 @@ def main() -> int:
     from image_generation_tpu_torch.io.checkpoint import load_model_dir
     from image_generation_tpu_torch.models.dvae import DVAE
     from image_generation_tpu_torch.models.grbm import GRBMGraph, scaled_ising
-    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda, gibbs_sparse_int8
     from image_generation_tpu_torch.ops.cuda_build import load_libraries
     from image_generation_tpu_torch.ops.exact import exact_moments
     from image_generation_tpu_torch.ops.gibbs import (
@@ -275,11 +326,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain twin in full f32
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 2. build K1, K2 and K3 (one nvcc per source, started together) ----
+    # ---- 2. build every kernel (one nvcc per source, started together) ----
     t0 = time.perf_counter()
     libs = load_libraries()
     gibbs_cuda.load_library()
     gibbs_hbm_cuda.load_library()
+    gibbs_sparse_int8.load_library()
     print(f"[2] kernels loaded after {time.perf_counter() - t0:.2f} s")
     for name, built in libs.items():
         how = (f"built by nvcc in {built.build_seconds:.2f} s" if built.build_seconds
@@ -767,12 +819,27 @@ def scaled_phases(dev, card: str, rng) -> dict:
     from image_generation_tpu_torch.ops.gibbs import (
         build_plan, ising_energies, permuted_model, random_spins, to_original,
     )
+    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import (
+        gibbs_sweeps_sparse_int8, gibbs_sweeps_sparse_int8_reference,
+    )
     from image_generation_tpu_torch.ops.quant import quantize_coupling
     from image_generation_tpu_torch.training.trainer import Trainer
     from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
 
     stream = gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda
-    plain = gibbs_hbm_cuda.gibbs_sweeps_hbm_reference
+    dense_plain = gibbs_hbm_cuda.gibbs_sweeps_hbm_reference
+
+    def plain_of(dtype: str):
+        """Each mode's plain version: the int8 modes are the gather
+        kernel's, run for the even sweep count as the route runs it."""
+        if dtype != "int8":
+            return dense_plain
+
+        def gather(hp_, c_, plan_, s_, n_, beta_=1.0, **kw):
+            return gibbs_sweeps_sparse_int8_reference(hp_, c_, plan_, s_,
+                                                      gibbs_hbm_cuda.round_sweeps(n_), beta_, **kw)
+        return gather
+
     cfg = TrainingConfig(**SCALED)
 
     # ---- 12. K2 and K3 against their plain versions, scaled plan -------------
@@ -809,7 +876,8 @@ def scaled_phases(dev, card: str, rng) -> dict:
                 for de in (False, True):
                     name = mode_name(kernel, dtype, de)
                     out = stream(hp, c, plan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
-                    ref = plain(hp, c, plan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
+                    ref = plain_of(dtype)(hp, c, plan, s0, n_sw, beta, uniforms=u,
+                                          track_delta_e=de)
                     torch.cuda.synchronize()
                     if de:
                         (out, d_out), (ref, d_ref) = out, ref
@@ -849,6 +917,18 @@ def scaled_phases(dev, card: str, rng) -> dict:
     print("[12] integer couplings, 2048 chains x 3 sweeps with dE: K3 equals K2 bit for bit "
           "(f32, bf16, int8)")
     del u
+    # the K3 route's int8 gather against the dense plain version at the serving shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    s0 = random_spins(g, plan, 256, dev)
+    u = torch.rand((80, 256, plan.n_pad), generator=g, device=dev)
+    out = stream(hp, couplings[("K3", "int8")], plan, s0, 80, uniforms=u)
+    frac = identical_fraction(out, dense_plain(hp, couplings[("K3", "int8")], plan, s0, 80,
+                                               uniforms=u))
+    print(f"[12] K3-int8 (the gather kernel) vs the dense plain version gibbs_sweeps_hbm_reference, "
+          f"256 chains x 80 sweeps, fed uniforms: {frac:.6f} of chains identical")
+    check(frac >= 0.999, "K3-int8 disagrees with the dense plain version")
+    del u
     # Philox mode against the numpy twin
     g = torch.Generator(device=dev)
     g.manual_seed(99)
@@ -859,10 +939,10 @@ def scaled_phases(dev, card: str, rng) -> dict:
     s0 = random_spins(probe, plan, 256, dev)
     u_ph = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 256, plan.n_pad), device=dev)
     line = []
-    for key in (("K2", "f32"), ("K3", "bf16"), ("K3", "int8")):
+    for key in (("K2", "f32"), ("K3", "bf16"), ("K3", "int8"), ("K2", "int8")):
         g.set_state(state)
         out = stream(hp, couplings[key], plan, s0, 3, generator=g)
-        ref = plain(hp, couplings[key], plan, s0, 3, uniforms=u_ph)
+        ref = plain_of(key[1])(hp, couplings[key], plan, s0, 3, uniforms=u_ph)
         frac = identical_fraction(out, ref)
         check(frac >= CHAIN_RULE, f"{key} Philox stream: only {frac:.4f} of chains identical")
         line.append(f"{'-'.join(key)} {int(round((1 - frac) * 256))}/256")
@@ -1000,17 +1080,31 @@ def scaled_phases(dev, card: str, rng) -> dict:
         else:
             args, n_c, n_sw, reps = (hp, c, plan, s_train, cfg.GIBBS_SWEEPS, ladder), 2048, 4, 5
         ms = cuda_ms(lambda: stream(*args, generator=gk, track_delta_e=de), reps, warmup=1)
-        plain_ms = cuda_ms(lambda: plain(*args, generator=gk, track_delta_e=de), 2, warmup=1)
-        meta = 4 * len(gibbs_hbm_cuda._meta_list(args[2], chunk if kernel == "K3" else None))
-        bound = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c,
-                            gibbs_hbm_cuda.round_sweeps(n_sw), de, meta)
+        plain_ms = cuda_ms(lambda: plain_of(dtype)(*args, generator=gk, track_delta_e=de), 2,
+                           warmup=1)
+        k_chunk = chunk if kernel == "K3" else None
+        n_run = gibbs_hbm_cuda.round_sweeps(n_sw)
+        entry = {}
+        if dtype == "int8":  # the gather: bound on the bytes it must read, and on the stored form
+            bound = sweep_bound(args[2], gather_bytes(args[2], k_chunk), PEAK_OPS[dtype], n_c,
+                                n_run, de)
+            stored = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_run, de)
+            entry = {"bound_stored_ms": stored[0], "bound_stored_by": stored[1]}
+            source = "image_generation_tpu_torch/csrc/gibbs_sparse_int8.cu"
+            note = f", stored-form bound {stored[0] * 1e3:.3f} us ({stored[1]})"
+        else:
+            meta = 4 * len(gibbs_hbm_cuda._meta_list(args[2], k_chunk))
+            bound = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_run, de,
+                                meta)
+            source = "image_generation_tpu_torch/csrc/gibbs_hbm.cu"
+            note = ""
         print(f"[16] {name} {n_c} chains x {n_sw} sweeps: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound[0] * 1e3:.3f} us ({bound[1]})  [{card}]")
+              f"bound {bound[0] * 1e3:.3f} us ({bound[1]}){note}  [{card}]")
         kernels.append({
-            "name": f"gibbs_stream ({name})",
+            "name": f"{'gibbs_sparse_int8' if dtype == 'int8' else 'gibbs_stream'} ({name})",
             "mode": name,
             "route": "cuda",
-            "source": "image_generation_tpu_torch/csrc/gibbs_hbm.cu",
+            "source": source,
             "replaces": STREAM_REPLACES[kernel],
             "launches": sum(cnt.get(name, 0) for cnt in (train_counts, k2_counts, serve_counts)),
             "max_abs_err": errs[name],
@@ -1020,24 +1114,26 @@ def scaled_phases(dev, card: str, rng) -> dict:
             "plain_ms": plain_ms,
             "bound_ms": bound[0],
             "bound_by": bound[1],
+            **entry,
             "library_ms": None,
             "shape": f"{n_c} chains x {n_sw} sweeps, n_pad {plan.n_pad}, {len(plan.blocks)} blocks"
                      + (f", chunk {chunk}" if kernel == "K3" else ""),
         })
-    # the rows per thread block at the two path shapes (measured, not tuned)
-    for name, dtype, args in (
-            ("K3-bf16-dE", torch.bfloat16,
-             (hp, couplings[("K3", "bf16")], plan, s_train, cfg.GIBBS_SWEEPS, ladder)),
-            ("K3-int8", torch.int8, (hp_s, c_s, plan_s, s_serve, serve_sweeps, 1.0))):
-        row = []
-        for r in sorted(gibbs_hbm_cuda._ROWS):
-            ms_r = cuda_ms(lambda: stream(*args, generator=gk, track_delta_e=name.endswith("-dE"),
-                                          _rows_per_block=r), 2, warmup=1)
-            row.append(f"R={r}: {ms_r:.4f} ms")
-        n_c = args[3].shape[0]
-        print(f"[16] {name} {n_c} chains x {args[4]} sweeps by rows per block (default R="
-              f"{gibbs_hbm_cuda.default_rows(args[2], n_c, dtype, chunk)}): {'; '.join(row)}"
-              f"  [{card}]")
+    # the rows per thread block of K3-bf16-dE at the PT shape (measured, not tuned)
+    args = (hp, couplings[("K3", "bf16")], plan, s_train, cfg.GIBBS_SWEEPS, ladder)
+    row = []
+    for r in sorted(gibbs_hbm_cuda._ROWS):
+        ms_r = cuda_ms(lambda: stream(*args, generator=gk, track_delta_e=True, _rows_per_block=r),
+                       2, warmup=1)
+        row.append(f"R={r}: {ms_r:.4f} ms")
+    print(f"[16] K3-bf16-dE 2048 chains x {cfg.GIBBS_SWEEPS} sweeps by rows per block (default R="
+          f"{gibbs_hbm_cuda.default_rows(plan, 2048, torch.bfloat16, chunk)}): {'; '.join(row)}"
+          f"  [{card}]")
+    # the int8 gather's launch shape on the served coupling: serving, a 4-way burst, PT
+    shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse_int8(
+        hp_s, c_s, plan_s, s, gibbs_hbm_cuda.round_sweeps(n), generator=gk, _shape=shape),
+        plan_s, "16", "K3-int8", ((256, serve_sweeps), (1024, serve_sweeps),
+                                  (2048, cfg.GIBBS_SWEEPS)), card)
     profile_step(tr, batch, "16", "scaled PT", card)
     return {"paths": {"train_scaled": train_counts, "train_scaled_k2": k2_counts,
                       "serve_scaled": serve_counts},
@@ -1074,11 +1170,14 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
     from image_generation_tpu_torch.app.warm import WarmGenerator
     from image_generation_tpu_torch.config import TrainingConfig
     from image_generation_tpu_torch.models.grbm import GRBMGraph
-    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda, gibbs_sparse_int8
     from image_generation_tpu_torch.ops.exact import exact_moments
     from image_generation_tpu_torch.ops.gibbs import (
         build_plan, gibbs_sweeps_kernel_reference, ising_energies, permuted_model,
         random_spins, to_original,
+    )
+    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import (
+        gibbs_sweeps_sparse_int8, gibbs_sweeps_sparse_int8_reference,
     )
     from image_generation_tpu_torch.ops.quant import dequantize_coupling
     from image_generation_tpu_torch.training.observability import MetricsLog
@@ -1086,7 +1185,8 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
     from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
 
     k1 = gibbs_cuda.gibbs_sweeps_cuda
-    plain = gibbs_sweeps_kernel_reference
+    plains = {"bf16": gibbs_sweeps_kernel_reference,  # each mode's plain version
+              "int8": gibbs_sweeps_sparse_int8_reference}
     flag_cfg = TrainingConfig()
     cfg2k = TrainingConfig(**SERVE2K)
 
@@ -1108,7 +1208,7 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
 
     ladder8 = torch.tensor(flag_cfg.initial_pt_betas(), dtype=torch.float32, device=dev)
     errs = {k1_mode(*m): 0.0 for m in K1_MODES}
-    rows_checked = {"bf16": set(), "int8": set()}
+    rows_checked = {"bf16": set(), "int8": set()}  # R of K1-bf16, launch shapes of the gather
     cases = [("fresh flagship plan", fplan, fgraph, n_c, 16) for n_c in (256, 2048)]
     cases += [("2,048-latent plan", plan2k, graph2k, n_c, 80) for n_c in SERVING_CHAINS]
     models = {}
@@ -1128,7 +1228,7 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
             c = forms[dtype]
             name = k1_mode(dtype, de)
             out = k1(hp, c, mplan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
-            ref = plain(hp, c, mplan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
+            ref = plains[dtype](hp, c, mplan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
             torch.cuda.synchronize()
             if de:
                 (out, d_out), (ref, d_ref) = out, ref
@@ -1146,15 +1246,27 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
                 errs[name] = max(errs[name], float((out - ref).abs().max()))
             line.append(note)
             if mplan is plan2k:
-                rows_checked[dtype].add(gibbs_cuda.default_rows(mplan, n_c, K1_DTYPES[dtype]))
+                rows_checked[dtype].add(
+                    launch_shape(mplan, n_c)[0] if dtype == "int8"
+                    else gibbs_cuda.default_rows(mplan, n_c, K1_DTYPES[dtype]))
+        if mplan is plan2k and n_c == 256:  # the K1 route's gather against the dense plain version
+            frac = identical_fraction(k1(hp, forms["int8"], mplan, s0, n_sw, beta, uniforms=u),
+                                      gibbs_sweeps_kernel_reference(hp, forms["int8"], mplan, s0,
+                                                                    n_sw, beta, uniforms=u))
+            line.append(f"K1-int8 vs the dense plain version gibbs_sweeps_kernel_reference: "
+                        f"{frac:.6f} of chains identical")
+            check(frac >= 0.999, "K1-int8 disagrees with the dense plain version")
         print(f"[17] {label}, {n_c} chains x {n_sw} sweeps, fed uniforms; chains differing "
               f"from the plain version: {'; '.join(line)}")
         del u
-    for dtype, seen in rows_checked.items():
-        check(seen == set(gibbs_cuda._ROWS),
-              f"K1-{dtype}: rows per block checked {sorted(seen)}, built {sorted(gibbs_cuda._ROWS)}")
-    print(f"[17] rows per block checked on the serving chain counts: "
-          f"{ {d: sorted(v) for d, v in rows_checked.items()} }")
+    check(rows_checked["bf16"] == set(gibbs_cuda._ROWS),
+          f"K1-bf16: rows per block checked {sorted(rows_checked['bf16'])}, built "
+          f"{sorted(gibbs_cuda._ROWS)}")
+    check(rows_checked["int8"] == set(gibbs_sparse_int8._CHAINS),
+          f"K1-int8: chains per block checked {sorted(rows_checked['int8'])}, built "
+          f"{sorted(gibbs_sparse_int8._CHAINS)}")
+    print(f"[17] rows per block (bf16) and chains per block (int8 gather) checked on the serving "
+          f"chain counts: { {d: sorted(v) for d, v in rows_checked.items()} }")
     # Philox mode against the numpy twin, on the 2,048-latent plan
     hp2k, a2k = models["2,048-latent plan"]
     g = torch.Generator(device=dev)
@@ -1169,7 +1281,7 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
     for dtype, c in k1_forms(a2k).items():
         g.set_state(state)
         out = k1(hp2k, c, plan2k, s0, 4, generator=g)
-        frac = identical_fraction(out, plain(hp2k, c, plan2k, s0, 4, uniforms=u_ph))
+        frac = identical_fraction(out, plains[dtype](hp2k, c, plan2k, s0, 4, uniforms=u_ph))
         check(frac >= CHAIN_RULE, f"K1-{dtype} Philox stream: only {frac:.4f} of chains identical")
         line.append(f"K1-{dtype} {int(round((1 - frac) * 256))}/256")
     print(f"[17] Philox stream vs plain fed philox_uniforms (2,048-latent plan, 256 chains, "
@@ -1391,17 +1503,29 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
         args, what = shapes[name]
         n_c, n_sw = args[3].shape[0], args[4]
         ms = cuda_ms(lambda: k1(*args, generator=gk, track_delta_e=de), 10, warmup=2)
-        plain_ms = cuda_ms(lambda: plain(*args, generator=gk, track_delta_e=de), 3, warmup=1)
-        bound = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_sw, de)
-        rows = gibbs_cuda.default_rows(args[2], n_c, K1_DTYPES[dtype])
-        print(f"[21] {name} {n_c} chains x {n_sw} sweeps ({what}, n_pad {args[2].n_pad}, R={rows}): "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0] * 1e3:.3f} us ({bound[1]}); "
-              f"dense-product work {2 * n_c * n_sw * args[2].n_pad ** 2 / 1e9:.2f} G  [{card}]")
+        plain_ms = cuda_ms(lambda: plains[dtype](*args, generator=gk, track_delta_e=de), 3,
+                           warmup=1)
+        entry = {}
+        if dtype == "int8":  # the gather: bound on the bytes it must read, and on the stored form
+            bound = sweep_bound(args[2], gather_bytes(args[2]), PEAK_OPS[dtype], n_c, n_sw, de)
+            stored = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_sw, de)
+            entry = {"bound_stored_ms": stored[0], "bound_stored_by": stored[1]}
+            shape = f"G, threads {launch_shape(args[2], n_c)}"
+            note = f", stored-form bound {stored[0] * 1e3:.3f} us ({stored[1]})"
+            source = "image_generation_tpu_torch/csrc/gibbs_sparse_int8.cu"
+        else:
+            bound = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_sw, de)
+            shape = f"R={gibbs_cuda.default_rows(args[2], n_c, K1_DTYPES[dtype])}"
+            note = (f"; dense-product work {2 * n_c * n_sw * args[2].n_pad ** 2 / 1e9:.2f} G")
+            source = "image_generation_tpu_torch/csrc/gibbs_sweeps.cu"
+        print(f"[21] {name} {n_c} chains x {n_sw} sweeps ({what}, n_pad {args[2].n_pad}, {shape}): "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0] * 1e3:.3f} us ({bound[1]})"
+              f"{note}  [{card}]")
         kernels.append({
-            "name": f"gibbs_sweeps ({name})",
+            "name": f"{'gibbs_sparse_int8' if dtype == 'int8' else 'gibbs_sweeps'} ({name})",
             "mode": name,
             "route": "cuda",
-            "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
+            "source": source,
             "replaces": "image_generation_tpu/ops/gibbs_pallas.py:" + ("121" if de else "141"),
             "launches": 0,  # filled in from the paths below
             "max_abs_err": errs[name],
@@ -1411,20 +1535,26 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
             "plain_ms": plain_ms,
             "bound_ms": bound[0],
             "bound_by": bound[1],
+            **entry,
             "library_ms": None,
             "shape": f"{n_c} chains x {n_sw} sweeps, n_pad {args[2].n_pad} ({what})",
         })
-    # rows per thread block at the 2,048-latent serving shape (measured, not tuned)
+    # rows per thread block of K1-bf16 at the 2,048-latent serving shape (measured, not tuned)
     s_serve = random_spins(gk, plan_s, 256, dev)
-    for dtype, c in (("int8", c_s), ("bf16", dequantize_coupling(c_s).to(torch.bfloat16))):
-        row = []
-        for r in sorted(gibbs_cuda._ROWS):
-            ms_r = cuda_ms(lambda: k1(hp_s, c, plan_s, s_serve, serve_sweeps, generator=gk,
-                                      _rows_per_block=r), 3, warmup=1)
-            row.append(f"R={r}: {ms_r:.4f} ms")
-        dflt = gibbs_cuda.default_rows(plan_s, 256, K1_DTYPES[dtype])
-        print(f"[21] K1-{dtype} 256 chains x {serve_sweeps} sweeps (2,048-latent serving shape) by "
-              f"rows per block (default R={dflt}): {'; '.join(row)}  [{card}]")
+    c_bf16 = dequantize_coupling(c_s).to(torch.bfloat16)
+    row = []
+    for r in sorted(gibbs_cuda._ROWS):
+        ms_r = cuda_ms(lambda: k1(hp_s, c_bf16, plan_s, s_serve, serve_sweeps, generator=gk,
+                                  _rows_per_block=r), 3, warmup=1)
+        row.append(f"R={r}: {ms_r:.4f} ms")
+    print(f"[21] K1-bf16 256 chains x {serve_sweeps} sweeps (2,048-latent serving shape) by rows per "
+          f"block (default R={gibbs_cuda.default_rows(plan_s, 256, torch.bfloat16)}): "
+          f"{'; '.join(row)}  [{card}]")
+    # the int8 gather's launch shape on the served coupling: serving, a 4-way burst, a PT round
+    shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse_int8(hp_s, c_s, plan_s, s, n, generator=gk,
+                                                             _shape=shape),
+                plan_s, "21", "K1-int8", ((256, serve_sweeps), (1024, serve_sweeps),
+                                          (2048, cfg2k.GIBBS_SWEEPS)), card)
     paths = {"train_2k": train2k_counts, "resume_2k": resume_counts, "serve_2k": serve2k_counts,
              "serve_2k_pt": serve2k_pt_counts, **flag_paths}
     for entry in kernels:

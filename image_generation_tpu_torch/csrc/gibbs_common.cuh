@@ -1,15 +1,15 @@
 // Pieces the sweep kernels share (K1 in gibbs_sweeps.cu, K2 and K3 in
-// gibbs_hbm.cu): the in-kernel Philox generator and, per coupling type, how
-// spins are held and how kStep coupling rows meet R spin rows.
+// gibbs_hbm.cu, the int8 gather in gibbs_sparse_int8.cu): the in-kernel
+// Philox generator and, per dense coupling type, how spins are held and how
+// kStep coupling rows meet R spin rows.
 //
-// Coupling types: f32; bf16 stored as its 16 bits (read with shifts, no
-// bf16 conversion intrinsics needed); int8 in quantized units.  Spins are
-// held in the coupling's type (+-1 and 0 are exact in each).  f32 and bf16
-// products accumulate in f32, int8 products exactly in int32 (__dp4a).
-// Each step adds coupling rows k .. k + kStep - 1 of one column (read at
-// stride ld, coalesced across the threads that own neighbouring columns)
-// into R accumulators, in row order, against spins read from shared memory
-// as broadcast vectors.
+// Coupling types of the dense kernels: f32; bf16 stored as its 16 bits
+// (read with shifts, no bf16 conversion intrinsics needed).  Spins are held
+// in the coupling's type (+-1 and 0 are exact in each), and products
+// accumulate in f32.  Each step adds coupling rows k .. k + kStep - 1 of
+// one column (read at stride ld, coalesced across the threads that own
+// neighbouring columns) into R accumulators, in row order, against spins
+// read from shared memory as broadcast vectors.
 
 #pragma once
 
@@ -144,40 +144,6 @@ struct Ops<bf16_bits> {
       acc[r] = fmaf(bf16_hi(w.z), av[5], acc[r]);
       acc[r] = fmaf(bf16_lo(w.w), av[6], acc[r]);
       acc[r] = fmaf(bf16_hi(w.w), av[7], acc[r]);
-    }
-  }
-};
-
-template <>
-struct Ops<int8_t> {
-  typedef int Acc;
-  static __device__ __forceinline__ int8_t spin(bool up) { return up ? 1 : -1; }
-  static __device__ __forceinline__ int8_t zero() { return 0; }
-  static __device__ __forceinline__ float to_f32(int8_t s) {
-    return static_cast<float>(s);
-  }
-  static __device__ __forceinline__ int8_t from_f32(float s) {
-    return static_cast<int8_t>(s);  // +-1 or 0
-  }
-  static __device__ __forceinline__ float acc_f32(int a) {
-    return static_cast<float>(a);  // exact: |a| <= n_pad * 127 < 2^24
-  }
-  template <int R>
-  static __device__ __forceinline__ void step(int (&acc)[R], const int8_t* a,
-                                              size_t ld, const int8_t* s,
-                                              int n_pad) {
-    const unsigned char* au = reinterpret_cast<const unsigned char*>(a);
-    uint32_t b[kStep];
-#pragma unroll
-    for (int j = 0; j < kStep; ++j) b[j] = __ldg(au + j * ld);
-    // byte j of lo / hi is coupling row k + j (k + 4 + j), like the spins'
-    const int lo = static_cast<int>(b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24));
-    const int hi = static_cast<int>(b[4] | (b[5] << 8) | (b[6] << 16) | (b[7] << 24));
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int2 w = *reinterpret_cast<const int2*>(s + r * n_pad);
-      acc[r] = __dp4a(w.x, lo, acc[r]);
-      acc[r] = __dp4a(w.y, hi, acc[r]);
     }
   }
 };

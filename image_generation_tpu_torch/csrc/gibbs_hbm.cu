@@ -1,4 +1,6 @@
-// Streaming colored block-Gibbs for Hopper (sm_90a): kernels K2 and K3.
+// Streaming colored block-Gibbs for Hopper (sm_90a): kernels K2 and K3,
+// f32 and bf16 (their int8 modes are the sparse field gather of
+// gibbs_sparse_int8.cu).
 //
 // Replaces the Pallas TPU kernels of image_generation_tpu/ops/
 // gibbs_pallas_hbm.py: _kernel (K2, the dense coupling streamed one color
@@ -16,10 +18,8 @@
 //     chunk couples into gets fields = h;
 //   * p = sigmoid(-2 beta fields), new = u < p ? +1 : -1, written to the
 //     spins only after the whole block's fields are complete;
-//   * the coupling comes as f32, bf16 or int8.  Spins are held in that
-//     type (+-1 is exact in each), f32 and bf16 products accumulate in f32,
-//     int8 products in int32 (__dp4a).  int8 works in quantized units: the
-//     caller passes h / scale and beta * scale and rescales delta_e;
+//   * the coupling comes as f32 or bf16.  Spins are held in that type
+//     (+-1 is exact in each), and products accumulate in f32;
 //   * energy carry (delta_e non-null): per chain, the sum over sweeps and
 //     blocks of fields . (new - old), kept as per-thread partial sums and
 //     reduced once at the end, as in K1.
@@ -29,14 +29,14 @@
 // 4 sweeps) the graph's work is 1.3 GFLOP, but a dense column-panel product
 // does 593 GFLOP and the packed one 191 GFLOP per refresh, so on CUDA
 // cores the multiply-adds and the coupling reads that feed them bound this
-// design, not device memory: the packed bf16 panels (23 MB) and the int8
-// matrix (36 MB) stay in the 50 MB L2, and every thread block streams the
-// whole panel set from there once per sweep.
+// design, not device memory: the packed bf16 panels (23 MB) stay in the
+// 50 MB L2, and every thread block streams the whole panel set from there
+// once per sweep.
 //
 // How the design meets that.  The chains are independent: a thread block
 // owns R chain rows and keeps their spins in shared memory for the whole
-// run (R * 6,016 values: 24 KB per row in f32, 12 KB in bf16, 6 KB in
-// int8), plus a staging row block for one color's new spins.  Its 256
+// run (R * 6,016 values: 24 KB per row in f32, 12 KB in bf16), plus a
+// staging row block for one color's new spins.  Its 256
 // threads are 128 column lanes times 2 groups that split the panel rows;
 // each thread loads 8 coupling values (coalesced across the lanes) before
 // using them, and every value feeds R multiply-adds against spins read from
@@ -300,13 +300,12 @@ long long gibbs_stream_smem_bytes(int dtype, int rows_per_block, int n_meta,
   switch (dtype) {
     case 0: SMEM_CASE(float)
     case 1: SMEM_CASE(bf16_bits)
-    case 2: SMEM_CASE(int8_t)
     default: return 0;
   }
 #undef SMEM_CASE
 }
 
-// dtype: 0 f32, 1 bf16, 2 int8 (coupling and held spins).  packed: 0 K2
+// dtype: 0 f32, 1 bf16 (coupling and held spins).  packed: 0 K2
 // (coupling (n_pad, n_pad), ld = n_pad), 1 K3 (panels (rows, max_width),
 // ld = max_width, seg_len = chunk).  meta: device int32 array of n_meta
 // entries (see the kernel).  n_sweeps: already even.  delta_e: null, or
@@ -328,7 +327,6 @@ int gibbs_stream(int dtype, int packed, const float* spins_in, float* spins_out,
   switch (dtype) {
     case 0: err = launch_form<float>(a, packed, rows_per_block); break;
     case 1: err = launch_form<bf16_bits>(a, packed, rows_per_block); break;
-    case 2: err = launch_form<int8_t>(a, packed, rows_per_block); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -1,5 +1,6 @@
 // Fused multi-sweep colored block-Gibbs for Hopper (sm_90a): kernel K1,
-// with an f32, bf16 or int8 coupling.
+// with an f32 or bf16 coupling (K1's int8 mode is the sparse field gather
+// of gibbs_sparse_int8.cu).
 //
 // Replaces the Pallas TPU kernel image_generation_tpu/ops/gibbs_pallas.py
 // (_kernel, _kernel_fed and their shared body _color_update).  It computes
@@ -16,13 +17,10 @@
 // chain row, sweep, 0), so the stream does not depend on the block size;
 // u = (bits >> 8) * 2^-24, as on the TPU.
 //
-// Coupling types (_color_update's three cases, gibbs_common.cuh's Ops<T>):
-// f32; bf16, the +-1 spins times bf16 couplings accumulated in f32; int8,
-// products accumulated exactly in int32 (__dp4a) in the quantized units of
-// gibbs_sweeps_pallas: the caller passes h / scale and beta * scale, so the
-// body never sees the scale, and multiplies delta_e by the scale.  Spins
-// are held in the coupling's type in shared memory (+-1 is exact in each)
-// and come back as f32.
+// Coupling types (_color_update's f32 and bf16 cases, gibbs_common.cuh's
+// Ops<T>): f32; bf16, the +-1 spins times bf16 couplings accumulated in
+// f32.  Spins are held in the coupling's type in shared memory (+-1 is
+// exact in each) and come back as f32.
 //
 // Energy carry (the Pallas kernels' de_ref, _color_update's track mode,
 // which parallel tempering uses to carry ladder energies across rounds):
@@ -40,9 +38,7 @@
 // What bounds it on the H100.  The f32 serving shape is C = 256 * bucket
 // chains over n_pad = 640 padded spins, 80 sweeps: 2*C*n_pad^2 FLOP per
 // sweep, 16.8 GFLOP for a 256-image request, at about 1 FLOP per byte of
-// coupling read.  The int8 serving shape of a 2,048-latent model is
-// n_pad = 2,432: 242 G integer operations per 256-image request over a
-// 5.9 MB int8 matrix.  The TPU kernel held the whole coupling in VMEM; a
+// coupling read.  The TPU kernel held the whole coupling in VMEM; a
 // Hopper block has 227 KB of shared memory, so here the coupling stays in
 // global memory and lives in the 50 MB L2, and every color step streams
 // its column panel A[:, c0:c1] from there, coalesced across columns.  The
@@ -256,13 +252,12 @@ long long gibbs_sweeps_smem_bytes(int dtype, int rows_per_block, int n_pad,
   switch (dtype) {
     case 0: return smem_bytes<float>(rows_per_block, n_pad, max_width);
     case 1: return smem_bytes<bf16_bits>(rows_per_block, n_pad, max_width);
-    case 2: return smem_bytes<int8_t>(rows_per_block, n_pad, max_width);
     default: return 0;
   }
 }
 
-// dtype: 0 f32, 1 bf16 (its 16 bits), 2 int8 (quantized units: h / scale,
-// beta * scale).  block_bounds: host array of n_blocks (c0, c1) pairs.
+// dtype: 0 f32, 1 bf16 (its 16 bits).  block_bounds: host array of
+// n_blocks (c0, c1) pairs.
 // rows_per_block is one of 1, 2, 4, 8.  delta_e: null, or (n_chains,) f32
 // for the energy change of the run.  Returns a cudaError_t (0 on success).
 int gibbs_sweeps(int dtype, const float* spins_in, float* spins_out,
@@ -285,7 +280,6 @@ int gibbs_sweeps(int dtype, const float* spins_in, float* spins_out,
   switch (dtype) {
     case 0: err = launch_rows<float>(a, rows_per_block); break;
     case 1: err = launch_rows<bf16_bits>(a, rows_per_block); break;
-    case 2: err = launch_rows<int8_t>(a, rows_per_block); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -34,9 +34,11 @@ from image_generation_tpu_torch.ops.quant import QuantCoupling
 __all__ = [
     "BlockSparseCoupling",
     "chunk_starts",
+    "owner_chunk",
     "color_chunk_rows",
     "chunk_occupancy",
     "panel_offsets",
+    "panel_offset",
     "pack_coupling",
     "color_fields",
     "ising_energies_block_sparse",
@@ -70,6 +72,18 @@ def chunk_starts(n_pad: int, chunk: int) -> Tuple[int, ...]:
     return tuple(starts)
 
 
+def owner_chunk(rows, n_pad: int, chunk: int) -> np.ndarray:
+    """The chunk of ``chunk_starts(n_pad, chunk)`` that holds each row in
+    the packed panels: ``row // chunk``, except that the clamped final
+    chunk holds only the rows past the chunk before it (the rows they
+    share stay with the earlier chunk)."""
+    starts = chunk_starts(n_pad, chunk)
+    n_chunks = len(starts)
+    last_owned = starts[-1] if n_chunks == 1 else starts[-2] + chunk
+    rows = np.asarray(rows)
+    return np.where(rows >= last_owned, n_chunks - 1, rows // chunk)
+
+
 _chunk_rows_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
@@ -80,21 +94,15 @@ def color_chunk_rows(plan, chunk: int) -> Tuple[Tuple[int, ...], ...]:
     hit = per_plan.get(chunk)
     if hit is not None:
         return hit
-    starts = chunk_starts(plan.n_pad, chunk)
-    n_chunks = len(starts)
-    last_owned = starts[-1] if n_chunks == 1 else starts[-2] + chunk
-
-    def owner(rows):
-        return np.where(rows >= last_owned, n_chunks - 1, rows // chunk)
-
+    n_chunks = len(chunk_starts(plan.n_pad, chunk))
     block_of = np.zeros(plan.n_pad, np.int32)
     for bi, (s, _v, e) in enumerate(plan.blocks):
         block_of[s:e] = bi
     occ = np.zeros((len(plan.blocks), n_chunks), bool)
     pi = np.asarray(plan.perm_edge_i)
     pj = np.asarray(plan.perm_edge_j)
-    occ[block_of[pj], owner(pi)] = True
-    occ[block_of[pi], owner(pj)] = True
+    occ[block_of[pj], owner_chunk(pi, plan.n_pad, chunk)] = True
+    occ[block_of[pi], owner_chunk(pj, plan.n_pad, chunk)] = True
     result = tuple(tuple(np.nonzero(occ[c])[0].tolist()) for c in range(len(plan.blocks)))
     per_plan[chunk] = result
     return result
@@ -121,6 +129,30 @@ def _max_width(plan) -> int:
     return max(e - s for s, _v, e in plan.blocks)
 
 
+def panel_offset(plan, chunk: int, rows, cols) -> np.ndarray:
+    """The flat offsets of A[rows, cols] in ``pack_coupling(plan, ·,
+    chunk).panels`` (row-major, ``_max_width(plan)`` wide): the panel row
+    of the row's owning chunk (``owner_chunk``) in its column's color
+    panel, times the width, plus the column's place in its block.  Raises
+    for an entry whose chunk is not packed for its color (A is zero
+    there)."""
+    rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+    starts = np.asarray(chunk_starts(plan.n_pad, chunk), np.int64)
+    block_of = np.zeros(plan.n_pad, np.int64)
+    c0_of = np.zeros(plan.n_pad, np.int64)
+    for b, (s, _v, e) in enumerate(plan.blocks):
+        block_of[s:e], c0_of[s:e] = b, s
+    first = np.full((len(plan.blocks), len(starts)), -1, np.int64)  # panel of (color, chunk)
+    offs, _ = panel_offsets(plan, chunk)
+    for b, (rlist, o) in enumerate(zip(color_chunk_rows(plan, chunk), offs)):
+        first[b, list(rlist)] = o + np.arange(len(rlist))
+    owner = owner_chunk(rows, plan.n_pad, chunk)
+    panel = first[block_of[cols], owner]
+    if np.any(panel < 0):
+        raise ValueError("an entry's chunk is not packed for its color")
+    return (panel * chunk + rows - starts[owner]) * _max_width(plan) + cols - c0_of[cols]
+
+
 def pack_coupling(plan, coupling_p, chunk: int = 256) -> BlockSparseCoupling:
     """Pack a dense permuted coupling (f32, bf16, or a ``QuantCoupling``)
     into its occupied chunk panels, in the coupling's dtype.  The rows of
@@ -131,11 +163,13 @@ def pack_coupling(plan, coupling_p, chunk: int = 256) -> BlockSparseCoupling:
     starts = chunk_starts(plan.n_pad, chunk)
     rows = color_chunk_rows(plan, chunk)
     max_w = _max_width(plan)
-    overlap = (starts[-2] + chunk) - starts[-1] if len(starts) > 1 else 0
+    # rows of a chunk that another chunk owns (the clamped final chunk's head)
+    skip_of = [int(np.sum(owner_chunk(np.arange(s, s + chunk), plan.n_pad, chunk) != r))
+               for r, s in enumerate(starts)]
     parts = []
     for (c0, _v, c1), rlist in zip(plan.blocks, rows):
         for r in rlist:
-            skip = overlap if r == len(starts) - 1 else 0
+            skip = skip_of[r]
             p = mat[starts[r] + skip : starts[r] + chunk, c0:c1]
             if skip or c1 - c0 < max_w:
                 p = F.pad(p, (0, max_w - (c1 - c0), skip, 0))

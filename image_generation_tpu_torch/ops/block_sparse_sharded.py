@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from image_generation_tpu_torch.ops.block_sparse import _max_width, chunk_starts
+from image_generation_tpu_torch.ops.block_sparse import _max_width, chunk_starts, owner_chunk
 from image_generation_tpu_torch.ops.quant import QuantCoupling
 
 __all__ = [
@@ -94,7 +94,6 @@ def sharded_chunk_meta(plan, n_shards: int, chunk: int) -> ShardedChunkMeta:
     l_loc = plan.n_pad // n_shards
     starts = chunk_starts(l_loc, chunk)
     n_local = len(starts)
-    last_owned = starts[-1] if n_local == 1 else starts[-2] + chunk
     overlap = 0
     if n_local > 1:
         overlap = (starts[-2] + chunk) - starts[-1]
@@ -110,9 +109,7 @@ def sharded_chunk_meta(plan, n_shards: int, chunk: int) -> ShardedChunkMeta:
     for rows, cols in ((pi, pj), (pj, pi)):
         sh = rows // l_loc
         loc = rows % l_loc
-        own = np.minimum(loc // chunk, n_local - 1)
-        own = np.where(loc >= last_owned, n_local - 1, own)
-        occ[block_of[cols], sh, own] = True
+        occ[block_of[cols], sh, owner_chunk(loc, l_loc, chunk)] = True
 
     per_cs = occ.sum(axis=2)  # (colors, shards) occupied chunk counts
     kmax = tuple(int(k) for k in per_cs.max(axis=1))

@@ -2,11 +2,13 @@
 
 Replaces ``image_generation_tpu/ops/gibbs_pallas.py`` (``_kernel``,
 ``_kernel_fed``, ``_color_update``; wrapper ``gibbs_sweeps_pallas``, gate
-``supported_by_pallas``) with an f32, bf16 or int8 coupling.  The kernel
-source is ``csrc/gibbs_sweeps.cu``; its header note says what bounds it on
-the H100 and how the design meets that.  ``ops/cuda_build.py`` compiles it
+``supported_by_pallas``) with an f32 or bf16 coupling.  The kernel source
+is ``csrc/gibbs_sweeps.cu``; its header note says what bounds it on the
+H100 and how the design meets that.  ``ops/cuda_build.py`` compiles it
 with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface at first use, and it is bound here with ``ctypes``.
+interface at first use, and it is bound here with ``ctypes``.  K1's int8
+mode (a ``QuantCoupling``) is the sparse field gather of
+``ops/gibbs_sparse_int8.py``, reached through the same wrapper.
 
 ``selects_k1`` keeps the JAX package's VMEM gate as the dispatch rule
 between K1 and the streaming kernels (``ops/gibbs_hbm_cuda.py``).
@@ -19,12 +21,13 @@ ladder energies across rounds.
 coupling or a ``QuantCoupling``; an int8 coupling works in the Pallas
 wrapper's quantized units (h / scale and β · scale go in, computed on the
 device, and ΔE comes back × scale).  For a tensor on the CPU it runs the
-plain PyTorch version, ``ops.gibbs.gibbs_sweeps_kernel_reference``; for a
+plain PyTorch version (``ops.gibbs.gibbs_sweeps_kernel_reference``; for
+int8 the gather kernel's, ``gibbs_sweeps_sparse_int8_reference``); for a
 CUDA tensor it launches the kernel or raises.
 ``gibbs_sweeps_cuda.launches`` counts its launches by mode: ``"K1-f32"``,
 ``"K1-bf16-dE"``, ``"K1-int8"``, ...
 
-``philox_uniforms`` is the numpy twin of the kernel's in-kernel generator:
+``philox_uniforms`` is the numpy twin of the kernels' in-kernel generator:
 fed to the plain version, it reproduces the kernel's Philox mode.
 """
 
@@ -39,7 +42,12 @@ import numpy as np
 import torch
 
 from image_generation_tpu_torch.ops.cuda_build import KernelLibrary, load_libraries
-from image_generation_tpu_torch.ops.gibbs import GibbsPlan, gibbs_sweeps_kernel_reference
+from image_generation_tpu_torch.ops.gibbs import (
+    GibbsPlan,
+    _check_uniforms,
+    gibbs_sweeps_kernel_reference,
+)
+from image_generation_tpu_torch.ops.gibbs_sparse_int8 import gibbs_sweeps_sparse_int8, supported
 from image_generation_tpu_torch.ops.quant import QuantCoupling
 
 __all__ = [
@@ -58,8 +66,7 @@ _MAX_BLOCKS = 128  # color blocks a launch takes (kMaxBlocks in the source)
 _STEP = 8  # coupling rows per step (kStep in csrc/gibbs_common.cuh)
 _ROWS = (8, 4, 2, 1)  # chain rows per thread block the source instantiates
 # coupling dtype -> (code of the C entry, mode name, itemsize of the held spins)
-_DTYPES = {torch.float32: (0, "f32", 4), torch.bfloat16: (1, "bf16", 2),
-           torch.int8: (2, "int8", 1)}
+_DTYPES = {torch.float32: (0, "f32", 4), torch.bfloat16: (1, "bf16", 2)}
 # The default R keeps at least this many thread blocks in flight.  On an
 # H100 SXM (700 W), 80 sweeps of the 640-spin checkpoint plan ran fastest
 # at R=1 for 256 chains (256 blocks) and at R=8 for 4096 chains (512
@@ -83,12 +90,12 @@ def load_library() -> KernelLibrary:
         built = load_libraries()["gibbs_sweeps"]
         lib = built.lib
         lib.gibbs_sweeps.argtypes = [
-            ctypes.c_int,  # dtype: 0 f32, 1 bf16, 2 int8
+            ctypes.c_int,  # dtype: 0 f32, 1 bf16
             ctypes.c_void_p,  # spins_in
             ctypes.c_void_p,  # spins_out
             ctypes.c_void_p,  # coupling
-            ctypes.c_void_p,  # h (h / scale for int8)
-            ctypes.c_void_p,  # beta (β · scale for int8)
+            ctypes.c_void_p,  # h
+            ctypes.c_void_p,  # beta
             ctypes.c_void_p,  # uniforms (null: Philox)
             ctypes.c_void_p,  # seed (null: fed)
             ctypes.c_void_p,  # delta_e (null: no energy carry)
@@ -165,11 +172,14 @@ def default_rows(plan: GibbsPlan, n_chains: int, dtype=torch.float32) -> int:
 
 
 def supported_by_kernel(plan: GibbsPlan, n_chains: int, dtype=torch.float32) -> bool:
-    """Whether K1 takes this problem: the chain rows of one thread block
-    plus one color block of staging, in the coupling's ``dtype``, fit
-    Hopper's 227 KB of shared memory, the padded width is a multiple of 8
-    (the kernel's step), and the plan has at most ``_MAX_BLOCKS`` color
-    blocks."""
+    """Whether K1 takes this problem.  f32 / bf16: the chain rows of one
+    thread block plus one color block of staging, in the coupling's
+    ``dtype``, fit Hopper's 227 KB of shared memory, the padded width is a
+    multiple of 8 (the kernel's step), and the plan has at most
+    ``_MAX_BLOCKS`` color blocks.  int8: the gather kernel's rule
+    (``gibbs_sparse_int8.supported``)."""
+    if dtype == torch.int8:
+        return supported(plan, n_chains)
     return _fits(plan, n_chains, default_rows(plan, n_chains, dtype), dtype)
 
 
@@ -229,11 +239,22 @@ def gibbs_sweeps_cuda(
     ``generator``.  Returns new f32 spins, or (spins, delta_e) with
     ``track_delta_e``: the (chains,) f32 energy change of the run.
 
+    A ``QuantCoupling`` goes to the int8 gather kernel
+    (``gibbs_sparse_int8.gibbs_sweeps_sparse_int8``), which reads the
+    coupling only at the plan's edges: it must be zero everywhere else, as
+    every coupling ``permuted_model`` builds is.
+
     A CPU ``spins_p`` runs the plain version.  A CUDA one launches the
     kernel; anything it does not take raises.  ``_rows_per_block``
-    overrides the chain rows per thread block (``default_rows``) for
-    measuring the kernel at each R.
+    overrides the chain rows per thread block (``default_rows``) of the
+    f32 / bf16 kernel for measuring it at each R.
     """
+    if isinstance(coupling_p, QuantCoupling):
+        _check_uniforms(uniforms, n_sweeps, *spins_p.shape)
+        return gibbs_sweeps_sparse_int8(
+            hp, coupling_p, plan, spins_p, n_sweeps, beta, generator=generator,
+            uniforms=uniforms, track_delta_e=track_delta_e,
+            count=(gibbs_sweeps_cuda.launches, "K1-int8" + ("-dE" if track_delta_e else "")))
     if spins_p.device.type == "cpu":
         return gibbs_sweeps_kernel_reference(
             hp, coupling_p, plan, spins_p, n_sweeps, beta,
@@ -245,17 +266,15 @@ def gibbs_sweeps_cuda(
     n_chains, n_pad = spins_p.shape
     if n_pad != plan.n_pad:
         raise ValueError(f"spins have {n_pad} columns, the plan {plan.n_pad}")
-    quant = isinstance(coupling_p, QuantCoupling)
-    mat = coupling_p.q if quant else coupling_p
-    if mat.dtype not in _DTYPES or (mat.dtype == torch.int8) != quant:
+    if coupling_p.dtype not in _DTYPES:
         raise TypeError(f"K1 takes an f32 or bf16 coupling or a QuantCoupling, "
-                        f"got a {mat.dtype} {type(coupling_p).__name__}")
-    code, dname, _size = _DTYPES[mat.dtype]
+                        f"got a {coupling_p.dtype} {type(coupling_p).__name__}")
+    code, dname, _size = _DTYPES[coupling_p.dtype]
     _check("spins_p", spins_p, (n_chains, n_pad), dev)
-    _check("coupling_p", mat, (n_pad, n_pad), dev, mat.dtype)
+    _check("coupling_p", coupling_p, (n_pad, n_pad), dev, coupling_p.dtype)
     _check("hp", hp, (n_pad,), dev)
-    rows = _rows_per_block or default_rows(plan, n_chains, mat.dtype)
-    if not _fits(plan, n_chains, rows, mat.dtype):
+    rows = _rows_per_block or default_rows(plan, n_chains, coupling_p.dtype)
+    if not _fits(plan, n_chains, rows, coupling_p.dtype):
         raise ValueError(
             f"plan (n_pad={n_pad}, {len(plan.blocks)} blocks) at {n_chains} "
             f"chains does not fit K1's shared memory; the streaming kernels "
@@ -264,9 +283,6 @@ def gibbs_sweeps_cuda(
     beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
     if beta_t.ndim == 0:
         beta_t = beta_t.expand(n_chains)
-    if quant:  # quantized units, as the Pallas wrapper passes them (no host sync)
-        hp = hp / coupling_p.scale
-        beta_t = beta_t * coupling_p.scale
     beta_t = beta_t.contiguous()
     _check("beta", beta_t, (n_chains,), dev)
     if uniforms is not None:
@@ -282,7 +298,7 @@ def gibbs_sweeps_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gibbs_sweeps(
-            code, spins_p.data_ptr(), out.data_ptr(), mat.data_ptr(),
+            code, spins_p.data_ptr(), out.data_ptr(), coupling_p.data_ptr(),
             hp.data_ptr(), beta_t.data_ptr(),
             uniforms.data_ptr() if uniforms is not None else None,
             seed.data_ptr() if seed is not None else None,
@@ -294,9 +310,7 @@ def gibbs_sweeps_cuda(
         msg = lib.gibbs_sweeps_error_string(err).decode()
         raise RuntimeError(f"gibbs_sweeps (K1, {dname}) launch failed: {msg} ({err})")
     gibbs_sweeps_cuda.launches[f"K1-{dname}" + ("-dE" if track_delta_e else "")] += 1
-    if track_delta_e:
-        return out, (delta_e * coupling_p.scale if quant else delta_e)
-    return out
+    return (out, delta_e) if track_delta_e else out
 
 
 gibbs_sweeps_cuda.launches = collections.Counter()

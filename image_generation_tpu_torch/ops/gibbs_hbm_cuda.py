@@ -4,20 +4,24 @@ Replaces ``image_generation_tpu/ops/gibbs_pallas_hbm.py``: ``_kernel``
 (K2, the dense coupling streamed one color panel at a time) and
 ``_kernel_bs`` (K3, only the packed occupied chunk panels of
 ``ops/block_sparse.py``), with their wrapper ``gibbs_sweeps_pallas_hbm``.
-The source is ``csrc/gibbs_hbm.cu``; its header note says what bounds the
-kernels on the H100 and how the design meets that.  ``ops/cuda_build.py``
-builds it beside K1; it is bound here with ``ctypes``.
+The source is ``csrc/gibbs_hbm.cu`` for f32 and bf16; its header note says
+what bounds the kernels on the H100 and how the design meets that.
+``ops/cuda_build.py`` builds it beside K1; it is bound here with
+``ctypes``.  The int8 modes (a ``QuantCoupling`` for K2, int8 panels for
+K3) are the sparse field gather of ``ops/gibbs_sparse_int8.py``, reached
+through the same wrapper.
 
 ``gibbs_sweeps_hbm_cuda`` is the wrapper.  It takes a dense f32 or bf16
 coupling or a ``QuantCoupling`` (K2), or a ``BlockSparseCoupling`` with
 f32, bf16 or int8 panels (K3), fed uniforms or the in-kernel Philox
 stream (K1's counter and key), and the energy carry.  Like the Pallas
 kernels it rounds the sweep count up to even, and an int8 coupling works
-in quantized units (h / scale, β · scale), its ΔE rescaled here.  For a
-tensor on the CPU it runs the plain version,
-``gibbs_sweeps_hbm_reference``; for a CUDA tensor it launches the kernel
-or raises.  ``gibbs_sweeps_hbm_cuda.launches`` counts launches by kernel
-and mode, e.g. ``"K3-bf16-dE"`` or ``"K2-int8"``.
+in quantized units (h / scale, β · scale), its ΔE rescaled.  For a tensor
+on the CPU it runs the plain version (``gibbs_sweeps_hbm_reference``; for
+int8 the gather kernel's, ``gibbs_sweeps_sparse_int8_reference``); for a
+CUDA tensor it launches the kernel or raises.
+``gibbs_sweeps_hbm_cuda.launches`` counts launches by kernel and mode,
+e.g. ``"K3-bf16-dE"`` or ``"K2-int8"``.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from image_generation_tpu_torch.ops.block_sparse import (
 from image_generation_tpu_torch.ops.cuda_build import KernelLibrary, load_libraries
 from image_generation_tpu_torch.ops.gibbs import GibbsPlan, is_quantized, sweeps_in_kernel_units
 from image_generation_tpu_torch.ops.gibbs_cuda import _SMEM_LIMIT, _check, _max_width, draw_seed
-from image_generation_tpu_torch.ops.quant import QuantCoupling
+from image_generation_tpu_torch.ops.gibbs_sparse_int8 import gibbs_sweeps_sparse_int8
 
 __all__ = [
     "gibbs_sweeps_hbm_cuda",
@@ -56,7 +60,7 @@ _META_PER_COLOR = 6
 # The default R keeps at least this many thread blocks in flight: 2,048
 # chains take R = 8, a 256-chain serving request R = 1.
 _MIN_GRID = 256
-_DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"), torch.int8: (2, "int8")}
+_DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16")}
 
 _library: Optional[KernelLibrary] = None
 _library_lock = threading.Lock()
@@ -72,13 +76,13 @@ def load_library() -> KernelLibrary:
         built = load_libraries()["gibbs_hbm"]
         lib = built.lib
         lib.gibbs_stream.argtypes = [
-            ctypes.c_int,  # dtype: 0 f32, 1 bf16, 2 int8
+            ctypes.c_int,  # dtype: 0 f32, 1 bf16
             ctypes.c_int,  # packed: 0 K2, 1 K3
             ctypes.c_void_p,  # spins_in
             ctypes.c_void_p,  # spins_out
             ctypes.c_void_p,  # coupling (dense or panels)
-            ctypes.c_void_p,  # h (h / scale for int8)
-            ctypes.c_void_p,  # beta (β · scale for int8)
+            ctypes.c_void_p,  # h
+            ctypes.c_void_p,  # beta
             ctypes.c_void_p,  # uniforms (null: Philox)
             ctypes.c_void_p,  # seed (null: fed)
             ctypes.c_void_p,  # delta_e (null: no energy carry)
@@ -103,7 +107,7 @@ def load_library() -> KernelLibrary:
         lib.gibbs_stream_smem_bytes.restype = ctypes.c_longlong
         if lib.gibbs_stream_meta_per_color() != _META_PER_COLOR:
             raise RuntimeError("kernel library and wrapper disagree on the meta layout")
-        for code in (0, 1, 2):
+        for code in (0, 1):
             for r in _ROWS:
                 if lib.gibbs_stream_smem_bytes(code, r, 289, 6016, 128) != _smem_bytes(
                         code, r, 289, 6016, 128):
@@ -122,7 +126,7 @@ def _align16(n: int) -> int:
 
 
 def _itemsize(code: int) -> int:
-    return (4, 2, 1)[code]
+    return (4, 2)[code]
 
 
 def _smem_bytes(code: int, rows: int, n_meta: int, n_pad: int, max_width: int) -> int:
@@ -176,6 +180,13 @@ def default_rows(plan: GibbsPlan, n_chains: int, dtype=torch.float32,
     return fits[-1] if fits else 0
 
 
+def _check_fed(uniforms: Optional[torch.Tensor], n_run: int, chains: int, n_pad: int) -> None:
+    if uniforms is not None and (uniforms.shape[0] < n_run
+                                 or tuple(uniforms.shape[1:]) != (chains, n_pad)):
+        raise ValueError(f"uniforms must be (>= {n_run}, {chains}, {n_pad}), "
+                         f"got {tuple(uniforms.shape)}")
+
+
 def gibbs_sweeps_hbm_reference(
     hp: torch.Tensor,
     coupling_p,
@@ -200,10 +211,7 @@ def gibbs_sweeps_hbm_reference(
     if n_pad != plan.n_pad:
         raise ValueError(f"spins have {n_pad} columns, the plan {plan.n_pad}")
     n_run = round_sweeps(n_sweeps)
-    if uniforms is not None and (uniforms.shape[0] < n_run
-                                 or tuple(uniforms.shape[1:]) != (chains, n_pad)):
-        raise ValueError(f"uniforms must be (>= {n_run}, {chains}, {n_pad}), "
-                         f"got {tuple(uniforms.shape)}")
+    _check_fed(uniforms, n_run, chains, n_pad)
     return sweeps_in_kernel_units(hp, coupling_p, plan, spins_p, n_run, beta, generator,
                                   uniforms, track_delta_e)
 
@@ -229,11 +237,24 @@ def gibbs_sweeps_hbm_cuda(
     or (chains,); optional fed ``uniforms`` (>= round_sweeps(n_sweeps),
     chains, n_pad) f32, else the kernel draws from its Philox stream keyed
     by a seed drawn from ``generator``.  Returns new f32 spins, or (spins,
-    delta_e) with ``track_delta_e``.  A CPU ``spins_p`` runs the plain
-    version; a CUDA one launches the kernel, and anything it does not take
-    raises.  ``_rows_per_block`` overrides the chain rows per thread block
-    (``default_rows``) for measuring the kernel at each R.
+    delta_e) with ``track_delta_e``.  An int8 coupling goes to the gather
+    kernel (``gibbs_sparse_int8.gibbs_sweeps_sparse_int8``), which reads it
+    only at the plan's edges: it must be zero everywhere else, as every
+    coupling ``permuted_model`` builds (and ``pack_coupling`` packs) is.
+    A CPU ``spins_p`` runs the plain version; a CUDA one launches the
+    kernel, and anything it does not take raises.  ``_rows_per_block``
+    overrides the chain rows per thread block (``default_rows``) of the
+    f32 / bf16 kernels for measuring them at each R.
     """
+    if is_quantized(coupling_p):
+        n_run = round_sweeps(n_sweeps)
+        _check_fed(uniforms, n_run, *spins_p.shape)
+        kernel = "K3" if isinstance(coupling_p, BlockSparseCoupling) else "K2"
+        return gibbs_sweeps_sparse_int8(
+            hp, coupling_p, plan, spins_p, n_run, beta, generator=generator,
+            uniforms=uniforms, track_delta_e=track_delta_e,
+            count=(gibbs_sweeps_hbm_cuda.launches,
+                   f"{kernel}-int8" + ("-dE" if track_delta_e else "")))
     if spins_p.device.type == "cpu":
         return gibbs_sweeps_hbm_reference(
             hp, coupling_p, plan, spins_p, n_sweeps, beta,
@@ -253,11 +274,9 @@ def gibbs_sweeps_hbm_cuda(
         _, total = panel_offsets(plan, chunk)
         shape, ld, seg_len, kernel = (total * chunk, max_w), max_w, chunk, "K3"
     else:
-        chunk = None
-        mat = coupling_p.q if isinstance(coupling_p, QuantCoupling) else coupling_p
+        chunk, mat = None, coupling_p
         shape, ld, seg_len, kernel = (n_pad, n_pad), n_pad, n_pad, "K2"
-    quant = is_quantized(coupling_p)
-    if mat.dtype not in _DTYPES or (mat.dtype == torch.int8) != quant:
+    if mat.dtype not in _DTYPES:
         raise TypeError(f"no streaming kernel for a {mat.dtype} coupling "
                         f"(f32, bf16, or int8 with its scale)")
     code, dname = _DTYPES[mat.dtype]
@@ -271,9 +290,6 @@ def gibbs_sweeps_hbm_cuda(
     beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
     if beta_t.ndim == 0:
         beta_t = beta_t.expand(n_chains)
-    if quant:  # quantized units, as the Pallas wrapper passes them
-        hp = hp / coupling_p.scale
-        beta_t = beta_t * coupling_p.scale
     beta_t = beta_t.contiguous()
     _check("beta", beta_t, (n_chains,), dev)
     if uniforms is not None:
@@ -309,7 +325,7 @@ def gibbs_sweeps_hbm_cuda(
         raise RuntimeError(f"gibbs_stream ({kernel}, {dname}) launch failed: {msg} ({err})")
     gibbs_sweeps_hbm_cuda.launches[f"{kernel}-{dname}" + ("-dE" if track_delta_e else "")] += 1
     if track_delta_e:
-        return out, (delta_e * coupling_p.scale if quant else delta_e)
+        return out, delta_e
     return out
 
 

@@ -195,10 +195,15 @@ class Trainer:
         cfg = self.config
         if cfg.SAMPLER != "pt" or cfg.PT_NUM_BETAS != "auto":
             return
-        if cfg.GRAPH_SHARDED == "on" or self.mesh is not None:
+        # the probe builds a dense replicated coupling (> 2 GiB in f32 is the
+        # beyond-one-device size, as in the JAX package) and has no
+        # graph-sharded route, so a mesh is refused too
+        if (cfg.GRAPH_SHARDED == "on" or self.plan.n_pad ** 2 * 4 > 2 << 30
+                or self.mesh is not None):
             raise ValueError(
-                "PT_NUM_BETAS='auto' cannot probe a graph-sharded (beyond-HBM) model at "
-                "init; size it offline and pass the ladder as PT_BETAS"
+                "PT_NUM_BETAS='auto' cannot probe a beyond-HBM (graph-sharded) model at "
+                "init; pass a ladder as PT_BETAS (the JAX package's tune-pt CLI sizes one "
+                "offline; it is not ported yet)"
             )
         from image_generation_tpu_torch.ops.pt_tune import size_ladder
 

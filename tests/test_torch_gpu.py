@@ -1,5 +1,6 @@
-"""Kernels K1 (f32, bf16, int8), K2 and K3 on the card: the CUDA sweep
-kernels against their plain versions.
+"""Kernels K1, K2 and K3 (f32, bf16), the int8 gather kernel that takes
+their int8 modes, and K4 on the card: the CUDA kernels against their plain
+versions.
 
 These tests need a CUDA device and ``nvcc``; without a card they skip.
 This file imports no JAX, so on the GPU machine (which has none) it runs
@@ -14,7 +15,10 @@ a draw whose uniform falls within that ulp of its probability flips
 that at least 98% of the chains come out bit-identical.  On identical
 chains ΔE agrees within 1e-4 (checkpoint model) or 1e-3·(1 + |E|)
 (|J| ≤ 1); on integer-valued couplings every sum is exact, so the packed
-kernel K3 equals the dense K2 bit for bit.
+kernel K3 equals the dense K2 bit for bit.  The int8 gather kernel sums
+exact integer fields, so against its plain version and the dense plain
+versions the expectation is every chain identical; the rule held is the
+same 98 % (99.9 % against the dense plain versions).
 """
 
 from pathlib import Path
@@ -335,7 +339,8 @@ def test_k1_modes_match_plain(dev, ckpt, plan2k, form, chains, track):
         beta = torch.tensor(rng.uniform(0.5, 2.0, chains), dtype=torch.float32, device=dev)
         ref = gibbs_sweeps_kernel_reference(hp, coupling, plan, s0, 3, beta, uniforms=u,
                                             track_delta_e=track)
-        for rows in (None, 1, 2, 4, 8):
+        # int8 is the gather kernel (its launch shapes: the gather tests below)
+        for rows in ((None, 1, 2, 4, 8) if form == "bf16" else (None,)):
             out = gibbs_cuda.gibbs_sweeps_cuda(hp, coupling, plan, s0, 3, beta, uniforms=u,
                                                track_delta_e=track, _rows_per_block=rows)
             torch.cuda.synchronize()
@@ -412,7 +417,7 @@ def test_stream_kernel_matches_plain(dev, ckpt, form, chunk, track):
     beta = torch.tensor(rng.uniform(0.5, 2.0, 1030), dtype=torch.float32, device=dev)
     ref = gibbs_sweeps_hbm_reference(hp, coupling, plan, s0, 3, beta, uniforms=u,
                                      track_delta_e=track)
-    for rows in (None, 8, 1):
+    for rows in ((None, 8, 1) if form != "int8" else (None,)):  # int8: the gather kernel
         out = gibbs_sweeps_hbm_cuda(hp, coupling, plan, s0, 3, beta, uniforms=u,
                                     track_delta_e=track, _rows_per_block=rows)
         torch.cuda.synchronize()
@@ -501,6 +506,165 @@ def test_stream_unoccupied_color_and_counters(dev):
     with pytest.raises(ValueError):
         k(hp, a.t(), plan, s0, 2, uniforms=u)
     assert sum(k.launches.values()) == 3
+
+
+# ---------------------------------------------------------------------------
+# the int8 gather kernel (K1-int8, K2-int8, K3-int8)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def int8_plans(dev):
+    """{name: (plan, hp, QuantCoupling, packed int8 panels at chunk 256)}
+    for the 2,048-latent and the scaled plan, |J| ≤ 1 models."""
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+    from image_generation_tpu_torch.ops.quant import quantize_coupling
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    out = {}
+    for name, n in (("latents2048", 2048), ("scaled", 5640)):
+        graph, _ = cached_latent_graph("Advantage_system6", n, 775321899904)
+        plan = build_plan(graph)
+        rng = np.random.default_rng(n)
+        hp, a = permuted_model(
+            plan, torch.tensor(rng.uniform(-0.5, 0.5, graph.n), dtype=torch.float32, device=dev),
+            torch.tensor(rng.uniform(-1, 1, graph.n_edges), dtype=torch.float32, device=dev))
+        qc = quantize_coupling(a)
+        out[name] = (plan, hp, qc, pack_coupling(plan, qc, 256))
+    return out
+
+
+def _gather_check(out, ref, hp, coupling, rule=CHAIN_RULE):
+    """The chain rule, and ΔE within 1e-3·(1 + |E|) on identical chains."""
+    from image_generation_tpu_torch.ops.gibbs import ising_energies
+
+    track = isinstance(out, tuple)
+    spins, spins_ref = (out[0], ref[0]) if track else (out, ref)
+    same = (spins == spins_ref).all(dim=1)
+    assert float(same.float().mean()) >= rule
+    if track:
+        e_abs = ising_energies(hp, coupling, spins_ref).abs()[same]
+        assert bool(((out[1] - ref[1]).abs()[same] <= 1e-3 * (1 + e_abs)).all())
+    return float(same.float().mean())
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("chains", [256, 1024, 2048])
+@pytest.mark.parametrize("name", ["latents2048", "scaled"])
+def test_gather_kernel_matches_its_plain_version(dev, int8_plans, name, chains, track):
+    """Fed uniforms, β = 1 at 256 chains and per-chain β above, 6 sweeps,
+    the dense int8 matrix and (scaled plan) the packed panels, at the
+    default launch shape of 256·k chains."""
+    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import (
+        gibbs_sweeps_sparse_int8,
+        gibbs_sweeps_sparse_int8_reference,
+    )
+
+    plan, hp, qc, bsc = int8_plans[name]
+    rng = np.random.default_rng(chains + 1)
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32,
+                      device=dev)
+    u = torch.tensor(rng.random((6, chains, plan.n_pad), dtype=np.float32), device=dev)
+    beta = (1.0 if chains == 256 else
+            torch.tensor(rng.uniform(0.5, 2.0, chains), dtype=torch.float32, device=dev))
+    for coupling in ((qc, bsc) if name == "scaled" else (qc,)):
+        out = gibbs_sweeps_sparse_int8(hp, coupling, plan, s0, 6, beta, uniforms=u,
+                                       track_delta_e=track)
+        ref = gibbs_sweeps_sparse_int8_reference(hp, coupling, plan, s0, 6, beta, uniforms=u,
+                                                 track_delta_e=track)
+        torch.cuda.synchronize()
+        _gather_check(out, ref, hp, coupling)
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("name", ["latents2048", "scaled"])
+def test_gather_kernel_philox_matches_numpy_twin(dev, int8_plans, name, track):
+    """Philox mode against the plain version fed ``philox_uniforms`` (K1's
+    counter and key), with and without ΔE."""
+    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import (
+        gibbs_sweeps_sparse_int8,
+        gibbs_sweeps_sparse_int8_reference,
+    )
+
+    plan, hp, qc, bsc = int8_plans[name]
+    coupling = bsc if name == "scaled" else qc
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    probe = torch.Generator(device=dev)
+    probe.set_state(g.get_state())
+    seed = int(gibbs_cuda.draw_seed(probe, dev).item())
+    s0 = random_spins(probe, plan, 512, dev)
+    out = gibbs_sweeps_sparse_int8(hp, coupling, plan, s0, 4, generator=g, track_delta_e=track)
+    u = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 512, plan.n_pad), device=dev)
+    ref = gibbs_sweeps_sparse_int8_reference(hp, coupling, plan, s0, 4, uniforms=u,
+                                             track_delta_e=track)
+    _gather_check(out, ref, hp, coupling)
+
+
+@pytest.mark.parametrize("route", ["K1", "K3"])
+def test_gather_routes_match_the_dense_plain_version(dev, int8_plans, route):
+    """One case per route at its serving shape (256 chains), fed uniforms:
+    K1-int8 through ``gibbs_sweeps_cuda`` on the 2,048-latent plan against
+    ``gibbs_sweeps_kernel_reference``, K3-int8 through
+    ``gibbs_sweeps_hbm_cuda`` on the scaled panels against
+    ``gibbs_sweeps_hbm_reference``; each launch counted under its mode."""
+    from image_generation_tpu_torch.ops.gibbs import gibbs_sweeps_kernel_reference
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import (
+        gibbs_sweeps_hbm_cuda,
+        gibbs_sweeps_hbm_reference,
+    )
+
+    plan, hp, qc, bsc = int8_plans["latents2048" if route == "K1" else "scaled"]
+    rng = np.random.default_rng(31)
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (256, plan.n_pad)), dtype=torch.float32, device=dev)
+    u = torch.tensor(rng.random((16, 256, plan.n_pad), dtype=np.float32), device=dev)
+    if route == "K1":
+        wrapper, coupling, dense, mode = (gibbs_cuda.gibbs_sweeps_cuda, qc,
+                                          gibbs_sweeps_kernel_reference, "K1-int8")
+    else:
+        wrapper, coupling, dense, mode = (gibbs_sweeps_hbm_cuda, bsc, gibbs_sweeps_hbm_reference,
+                                          "K3-int8")
+    wrapper.launches.clear()
+    out = wrapper(hp, coupling, plan, s0, 16, uniforms=u)
+    ref = dense(hp, coupling, plan, s0, 16, uniforms=u)
+    torch.cuda.synchronize()
+    _gather_check(out, ref, hp, coupling, rule=0.999)
+    assert dict(wrapper.launches) == {mode: 1}
+
+
+def test_gather_kernel_every_shape_and_refusals(dev, int8_plans):
+    """Every chains-per-block G the source instantiates, at 512 and 1,024
+    threads, on 37 and 2,050 chains (partial last blocks), ΔE on, against
+    the plain version; shapes the kernel does not take raise before a
+    launch."""
+    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import (
+        gibbs_sweeps_sparse_int8,
+        gibbs_sweeps_sparse_int8_reference,
+    )
+
+    plan, hp, qc, _ = int8_plans["latents2048"]
+    for chains in (37, 2050):
+        rng = np.random.default_rng(chains)
+        s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32,
+                          device=dev)
+        u = torch.tensor(rng.random((3, chains, plan.n_pad), dtype=np.float32), device=dev)
+        beta = torch.tensor(rng.uniform(0.5, 2.0, chains), dtype=torch.float32, device=dev)
+        ref = gibbs_sweeps_sparse_int8_reference(hp, qc, plan, s0, 3, beta, uniforms=u,
+                                                 track_delta_e=True)
+        for g in (1, 2, 4, 8, 16):
+            for threads in (512, 1024):
+                out = gibbs_sweeps_sparse_int8(hp, qc, plan, s0, 3, beta, uniforms=u,
+                                               track_delta_e=True, _shape=(g, threads))
+                torch.cuda.synchronize()
+                _gather_check(out, ref, hp, qc)
+    s0 = torch.ones((64, plan.n_pad), device=dev)
+    for shape in ((3, 512), (2, 48), (1, 2048), (32, 1024)):
+        with pytest.raises(ValueError):
+            gibbs_sweeps_sparse_int8(hp, qc, plan, s0, 1, _shape=shape)
+    with pytest.raises(TypeError):
+        gibbs_sweeps_sparse_int8(hp, qc.q, plan, s0, 1)  # int8 comes with its scale
+    with pytest.raises(ValueError):
+        gibbs_sweeps_sparse_int8(hp, qc, plan, s0, 3, uniforms=torch.rand((2, 64, plan.n_pad),
+                                                                         device=dev))
 
 
 # ---------------------------------------------------------------------------

@@ -324,14 +324,15 @@ def test_plain_version_rounds_sweeps_and_counts_nothing(g384):
 def test_default_rows_fit_the_scaled_plan():
     """The rows per thread block at the scaled plan's shapes (n_pad 6,016,
     128-wide blocks; the chunk lists do not change the rule): R = 8 for
-    the 2,048 parallel-tempering chains in every dtype, R = 1 for a
-    256-chain request."""
+    the 2,048 parallel-tempering chains in f32 and bf16, R = 1 for a
+    256-chain request (int8 is the gather kernel's launch shape:
+    tests/test_torch_sparse_int8.py)."""
     blocks = tuple((128 * i, 128 * i + 120, 128 * (i + 1)) for i in range(47))
     plan = tgibbs.GibbsPlan(n=5640, n_pad=6016, blocks=blocks, orig_to_perm=np.zeros(0),
                             perm_edge_i=np.zeros(0, np.int32),
                             perm_edge_j=np.zeros(0, np.int32),
                             valid_mask=np.zeros(6016, bool))
-    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+    for dtype in (torch.float32, torch.bfloat16):
         assert default_rows(plan, 2048, dtype) == 8
         assert default_rows(plan, 256, dtype) == 1
         assert default_rows(plan, 1024, dtype) == 4

@@ -224,15 +224,17 @@ def test_dispatch_reaches_k1_modes_as_jax(dispatch_graphs, case):
 
 
 def test_k1_kernel_gate_and_rows_by_dtype(plans):
-    """The shared memory the kernel takes is sized by the held spins' type,
-    and the 2,048-latent serving chain counts select every R the source
-    instantiates in each mode."""
+    """The shared memory the f32 / bf16 kernel takes is sized by the held
+    spins' type, and the 2,048-latent serving chain counts select every R
+    the source instantiates in each mode; int8 is the gather kernel's
+    (its launch shape: tests/test_torch_sparse_int8.py)."""
     tplan = plans["latents2048"][3]
-    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2), (torch.int8, 1)):
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
         assert gibbs_cuda._smem_bytes(tplan, 8, dtype) == 8 * (2432 + 512) * size + 128
         rows = {gibbs_cuda.default_rows(tplan, 256 * k, dtype) for k in (1, 2, 4, 8, 16)}
         assert rows == set(gibbs_cuda._ROWS)
         assert gibbs_cuda.supported_by_kernel(tplan, 4096, dtype)
+    assert gibbs_cuda.supported_by_kernel(tplan, 4096, torch.int8)
     assert [gibbs_cuda.selects_k1(tplan, 256, it) for it in (4, 2, 1)] == [False, False, True]
 
 

@@ -357,3 +357,33 @@ def test_trainer_resolves_auto_ladder(dtype, tmp_path):
     assert isinstance(loaded.config.PT_NUM_BETAS, int) and loaded.pt_auto_info is not None
     assert loaded.sample_spins(4, 4).shape == (4, 32)
     json.dumps(loaded.pt_auto_info)
+
+
+def test_auto_ladder_refuses_a_beyond_one_device_plan_as_jax(monkeypatch):
+    """``PT_NUM_BETAS="auto"`` on one device with a P32-sized plan (n_pad
+    23,936: a 2.29 GB f32 coupling, over the 2 GiB line): both packages
+    raise ``ValueError`` naming ``tune-pt`` before anything is built (the
+    JAX reference ``trainer.py:181``)."""
+    from types import SimpleNamespace
+
+    from image_generation_tpu.config import TrainingConfig as JaxConfig
+    from image_generation_tpu.training import trainer as jtrainer
+    from image_generation_tpu_torch.training import trainer as ttrainer
+
+    def never(*_a, **_k):
+        raise AssertionError("the refusal must come before a coupling is built")
+
+    plan = SimpleNamespace(n_pad=23936)
+    graph = SimpleNamespace(init_params=never)
+    monkeypatch.setattr(jgibbs, "permuted_model", never)
+    monkeypatch.setattr(ttrainer, "make_sample_fns", never)
+    jt = jtrainer.Trainer(config=JaxConfig(SAMPLER="pt", PT_NUM_BETAS="auto"), mesh=None)
+    tt = Trainer(config=TrainingConfig(SAMPLER="pt", PT_NUM_BETAS="auto"), device="cpu")
+    for t in (jt, tt):
+        t.plan, t.graph = plan, graph
+        with pytest.raises(ValueError, match="tune-pt"):
+            t._resolve_auto_ladder()
+    tt.plan = SimpleNamespace(n_pad=768)  # below the line: only a mesh is refused
+    tt.mesh = object()
+    with pytest.raises(ValueError, match="tune-pt"):
+        tt._resolve_auto_ladder()
