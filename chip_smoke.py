@@ -16,17 +16,18 @@ over 64 chains each, 4 sweeps, a bf16 coupling packed into block-sparse
 panels; the decoder's Linear(5640 -> 22560) whole; depth cut to two epochs
 of the 4,096-image synthetic pool, 8 steps), trained, saved and served;
 then K1 with a bf16 and an int8 coupling: a 2,048-latent model on
-Advantage_system6 (the config defaults otherwise: a bf16 coupling streamed
-through K2 in training; served int8 through K1-int8; one epoch, resumed for
-a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
+Advantage_system6 (the config defaults otherwise: a dense bf16 coupling
+through K2-bf16, the gather kernel, in training; served int8 through
+K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
 "int8" (one epoch each).  Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    nvcc; exits non-zero without a CUDA device;
-2. builds the kernels from ``csrc/`` (K1; K2 and K3; K4; the int8 gather
-   kernel that takes K1's, K2's and K3's int8 modes; one ``nvcc`` per
-   source, started together) and prints the build time and the ptxas
-   report (registers and spills of every instantiation);
+2. builds the kernels from ``csrc/`` (K1; the f32 K2 and K3; K4; the
+   gather kernel that takes K1's int8 mode and K2's and K3's int8 and
+   bf16 modes; one ``nvcc`` per source, started together) and prints the
+   build time and the ptxas report (registers and spills of every
+   instantiation);
 3. K1 against its plain PyTorch version with fed uniforms, on the
    checkpoint's plan at 80 sweeps and at 256·k chains for k = 1, 2, 4, 8,
    16 (the serving group sizes at which the default rows per thread
@@ -69,13 +70,15 @@ a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
     scaled plan (47 color blocks, chunk 256 with the final chunk clamped):
     f32, bf16 and int8, each with and without ΔE, 256 chains at β = 1 and
     2,048 chains at the 32-rung ladder's per-chain β, 4 sweeps and 3 (run
-    as 4), under the chain rule and the ΔE rule (1e-3·(1 + |E|)), the int8
-    modes (the gather kernel) against the gather's plain version; K3
-    equal to K2 bit for bit on an integer-valued coupling; K3-int8 against
-    the dense plain version at 256 chains x 80 sweeps (>= 99.9 % of chains
-    identical, the fraction printed); Philox mode against
-    ``philox_uniforms``; moments against exact enumeration on the 12-spin
-    graph through both kernels;
+    as 4), under the chain rule and the ΔE rule (1e-3·(1 + |E|)); the int8
+    and bf16 modes (the gather kernel) against the gather's plain version
+    (>= 99.9 % of chains identical, the fraction printed) and the bf16
+    modes also against the dense plain version (the chain rule, the
+    fraction printed); K3 equal to K2 bit for bit on an integer-valued
+    coupling; K3-int8 against the dense plain version at 256 chains x 80
+    sweeps (>= 99.9 %, printed); Philox mode against ``philox_uniforms``;
+    moments against exact enumeration on the 12-spin graph through both
+    kernels in f32 and in bf16 (the bf16-rounded model);
 13. scaled PT training: ``Trainer(cfg, device="cuda")`` sets up the P16
     graph and trains two epochs through K3-ΔE (``cuda_hbm+bs``, K1 never
     launched, finite losses, carried ladder energies against energies
@@ -91,10 +94,11 @@ a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
 16. K2 and K3 in every mode timed at the path's shapes (2,048 chains × 4
     sweeps; the served K3-int8 at 256 chains × 80 sweeps) beside the plain
     version and ``sweep_bound`` on the stored form (packed or int8 bytes,
-    nonzeros from the plan's edge list), the int8 modes also on the bytes
-    the gather reads (its table and the nonzeros); K3-bf16-dE by rows per
-    block; the gather by launch shape at 256 and 1,024 chains x 80 sweeps
-    and 2,048 x 4; one scaled step under the profiler;
+    nonzeros from the plan's edge list), the gather's modes (int8, bf16)
+    also on the bytes the gather reads (its table and the nonzeros);
+    K3-bf16-dE by launch shape at 2,048 x 4; the served K3-int8 by launch
+    shape at 256 and 1,024 chains x 80 sweeps and 2,048 x 4; one scaled
+    step under the profiler;
 17. K1-bf16 and K1-int8 against their plain versions with fed uniforms,
     with and without dE: on the fresh flagship plan at 256 chains (beta =
     1) and 2,048 (the 8-rung ladder's per-chain beta) x 16 sweeps, and on
@@ -121,9 +125,11 @@ a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
     energies against energies recomputed on the card;
 21. K1-bf16, K1-bf16-dE, K1-int8 and K1-int8-dE timed at the paths'
     shapes beside the plain version and ``sweep_bound`` (int8 on both the
-    gather's bytes and the stored form), K1-bf16 by rows per block and the
-    gather by launch shape at 256 and 1,024 chains x 80 sweeps and 2,048 x
-    16 on the 2,048-latent plan;
+    gather's bytes and the stored form), and K2-bf16 at the 2,048-latent
+    training shape (the trained model's coupling and chains, 256 x 16,
+    both bounds), K1-bf16 by rows per block and the gather by launch
+    shape at 256 and 1,024 chains x 80 sweeps and 2,048 x 16 on the
+    2,048-latent plan;
 22. the span-update kernel K4 against its plain version: the fed entry
     bit-identical at 1, 37 and 2,048 chain rows over every class-span
     width of the scaled plan and a 23,936-wide row (the P32 fabric's
@@ -178,6 +184,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MODEL = ROOT / "runs" / "models" / "tpu_digits_40_epochs"
 CHAIN_RULE = 0.98  # least fraction of chains bit-identical to the plain version
+# the gather kernel against its own plain version: the same sums in the same
+# order, so every chain is expected identical; this is the least fraction held
+GATHER_RULE = 0.999
+GATHERED = ("int8", "bf16")  # the streaming route's value types the gather kernel takes
+GATHER_SOURCE = "image_generation_tpu_torch/csrc/gibbs_sparse.cu"
+VALUE_BYTES = {"int8": 1, "bf16": 2}
 SERVING_CHAINS = (256, 512, 1024, 2048, 4096)  # 256·k chains, k = 1, 2, 4, 8, 16
 MOMENT_ATOL = 0.06  # ≈4σ of a ±1 mean over 4096 chains
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): f32 outside the tensor
@@ -236,23 +248,24 @@ def sweep_bound(plan, stored_bytes: int, peak_ops: float, chains: int, sweeps: i
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def gather_bytes(plan, chunk=None) -> int:
-    """Bytes the int8 gather kernel must read of the coupling: its
-    neighbour table (two int32 words a slot), the nonzeros (one byte each,
-    both directions of every edge) and the class spans."""
+def gather_bytes(plan, chunk=None, value_bytes: int = 1) -> int:
+    """Bytes the gather kernel must read of the coupling: its neighbour
+    table (two int32 words a slot), the nonzeros (``value_bytes`` each: 1
+    int8, 2 bf16; both directions of every edge) and the class spans."""
     from image_generation_tpu_torch.ops.gibbs import class_spans
-    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import neighbor_table
+    from image_generation_tpu_torch.ops.gibbs_sparse import neighbor_table
 
     nbr, _off = neighbor_table(plan, chunk)
-    return 8 * nbr.size + 2 * len(plan.perm_edge_i) + 8 * len(class_spans(plan))
+    return (8 * nbr.size + 2 * value_bytes * len(plan.perm_edge_i)
+            + 8 * len(class_spans(plan)))
 
 
 def shape_sweep(run, plan, tag: str, label: str, cases, card: str) -> None:
-    """Time the int8 gather kernel at every launch shape (chains per block
-    G, threads per block) for each (chains, sweeps) of ``cases``, on spins
+    """Time the gather kernel at every launch shape (chains per block G,
+    threads per block) for each (chains, sweeps) of ``cases``, on spins
     drawn here; ``run(spins, sweeps, shape)`` launches it once.  Prints one
     line per chain count beside the default ``launch_shape``."""
-    from image_generation_tpu_torch.ops import gibbs_sparse_int8
+    from image_generation_tpu_torch.ops import gibbs_sparse
     from image_generation_tpu_torch.ops.gibbs import random_spins
 
     gk = torch.Generator(device="cuda")
@@ -260,7 +273,7 @@ def shape_sweep(run, plan, tag: str, label: str, cases, card: str) -> None:
     for n_c, n_sw in cases:
         s = random_spins(gk, plan, n_c, "cuda")
         row = []
-        for g in sorted(gibbs_sparse_int8._CHAINS):
+        for g in sorted(gibbs_sparse._CHAINS):
             for threads in (512, 1024):
                 ms = cuda_ms(lambda: run(s, n_sw, (g, threads)), 2, warmup=1)
                 row.append(f"G={g}/T={threads}: {ms:.4f} ms")
@@ -269,11 +282,11 @@ def shape_sweep(run, plan, tag: str, label: str, cases, card: str) -> None:
 
 
 def launch_shape(plan, n_chains: int):
-    """The int8 gather's default launch shape on this card's SM count."""
-    from image_generation_tpu_torch.ops import gibbs_sparse_int8
+    """The gather's default launch shape on this card's SM count."""
+    from image_generation_tpu_torch.ops import gibbs_sparse
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return gibbs_sparse_int8.launch_shape(plan, n_chains, sms)
+    return gibbs_sparse.launch_shape(plan, n_chains, sms)
 
 
 def stored_bytes(coupling) -> int:
@@ -302,7 +315,7 @@ def main() -> int:
     from image_generation_tpu_torch.io.checkpoint import load_model_dir
     from image_generation_tpu_torch.models.dvae import DVAE
     from image_generation_tpu_torch.models.grbm import GRBMGraph, scaled_ising
-    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda, gibbs_sparse_int8
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda, gibbs_sparse
     from image_generation_tpu_torch.ops.cuda_build import load_libraries
     from image_generation_tpu_torch.ops.exact import exact_moments
     from image_generation_tpu_torch.ops.gibbs import (
@@ -331,7 +344,7 @@ def main() -> int:
     libs = load_libraries()
     gibbs_cuda.load_library()
     gibbs_hbm_cuda.load_library()
-    gibbs_sparse_int8.load_library()
+    gibbs_sparse.load_library()
     print(f"[2] kernels loaded after {time.perf_counter() - t0:.2f} s")
     for name, built in libs.items():
         how = (f"built by nvcc in {built.build_seconds:.2f} s" if built.build_seconds
@@ -762,6 +775,13 @@ def mode_name(kernel: str, dtype: str, de: bool) -> str:
     return f"{kernel}-{dtype}" + ("-dE" if de else "")
 
 
+def is_sweep_kernel(name: str) -> bool:
+    """Whether a profiler kernel name is one of the sweep kernels: K1
+    (gibbs_sweeps_kernel), the f32 K2/K3 (gibbs_stream_kernel) or the
+    gather (sparse_sweeps_kernel and its gather_table_kernel pass)."""
+    return any(k in name for k in ("sweeps_kernel", "stream_kernel", "gather_table_kernel"))
+
+
 def profile_request(serve, tag: str, label: str, card: str) -> None:
     """One warm request under ``torch.profiler``: device busy share of the
     wall clock and the top kernels by device time."""
@@ -798,10 +818,10 @@ def profile_step(trainer, batch, tag: str, label: str, card: str) -> None:
           f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), idle share {1 - busy_ms / wall_ms:.1%}"
           f"  [{card}]")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
-    sweeps = [e for e in ranked[6:] if "gibbs_s" in e.key]  # the sweep kernels, if not in the top 6
+    sweeps = [e for e in ranked[6:] if is_sweep_kernel(e.key)]  # if not in the top 6
     for e in ranked[:6] + sweeps:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:80]}")
-    if not any("gibbs_s" in e.key for e in ranked):
+    if not any(is_sweep_kernel(e.key) for e in ranked):
         print(f"[{tag}]   the profiler recorded no sweep kernel (see the CUDA-event times)")
 
 
@@ -819,8 +839,8 @@ def scaled_phases(dev, card: str, rng) -> dict:
     from image_generation_tpu_torch.ops.gibbs import (
         build_plan, ising_energies, permuted_model, random_spins, to_original,
     )
-    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import (
-        gibbs_sweeps_sparse_int8, gibbs_sweeps_sparse_int8_reference,
+    from image_generation_tpu_torch.ops.gibbs_sparse import (
+        gibbs_sweeps_sparse, gibbs_sweeps_sparse_reference,
     )
     from image_generation_tpu_torch.ops.quant import quantize_coupling
     from image_generation_tpu_torch.training.trainer import Trainer
@@ -830,14 +850,15 @@ def scaled_phases(dev, card: str, rng) -> dict:
     dense_plain = gibbs_hbm_cuda.gibbs_sweeps_hbm_reference
 
     def plain_of(dtype: str):
-        """Each mode's plain version: the int8 modes are the gather
-        kernel's, run for the even sweep count as the route runs it."""
-        if dtype != "int8":
+        """Each mode's plain version: the int8 and bf16 modes are the
+        gather kernel's, run for the even sweep count as the route runs
+        it."""
+        if dtype not in GATHERED:
             return dense_plain
 
         def gather(hp_, c_, plan_, s_, n_, beta_=1.0, **kw):
-            return gibbs_sweeps_sparse_int8_reference(hp_, c_, plan_, s_,
-                                                      gibbs_hbm_cuda.round_sweeps(n_), beta_, **kw)
+            return gibbs_sweeps_sparse_reference(hp_, c_, plan_, s_,
+                                                 gibbs_hbm_cuda.round_sweeps(n_), beta_, **kw)
         return gather
 
     cfg = TrainingConfig(**SCALED)
@@ -882,9 +903,18 @@ def scaled_phases(dev, card: str, rng) -> dict:
                     if de:
                         (out, d_out), (ref, d_ref) = out, ref
                     same = (out == ref).all(dim=1)
-                    check(float(same.float().mean()) >= CHAIN_RULE,
+                    rule = GATHER_RULE if dtype in GATHERED else CHAIN_RULE
+                    check(float(same.float().mean()) >= rule,
                           f"{name} vs plain ({n_c} chains x {n_sw} sweeps): chains differ")
                     note = f"{name} {int((~same).sum())}"
+                    if dtype in GATHERED:
+                        note += f" ({float(same.float().mean()):.6f} identical)"
+                    if dtype == "bf16":  # the gather against the dense plain version
+                        dense = dense_plain(hp, c, plan, s0, n_sw, beta, uniforms=u)
+                        frac = identical_fraction(out, dense)
+                        check(frac >= CHAIN_RULE, f"{name} vs the dense plain version "
+                              f"({n_c} x {n_sw}): {frac:.6f} of chains identical")
+                        note += f" (vs dense plain: {frac:.6f} identical)"
                     if de:
                         err = (d_out - d_ref).abs()[same]
                         e_abs = ising_energies(hp, c, ref).abs()[same]
@@ -896,7 +926,8 @@ def scaled_phases(dev, card: str, rng) -> dict:
                         errs[name] = max(errs[name], float((out - ref).abs().max()))
                     line.append(note)
             print(f"[12] {n_c} chains x {n_sw} sweeps (run as {gibbs_hbm_cuda.round_sweeps(n_sw)}),"
-                  f" chains differing from the plain version: {'; '.join(line)}")
+                  f" chains differing from the plain version (the int8 and bf16 modes: the "
+                  f"gather's, >= {GATHER_RULE:.1%} identical): {'; '.join(line)}")
             del u
     # integer couplings: every sum exact, so K3 equals K2 bit for bit
     hi = torch.tensor(np.round(rng.normal(size=plan.n)), dtype=torch.float32, device=dev)
@@ -939,7 +970,7 @@ def scaled_phases(dev, card: str, rng) -> dict:
     s0 = random_spins(probe, plan, 256, dev)
     u_ph = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 256, plan.n_pad), device=dev)
     line = []
-    for key in (("K2", "f32"), ("K3", "bf16"), ("K3", "int8"), ("K2", "int8")):
+    for key in (("K2", "f32"), ("K3", "bf16"), ("K2", "bf16"), ("K3", "int8"), ("K2", "int8")):
         g.set_state(state)
         out = stream(hp, couplings[key], plan, s0, 3, generator=g)
         ref = plain_of(key[1])(hp, couplings[key], plan, s0, 3, uniforms=u_ph)
@@ -954,8 +985,13 @@ def scaled_phases(dev, card: str, rng) -> dict:
     hs = rng.uniform(-0.3, 0.3, small.n).astype(np.float32)
     js = rng.uniform(-0.5, 0.5, small.n_edges).astype(np.float32)
     hps, aps = permuted_model(small_plan, torch.tensor(hs, device=dev), torch.tensor(js, device=dev))
-    e1, e2 = exact_moments(hs, small.edge_i, small.edge_j, js)
-    for name, c in (("K2", aps), ("K3", pack_coupling(small_plan, aps, 128))):
+    aps_bf16 = aps.to(torch.bfloat16)
+    ei = torch.as_tensor(small_plan.perm_edge_i, device=dev)
+    ej = torch.as_tensor(small_plan.perm_edge_j, device=dev)
+    for name, c in (("K2-f32", aps), ("K3-f32", pack_coupling(small_plan, aps, 128)),
+                    ("K2-bf16", aps_bf16), ("K3-bf16", pack_coupling(small_plan, aps_bf16, 128))):
+        j_model = (aps if "f32" in name else aps_bf16)[ei, ej].double().cpu().numpy()
+        e1, e2 = exact_moments(hs, small.edge_i, small.edge_j, j_model)  # the model it samples
         gs = torch.Generator(device=dev)
         gs.manual_seed(7)
         sm = stream(hps, c, small_plan, random_spins(gs, small_plan, 4096, dev), 200, generator=gs)
@@ -1085,12 +1121,12 @@ def scaled_phases(dev, card: str, rng) -> dict:
         k_chunk = chunk if kernel == "K3" else None
         n_run = gibbs_hbm_cuda.round_sweeps(n_sw)
         entry = {}
-        if dtype == "int8":  # the gather: bound on the bytes it must read, and on the stored form
-            bound = sweep_bound(args[2], gather_bytes(args[2], k_chunk), PEAK_OPS[dtype], n_c,
-                                n_run, de)
+        if dtype in GATHERED:  # the gather: bound on the bytes it must read, and on the stored form
+            bound = sweep_bound(args[2], gather_bytes(args[2], k_chunk, VALUE_BYTES[dtype]),
+                                PEAK_OPS[dtype], n_c, n_run, de)
             stored = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_run, de)
             entry = {"bound_stored_ms": stored[0], "bound_stored_by": stored[1]}
-            source = "image_generation_tpu_torch/csrc/gibbs_sparse_int8.cu"
+            source = GATHER_SOURCE
             note = f", stored-form bound {stored[0] * 1e3:.3f} us ({stored[1]})"
         else:
             meta = 4 * len(gibbs_hbm_cuda._meta_list(args[2], k_chunk))
@@ -1101,14 +1137,15 @@ def scaled_phases(dev, card: str, rng) -> dict:
         print(f"[16] {name} {n_c} chains x {n_sw} sweeps: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound[0] * 1e3:.3f} us ({bound[1]}){note}  [{card}]")
         kernels.append({
-            "name": f"{'gibbs_sparse_int8' if dtype == 'int8' else 'gibbs_stream'} ({name})",
+            "name": f"{'gibbs_sparse' if dtype in GATHERED else 'gibbs_stream'} ({name})",
             "mode": name,
             "route": "cuda",
             "source": source,
             "replaces": STREAM_REPLACES[kernel],
             "launches": sum(cnt.get(name, 0) for cnt in (train_counts, k2_counts, serve_counts)),
             "max_abs_err": errs[name],
-            "tolerance": f">= {CHAIN_RULE:.0%} of chains bit-identical to the plain version"
+            "tolerance": f">= {GATHER_RULE if dtype in GATHERED else CHAIN_RULE:.1%} of chains "
+                         f"bit-identical to the plain version"
                          + ("; dE within 1e-3*(1+|E|) on identical chains" if de else ""),
             "ms": ms,
             "plain_ms": plain_ms,
@@ -1119,18 +1156,13 @@ def scaled_phases(dev, card: str, rng) -> dict:
             "shape": f"{n_c} chains x {n_sw} sweeps, n_pad {plan.n_pad}, {len(plan.blocks)} blocks"
                      + (f", chunk {chunk}" if kernel == "K3" else ""),
         })
-    # the rows per thread block of K3-bf16-dE at the PT shape (measured, not tuned)
-    args = (hp, couplings[("K3", "bf16")], plan, s_train, cfg.GIBBS_SWEEPS, ladder)
-    row = []
-    for r in sorted(gibbs_hbm_cuda._ROWS):
-        ms_r = cuda_ms(lambda: stream(*args, generator=gk, track_delta_e=True, _rows_per_block=r),
-                       2, warmup=1)
-        row.append(f"R={r}: {ms_r:.4f} ms")
-    print(f"[16] K3-bf16-dE 2048 chains x {cfg.GIBBS_SWEEPS} sweeps by rows per block (default R="
-          f"{gibbs_hbm_cuda.default_rows(plan, 2048, torch.bfloat16, chunk)}): {'; '.join(row)}"
-          f"  [{card}]")
-    # the int8 gather's launch shape on the served coupling: serving, a 4-way burst, PT
-    shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse_int8(
+    # the gather's launch shape for K3-bf16-dE at the PT shape (measured, not tuned)
+    shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse(
+        hp, couplings[("K3", "bf16")], plan, s, gibbs_hbm_cuda.round_sweeps(n), ladder,
+        generator=gk, track_delta_e=True, _shape=shape),
+        plan, "16", "K3-bf16-dE", ((2048, cfg.GIBBS_SWEEPS),), card)
+    # the gather's launch shape on the served coupling: serving, a 4-way burst, PT
+    shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse(
         hp_s, c_s, plan_s, s, gibbs_hbm_cuda.round_sweeps(n), generator=gk, _shape=shape),
         plan_s, "16", "K3-int8", ((256, serve_sweeps), (1024, serve_sweeps),
                                   (2048, cfg.GIBBS_SWEEPS)), card)
@@ -1170,14 +1202,14 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
     from image_generation_tpu_torch.app.warm import WarmGenerator
     from image_generation_tpu_torch.config import TrainingConfig
     from image_generation_tpu_torch.models.grbm import GRBMGraph
-    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda, gibbs_sparse_int8
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda, gibbs_sparse
     from image_generation_tpu_torch.ops.exact import exact_moments
     from image_generation_tpu_torch.ops.gibbs import (
         build_plan, gibbs_sweeps_kernel_reference, ising_energies, permuted_model,
         random_spins, to_original,
     )
-    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import (
-        gibbs_sweeps_sparse_int8, gibbs_sweeps_sparse_int8_reference,
+    from image_generation_tpu_torch.ops.gibbs_sparse import (
+        gibbs_sweeps_sparse, gibbs_sweeps_sparse_reference,
     )
     from image_generation_tpu_torch.ops.quant import dequantize_coupling
     from image_generation_tpu_torch.training.observability import MetricsLog
@@ -1186,7 +1218,7 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
 
     k1 = gibbs_cuda.gibbs_sweeps_cuda
     plains = {"bf16": gibbs_sweeps_kernel_reference,  # each mode's plain version
-              "int8": gibbs_sweeps_sparse_int8_reference}
+              "int8": gibbs_sweeps_sparse_reference}
     flag_cfg = TrainingConfig()
     cfg2k = TrainingConfig(**SERVE2K)
 
@@ -1262,9 +1294,9 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
     check(rows_checked["bf16"] == set(gibbs_cuda._ROWS),
           f"K1-bf16: rows per block checked {sorted(rows_checked['bf16'])}, built "
           f"{sorted(gibbs_cuda._ROWS)}")
-    check(rows_checked["int8"] == set(gibbs_sparse_int8._CHAINS),
+    check(rows_checked["int8"] == set(gibbs_sparse._CHAINS),
           f"K1-int8: chains per block checked {sorted(rows_checked['int8'])}, built "
-          f"{sorted(gibbs_sparse_int8._CHAINS)}")
+          f"{sorted(gibbs_sparse._CHAINS)}")
     print(f"[17] rows per block (bf16) and chains per block (int8 gather) checked on the serving "
           f"chain counts: { {d: sorted(v) for d, v in rows_checked.items()} }")
     # Philox mode against the numpy twin, on the 2,048-latent plan
@@ -1355,7 +1387,10 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
         check(bool(np.isfinite(resumed.losses["dvae_losses"]).all()), "resumed losses")
         model_dir = tmp / "pegasus_2048_2ep"
         resumed.save(model_dir)
-        del tr, resumed
+        rs = resumed.state  # the trained sampler model and chains: K2-bf16's shape (phase 21)
+        k2_train = (rs.sampler_h, rs.sampler_coupling, resumed.plan, rs.chains,
+                    cfg2k.GIBBS_SWEEPS, 1.0)
+        del tr, resumed, rs
         torch.cuda.empty_cache()
 
         # ---- 19. served through K1-int8 ---------------------------------------
@@ -1512,7 +1547,7 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
             entry = {"bound_stored_ms": stored[0], "bound_stored_by": stored[1]}
             shape = f"G, threads {launch_shape(args[2], n_c)}"
             note = f", stored-form bound {stored[0] * 1e3:.3f} us ({stored[1]})"
-            source = "image_generation_tpu_torch/csrc/gibbs_sparse_int8.cu"
+            source = GATHER_SOURCE
         else:
             bound = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_sw, de)
             shape = f"R={gibbs_cuda.default_rows(args[2], n_c, K1_DTYPES[dtype])}"
@@ -1522,7 +1557,7 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0] * 1e3:.3f} us ({bound[1]})"
               f"{note}  [{card}]")
         kernels.append({
-            "name": f"{'gibbs_sparse_int8' if dtype == 'int8' else 'gibbs_sweeps'} ({name})",
+            "name": f"{'gibbs_sparse' if dtype == 'int8' else 'gibbs_sweeps'} ({name})",
             "mode": name,
             "route": "cuda",
             "source": source,
@@ -1539,6 +1574,47 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
             "library_ms": None,
             "shape": f"{n_c} chains x {n_sw} sweeps, n_pad {args[2].n_pad} ({what})",
         })
+    # K2-bf16 (the gather) at the 2,048-latent training shape: the trained model and chains
+    stream = gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda
+    plan_k2, n_c, n_sw = k2_train[2], k2_train[3].shape[0], k2_train[4]
+    u = torch.rand((n_sw, n_c, plan_k2.n_pad), generator=gk, device=dev)
+    out = stream(*k2_train, uniforms=u)
+    ref = gibbs_sweeps_sparse_reference(*k2_train, uniforms=u)
+    frac = identical_fraction(out, ref)
+    check(frac >= GATHER_RULE, f"K2-bf16 at the 2,048-latent training shape: {frac:.6f} of "
+          f"chains identical to the gather's plain version")
+    del u
+    ms = cuda_ms(lambda: stream(*k2_train, generator=gk), 10, warmup=2)
+    plain_ms = cuda_ms(lambda: gibbs_sweeps_sparse_reference(*k2_train, generator=gk), 3,
+                       warmup=1)
+    dense_ms = cuda_ms(lambda: gibbs_hbm_cuda.gibbs_sweeps_hbm_reference(*k2_train, generator=gk),
+                       3, warmup=1)
+    bound = sweep_bound(plan_k2, gather_bytes(plan_k2, None, VALUE_BYTES["bf16"]),
+                        PEAK_OPS["bf16"], n_c, n_sw, False)
+    stored = sweep_bound(plan_k2, stored_bytes(k2_train[1]), PEAK_OPS["bf16"], n_c, n_sw, False)
+    print(f"[21] K2-bf16 {n_c} chains x {n_sw} sweeps (2,048-latent training, the trained model, "
+          f"n_pad {plan_k2.n_pad}, G, threads {launch_shape(plan_k2, n_c)}): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, dense plain {dense_ms:.4f} ms, bound {bound[0] * 1e3:.3f} us "
+          f"({bound[1]}), stored-form bound {stored[0] * 1e3:.3f} us ({stored[1]}); fed "
+          f"uniforms {frac:.6f} of chains identical to the plain version  [{card}]")
+    kernels.append({
+        "name": "gibbs_sparse (K2-bf16, 2,048-latent training)",
+        "mode": "K2-bf16",
+        "route": "cuda",
+        "source": GATHER_SOURCE,
+        "replaces": STREAM_REPLACES["K2"],
+        "launches": 0,  # filled in from the paths below
+        "max_abs_err": float((out - ref).abs().max()),
+        "tolerance": f">= {GATHER_RULE:.1%} of chains bit-identical to the plain version",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "bound_stored_ms": stored[0],
+        "bound_stored_by": stored[1],
+        "library_ms": None,
+        "shape": f"{n_c} chains x {n_sw} sweeps, n_pad {plan_k2.n_pad} (2,048-latent training)",
+    })
     # rows per thread block of K1-bf16 at the 2,048-latent serving shape (measured, not tuned)
     s_serve = random_spins(gk, plan_s, 256, dev)
     c_bf16 = dequantize_coupling(c_s).to(torch.bfloat16)
@@ -1551,8 +1627,8 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
           f"block (default R={gibbs_cuda.default_rows(plan_s, 256, torch.bfloat16)}): "
           f"{'; '.join(row)}  [{card}]")
     # the int8 gather's launch shape on the served coupling: serving, a 4-way burst, a PT round
-    shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse_int8(hp_s, c_s, plan_s, s, n, generator=gk,
-                                                             _shape=shape),
+    shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse(hp_s, c_s, plan_s, s, n, generator=gk,
+                                                        _shape=shape),
                 plan_s, "21", "K1-int8", ((256, serve_sweeps), (1024, serve_sweeps),
                                           (2048, cfg2k.GIBBS_SWEEPS)), card)
     paths = {"train_2k": train2k_counts, "resume_2k": resume_counts, "serve_2k": serve2k_counts,

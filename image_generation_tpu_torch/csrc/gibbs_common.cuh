@@ -1,7 +1,7 @@
-// Pieces the sweep kernels share (K1 in gibbs_sweeps.cu, K2 and K3 in
-// gibbs_hbm.cu, the int8 gather in gibbs_sparse_int8.cu): the in-kernel
-// Philox generator and, per dense coupling type, how spins are held and how
-// kStep coupling rows meet R spin rows.
+// Pieces the sweep kernels share (K1 in gibbs_sweeps.cu, the f32 K2 and K3
+// in gibbs_hbm.cu, the int8 and bf16 gather in gibbs_sparse.cu): the
+// in-kernel Philox generator and, per dense coupling type, how spins are
+// held and how kStep coupling rows meet R spin rows.
 //
 // Coupling types of the dense kernels: f32; bf16 stored as its 16 bits
 // (read with shifts, no bf16 conversion intrinsics needed).  Spins are held

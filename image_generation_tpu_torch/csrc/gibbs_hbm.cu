@@ -1,6 +1,6 @@
-// Streaming colored block-Gibbs for Hopper (sm_90a): kernels K2 and K3,
-// f32 and bf16 (their int8 modes are the sparse field gather of
-// gibbs_sparse_int8.cu).
+// Streaming colored block-Gibbs for Hopper (sm_90a): kernels K2 and K3
+// with an f32 coupling (their int8 and bf16 modes are the sparse field
+// gather of gibbs_sparse.cu).
 //
 // Replaces the Pallas TPU kernels of image_generation_tpu/ops/
 // gibbs_pallas_hbm.py: _kernel (K2, the dense coupling streamed one color
@@ -18,8 +18,8 @@
 //     chunk couples into gets fields = h;
 //   * p = sigmoid(-2 beta fields), new = u < p ? +1 : -1, written to the
 //     spins only after the whole block's fields are complete;
-//   * the coupling comes as f32 or bf16.  Spins are held in that type
-//     (+-1 is exact in each), and products accumulate in f32;
+//   * spins are held in f32 (+-1 is exact), and products accumulate in
+//     f32;
 //   * energy carry (delta_e non-null): per chain, the sum over sweeps and
 //     blocks of fields . (new - old), kept as per-thread partial sums and
 //     reduced once at the end, as in K1.
@@ -29,14 +29,15 @@
 // 4 sweeps) the graph's work is 1.3 GFLOP, but a dense column-panel product
 // does 593 GFLOP and the packed one 191 GFLOP per refresh, so on CUDA
 // cores the multiply-adds and the coupling reads that feed them bound this
-// design, not device memory: the packed bf16 panels (23 MB) stay in the
-// 50 MB L2, and every thread block streams the whole panel set from there
-// once per sweep.
+// design, not device memory: the packed f32 panels (46 MB) fit the 50 MB
+// L2, and every thread block streams the whole panel set from there once
+// per sweep.  The gather (gibbs_sparse.cu) does only the graph's work; the
+// f32 modes, on no default path, stay here until they move to it too.
 //
 // How the design meets that.  The chains are independent: a thread block
 // owns R chain rows and keeps their spins in shared memory for the whole
-// run (R * 6,016 values: 24 KB per row in f32, 12 KB in bf16), plus a
-// staging row block for one color's new spins.  Its 256
+// run (R * 6,016 values: 24 KB per row), plus a staging row block for one
+// color's new spins.  Its 256
 // threads are 128 column lanes times 2 groups that split the panel rows;
 // each thread loads 8 coupling values (coalesced across the lanes) before
 // using them, and every value feeds R multiply-adds against spins read from
@@ -286,31 +287,24 @@ const char* gibbs_stream_error_string(int err) {
 int gibbs_stream_meta_per_color() { return kMetaPerColor; }
 
 // Shared memory one thread block needs, in bytes (0 for an unknown
-// dtype / rows_per_block): the wrapper checks it against the card's limit.
-long long gibbs_stream_smem_bytes(int dtype, int rows_per_block, int n_meta,
-                                  int n_pad, int max_width) {
-#define SMEM_CASE(T)                                                    \
-  switch (rows_per_block) {                                             \
-    case 1: return smem_bytes<T, 1>(n_meta, n_pad, max_width);          \
-    case 2: return smem_bytes<T, 2>(n_meta, n_pad, max_width);          \
-    case 4: return smem_bytes<T, 4>(n_meta, n_pad, max_width);          \
-    case 8: return smem_bytes<T, 8>(n_meta, n_pad, max_width);          \
-    default: return 0;                                                  \
-  }
-  switch (dtype) {
-    case 0: SMEM_CASE(float)
-    case 1: SMEM_CASE(bf16_bits)
+// rows_per_block): the wrapper checks it against the card's limit.
+long long gibbs_stream_smem_bytes(int rows_per_block, int n_meta, int n_pad,
+                                  int max_width) {
+  switch (rows_per_block) {
+    case 1: return smem_bytes<float, 1>(n_meta, n_pad, max_width);
+    case 2: return smem_bytes<float, 2>(n_meta, n_pad, max_width);
+    case 4: return smem_bytes<float, 4>(n_meta, n_pad, max_width);
+    case 8: return smem_bytes<float, 8>(n_meta, n_pad, max_width);
     default: return 0;
   }
-#undef SMEM_CASE
 }
 
-// dtype: 0 f32, 1 bf16 (coupling and held spins).  packed: 0 K2
-// (coupling (n_pad, n_pad), ld = n_pad), 1 K3 (panels (rows, max_width),
-// ld = max_width, seg_len = chunk).  meta: device int32 array of n_meta
-// entries (see the kernel).  n_sweeps: already even.  delta_e: null, or
-// (n_chains,) f32.  Returns a cudaError_t (0 on success).
-int gibbs_stream(int dtype, int packed, const float* spins_in, float* spins_out,
+// An f32 coupling and f32 held spins.  packed: 0 K2 (coupling (n_pad,
+// n_pad), ld = n_pad), 1 K3 (panels (rows, max_width), ld = max_width,
+// seg_len = chunk).  meta: device int32 array of n_meta entries (see the
+// kernel).  n_sweeps: already even.  delta_e: null, or (n_chains,) f32.
+// Returns a cudaError_t (0 on success).
+int gibbs_stream(int packed, const float* spins_in, float* spins_out,
                  const void* coupling, const float* h, const float* beta,
                  const float* uniforms, const int64_t* seed, float* delta_e,
                  const int* meta, int n_meta, int n_blocks, int n_chains,
@@ -323,13 +317,7 @@ int gibbs_stream(int dtype, int packed, const float* spins_in, float* spins_out,
   const Args a{spins_in, spins_out, coupling, h, beta, uniforms, seed,
                delta_e, meta, n_meta, n_blocks, n_chains, n_pad, ld, seg_len,
                max_width, n_sweeps, static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
-  switch (dtype) {
-    case 0: err = launch_form<float>(a, packed, rows_per_block); break;
-    case 1: err = launch_form<bf16_bits>(a, packed, rows_per_block); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_form<float>(a, packed, rows_per_block));
 }
 
 }  // extern "C"

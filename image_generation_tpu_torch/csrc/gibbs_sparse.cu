@@ -1,0 +1,335 @@
+// Colored block-Gibbs as a sparse field gather, for Hopper (sm_90a): the
+// int8 modes of K1, K2 and K3, and the bf16 modes of K2 and K3.
+//
+// Replaces these modes of the Pallas TPU kernels:
+// image_generation_tpu/ops/gibbs_pallas.py (_color_update with a
+// QuantCoupling, under _kernel / _kernel_fed) and
+// image_generation_tpu/ops/gibbs_pallas_hbm.py (_kernel and _kernel_bs with
+// int8 or bf16 panels).  It computes what they compute: n_sweeps sweeps,
+// each updating the color blocks,
+//
+//     fields = S . A[:, c] + h[c]
+//     p      = sigmoid(-2 * beta_chain * fields)
+//     S[:, c] = u < p ? +1 : -1
+//
+// with the coupling in one of two value types:
+//   * int8: the products summed exactly in int32, in the quantized units
+//     of the Pallas kernels (the caller passes h / scale and
+//     beta * scale and multiplies delta_e by the scale);
+//   * bf16: each product bf16 x +-1 is exact in f32, and the products are
+//     summed in f32 in the table's slot order (ascending neighbour), then
+//     h is added; h, beta and delta_e are the caller's own.
+// u is fed ((>= n_sweeps, chains, n_pad) f32 read at [sweep, row, column])
+// or drawn from K1's Philox4x32-10 with the counter (column, global chain
+// row, sweep, 0) and the seed as key (gibbs_common.cuh).  With delta_e the
+// kernel also writes each chain's energy change of the run, the sum of
+// fields . (new - old) over sweeps and columns, reduced once at the end.
+//
+// What bounds it on the H100.  The couplings are the graph's: at most 15
+// neighbours a spin on Pegasus, 20 on Zephyr, so the stored matrix is
+// 99 % zeros (0.7 % of the scaled plan's packed panels, 0.5 % of the
+// 2,048-latent dense matrix).  The dense kernels streamed every element of
+// it from L2 once per chain block per sweep: at the serving shape (256
+// chains, one a thread block) that was 239 GB of L2 traffic for the scaled
+// int8 request, and 2,048-latent bf16 training at 256 chains x 16 sweeps
+// read its 11.8 MB dense matrix 4,096 times a refresh.  The graph's own
+// work is 2 operations a nonzero a chain a sweep (1.7 G at the scaled
+// serving shape), and a sweep has one dependent step per color class.
+//
+// How the design meets that.
+//   * A static neighbour table per plan (ops/gibbs_sparse.py, built on the
+//     host from the plan's edge list, cached on the device): for each
+//     padded column c and slot d < deg (the plan's largest degree), the
+//     neighbour's spin position k and the offset of A[k, c] in the coupling
+//     as it is stored (dense: k * n_pad + c; packed panels: the panel row
+//     of k's chunk in c's color, times the panel width, plus c - c0), or
+//     -1 for an empty slot.  The table holds no values, so one table
+//     serves both value types.  The coupling is zero off the plan's edges,
+//     so these entries are all of its nonzeros.  A first pass of every
+//     launch gathers the coupling's current values into one 32-bit word a
+//     slot, laid out [d][c] so that neighbouring columns read neighbouring
+//     words: (k << 8) | (A & 0xff) for int8, (k << 16) | bf16 bits for
+//     bf16 (read unsigned).  The bf16 word keeps the int8 word's 4 bytes,
+//     so a field still costs deg word loads, at the price of n_pad <=
+//     65,536: the plans that reach this kernel have n_pad 2,432 and 6,016
+//     (the P32 fabric, 23,936, is graph-sharded and never comes here).  An
+//     8-byte word would double the table traffic for no plan the repo has.
+//     The wrapper refuses a wider plan.
+//   * A thread block owns G chains for the whole run and holds their spins
+//     in shared memory as int8, chain-fastest ([k][G]).  Its threads are
+//     (column, chain) pairs, chain fastest: the G threads of a column share
+//     its table words (one load, broadcast) and read G neighbouring spin
+//     bytes.  A field costs deg table words and deg shared-memory bytes.
+//   * A whole color class is updated per step: the blocks of a class share
+//     no couplings (the table build checks it), and the uniforms are
+//     indexed by column, so updating class_spans(plan) at once equals the
+//     plan-order block loop bit for bit.  New spins are written in place:
+//     no column of a span reads another's.  Between spans the block needs
+//     one __syncthreads(), and no grid sync, because a chain never leaves
+//     its block.  The scaled plan has 7 spans a sweep (47 blocks).
+//   * The wrapper picks G (1, 2, 4, 8 or 16) so that the chains make at
+//     least one full wave of blocks on the card's SMs (on an H100's 132:
+//     256 chains G = 1, 256 blocks; 2,048 chains G = 8) and the spins fit
+//     shared memory.
+//
+// Plain C interface for ctypes: the wrapper allocates everything (the
+// gathered table too), both kernels launch on the caller's stream, nothing
+// synchronises, and the entry point returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "gibbs_common.cuh"  // Philox, the uniform draw, bf16_bits
+
+namespace {
+
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kGatherThreads = 256;
+constexpr int kMaxNPadInt8 = (1 << 23) - 1;  // the neighbour in 24 bits
+constexpr int kMaxNPadBf16 = 1 << 16;        // the neighbour in 16 bits
+
+// Per value type: the table word, the field accumulator, and one slot's
+// product added into it.
+template <typename V>
+struct Word;
+
+template <>
+struct Word<int8_t> {
+  typedef int Acc;
+  static constexpr int kShift = 8;
+  static __device__ __forceinline__ uint32_t make(int k, int8_t a) {
+    return (static_cast<uint32_t>(k) << 8) | static_cast<uint8_t>(a);
+  }
+  static __device__ __forceinline__ void add(int& acc, uint32_t w, int8_t s) {
+    acc += static_cast<int>(static_cast<int8_t>(w & 0xffu)) * s;
+  }
+  static __device__ __forceinline__ float field(int acc) { return static_cast<float>(acc); }
+};
+
+template <>
+struct Word<bf16_bits> {
+  typedef float Acc;
+  static constexpr int kShift = 16;
+  static __device__ __forceinline__ uint32_t make(int k, bf16_bits a) {
+    return (static_cast<uint32_t>(k) << 16) | a;
+  }
+  // bf16 x +-1 (or 0) is exact in f32, so the fma rounds once, as a
+  // multiply then an add would
+  static __device__ __forceinline__ void add(float& acc, uint32_t w, int8_t s) {
+    acc = fmaf(__uint_as_float(w << 16), static_cast<float>(s), acc);
+  }
+  static __device__ __forceinline__ float field(float acc) { return acc; }
+};
+
+// entry[i] = the word of (nbr[i], A[off[i]]), 0 for an empty slot
+template <typename V>
+__global__ void gather_table_kernel(const V* __restrict__ coupling,
+                                    const int* __restrict__ nbr,
+                                    const int* __restrict__ off,
+                                    uint32_t* __restrict__ entry, const int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const int o = off[i];
+    entry[i] = o >= 0 ? Word<V>::make(nbr[i], coupling[o]) : 0u;
+  }
+}
+
+template <typename V, int G>
+__global__ void __launch_bounds__(kMaxThreads)
+sparse_sweeps_kernel(const float* __restrict__ spins_in,
+                     float* __restrict__ spins_out,
+                     const uint32_t* __restrict__ entry,  // (deg, n_pad)
+                     const float* __restrict__ h,
+                     const float* __restrict__ beta,
+                     const float* __restrict__ uniforms,  // null: Philox
+                     const int64_t* __restrict__ seed,    // null: fed
+                     float* __restrict__ delta_e,         // null: no carry
+                     const int* __restrict__ spans,       // (c0, c1) per span
+                     const int n_spans, const int deg, const int n_chains,
+                     const int n_pad, const int n_sweeps) {
+  extern __shared__ int8_t spins[];  // n_pad x G, chain fastest
+  const int tid = threadIdx.x;
+  const int n_threads = blockDim.x;  // a multiple of 32 and of G
+  const int g = tid % G;             // this thread's chain in the block
+  const int row0 = blockIdx.x * G;
+  const int rows = min(G, n_chains - row0);
+  const bool live = g < rows;
+  const int row = row0 + g;
+
+  uint32_t key0 = 0, key1 = 0;
+  if (seed != nullptr) {
+    const uint64_t s = static_cast<uint64_t>(*seed);
+    key0 = static_cast<uint32_t>(s);
+    key1 = static_cast<uint32_t>(s >> 32);
+  }
+  const float neg2beta = live ? -2.0f * beta[row] : 0.0f;
+  float de = 0.0f;  // this thread's share of its chain's energy change
+  // chains past the last one hold zeros: computed, never stored
+  for (int i = tid; i < G * n_pad; i += n_threads) {
+    const int r = i / n_pad;
+    const int c = i - r * n_pad;
+    spins[c * G + r] = r < rows
+        ? static_cast<int8_t>(spins_in[static_cast<size_t>(row0 + r) * n_pad + c])
+        : static_cast<int8_t>(0);
+  }
+  __syncthreads();
+
+  const int col_step = n_threads / G;
+  for (int sweep = 0; sweep < n_sweeps; ++sweep) {
+    for (int sp = 0; sp < n_spans; ++sp) {
+      const int c1 = __ldg(spans + 2 * sp + 1);
+      for (int c = __ldg(spans + 2 * sp) + tid / G; c < c1; c += col_step) {
+        typename Word<V>::Acc acc = 0;
+        const uint32_t* e = entry + c;
+#pragma unroll 5
+        for (int d = 0; d < deg; ++d) {  // ascending slots: the plain version's order
+          const uint32_t w = __ldg(e + static_cast<size_t>(d) * n_pad);
+          Word<V>::add(acc, w, spins[(w >> Word<V>::kShift) * G + g]);
+        }
+        if (live) {
+          const float f = Word<V>::field(acc) + __ldg(h + c);
+          const float x = neg2beta * f;
+          const float p = 1.0f / (1.0f + expf(-x));
+          const float u = draw_uniform(uniforms, c, row, sweep, n_chains, n_pad, key0, key1);
+          const bool up = u < p;
+          int8_t* s = spins + c * G + g;
+          if (delta_e != nullptr) {
+            // f * (new - old) is exact: new - old is 0 or +-2
+            de += f * ((up ? 1.0f : -1.0f) - static_cast<float>(*s));
+          }
+          *s = up ? 1 : -1;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int i = tid; i < rows * n_pad; i += n_threads) {
+    const int r = i / n_pad;
+    const int c = i - r * n_pad;
+    spins_out[static_cast<size_t>(row0 + r) * n_pad + c] = static_cast<float>(spins[c * G + r]);
+  }
+
+  if (delta_e != nullptr) {  // uniform across the block: barrier is safe
+    __shared__ float partial[kMaxWarps][G];
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    float v = de;
+#pragma unroll
+    for (int o = 16; o >= G; o >>= 1) {
+      v += __shfl_down_sync(0xffffffffu, v, o);  // lane + o holds the same chain
+    }
+    if (lane < G) partial[warp][lane] = v;
+    __syncthreads();
+    if (tid < rows) {
+      float sum = 0.0f;
+      for (int w = 0; w < n_threads / 32; ++w) sum += partial[w][tid];
+      delta_e[row0 + tid] = sum;
+    }
+  }
+}
+
+size_t smem_bytes(int chains_per_block, int n_pad) {
+  return static_cast<size_t>(chains_per_block) * n_pad;
+}
+
+struct Args {
+  const void* coupling;
+  const int* nbr;
+  const int* off;
+  uint32_t* entry;
+  const float* spins_in;
+  float* spins_out;
+  const float* h;
+  const float* beta;
+  const float* uniforms;
+  const int64_t* seed;
+  float* delta_e;
+  const int* spans;
+  int n_spans, deg, n_chains, n_pad, n_sweeps, threads;
+  cudaStream_t stream;
+};
+
+template <typename V, int G>
+cudaError_t launch(const Args& a) {
+  const size_t smem = smem_bytes(G, a.n_pad);
+  cudaError_t err = cudaFuncSetAttribute(
+      sparse_sweeps_kernel<V, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int grid = (a.n_chains + G - 1) / G;
+  sparse_sweeps_kernel<V, G><<<grid, a.threads, smem, a.stream>>>(
+      a.spins_in, a.spins_out, a.entry, a.h, a.beta, a.uniforms, a.seed,
+      a.delta_e, a.spans, a.n_spans, a.deg, a.n_chains, a.n_pad, a.n_sweeps);
+  return cudaGetLastError();
+}
+
+template <typename V>
+cudaError_t launch_type(const Args& a, int chains_per_block) {
+  const int n = a.deg * a.n_pad;
+  gather_table_kernel<V><<<(n + kGatherThreads - 1) / kGatherThreads, kGatherThreads, 0,
+                           a.stream>>>(static_cast<const V*>(a.coupling), a.nbr, a.off,
+                                       a.entry, n);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  switch (chains_per_block) {
+    case 1: return launch<V, 1>(a);
+    case 2: return launch<V, 2>(a);
+    case 4: return launch<V, 4>(a);
+    case 8: return launch<V, 8>(a);
+    case 16: return launch<V, 16>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* gibbs_sparse_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Dynamic shared memory one thread block needs, in bytes: the wrapper
+// checks it against the card's limit.
+long long gibbs_sparse_smem_bytes(int chains_per_block, int n_pad) {
+  return static_cast<long long>(smem_bytes(chains_per_block, n_pad));
+}
+
+// The widest plan (n_pad) a table word of the value type holds (dtype 0
+// int8, 1 bf16; 0 for another): the wrapper checks it before a launch.
+int gibbs_sparse_max_n_pad(int dtype) {
+  return dtype == 0 ? kMaxNPadInt8 : dtype == 1 ? kMaxNPadBf16 : 0;
+}
+
+// dtype: 0 int8, 1 bf16 (the stored coupling's values).  coupling: the
+// stored coupling (dense or packed panels); nbr, off: the (deg, n_pad)
+// int32 neighbour table (off -1 for an empty slot); entry: (deg, n_pad)
+// 32-bit scratch for the gathered table.  spans: device int32, (c0, c1)
+// per color-class span in plan order.  int8: h and beta in quantized
+// units (h / scale, beta * scale); bf16: as they are.  uniforms: null, or
+// f32 with at least n_sweeps rows of (n_chains, n_pad); seed: null (fed)
+// or one int64.  delta_e: null, or (n_chains,) f32.  chains_per_block: 1,
+// 2, 4, 8 or 16; threads: a multiple of 32 and of chains_per_block, at
+// most 1024.  Returns a cudaError_t (0 on success).
+int gibbs_sparse(int dtype, const void* coupling, const int* nbr, const int* off,
+                 void* entry, int deg, const float* spins_in, float* spins_out,
+                 const float* h, const float* beta, const float* uniforms,
+                 const int64_t* seed, float* delta_e, const int* spans, int n_spans,
+                 int n_chains, int n_pad, int n_sweeps, int chains_per_block,
+                 int threads, void* stream) {
+  if (deg < 1 || n_spans < 1 || n_chains < 1 || n_pad < 1 ||
+      n_pad > gibbs_sparse_max_n_pad(dtype) || chains_per_block < 1 || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 || threads % chains_per_block != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a{coupling, nbr, off, static_cast<uint32_t*>(entry), spins_in, spins_out,
+               h, beta, uniforms, seed, delta_e, spans, n_spans, deg, n_chains, n_pad,
+               n_sweeps, threads, static_cast<cudaStream_t>(stream)};
+  const cudaError_t err = dtype == 0 ? launch_type<int8_t>(a, chains_per_block)
+                                     : launch_type<bf16_bits>(a, chains_per_block);
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

@@ -1,6 +1,6 @@
 // Fused multi-sweep colored block-Gibbs for Hopper (sm_90a): kernel K1,
 // with an f32 or bf16 coupling (K1's int8 mode is the sparse field gather
-// of gibbs_sparse_int8.cu).
+// of gibbs_sparse.cu).
 //
 // Replaces the Pallas TPU kernel image_generation_tpu/ops/gibbs_pallas.py
 // (_kernel, _kernel_fed and their shared body _color_update).  It computes

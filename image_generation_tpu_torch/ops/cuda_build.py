@@ -29,7 +29,7 @@ SOURCES = {  # library name -> source
     "gibbs_sweeps": _PKG / "csrc" / "gibbs_sweeps.cu",  # K1
     "gibbs_hbm": _PKG / "csrc" / "gibbs_hbm.cu",  # K2, K3
     "span_update": _PKG / "csrc" / "span_update.cu",  # K4
-    "gibbs_sparse_int8": _PKG / "csrc" / "gibbs_sparse_int8.cu",  # int8 K1, K2, K3
+    "gibbs_sparse": _PKG / "csrc" / "gibbs_sparse.cu",  # int8 K1, K2, K3; bf16 K2, K3
 }
 _HEADERS = (_PKG / "csrc" / "gibbs_common.cuh",)  # included by the sources above
 _BUILD_DIR = _PKG / "_build"

@@ -8,7 +8,7 @@ H100 and how the design meets that.  ``ops/cuda_build.py`` compiles it
 with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface at first use, and it is bound here with ``ctypes``.  K1's int8
 mode (a ``QuantCoupling``) is the sparse field gather of
-``ops/gibbs_sparse_int8.py``, reached through the same wrapper.
+``ops/gibbs_sparse.py``, reached through the same wrapper.
 
 ``selects_k1`` keeps the JAX package's VMEM gate as the dispatch rule
 between K1 and the streaming kernels (``ops/gibbs_hbm_cuda.py``).
@@ -22,7 +22,7 @@ coupling or a ``QuantCoupling``; an int8 coupling works in the Pallas
 wrapper's quantized units (h / scale and β · scale go in, computed on the
 device, and ΔE comes back × scale).  For a tensor on the CPU it runs the
 plain PyTorch version (``ops.gibbs.gibbs_sweeps_kernel_reference``; for
-int8 the gather kernel's, ``gibbs_sweeps_sparse_int8_reference``); for a
+int8 the gather kernel's, ``gibbs_sweeps_sparse_reference``); for a
 CUDA tensor it launches the kernel or raises.
 ``gibbs_sweeps_cuda.launches`` counts its launches by mode: ``"K1-f32"``,
 ``"K1-bf16-dE"``, ``"K1-int8"``, ...
@@ -47,7 +47,7 @@ from image_generation_tpu_torch.ops.gibbs import (
     _check_uniforms,
     gibbs_sweeps_kernel_reference,
 )
-from image_generation_tpu_torch.ops.gibbs_sparse_int8 import gibbs_sweeps_sparse_int8, supported
+from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse, supported
 from image_generation_tpu_torch.ops.quant import QuantCoupling
 
 __all__ = [
@@ -177,7 +177,7 @@ def supported_by_kernel(plan: GibbsPlan, n_chains: int, dtype=torch.float32) -> 
     ``dtype``, fit Hopper's 227 KB of shared memory, the padded width is a
     multiple of 8 (the kernel's step), and the plan has at most
     ``_MAX_BLOCKS`` color blocks.  int8: the gather kernel's rule
-    (``gibbs_sparse_int8.supported``)."""
+    (``gibbs_sparse.supported``)."""
     if dtype == torch.int8:
         return supported(plan, n_chains)
     return _fits(plan, n_chains, default_rows(plan, n_chains, dtype), dtype)
@@ -240,7 +240,7 @@ def gibbs_sweeps_cuda(
     ``track_delta_e``: the (chains,) f32 energy change of the run.
 
     A ``QuantCoupling`` goes to the int8 gather kernel
-    (``gibbs_sparse_int8.gibbs_sweeps_sparse_int8``), which reads the
+    (``gibbs_sparse.gibbs_sweeps_sparse``), which reads the
     coupling only at the plan's edges: it must be zero everywhere else, as
     every coupling ``permuted_model`` builds is.
 
@@ -251,7 +251,7 @@ def gibbs_sweeps_cuda(
     """
     if isinstance(coupling_p, QuantCoupling):
         _check_uniforms(uniforms, n_sweeps, *spins_p.shape)
-        return gibbs_sweeps_sparse_int8(
+        return gibbs_sweeps_sparse(
             hp, coupling_p, plan, spins_p, n_sweeps, beta, generator=generator,
             uniforms=uniforms, track_delta_e=track_delta_e,
             count=(gibbs_sweeps_cuda.launches, "K1-int8" + ("-dE" if track_delta_e else "")))

@@ -4,12 +4,12 @@ Replaces ``image_generation_tpu/ops/gibbs_pallas_hbm.py``: ``_kernel``
 (K2, the dense coupling streamed one color panel at a time) and
 ``_kernel_bs`` (K3, only the packed occupied chunk panels of
 ``ops/block_sparse.py``), with their wrapper ``gibbs_sweeps_pallas_hbm``.
-The source is ``csrc/gibbs_hbm.cu`` for f32 and bf16; its header note says
-what bounds the kernels on the H100 and how the design meets that.
+The f32 modes are ``csrc/gibbs_hbm.cu``; its header note says what bounds
+the kernels on the H100 and how the design meets that.
 ``ops/cuda_build.py`` builds it beside K1; it is bound here with
-``ctypes``.  The int8 modes (a ``QuantCoupling`` for K2, int8 panels for
-K3) are the sparse field gather of ``ops/gibbs_sparse_int8.py``, reached
-through the same wrapper.
+``ctypes``.  The int8 and bf16 modes (a ``QuantCoupling`` or dense bf16
+matrix for K2, int8 or bf16 panels for K3) are the sparse field gather of
+``ops/gibbs_sparse.py``, reached through the same wrapper.
 
 ``gibbs_sweeps_hbm_cuda`` is the wrapper.  It takes a dense f32 or bf16
 coupling or a ``QuantCoupling`` (K2), or a ``BlockSparseCoupling`` with
@@ -18,8 +18,8 @@ stream (K1's counter and key), and the energy carry.  Like the Pallas
 kernels it rounds the sweep count up to even, and an int8 coupling works
 in quantized units (h / scale, β · scale), its ΔE rescaled.  For a tensor
 on the CPU it runs the plain version (``gibbs_sweeps_hbm_reference``; for
-int8 the gather kernel's, ``gibbs_sweeps_sparse_int8_reference``); for a
-CUDA tensor it launches the kernel or raises.
+int8 and bf16 the gather kernel's, ``gibbs_sweeps_sparse_reference``);
+for a CUDA tensor it launches the kernel or raises.
 ``gibbs_sweeps_hbm_cuda.launches`` counts launches by kernel and mode,
 e.g. ``"K3-bf16-dE"`` or ``"K2-int8"``.
 """
@@ -43,7 +43,7 @@ from image_generation_tpu_torch.ops.block_sparse import (
 from image_generation_tpu_torch.ops.cuda_build import KernelLibrary, load_libraries
 from image_generation_tpu_torch.ops.gibbs import GibbsPlan, is_quantized, sweeps_in_kernel_units
 from image_generation_tpu_torch.ops.gibbs_cuda import _SMEM_LIMIT, _check, _max_width, draw_seed
-from image_generation_tpu_torch.ops.gibbs_sparse_int8 import gibbs_sweeps_sparse_int8
+from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse
 
 __all__ = [
     "gibbs_sweeps_hbm_cuda",
@@ -60,7 +60,6 @@ _META_PER_COLOR = 6
 # The default R keeps at least this many thread blocks in flight: 2,048
 # chains take R = 8, a 256-chain serving request R = 1.
 _MIN_GRID = 256
-_DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16")}
 
 _library: Optional[KernelLibrary] = None
 _library_lock = threading.Lock()
@@ -76,7 +75,6 @@ def load_library() -> KernelLibrary:
         built = load_libraries()["gibbs_hbm"]
         lib = built.lib
         lib.gibbs_stream.argtypes = [
-            ctypes.c_int,  # dtype: 0 f32, 1 bf16
             ctypes.c_int,  # packed: 0 K2, 1 K3
             ctypes.c_void_p,  # spins_in
             ctypes.c_void_p,  # spins_out
@@ -103,15 +101,13 @@ def load_library() -> KernelLibrary:
         lib.gibbs_stream_error_string.restype = ctypes.c_char_p
         lib.gibbs_stream_meta_per_color.argtypes = []
         lib.gibbs_stream_meta_per_color.restype = ctypes.c_int
-        lib.gibbs_stream_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.gibbs_stream_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.gibbs_stream_smem_bytes.restype = ctypes.c_longlong
         if lib.gibbs_stream_meta_per_color() != _META_PER_COLOR:
             raise RuntimeError("kernel library and wrapper disagree on the meta layout")
-        for code in (0, 1):
-            for r in _ROWS:
-                if lib.gibbs_stream_smem_bytes(code, r, 289, 6016, 128) != _smem_bytes(
-                        code, r, 289, 6016, 128):
-                    raise RuntimeError("kernel library and wrapper disagree on shared memory")
+        for r in _ROWS:
+            if lib.gibbs_stream_smem_bytes(r, 289, 6016, 128) != _smem_bytes(r, 289, 6016, 128):
+                raise RuntimeError("kernel library and wrapper disagree on shared memory")
         _library = built
         return _library
 
@@ -125,16 +121,12 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _itemsize(code: int) -> int:
-    return (4, 2)[code]
-
-
-def _smem_bytes(code: int, rows: int, n_meta: int, n_pad: int, max_width: int) -> int:
+def _smem_bytes(rows: int, n_meta: int, n_pad: int, max_width: int) -> int:
     """Dynamic shared memory of one thread block (``smem_bytes`` in the
-    source): the groups' partial fields, the meta, the spins, the stage."""
-    size = _itemsize(code)
+    source): the groups' partial fields, the meta, the f32 spins, the
+    stage."""
     return (_align16(4 * (_GROUPS - 1) * rows * _LANES) + _align16(4 * n_meta)
-            + _align16(size * rows * n_pad) + size * rows * max_width)
+            + _align16(4 * rows * n_pad) + 4 * rows * max_width)
 
 
 def _meta_list(plan: GibbsPlan, chunk: Optional[int]) -> list:
@@ -165,19 +157,25 @@ def _device_meta(plan: GibbsPlan, chunk: Optional[int], device) -> torch.Tensor:
     return per_plan[key]
 
 
-def default_rows(plan: GibbsPlan, n_chains: int, dtype=torch.float32,
-                 chunk: Optional[int] = None) -> int:
-    """Chain rows per thread block: the largest R whose grid still holds
-    ``_MIN_GRID`` blocks and whose spins fit shared memory (the smallest R
-    that fits otherwise; 0 when none does)."""
-    code = _DTYPES[dtype][0]
+def default_rows(plan: GibbsPlan, n_chains: int, chunk: Optional[int] = None) -> int:
+    """Chain rows per thread block of the f32 kernels: the largest R whose
+    grid still holds ``_MIN_GRID`` blocks and whose spins fit shared
+    memory (the smallest R that fits otherwise; 0 when none does)."""
     n_meta = len(_meta_list(plan, chunk))
-    fits = [r for r in _ROWS if _smem_bytes(code, r, n_meta, plan.n_pad, _max_width(plan))
+    fits = [r for r in _ROWS if _smem_bytes(r, n_meta, plan.n_pad, _max_width(plan))
             + _STATIC_SMEM <= _SMEM_LIMIT]
     for r in fits:
         if -(-n_chains // r) >= _MIN_GRID:
             return r
     return fits[-1] if fits else 0
+
+
+def _gathered_type(coupling_p) -> Optional[str]:
+    """"int8" or "bf16" for a coupling the gather kernel takes, else None."""
+    if is_quantized(coupling_p):
+        return "int8"
+    stored = coupling_p.panels if isinstance(coupling_p, BlockSparseCoupling) else coupling_p
+    return "bf16" if stored.dtype == torch.bfloat16 else None
 
 
 def _check_fed(uniforms: Optional[torch.Tensor], n_run: int, chains: int, n_pad: int) -> None:
@@ -199,10 +197,13 @@ def gibbs_sweeps_hbm_reference(
     uniforms: Optional[torch.Tensor] = None,
     track_delta_e: bool = False,
 ):
-    """The plain PyTorch version of K2 and K3, with the Pallas kernels'
-    semantics: per block of ``plan.blocks`` in order, ``round_sweeps``
-    sweeps, and for an int8 coupling the quantized units (fields = exact
-    integer products + h / scale, β · scale, ΔE × scale at the end).
+    """The dense plain PyTorch version of K2 and K3, with the Pallas
+    kernels' semantics: per block of ``plan.blocks`` in order,
+    ``round_sweeps`` sweeps, and for an int8 coupling the quantized units
+    (fields = exact integer products + h / scale, β · scale, ΔE × scale at
+    the end).  It is the f32 kernels' twin; the int8 and bf16 modes' is
+    the gather's (``gibbs_sparse.gibbs_sweeps_sparse_reference``), which
+    sums the fields in another order than this one for bf16.
 
     Same arguments as ``ops.gibbs.gibbs_sweeps_reference``; ``uniforms``
     needs at least ``round_sweeps(n_sweeps)`` rows of (chains, n_pad) and
@@ -237,24 +238,25 @@ def gibbs_sweeps_hbm_cuda(
     or (chains,); optional fed ``uniforms`` (>= round_sweeps(n_sweeps),
     chains, n_pad) f32, else the kernel draws from its Philox stream keyed
     by a seed drawn from ``generator``.  Returns new f32 spins, or (spins,
-    delta_e) with ``track_delta_e``.  An int8 coupling goes to the gather
-    kernel (``gibbs_sparse_int8.gibbs_sweeps_sparse_int8``), which reads it
+    delta_e) with ``track_delta_e``.  An int8 or bf16 coupling goes to the
+    gather kernel (``gibbs_sparse.gibbs_sweeps_sparse``), which reads it
     only at the plan's edges: it must be zero everywhere else, as every
     coupling ``permuted_model`` builds (and ``pack_coupling`` packs) is.
     A CPU ``spins_p`` runs the plain version; a CUDA one launches the
     kernel, and anything it does not take raises.  ``_rows_per_block``
     overrides the chain rows per thread block (``default_rows``) of the
-    f32 / bf16 kernels for measuring them at each R.
+    f32 kernels for measuring them at each R.
     """
-    if is_quantized(coupling_p):
+    gathered = _gathered_type(coupling_p)
+    if gathered is not None:
         n_run = round_sweeps(n_sweeps)
         _check_fed(uniforms, n_run, *spins_p.shape)
         kernel = "K3" if isinstance(coupling_p, BlockSparseCoupling) else "K2"
-        return gibbs_sweeps_sparse_int8(
+        return gibbs_sweeps_sparse(
             hp, coupling_p, plan, spins_p, n_run, beta, generator=generator,
             uniforms=uniforms, track_delta_e=track_delta_e,
             count=(gibbs_sweeps_hbm_cuda.launches,
-                   f"{kernel}-int8" + ("-dE" if track_delta_e else "")))
+                   f"{kernel}-{gathered}" + ("-dE" if track_delta_e else "")))
     if spins_p.device.type == "cpu":
         return gibbs_sweeps_hbm_reference(
             hp, coupling_p, plan, spins_p, n_sweeps, beta,
@@ -276,10 +278,9 @@ def gibbs_sweeps_hbm_cuda(
     else:
         chunk, mat = None, coupling_p
         shape, ld, seg_len, kernel = (n_pad, n_pad), n_pad, n_pad, "K2"
-    if mat.dtype not in _DTYPES:
+    if mat.dtype != torch.float32:
         raise TypeError(f"no streaming kernel for a {mat.dtype} coupling "
                         f"(f32, bf16, or int8 with its scale)")
-    code, dname = _DTYPES[mat.dtype]
     if n_pad % _STEP or seg_len % _STEP:
         raise ValueError(f"n_pad ({n_pad}) and the chunk ({seg_len}) must be "
                          f"multiples of {_STEP}")
@@ -301,8 +302,8 @@ def gibbs_sweeps_hbm_cuda(
     else:
         seed = draw_seed(generator, dev)
     meta = _device_meta(plan, chunk, dev)
-    rows = _rows_per_block or default_rows(plan, n_chains, mat.dtype, chunk)
-    if rows not in _ROWS or (_smem_bytes(code, rows, meta.numel(), n_pad, max_w)
+    rows = _rows_per_block or default_rows(plan, n_chains, chunk)
+    if rows not in _ROWS or (_smem_bytes(rows, meta.numel(), n_pad, max_w)
                              + _STATIC_SMEM > _SMEM_LIMIT):
         raise ValueError(f"{rows} chain rows of n_pad={n_pad} do not fit one thread "
                          f"block's shared memory")
@@ -312,7 +313,7 @@ def gibbs_sweeps_hbm_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gibbs_stream(
-            code, int(chunk is not None), spins_p.data_ptr(), out.data_ptr(),
+            int(chunk is not None), spins_p.data_ptr(), out.data_ptr(),
             mat.data_ptr(), hp.data_ptr(), beta_t.data_ptr(),
             uniforms.data_ptr() if uniforms is not None else None,
             seed.data_ptr() if seed is not None else None,
@@ -322,8 +323,8 @@ def gibbs_sweeps_hbm_cuda(
         )
     if err != 0:
         msg = lib.gibbs_stream_error_string(err).decode()
-        raise RuntimeError(f"gibbs_stream ({kernel}, {dname}) launch failed: {msg} ({err})")
-    gibbs_sweeps_hbm_cuda.launches[f"{kernel}-{dname}" + ("-dE" if track_delta_e else "")] += 1
+        raise RuntimeError(f"gibbs_stream ({kernel}, f32) launch failed: {msg} ({err})")
+    gibbs_sweeps_hbm_cuda.launches[f"{kernel}-f32" + ("-dE" if track_delta_e else "")] += 1
     if track_delta_e:
         return out, delta_e
     return out

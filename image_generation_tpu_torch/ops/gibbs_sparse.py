@@ -1,33 +1,41 @@
-"""The int8 sweep kernel: colored block-Gibbs as a sparse field gather.
+"""The sparse field gather: colored block-Gibbs sweeps that read the
+coupling only at the plan's edges.
 
-One CUDA C++ kernel for Hopper takes every int8 sweep of the port: K1's
-int8 mode (a ``QuantCoupling`` on the K1 route, ``ops/gibbs_cuda.py``) and
-K2's and K3's (a ``QuantCoupling`` or int8 ``BlockSparseCoupling`` panels
-on the streaming route, ``ops/gibbs_hbm_cuda.py``).  It replaces the int8
-modes of ``image_generation_tpu/ops/gibbs_pallas.py`` (``_color_update``
-with a ``QuantCoupling``) and ``gibbs_pallas_hbm.py`` (``_kernel`` /
-``_kernel_bs`` with int8 panels), and computes what they compute, in their
-quantized units (h / scale, β · scale, ΔE × scale).  The source is
-``csrc/gibbs_sparse_int8.cu``; its header note says what bounds it on the
-H100 and how the design meets that.  ``ops/cuda_build.py`` builds it beside
-the other kernels; it is bound here with ``ctypes``.
+One CUDA C++ kernel for Hopper takes every int8 sweep of the port and the
+bf16 sweeps of the streaming route: K1's int8 mode (a ``QuantCoupling`` on
+the K1 route, ``ops/gibbs_cuda.py``), and K2's and K3's int8 and bf16
+modes (a ``QuantCoupling`` or dense bf16 matrix, or int8 or bf16
+``BlockSparseCoupling`` panels, on the streaming route,
+``ops/gibbs_hbm_cuda.py``).  It replaces those modes of
+``image_generation_tpu/ops/gibbs_pallas.py`` (``_color_update`` with a
+``QuantCoupling``) and ``gibbs_pallas_hbm.py`` (``_kernel`` /
+``_kernel_bs`` with int8 or bf16 panels), and computes what they compute:
+int8 in their quantized units (h / scale, β · scale, ΔE × scale), bf16 as
+f32 sums of the exact bf16 × ±1 products.  The source is
+``csrc/gibbs_sparse.cu``; its header note says what bounds it on the H100
+and how the design meets that.  ``ops/cuda_build.py`` builds it beside the
+other kernels; it is bound here with ``ctypes``.
 
 The kernel reads the coupling only at its nonzeros, through a static
 neighbour table per plan (``neighbor_table``): for each padded column, its
 neighbours' spin positions and the offsets of their couplings in the
-coupling as it is stored (dense or packed panels).  This relies on a
-contract the sampler model keeps: **the coupling is zero off the plan's
-edges** (``permuted_model`` / ``permuted_model_rows`` write couplings only
-there, and ``quantize_coupling`` and ``pack_coupling`` keep zeros zero).
-A coupling with other nonzeros is sampled as if they were zero.
+coupling as it is stored (dense or packed panels).  The table holds no
+values: every launch first gathers the coupling's current values into one
+32-bit word a slot (``table_words`` is the plain version of that pass).
+This relies on a contract the sampler model keeps: **the coupling is zero
+off the plan's edges** (``permuted_model`` / ``permuted_model_rows`` write
+couplings only there, and the bf16 cast, ``quantize_coupling`` and
+``pack_coupling`` keep zeros zero).  A coupling with other nonzeros is
+sampled as if they were zero.
 
-``gibbs_sweeps_sparse_int8`` is the wrapper, called by the two routes'
+``gibbs_sweeps_sparse`` is the wrapper, called by the two routes'
 wrappers; it adds one to the counter and mode name they pass where it
-launches the kernel.  For a tensor
-on the CPU it runs the plain version, ``gibbs_sweeps_sparse_int8_reference``
-(the same table, fields gathered and summed in int32 per class span); for
-a CUDA tensor it launches the kernel or raises.  ``launch_shape`` is the
-rule for the chains per thread block and the threads.
+launches the kernel.  For a tensor on the CPU it runs the plain version,
+``gibbs_sweeps_sparse_reference`` (the same words, fields summed per class
+span in the kernel's slot order: exact int32 for int8, f32 for bf16, so
+the kernel's fields equal it bit for bit); for a CUDA tensor it launches
+the kernel or raises.  ``launch_shape`` is the rule for the chains per
+thread block and the threads.
 """
 
 from __future__ import annotations
@@ -48,10 +56,11 @@ from image_generation_tpu_torch.ops.quant import QuantCoupling
 
 __all__ = [
     "neighbor_table",
+    "table_words",
     "launch_shape",
     "supported",
-    "gibbs_sweeps_sparse_int8",
-    "gibbs_sweeps_sparse_int8_reference",
+    "gibbs_sweeps_sparse",
+    "gibbs_sweeps_sparse_reference",
     "load_library",
 ]
 
@@ -59,7 +68,9 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _STATIC_SMEM = 32 * 16 * 4  # the energy carry's per-warp partial sums (G ≤ 16)
 _SMS = 132  # streaming multiprocessors of an H100 SXM: launch_shape's default
 _CHAINS = (16, 8, 4, 2, 1)  # chains per thread block the source instantiates
-_MAX_N_PAD = 1 << 23  # a gathered table word holds the neighbour in 24 bits
+# stored value type -> (code of the C entry, bits of the value in a table
+# word, the widest n_pad whose spin positions fit the word's other bits)
+_VALUES = {torch.int8: (0, 8, (1 << 23) - 1), torch.bfloat16: (1, 16, 1 << 16)}
 
 _library: Optional[KernelLibrary] = None
 _library_lock = threading.Lock()
@@ -67,23 +78,24 @@ _library_lock = threading.Lock()
 
 def load_library() -> KernelLibrary:
     """Build (once per source hash, with the other kernels) and load the
-    int8 gather kernel's library."""
+    gather kernel's library."""
     global _library
     with _library_lock:
         if _library is not None:
             return _library
-        built = load_libraries()["gibbs_sparse_int8"]
+        built = load_libraries()["gibbs_sparse"]
         lib = built.lib
-        lib.gibbs_sparse_int8.argtypes = [
-            ctypes.c_void_p,  # coupling (int8, dense or panels)
+        lib.gibbs_sparse.argtypes = [
+            ctypes.c_int,  # dtype: 0 int8, 1 bf16
+            ctypes.c_void_p,  # coupling (dense or panels)
             ctypes.c_void_p,  # nbr (deg, n_pad) int32
             ctypes.c_void_p,  # off (deg, n_pad) int32
-            ctypes.c_void_p,  # entry scratch (deg, n_pad) int32
+            ctypes.c_void_p,  # entry scratch (deg, n_pad) 32-bit words
             ctypes.c_int,  # deg
             ctypes.c_void_p,  # spins_in
             ctypes.c_void_p,  # spins_out
-            ctypes.c_void_p,  # h / scale
-            ctypes.c_void_p,  # beta · scale
+            ctypes.c_void_p,  # h (int8: / scale)
+            ctypes.c_void_p,  # beta (int8: · scale)
             ctypes.c_void_p,  # uniforms (null: Philox)
             ctypes.c_void_p,  # seed (null: fed)
             ctypes.c_void_p,  # delta_e (null: no energy carry)
@@ -96,14 +108,19 @@ def load_library() -> KernelLibrary:
             ctypes.c_int,  # threads
             ctypes.c_void_p,  # stream
         ]
-        lib.gibbs_sparse_int8.restype = ctypes.c_int
-        lib.gibbs_sparse_int8_error_string.argtypes = [ctypes.c_int]
-        lib.gibbs_sparse_int8_error_string.restype = ctypes.c_char_p
-        lib.gibbs_sparse_int8_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.gibbs_sparse_int8_smem_bytes.restype = ctypes.c_longlong
+        lib.gibbs_sparse.restype = ctypes.c_int
+        lib.gibbs_sparse_error_string.argtypes = [ctypes.c_int]
+        lib.gibbs_sparse_error_string.restype = ctypes.c_char_p
+        lib.gibbs_sparse_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.gibbs_sparse_smem_bytes.restype = ctypes.c_longlong
+        lib.gibbs_sparse_max_n_pad.argtypes = [ctypes.c_int]
+        lib.gibbs_sparse_max_n_pad.restype = ctypes.c_int
         for g in _CHAINS:
-            if lib.gibbs_sparse_int8_smem_bytes(g, 6016) != _dynamic_smem(g, 6016):
+            if lib.gibbs_sparse_smem_bytes(g, 6016) != _dynamic_smem(g, 6016):
                 raise RuntimeError("kernel library and wrapper disagree on shared memory")
+        for code, _bits, widest in _VALUES.values():
+            if lib.gibbs_sparse_max_n_pad(code) != widest:
+                raise RuntimeError("kernel library and wrapper disagree on the table word")
         _library = built
         return _library
 
@@ -118,8 +135,8 @@ def neighbor_table(plan: GibbsPlan, chunk: Optional[int] = None) -> Tuple[np.nda
     ascending order) and the offset of A[k, c] in the coupling as it is
     stored: ``k·n_pad + c`` in a dense (n_pad, n_pad) matrix (``chunk``
     None), or ``block_sparse.panel_offset`` in ``pack_coupling(plan, ·,
-    chunk)``'s panels.  Empty slots (and every slot of a padding column) hold nbr 0
-    and off −1.  Built from the plan's edge list in both directions, each
+    chunk)``'s panels, whatever the value type.  Empty slots (and every
+    slot of a padding column) hold nbr 0 and off −1.  Built from the plan's edge list in both directions, each
     pair once; raises if an edge joins two columns of one color-class span
     (the kernel updates a span at once, in place)."""
     n_pad = plan.n_pad
@@ -132,7 +149,7 @@ def neighbor_table(plan: GibbsPlan, chunk: Optional[int] = None) -> Tuple[np.nda
         span_of[c0:c1] = s
     if np.any(span_of[k] == span_of[c]):
         raise ValueError("the plan couples two columns of one color-class span; "
-                         "the int8 sweep kernel updates a span at once")
+                         "the gather sweep kernel updates a span at once")
     order = np.lexsort((k, c))
     k, c = k[order], c[order]
     counts = np.bincount(c, minlength=n_pad)
@@ -162,6 +179,84 @@ def _device_table(plan: GibbsPlan, chunk: Optional[int], device):
         per_plan[key] = (torch.from_numpy(nbr).to(device), torch.from_numpy(off).to(device),
                          torch.tensor(spans, dtype=torch.int32, device=device))
     return per_plan[key]
+
+
+def _stored(coupling_p, plan: GibbsPlan):
+    """(flat stored coupling, scale or None, chunk or None) of a
+    ``QuantCoupling``, a dense bf16 (n_pad, n_pad) matrix, or int8 (with
+    their scale) or bf16 ``BlockSparseCoupling`` panels."""
+    if isinstance(coupling_p, BlockSparseCoupling):
+        if coupling_p.plan is not plan:
+            raise ValueError("the packed coupling was cut for another plan")
+        dtype = coupling_p.panels.dtype
+        if coupling_p.quantized and dtype == torch.int8:
+            return coupling_p.panels, coupling_p.scale, coupling_p.chunk
+        if not coupling_p.quantized and dtype == torch.bfloat16:
+            return coupling_p.panels, None, coupling_p.chunk
+        raise TypeError(f"the gather sweep takes int8 panels with their scale or bf16 panels, "
+                        f"got {dtype} panels")
+    if isinstance(coupling_p, QuantCoupling) and coupling_p.q.dtype == torch.int8:
+        mat, scale = coupling_p.q, coupling_p.scale
+    elif isinstance(coupling_p, torch.Tensor) and coupling_p.dtype == torch.bfloat16:
+        mat, scale = coupling_p, None
+    else:
+        what = (f"a {coupling_p.dtype} tensor" if isinstance(coupling_p, torch.Tensor)
+                else type(coupling_p).__name__)
+        raise TypeError(f"the gather sweep takes a QuantCoupling, a bf16 matrix or int8 / bf16 "
+                        f"panels, got {what}")
+    if tuple(mat.shape) != (plan.n_pad, plan.n_pad):
+        raise ValueError(f"the coupling must be ({plan.n_pad}, {plan.n_pad}), "
+                         f"got {tuple(mat.shape)}")
+    return mat, scale, None
+
+
+def _check_word(dtype, n_pad: int) -> None:
+    if n_pad > _VALUES[dtype][2]:
+        raise ValueError(f"n_pad={n_pad} is wider than a {dtype} table word holds "
+                         f"(n_pad <= {_VALUES[dtype][2]})")
+
+
+def table_words(coupling_p, plan: GibbsPlan) -> torch.Tensor:
+    """The (deg, n_pad) table the kernel's first pass gathers, as int64
+    holding each unsigned 32-bit word: ``(k << 8) | (A[k, c] & 0xff)`` for
+    int8, ``(k << 16) | bf16 bits of A[k, c]`` for bf16, 0 for an empty
+    slot; on the coupling's device.  Raises on a plan wider than the word
+    holds (n_pad above 2²³ − 1 for int8, 2¹⁶ for bf16)."""
+    mat, _scale, chunk = _stored(coupling_p, plan)
+    _check_word(mat.dtype, plan.n_pad)
+    nbr, off, _spans = _device_table(plan, chunk, mat.device)
+    vals = mat.reshape(-1)[off.clamp(min=0).long()]
+    if mat.dtype == torch.int8:
+        bits = vals.long() & 0xFF
+    else:
+        bits = vals.view(torch.int16).long() & 0xFFFF
+    return torch.where(off >= 0, (nbr.long() << _VALUES[mat.dtype][1]) | bits, 0)
+
+
+def _word_values(words: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(neighbour positions int64, values: int32 for int8, f32 for bf16)
+    of ``table_words``' words, decoded as the kernel decodes them."""
+    bits = _VALUES[dtype][1]
+    low = words & ((1 << bits) - 1)
+    if dtype == torch.int8:
+        vals = (low - ((low >> 7) << 8)).to(torch.int32)  # sign of the low byte
+    else:
+        f32_bits = low << 16  # the bf16 as the high half of an f32, read as int32
+        vals = torch.where(f32_bits >= 2**31, f32_bits - 2**32, f32_bits).to(
+            torch.int32).view(torch.float32)
+    return words >> bits, vals
+
+
+def span_sums(s_acc: torch.Tensor, nbr: torch.Tensor, vals: torch.Tensor, c0: int,
+              c1: int) -> torch.Tensor:
+    """(chains, c1 − c0) sums over the table's slots, in slot order, of
+    vals[d, c] · s[:, nbr[d, c]] for the columns [c0, c1): the fields
+    before h, as the kernel sums them (``_word_values`` gives nbr and
+    vals; ``s_acc`` is the spins in the values' type)."""
+    acc = torch.zeros((s_acc.shape[0], c1 - c0), dtype=vals.dtype, device=s_acc.device)
+    for d in range(nbr.shape[0]):
+        acc += s_acc[:, nbr[d, c0:c1]] * vals[d, c0:c1]
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -202,34 +297,18 @@ def launch_shape(plan: GibbsPlan, n_chains: int, sms: int = _SMS) -> Tuple[int, 
 
 
 def supported(plan: GibbsPlan, n_chains: int) -> bool:
-    """Whether the kernel takes this problem: one chain's spins fit shared
-    memory and a table word holds a spin position."""
-    return n_chains >= 1 and plan.n_pad < _MAX_N_PAD and launch_shape(plan, n_chains)[0] > 0
+    """Whether the kernel takes this problem with an int8 coupling (K1's
+    gate): one chain's spins fit shared memory and a table word holds a
+    spin position."""
+    return (n_chains >= 1 and plan.n_pad <= _VALUES[torch.int8][2]
+            and launch_shape(plan, n_chains)[0] > 0)
 
 
 # ---------------------------------------------------------------------------
 # the wrapper and its plain version
 # ---------------------------------------------------------------------------
 
-def _stored(coupling_p, plan: GibbsPlan):
-    """(flat int8 stored coupling, scale, chunk or None) of a
-    ``QuantCoupling`` or int8 ``BlockSparseCoupling``."""
-    if isinstance(coupling_p, BlockSparseCoupling):
-        if not coupling_p.quantized or coupling_p.panels.dtype != torch.int8:
-            raise TypeError("the int8 sweep takes int8 panels with their scale")
-        if coupling_p.plan is not plan:
-            raise ValueError("the packed coupling was cut for another plan")
-        return coupling_p.panels, coupling_p.scale, coupling_p.chunk
-    if not isinstance(coupling_p, QuantCoupling) or coupling_p.q.dtype != torch.int8:
-        raise TypeError(f"the int8 sweep takes a QuantCoupling or int8 panels, "
-                        f"got {type(coupling_p).__name__}")
-    if tuple(coupling_p.q.shape) != (plan.n_pad, plan.n_pad):
-        raise ValueError(f"the coupling must be ({plan.n_pad}, {plan.n_pad}), "
-                         f"got {tuple(coupling_p.q.shape)}")
-    return coupling_p.q, coupling_p.scale, None
-
-
-def gibbs_sweeps_sparse_int8_reference(
+def gibbs_sweeps_sparse_reference(
     hp: torch.Tensor,
     coupling_p,
     plan: GibbsPlan,
@@ -241,38 +320,37 @@ def gibbs_sweeps_sparse_int8_reference(
     uniforms: Optional[torch.Tensor] = None,
     track_delta_e: bool = False,
 ):
-    """The plain PyTorch version of the kernel, with its table: per sweep,
-    per color-class span of ``class_spans(plan)``, fields = the int32 sum
-    over the table's slots of A[k, c] · s[k] (read from the stored coupling
-    at the table's offsets) + h / scale; then the sigmoid at β · scale, the
-    draw and ΔE as ``gibbs_sweeps_kernel_reference`` computes them (per
-    block of the span: uniforms drawn from ``generator`` block by block in
-    plan order, ΔE summed block by block; × scale at the end).
+    """The plain PyTorch version of the kernel, with its table words: per
+    sweep, per color-class span of ``class_spans(plan)``, fields = the sum
+    over the table's slots, in slot order, of A[k, c] · s[k] (decoded from
+    ``table_words``) + h: int8 in int32 and in quantized units (h / scale,
+    β · scale, ΔE × scale at the end), bf16 in f32 (each product exact).
+    Then the sigmoid, the draw and ΔE as ``gibbs_sweeps_kernel_reference``
+    computes them (per block of the span: uniforms drawn from
+    ``generator`` block by block in plan order, ΔE summed block by block).
 
-    ``coupling_p``: a ``QuantCoupling`` or int8 ``BlockSparseCoupling``;
-    ``uniforms``: at least ``n_sweeps`` rows of (chains, n_pad), read at
-    [sweep, row, column].  Returns new f32 spins, or (spins, delta_e)."""
+    ``coupling_p``: a ``QuantCoupling``, a dense bf16 matrix, or int8 /
+    bf16 ``BlockSparseCoupling`` panels; ``uniforms``: at least
+    ``n_sweeps`` rows of (chains, n_pad), read at [sweep, row, column].
+    Returns new f32 spins, or (spins, delta_e)."""
     chains, n_pad = spins_p.shape
     if n_pad != plan.n_pad:
         raise ValueError(f"spins have {n_pad} columns, the plan {plan.n_pad}")
-    mat, scale, chunk = _stored(coupling_p, plan)
+    mat, scale, _chunk = _stored(coupling_p, plan)
     dev = spins_p.device
-    nbr, off, _spans = _device_table(plan, chunk, dev)
-    nbr = nbr.long()
-    vals = torch.where(off >= 0, mat.reshape(-1)[off.clamp(min=0).long()].to(torch.int32), 0)
-    hq = hp / scale
-    beta_col = torch.as_tensor(beta, dtype=torch.float32, device=dev) * scale
+    nbr, vals = _word_values(table_words(coupling_p, plan).to(dev), mat.dtype)
+    quant = scale is not None
+    beta_col = torch.as_tensor(beta, dtype=torch.float32, device=dev)
+    if quant:
+        hp, beta_col = hp / scale, beta_col * scale
     beta_col = beta_col.reshape(-1, 1) if beta_col.ndim else beta_col
     s = spins_p.to(torch.float32).clone()
-    s_int = s.to(torch.int32)
+    s_acc = s.to(torch.int32) if quant else s  # the spins in the accumulator's type
     de = torch.zeros(chains, dtype=torch.float32, device=dev)
     gdev = generator.device if generator is not None else dev
     for sweep in range(n_sweeps):
         for c0, c1, b0, b1 in class_spans(plan):
-            acc = torch.zeros((chains, c1 - c0), dtype=torch.int32, device=dev)
-            for d in range(nbr.shape[0]):
-                acc += s_int[:, nbr[d, c0:c1]] * vals[d, c0:c1]
-            fields = acc.to(torch.float32) + hq[c0:c1]
+            fields = span_sums(s_acc, nbr, vals, c0, c1).to(torch.float32) + hp[c0:c1]
             p_plus = torch.sigmoid(-2.0 * beta_col * fields)
             if uniforms is not None:
                 u = uniforms[sweep, :, c0:c1]
@@ -285,11 +363,14 @@ def gibbs_sweeps_sparse_int8_reference(
                     de = de + (fields[:, s0 - c0 : e - c0]
                                * (new[:, s0 - c0 : e - c0] - s[:, s0:e])).sum(-1)
             s[:, c0:c1] = new
-            s_int[:, c0:c1] = new.to(torch.int32)
-    return (s, de * scale) if track_delta_e else s
+            if quant:
+                s_acc[:, c0:c1] = new.to(torch.int32)
+    if not track_delta_e:
+        return s
+    return s, (de * scale if quant else de)
 
 
-def gibbs_sweeps_sparse_int8(
+def gibbs_sweeps_sparse(
     hp: torch.Tensor,
     coupling_p,
     plan: GibbsPlan,
@@ -303,21 +384,23 @@ def gibbs_sweeps_sparse_int8(
     count: Optional[Tuple[collections.Counter, str]] = None,
     _shape: Optional[Tuple[int, int]] = None,
 ):
-    """``n_sweeps`` colored block-Gibbs sweeps with an int8 coupling (a
-    ``QuantCoupling``, or int8 ``BlockSparseCoupling`` panels) through the
-    sparse gather kernel.
+    """``n_sweeps`` colored block-Gibbs sweeps through the sparse gather
+    kernel, with an int8 coupling (a ``QuantCoupling``, or int8
+    ``BlockSparseCoupling`` panels) or a bf16 one (a dense (n_pad, n_pad)
+    matrix, or bf16 panels).
 
     ``hp`` (n_pad,) and ``spins_p`` (chains, n_pad) f32, ``beta`` scalar
     or (chains,); optional fed ``uniforms`` (>= n_sweeps, chains, n_pad)
     f32, else the kernel draws from K1's Philox stream keyed by a seed
     drawn from ``generator``.  Returns new f32 spins, or (spins, delta_e)
-    with ``track_delta_e`` (rescaled to the coupling's units).  A CPU
+    with ``track_delta_e`` (int8: rescaled to the coupling's units).  A CPU
     ``spins_p`` runs the plain version; a CUDA one launches the kernel, and
-    anything it does not take raises.  ``count`` = (counter, mode name):
-    the launch adds one there.  ``_shape`` overrides ``launch_shape``
-    (chains per block, threads) for measuring the kernel."""
+    anything it does not take raises (a plan wider than the table word, a
+    shape that does not fit).  ``count`` = (counter, mode name): the launch
+    adds one there.  ``_shape`` overrides ``launch_shape`` (chains per
+    block, threads) for measuring the kernel."""
     if spins_p.device.type == "cpu":
-        return gibbs_sweeps_sparse_int8_reference(
+        return gibbs_sweeps_sparse_reference(
             hp, coupling_p, plan, spins_p, n_sweeps, beta,
             generator=generator, uniforms=uniforms, track_delta_e=track_delta_e,
         )
@@ -330,21 +413,23 @@ def gibbs_sweeps_sparse_int8(
     if n_pad != plan.n_pad:
         raise ValueError(f"spins have {n_pad} columns, the plan {plan.n_pad}")
     mat, scale, chunk = _stored(coupling_p, plan)
+    _check_word(mat.dtype, n_pad)
     _check("spins_p", spins_p, (n_chains, n_pad), dev)
-    _check("coupling", mat, tuple(mat.shape), dev, torch.int8)
+    _check("coupling", mat, tuple(mat.shape), dev, mat.dtype)
     _check("hp", hp, (n_pad,), dev)
     g, threads = _shape or launch_shape(
         plan, n_chains, torch.cuda.get_device_properties(dev).multi_processor_count)
-    if (g not in _CHAINS or not _fits(g, n_pad) or n_pad >= _MAX_N_PAD
+    if (g not in _CHAINS or not _fits(g, n_pad)
             or threads % 32 or threads % g or not 32 <= threads <= 1024):
         raise ValueError(f"{g} chains of n_pad={n_pad} a block at {threads} threads do not "
-                         f"fit the int8 sweep kernel")
+                         f"fit the gather sweep kernel")
     nbr, off, spans = _device_table(plan, chunk, dev)
     beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
     if beta_t.ndim == 0:
         beta_t = beta_t.expand(n_chains)
-    hq = hp / scale  # quantized units, computed on the device (no host sync)
-    beta_t = (beta_t * scale).contiguous()
+    if scale is not None:  # quantized units, computed on the device (no host sync)
+        hp, beta_t = hp / scale, beta_t * scale
+    beta_t = beta_t.contiguous()
     _check("beta", beta_t, (n_chains,), dev)
     if uniforms is not None:
         if uniforms.shape[0] < n_sweeps:
@@ -354,22 +439,25 @@ def gibbs_sweeps_sparse_int8(
     else:
         seed = draw_seed(generator, dev)
     out = torch.empty_like(spins_p)
-    entry = torch.empty(nbr.shape, dtype=torch.int32, device=dev)
+    entry = torch.empty(nbr.shape, dtype=torch.int32, device=dev)  # the words' scratch
     delta_e = torch.empty(n_chains, dtype=torch.float32, device=dev) if track_delta_e else None
     lib = load_library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gibbs_sparse_int8(
-            mat.data_ptr(), nbr.data_ptr(), off.data_ptr(), entry.data_ptr(), nbr.shape[0],
-            spins_p.data_ptr(), out.data_ptr(), hq.data_ptr(), beta_t.data_ptr(),
+        err = lib.gibbs_sparse(
+            _VALUES[mat.dtype][0], mat.data_ptr(), nbr.data_ptr(), off.data_ptr(),
+            entry.data_ptr(), nbr.shape[0], spins_p.data_ptr(), out.data_ptr(),
+            hp.data_ptr(), beta_t.data_ptr(),
             uniforms.data_ptr() if uniforms is not None else None,
             seed.data_ptr() if seed is not None else None,
             delta_e.data_ptr() if delta_e is not None else None,
             spans.data_ptr(), spans.shape[0], n_chains, n_pad, int(n_sweeps), g, threads, stream,
         )
     if err != 0:
-        msg = lib.gibbs_sparse_int8_error_string(err).decode()
-        raise RuntimeError(f"gibbs_sparse_int8 launch failed: {msg} ({err})")
+        msg = lib.gibbs_sparse_error_string(err).decode()
+        raise RuntimeError(f"gibbs_sparse launch failed: {msg} ({err})")
     if count is not None:
         count[0][count[1]] += 1
-    return (out, delta_e * scale) if track_delta_e else out
+    if not track_delta_e:
+        return out
+    return out, (delta_e * scale if scale is not None else delta_e)

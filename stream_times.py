@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Time the streaming sweep route (K2, K3) and the training runs around it on one CUDA card.
+
+    python3 stream_times.py [--root DIR] [--out FILE]
+
+Imports ``image_generation_tpu_torch`` from ``--root`` (default: this
+script's directory), so that two commits of the port can be timed on one
+card in one call: unpack the other one with ``git archive`` into a
+directory ``.gitignore`` lists and pass it as the root (run them in turns:
+parent, change, change, parent).  It needs only the entry points every
+commit of the port since its scaled slice has: ``gibbs_sweeps_hbm_cuda``
+and ``Trainer``.  Measured, with random |J| <= 1 models and spins drawn
+from fixed seeds:
+
+* the streaming route in its bf16 modes at the paths' shapes, by CUDA
+  events over 5 calls after a warm-up: K3-bf16 and K3-bf16-dE (the scaled
+  plan, 5,640 latents, n_pad 6,016, packed at chunk 256) and K2-bf16 and
+  K2-bf16-dE (its dense matrix) at 2,048 chains x 4 sweeps under the
+  32-rung ladder's beta; K2-bf16 on the 2,048-latent plan (n_pad 2,432) at
+  256 chains x 16 sweeps, the shape that configuration trains at;
+* scaled PT training (``bench.py --scaled``'s configuration): two epochs
+  through K3, the median step after the first two (host clock after
+  ``torch.cuda.synchronize``); four unscheduled steps with
+  ``SWEEP_BLOCK_SPARSE="off"`` (K2), the median of the last three;
+* the 2,048-latent configuration: one epoch, its wall time and median
+  step.
+
+Prints the card's name and power limit (``nvidia-smi``), one line per
+number, and last one JSON object of them all (also written to ``--out``).
+Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SCALED = dict(QPU="Advantage_system6", N_LATENTS=5640, NUM_READS=64, BATCH_SIZE=1024,
+              N_REPLICAS=2, SAMPLER="pt", PT_NUM_BETAS=32, PT_BETA_MIN=0.2, GIBBS_SWEEPS=4,
+              GIBBS_BURN_IN=4)
+LATENTS2K = dict(QPU="Advantage_system6", N_LATENTS=2048)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Mean milliseconds per call after one warm-up call (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def sweep_times(dev, out: dict) -> None:
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+    from image_generation_tpu_torch.ops.gibbs import build_plan, permuted_model, random_spins
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda as stream
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    cfg = TrainingConfig(**SCALED)
+    ladder = torch.tensor(cfg.initial_pt_betas(), dtype=torch.float32,
+                          device=dev).repeat_interleave(cfg.NUM_READS)
+    g = torch.Generator(device=dev)
+    for n_latents, chains, sweeps, beta, forms in (
+            (5640, 2048, 4, ladder, ("K3", "K2")), (2048, 256, 16, 1.0, ("K2",))):
+        graph, _ = cached_latent_graph("Advantage_system6", n_latents, cfg.RANDOM_SEED)
+        plan = build_plan(graph)
+        rng = np.random.default_rng(n_latents)
+        hp, a = permuted_model(
+            plan, torch.tensor(rng.uniform(-0.5, 0.5, graph.n), dtype=torch.float32, device=dev),
+            torch.tensor(rng.uniform(-1.0, 1.0, graph.n_edges), dtype=torch.float32, device=dev))
+        a = a.to(torch.bfloat16)
+        g.manual_seed(n_latents)
+        s = random_spins(g, plan, chains, dev)
+        for kernel in forms:
+            c = pack_coupling(plan, a, cfg.SWEEP_BS_CHUNK) if kernel == "K3" else a
+            for de in ((False, True) if n_latents == 5640 else (False,)):
+                ms = cuda_ms(lambda: stream(hp, c, plan, s, sweeps, beta, generator=g,
+                                            track_delta_e=de))
+                key = (f"{kernel}-bf16{'-dE' if de else ''} {chains}x{sweeps} "
+                       f"n_pad {plan.n_pad}")
+                out[key + " ms"] = ms
+                print(f"[times] {key}: {ms:.4f} ms", flush=True)
+
+
+def train_times(dev, out: dict) -> None:
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    def on_batch(times, last):
+        def cb(_epoch, _done, _nb):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times.append(now - last[0])
+            last[0] = now
+        return cb
+
+    for label, overrides, epochs in (("scaled PT", SCALED, 2), ("2,048-latent", LATENTS2K, 1)):
+        tr = Trainer(config=TrainingConfig(**overrides), device=dev)
+        tr.train_init(epochs)
+        times, last = [], [0.0]
+        torch.cuda.synchronize()
+        t0 = last[0] = time.perf_counter()
+        tr.train(epochs, batch_cb=on_batch(times, last), epoch_chunks=tr.n_batches)
+        wall = time.perf_counter() - t0
+        med = float(np.median(times[2:]))
+        out[f"{label} step median ms"] = med * 1e3
+        out[f"{label} {epochs}-epoch wall s"] = wall
+        print(f"[times] {label} training ({tr.fns.sampler_impl}): {len(times)} steps, median "
+              f"after 2 {med * 1e3:.3f} ms, {epochs} epoch(s) {wall:.3f} s; steps (ms) "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in times)}", flush=True)
+        if label == "scaled PT":
+            k2 = Trainer(config=TrainingConfig(**SCALED).replace(SWEEP_BLOCK_SPARSE="off"),
+                         device=dev)
+            k2.graph, k2.plan, k2.physical_nodes = tr.graph, tr.plan, tr.physical_nodes
+            k2.images, k2.data_source = tr.images, tr.data_source
+            k2.train_init(1)
+            batch = tr.images[: k2.config.BATCH_SIZE]
+            steps = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                k2.step(batch, 6)  # epoch 6: no scheduled GRBM update
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t1)
+            med = float(np.median(steps[1:]))
+            out["scaled PT K2-path step median ms"] = med * 1e3
+            print(f"[times] scaled PT, SWEEP_BLOCK_SPARSE='off' ({k2.fns.sampler_impl}): median of "
+                  f"3 unscheduled steps after 1 {med * 1e3:.3f} ms", flush=True)
+            del k2
+        del tr
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
+                    help="the checkout whose image_generation_tpu_torch is timed")
+    ap.add_argument("--out", type=Path, default=None, help="also write the JSON object here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("stream_times: no CUDA device visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(args.root.resolve()))
+    import image_generation_tpu_torch
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[times] card: {card}; port from {Path(image_generation_tpu_torch.__file__).parent}",
+          flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"card": card, "root": str(args.root)}
+    sweep_times(dev, out)
+    train_times(dev, out)
+    line = json.dumps(out)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

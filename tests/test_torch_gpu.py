@@ -1,6 +1,6 @@
-"""Kernels K1, K2 and K3 (f32, bf16), the int8 gather kernel that takes
-their int8 modes, and K4 on the card: the CUDA kernels against their plain
-versions.
+"""Kernels K1 (f32, bf16), K2 and K3 (f32), the gather kernel that takes
+K1's int8 mode and K2's and K3's int8 and bf16 modes, and K4 on the card:
+the CUDA kernels against their plain versions.
 
 These tests need a CUDA device and ``nvcc``; without a card they skip.
 This file imports no JAX, so on the GPU machine (which has none) it runs
@@ -15,10 +15,12 @@ a draw whose uniform falls within that ulp of its probability flips
 that at least 98% of the chains come out bit-identical.  On identical
 chains ΔE agrees within 1e-4 (checkpoint model) or 1e-3·(1 + |E|)
 (|J| ≤ 1); on integer-valued couplings every sum is exact, so the packed
-kernel K3 equals the dense K2 bit for bit.  The int8 gather kernel sums
-exact integer fields, so against its plain version and the dense plain
-versions the expectation is every chain identical; the rule held is the
-same 98 % (99.9 % against the dense plain versions).
+kernel K3 equals the dense K2 bit for bit.  The gather kernel sums
+exact integer fields (int8), or f32 fields in its plain version's slot
+order (bf16), so against its plain version the expectation is every chain
+identical; the rule held is the same 98 % for int8 (99.9 % against the
+dense plain versions) and 99.9 % for bf16 (the chain rule against the
+dense plain versions, which sum bf16 fields in another order).
 """
 
 from pathlib import Path
@@ -417,7 +419,7 @@ def test_stream_kernel_matches_plain(dev, ckpt, form, chunk, track):
     beta = torch.tensor(rng.uniform(0.5, 2.0, 1030), dtype=torch.float32, device=dev)
     ref = gibbs_sweeps_hbm_reference(hp, coupling, plan, s0, 3, beta, uniforms=u,
                                      track_delta_e=track)
-    for rows in ((None, 8, 1) if form != "int8" else (None,)):  # int8: the gather kernel
+    for rows in ((None, 8, 1) if form == "f32" else (None,)):  # bf16, int8: the gather kernel
         out = gibbs_sweeps_hbm_cuda(hp, coupling, plan, s0, 3, beta, uniforms=u,
                                     track_delta_e=track, _rows_per_block=rows)
         torch.cuda.synchronize()
@@ -509,7 +511,7 @@ def test_stream_unoccupied_color_and_counters(dev):
 
 
 # ---------------------------------------------------------------------------
-# the int8 gather kernel (K1-int8, K2-int8, K3-int8)
+# the gather kernel (K1-int8, K2-int8, K3-int8; K2-bf16, K3-bf16)
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -554,9 +556,9 @@ def test_gather_kernel_matches_its_plain_version(dev, int8_plans, name, chains, 
     """Fed uniforms, β = 1 at 256 chains and per-chain β above, 6 sweeps,
     the dense int8 matrix and (scaled plan) the packed panels, at the
     default launch shape of 256·k chains."""
-    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import (
-        gibbs_sweeps_sparse_int8,
-        gibbs_sweeps_sparse_int8_reference,
+    from image_generation_tpu_torch.ops.gibbs_sparse import (
+        gibbs_sweeps_sparse,
+        gibbs_sweeps_sparse_reference,
     )
 
     plan, hp, qc, bsc = int8_plans[name]
@@ -567,9 +569,9 @@ def test_gather_kernel_matches_its_plain_version(dev, int8_plans, name, chains, 
     beta = (1.0 if chains == 256 else
             torch.tensor(rng.uniform(0.5, 2.0, chains), dtype=torch.float32, device=dev))
     for coupling in ((qc, bsc) if name == "scaled" else (qc,)):
-        out = gibbs_sweeps_sparse_int8(hp, coupling, plan, s0, 6, beta, uniforms=u,
+        out = gibbs_sweeps_sparse(hp, coupling, plan, s0, 6, beta, uniforms=u,
                                        track_delta_e=track)
-        ref = gibbs_sweeps_sparse_int8_reference(hp, coupling, plan, s0, 6, beta, uniforms=u,
+        ref = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 6, beta, uniforms=u,
                                                  track_delta_e=track)
         torch.cuda.synchronize()
         _gather_check(out, ref, hp, coupling)
@@ -580,9 +582,9 @@ def test_gather_kernel_matches_its_plain_version(dev, int8_plans, name, chains, 
 def test_gather_kernel_philox_matches_numpy_twin(dev, int8_plans, name, track):
     """Philox mode against the plain version fed ``philox_uniforms`` (K1's
     counter and key), with and without ΔE."""
-    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import (
-        gibbs_sweeps_sparse_int8,
-        gibbs_sweeps_sparse_int8_reference,
+    from image_generation_tpu_torch.ops.gibbs_sparse import (
+        gibbs_sweeps_sparse,
+        gibbs_sweeps_sparse_reference,
     )
 
     plan, hp, qc, bsc = int8_plans[name]
@@ -593,9 +595,9 @@ def test_gather_kernel_philox_matches_numpy_twin(dev, int8_plans, name, track):
     probe.set_state(g.get_state())
     seed = int(gibbs_cuda.draw_seed(probe, dev).item())
     s0 = random_spins(probe, plan, 512, dev)
-    out = gibbs_sweeps_sparse_int8(hp, coupling, plan, s0, 4, generator=g, track_delta_e=track)
+    out = gibbs_sweeps_sparse(hp, coupling, plan, s0, 4, generator=g, track_delta_e=track)
     u = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 512, plan.n_pad), device=dev)
-    ref = gibbs_sweeps_sparse_int8_reference(hp, coupling, plan, s0, 4, uniforms=u,
+    ref = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 4, uniforms=u,
                                              track_delta_e=track)
     _gather_check(out, ref, hp, coupling)
 
@@ -636,9 +638,9 @@ def test_gather_kernel_every_shape_and_refusals(dev, int8_plans):
     threads, on 37 and 2,050 chains (partial last blocks), ΔE on, against
     the plain version; shapes the kernel does not take raise before a
     launch."""
-    from image_generation_tpu_torch.ops.gibbs_sparse_int8 import (
-        gibbs_sweeps_sparse_int8,
-        gibbs_sweeps_sparse_int8_reference,
+    from image_generation_tpu_torch.ops.gibbs_sparse import (
+        gibbs_sweeps_sparse,
+        gibbs_sweeps_sparse_reference,
     )
 
     plan, hp, qc, _ = int8_plans["latents2048"]
@@ -648,23 +650,169 @@ def test_gather_kernel_every_shape_and_refusals(dev, int8_plans):
                           device=dev)
         u = torch.tensor(rng.random((3, chains, plan.n_pad), dtype=np.float32), device=dev)
         beta = torch.tensor(rng.uniform(0.5, 2.0, chains), dtype=torch.float32, device=dev)
-        ref = gibbs_sweeps_sparse_int8_reference(hp, qc, plan, s0, 3, beta, uniforms=u,
+        ref = gibbs_sweeps_sparse_reference(hp, qc, plan, s0, 3, beta, uniforms=u,
                                                  track_delta_e=True)
         for g in (1, 2, 4, 8, 16):
             for threads in (512, 1024):
-                out = gibbs_sweeps_sparse_int8(hp, qc, plan, s0, 3, beta, uniforms=u,
+                out = gibbs_sweeps_sparse(hp, qc, plan, s0, 3, beta, uniforms=u,
                                                track_delta_e=True, _shape=(g, threads))
                 torch.cuda.synchronize()
                 _gather_check(out, ref, hp, qc)
     s0 = torch.ones((64, plan.n_pad), device=dev)
     for shape in ((3, 512), (2, 48), (1, 2048), (32, 1024)):
         with pytest.raises(ValueError):
-            gibbs_sweeps_sparse_int8(hp, qc, plan, s0, 1, _shape=shape)
+            gibbs_sweeps_sparse(hp, qc, plan, s0, 1, _shape=shape)
     with pytest.raises(TypeError):
-        gibbs_sweeps_sparse_int8(hp, qc.q, plan, s0, 1)  # int8 comes with its scale
+        gibbs_sweeps_sparse(hp, qc.q, plan, s0, 1)  # int8 comes with its scale
     with pytest.raises(ValueError):
-        gibbs_sweeps_sparse_int8(hp, qc, plan, s0, 3, uniforms=torch.rand((2, 64, plan.n_pad),
+        gibbs_sweeps_sparse(hp, qc, plan, s0, 3, uniforms=torch.rand((2, 64, plan.n_pad),
                                                                          device=dev))
+
+
+@pytest.fixture(scope="module")
+def bf16_plans(dev):
+    """{name: (plan, hp, dense bf16 coupling, bf16 panels at chunk 256)}
+    for the 2,048-latent and the scaled plan, |J| ≤ 1 models."""
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    out = {}
+    for name, n in (("latents2048", 2048), ("scaled", 5640)):
+        graph, _ = cached_latent_graph("Advantage_system6", n, 775321899904)
+        plan = build_plan(graph)
+        rng = np.random.default_rng(n + 1)
+        hp, a = permuted_model(
+            plan, torch.tensor(rng.uniform(-0.5, 0.5, graph.n), dtype=torch.float32, device=dev),
+            torch.tensor(rng.uniform(-1, 1, graph.n_edges), dtype=torch.float32, device=dev))
+        a = a.to(torch.bfloat16)
+        out[name] = (plan, hp, a, pack_coupling(plan, a, 256))
+    return out
+
+
+def _ladder_32(chains, dev):
+    """The scaled configuration's 32-rung ladder, one β per chain."""
+    from image_generation_tpu_torch.config import TrainingConfig
+
+    betas = TrainingConfig(PT_NUM_BETAS=32, PT_BETA_MIN=0.2).initial_pt_betas()
+    return torch.tensor(betas, dtype=torch.float32, device=dev).repeat_interleave(chains // 32)
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("chains", [256, 2048])
+@pytest.mark.parametrize("name", ["latents2048", "scaled"])
+def test_bf16_gather_kernel_matches_its_plain_version(dev, bf16_plans, name, chains, track):
+    """K2-bf16 (the dense matrix) and K3-bf16 (its panels) through the
+    gather kernel against its plain version, fed uniforms, β = 1 at 256
+    chains and the 32-rung ladder's β at 2,048, 4 sweeps, at the default
+    launch shape and at every (chains per block, threads) the wrapper can
+    take: ≥ 99.9 % of chains identical (all expected: the same f32 sums in
+    the same order), ΔE within 1e-3·(1 + |E|)."""
+    from image_generation_tpu_torch.ops.gibbs_sparse import (
+        _CHAINS,
+        gibbs_sweeps_sparse,
+        gibbs_sweeps_sparse_reference,
+    )
+
+    plan, hp, a, bsc = bf16_plans[name]
+    rng = np.random.default_rng(chains + 2)
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32,
+                      device=dev)
+    u = torch.tensor(rng.random((4, chains, plan.n_pad), dtype=np.float32), device=dev)
+    beta = 1.0 if chains == 256 else _ladder_32(chains, dev)
+    shapes = [None] + [(g, t) for g in _CHAINS for t in (512, 1024)]
+    for coupling in (a, bsc):
+        ref = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 4, beta, uniforms=u,
+                                            track_delta_e=track)
+        for shape in shapes:
+            out = gibbs_sweeps_sparse(hp, coupling, plan, s0, 4, beta, uniforms=u,
+                                      track_delta_e=track, _shape=shape)
+            torch.cuda.synchronize()
+            _gather_check(out, ref, hp, coupling, rule=0.999)
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("name", ["latents2048", "scaled"])
+def test_bf16_gather_kernel_philox_matches_numpy_twin(dev, bf16_plans, name, track):
+    """Philox mode (K2-bf16 on the 2,048-latent plan, K3-bf16 on the scaled
+    panels) against the plain version fed ``philox_uniforms``."""
+    from image_generation_tpu_torch.ops.gibbs_sparse import (
+        gibbs_sweeps_sparse,
+        gibbs_sweeps_sparse_reference,
+    )
+
+    plan, hp, a, bsc = bf16_plans[name]
+    coupling = bsc if name == "scaled" else a
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    probe = torch.Generator(device=dev)
+    probe.set_state(g.get_state())
+    seed = int(gibbs_cuda.draw_seed(probe, dev).item())
+    s0 = random_spins(probe, plan, 512, dev)
+    out = gibbs_sweeps_sparse(hp, coupling, plan, s0, 4, generator=g, track_delta_e=track)
+    u = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 512, plan.n_pad), device=dev)
+    ref = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 4, uniforms=u,
+                                        track_delta_e=track)
+    _gather_check(out, ref, hp, coupling, rule=0.999)
+
+
+def test_bf16_routes_match_the_dense_plain_version(dev, bf16_plans):
+    """The streaming route at the paths' shapes, fed uniforms, against the
+    dense plain version ``gibbs_sweeps_hbm_reference`` (another summation
+    order: the chain rule): the 2,048-latent training refresh (dense, 256
+    chains x 16 sweeps, K2-bf16) and the scaled PT refresh (packed, 2,048
+    chains at the ladder's β, 3 sweeps run as 4, ΔE, K3-bf16-dE); each
+    launch counted once under its mode."""
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import (
+        gibbs_sweeps_hbm_cuda,
+        gibbs_sweeps_hbm_reference,
+    )
+
+    gibbs_sweeps_hbm_cuda.launches.clear()
+    for name, chains, sweeps, track in (("latents2048", 256, 16, False), ("scaled", 2048, 3, True)):
+        plan, hp, a, bsc = bf16_plans[name]
+        coupling = a if name == "latents2048" else bsc
+        rng = np.random.default_rng(sweeps)
+        s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32,
+                          device=dev)
+        u = torch.tensor(rng.random((16, chains, plan.n_pad), dtype=np.float32), device=dev)
+        beta = 1.0 if chains == 256 else _ladder_32(chains, dev)
+        out = gibbs_sweeps_hbm_cuda(hp, coupling, plan, s0, sweeps, beta, uniforms=u,
+                                    track_delta_e=track)
+        ref = gibbs_sweeps_hbm_reference(hp, coupling, plan, s0, sweeps, beta, uniforms=u,
+                                         track_delta_e=track)
+        torch.cuda.synchronize()
+        _gather_check(out, ref, hp, coupling)
+    assert dict(gibbs_sweeps_hbm_cuda.launches) == {"K2-bf16": 1, "K3-bf16-dE": 1}
+
+
+def test_bf16_gather_refuses_without_fallback(dev, bf16_plans):
+    """What the gather does not take raises before a launch, and the route
+    counts nothing: an f32 matrix (the dense kernel's), a launch shape that
+    does not fit, a non-contiguous coupling, a plan wider than a bf16 table
+    word holds."""
+    from image_generation_tpu_torch.ops.block_sparse import BlockSparseCoupling
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
+    from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse
+
+    plan, hp, a, _ = bf16_plans["latents2048"]
+    s0 = torch.ones((64, plan.n_pad), device=dev)
+    with pytest.raises(TypeError):
+        gibbs_sweeps_sparse(hp, a.float(), plan, s0, 2)
+    for shape in ((3, 512), (2, 48), (1, 2048), (32, 1024)):
+        with pytest.raises(ValueError):
+            gibbs_sweeps_sparse(hp, a, plan, s0, 2, _shape=shape)
+    gibbs_sweeps_hbm_cuda.launches.clear()
+    with pytest.raises(ValueError):
+        gibbs_sweeps_hbm_cuda(hp, a.t(), plan, s0, 2)
+    wide = type(plan)(n=65664, n_pad=65664, blocks=((0, 65664, 65664),),
+                      orig_to_perm=np.arange(65664), perm_edge_i=np.zeros(0, np.int64),
+                      perm_edge_j=np.zeros(0, np.int64), valid_mask=np.ones(65664, bool))
+    panels = BlockSparseCoupling(panels=torch.zeros((128, 65664), dtype=torch.bfloat16,
+                                                    device=dev), scale=None, plan=wide, chunk=128)
+    with pytest.raises(ValueError, match="table word"):
+        gibbs_sweeps_hbm_cuda(torch.zeros(65664, device=dev), panels, wide,
+                              torch.ones((1, 65664), device=dev), 2)
+    assert not gibbs_sweeps_hbm_cuda.launches
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ versions of the streaming sweep kernels K2 and K3, on the CPU.
 Inputs are made with numpy from a seed and handed to both packages; the
 JAX side runs ``gibbs_sweeps_pallas_hbm`` in interpret mode with fed
 uniforms, as its own tests do.  The port runs ``gibbs_sweeps_hbm_cuda`` on
-CPU tensors, which is the kernels' plain version.
+CPU tensors, which is the kernels' plain version (for bf16 and int8 the
+gather kernel's, ``gibbs_sparse.gibbs_sweeps_sparse_reference``).
 
 Tolerances.  Quantization and packing are bit-identical.  Sweeps: at
 least 98 % of the chains bit-identical (the chain rule: the two sum the
@@ -242,12 +243,18 @@ def test_plain_k2_matches_pallas(g384, form, track, sweeps):
     _check_sweeps(ref, ours, hp, a, exact=False)
 
 
-@pytest.mark.parametrize("form", ["f32", "int8"])
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
 def test_plain_k2_exact_on_integer_couplings(g384, form):
+    """Integer h and J = ±1: every sum is exact in any order, so the port's
+    plain versions (bf16 and int8: the gather's) equal the Pallas kernel
+    bit for bit, spins and ΔE."""
     jplan, tplan, models = g384
     hp, a = models["integer"]
     jc, tc = _forms(a)[form]
-    ref, ours = _run_both(jplan, tplan, hp, jc, tc, 3, True, seed=20, beta_one=True)
+    if form == "bf16":  # the JAX wrapper casts an f32 coupling to its block dtype
+        jc = jnp.asarray(a)
+    ref, ours = _run_both(jplan, tplan, hp, jc, tc, 3, True, seed=20, beta_one=True,
+                          block_dtype=jnp.bfloat16 if form == "bf16" else jnp.float32)
     _check_sweeps(ref, ours, hp, a, exact=True)
 
 
@@ -322,17 +329,22 @@ def test_plain_version_rounds_sweeps_and_counts_nothing(g384):
 
 
 def test_default_rows_fit_the_scaled_plan():
-    """The rows per thread block at the scaled plan's shapes (n_pad 6,016,
-    128-wide blocks; the chunk lists do not change the rule): R = 8 for
-    the 2,048 parallel-tempering chains in f32 and bf16, R = 1 for a
-    256-chain request (int8 is the gather kernel's launch shape:
-    tests/test_torch_sparse_int8.py)."""
+    """The rows per thread block of the f32 kernels at the scaled plan's
+    shapes (n_pad 6,016, 128-wide blocks; the chunk lists do not change
+    the rule): R = 8 for the 2,048 parallel-tempering chains, R = 1 for a
+    256-chain request.  The bf16 and int8 modes are the gather kernel's,
+    whose launch shape gives the same chains per block here: G = 8, 1, 4
+    (tests/test_torch_sparse_int8.py holds it on the real plans)."""
+    from image_generation_tpu_torch.ops.gibbs_sparse import launch_shape
+
     blocks = tuple((128 * i, 128 * i + 120, 128 * (i + 1)) for i in range(47))
     plan = tgibbs.GibbsPlan(n=5640, n_pad=6016, blocks=blocks, orig_to_perm=np.zeros(0),
                             perm_edge_i=np.zeros(0, np.int32),
                             perm_edge_j=np.zeros(0, np.int32),
                             valid_mask=np.zeros(6016, bool))
-    for dtype in (torch.float32, torch.bfloat16):
-        assert default_rows(plan, 2048, dtype) == 8
-        assert default_rows(plan, 256, dtype) == 1
-        assert default_rows(plan, 1024, dtype) == 4
+    assert default_rows(plan, 2048) == 8
+    assert default_rows(plan, 256) == 1
+    assert default_rows(plan, 1024) == 4
+    assert launch_shape(plan, 2048)[0] == 8
+    assert launch_shape(plan, 256)[0] == 1
+    assert launch_shape(plan, 1024)[0] == 4

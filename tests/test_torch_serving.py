@@ -242,7 +242,7 @@ def test_serving_path_imports_no_jax_or_host_extras():
         "image_generation_tpu_torch.parallel.mesh, image_generation_tpu_torch.ops.gibbs_graph_sharded, "
         "image_generation_tpu_torch.ops.block_sparse_sharded, "
         "image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda, "
-        "image_generation_tpu_torch.ops.gibbs_sparse_int8; "
+        "image_generation_tpu_torch.ops.gibbs_sparse; "
         "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn', "
         "'image_generation_tpu') if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -1,6 +1,6 @@
 """Port parity: the int8 sweep kernel's inputs and its plain version.
 
-``ops/gibbs_sparse_int8.py`` takes every int8 sweep (K1-int8, K2-int8,
+``ops/gibbs_sparse.py`` takes every int8 sweep (K1-int8, K2-int8,
 K3-int8) as a sparse field gather over a static neighbour table per plan.
 These CPU tests hold:
 
@@ -45,7 +45,7 @@ from image_generation_tpu.ops.gibbs_pallas_hbm import gibbs_sweeps_pallas_hbm
 from image_generation_tpu_torch.config import TrainingConfig
 from image_generation_tpu_torch.models import grbm as tgrbm
 from image_generation_tpu_torch.ops import gibbs as tgibbs
-from image_generation_tpu_torch.ops import gibbs_sparse_int8 as gs
+from image_generation_tpu_torch.ops import gibbs_sparse as gs
 from image_generation_tpu_torch.ops.block_sparse import BlockSparseCoupling, pack_coupling
 from image_generation_tpu_torch.ops.gibbs_cuda import gibbs_sweeps_cuda
 from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
@@ -207,7 +207,7 @@ CHAINS, SWEEPS = 16, 4
 @pytest.mark.parametrize("model", ["checkpoint", "strong"])
 @pytest.mark.parametrize("route", ["K1", "K3"])
 def test_plain_gather_matches_jax(ckpt, route, model, track, beta_kind):
-    """The gather's plain version (``gibbs_sweeps_sparse_int8`` on CPU
+    """The gather's plain version (``gibbs_sweeps_sparse`` on CPU
     tensors, and through the route's wrapper) against the JAX Pallas
     kernel of that route in interpret mode, fed the same uniforms: every
     chain identical, ΔE within the stated tolerance."""
@@ -232,7 +232,7 @@ def test_plain_gather_matches_jax(ckpt, route, model, track, beta_kind):
                                       SWEEPS, jnp.asarray(beta), interpret=True,
                                       uniforms=jnp.asarray(u), track_delta_e=track)
     b = 1.0 if beta_kind == "one" else _t(beta)
-    ours = gs.gibbs_sweeps_sparse_int8(_t(hp), tc, tplan, _t(s0), SWEEPS, b, uniforms=_t(u),
+    ours = gs.gibbs_sweeps_sparse(_t(hp), tc, tplan, _t(s0), SWEEPS, b, uniforms=_t(u),
                                        track_delta_e=track)
     via = wrapper(_t(hp), tc, tplan, _t(s0), SWEEPS, b, uniforms=_t(u), track_delta_e=track)
     if track:
@@ -268,13 +268,13 @@ def test_plain_gather_equals_the_dense_plain_versions(plans):
     dense = tgibbs.gibbs_sweeps_kernel_reference(hp, qc, plan, s0, 2, beta,
                                                  generator=torch.Generator().manual_seed(5),
                                                  track_delta_e=True)
-    ours = gs.gibbs_sweeps_sparse_int8(hp, qc, plan, s0, 2, beta,
+    ours = gs.gibbs_sweeps_sparse(hp, qc, plan, s0, 2, beta,
                                        generator=torch.Generator().manual_seed(5),
                                        track_delta_e=True)
     assert torch.equal(ours[0], dense[0]) and torch.equal(ours[1], dense[1])
     u = _t(rng.random((2, 4, plan.n_pad), dtype=np.float32))
     packed = gibbs_sweeps_hbm_reference(hp, bsc, plan, s0, 2, beta, uniforms=u)
-    assert torch.equal(gs.gibbs_sweeps_sparse_int8(hp, bsc, plan, s0, 2, beta, uniforms=u), packed)
+    assert torch.equal(gs.gibbs_sweeps_sparse(hp, bsc, plan, s0, 2, beta, uniforms=u), packed)
 
 
 # ---------------------------------------------------------------------------
