@@ -23,34 +23,38 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    nvcc; exits non-zero without a CUDA device;
-2. builds the kernels from ``csrc/`` (K1; the f32 K2 and K3; K4; the
-   gather kernel that takes K1's int8 mode and K2's and K3's int8 and
-   bf16 modes; one ``nvcc`` per source, started together) and prints the
-   build time and the ptxas report (registers and spills of every
-   instantiation);
-3. K1 against its plain PyTorch version with fed uniforms, on the
-   checkpoint's plan at 80 sweeps and at 256·k chains for k = 1, 2, 4, 8,
-   16 (the serving group sizes at which the default rows per thread
-   block, R, takes each of its values), with the checkpoint's scaled
-   model and with |J| up to 1 and per-chain β: at least 98% of the chains
-   must come out bit-identical (the two sum the fields in another order,
-   so a draw within an ulp of its probability may flip and the chain then
-   diverges), and every R the kernel is built for must have been checked;
+2. builds the kernels from ``csrc/`` (the gather kernel
+   ``gibbs_sparse.cu``, which takes K1 in every value type and K2's and
+   K3's int8 and bf16 modes; the f32 K2 and K3; K4; one ``nvcc`` per
+   source, started together) and prints the build time and the ptxas
+   report (registers and spills of every instantiation);
+3. K1 (the gather, f32) against its plain PyTorch version with fed
+   uniforms, on the checkpoint's plan at 80 sweeps and at 256·k chains for
+   k = 1, 2, 4, 8, 16 (the serving group sizes at which the default chains
+   per thread block, G, takes each of its values), with the checkpoint's
+   scaled model and with |J| up to 1 and per-chain β: no chain may differ
+   from the gather's plain version (the same f32 sums in the same order),
+   at least 98% must be bit-identical to the dense plain version (another
+   summation order, so a draw within an ulp of its probability may flip
+   and the chain then diverges), and every G the kernel is built for must
+   have been checked;
 4. K1's in-kernel Philox: against the plain version fed the same Philox
-   stream (chain rule above), and its moments against exact enumeration
-   on a 12-spin graph at 4096 chains;
+   stream (no chain differing), and its moments against exact
+   enumeration on a 12-spin graph at 4096 chains;
 5. the slice: ``WarmGenerator(device="cuda")`` warms up, answers
    a lone request and a 4-way burst through K1 (the launch counter must
    move, fewer dispatches than requests, images (256, 32, 32, 1) finite in
    [0, 1]); the fused path's uint8 images against the plain pipeline on
    fed inputs;
-6. times (CUDA events for kernels, host clock for requests) and a
-   ``torch.profiler`` breakdown of one request by kernel, each printed
-   with the card's name and power limit;
-7. K1 with the energy carry (K1-ΔE) against its plain version, fed
+6. times (CUDA events for kernels, host clock for requests), K1 by
+   launch shape (G × threads 128 to 1,024) at 256 and 4,096 chains x 80
+   sweeps, and a ``torch.profiler`` breakdown of one request by kernel
+   (the gather's two kernels must appear), each printed with the card's
+   name and power limit;
+7. K1 with the energy carry (K1-ΔE) against its plain versions, fed
    uniforms, at 256 chains (β = 1) and 2,048 chains (the 8-rung ladder's
    per-chain β), 16 and 80 sweeps, for the checkpoint's model and a
-   |J| ≤ 1 model on the fresh flagship plan: the chain rule above, and on
+   |J| ≤ 1 model on the fresh flagship plan: the rules of phase 3, and on
    identical chains ΔE within 1e-4 (checkpoint) or 1e-3·(1 + |E|)
    (|J| ≤ 1); in Philox mode ΔE against the f64 energy difference;
 8. flagship training, plain Gibbs: ``Trainer(device="cuda")`` selects the
@@ -62,10 +66,13 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
 9. flagship training, parallel tempering (8 rungs × 256 chains): one
    epoch through K1-ΔE; the carried ladder energies against
    ``ising_energies`` recomputed on the card;
-10. one unscheduled step of each sampler under ``torch.profiler``;
+10. one unscheduled step of each sampler under ``torch.profiler`` (the
+    gather's two kernels must appear);
 11. K1 and K1-ΔE timed at the training shapes (CUDA events) beside the
-    plain version and the least time the card could take (``sweep_bound``),
-    and K1 with fed uniforms (K1f) at the serving shape;
+    plain version and the least time the card could take (``sweep_bound``,
+    on the bytes the gather reads and on the stored form), K1 with fed
+    uniforms (K1f) at the serving shape, and K1 / K1-ΔE by launch shape
+    at 256 and 2,048 chains x 16 sweeps on the fresh flagship plan;
 12. K2 and K3 against their plain versions with fed uniforms on the
     scaled plan (47 color blocks, chunk 256 with the final chunk clamped):
     f32, bf16 and int8, each with and without ΔE, 256 chains at β = 1 and
@@ -97,17 +104,18 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
     nonzeros from the plan's edge list), the gather's modes (int8, bf16)
     also on the bytes the gather reads (its table and the nonzeros);
     K3-bf16-dE by launch shape at 2,048 x 4; the served K3-int8 by launch
-    shape at 256 and 1,024 chains x 80 sweeps and 2,048 x 4; one scaled
-    step under the profiler;
-17. K1-bf16 and K1-int8 against their plain versions with fed uniforms,
-    with and without dE: on the fresh flagship plan at 256 chains (beta =
-    1) and 2,048 (the 8-rung ladder's per-chain beta) x 16 sweeps, and on
-    the 2,048-latent plan (n_pad 2,432) at 256·k chains, k = 1, 2, 4, 8,
-    16 (every R and gather launch shape serving selects) x 80 sweeps, the
-    int8 modes (the gather kernel) against the gather's plain version; the
-    chain rule and the dE rule (1e-3·(1 + |E|)); K1-int8 against the dense
-    plain version at 256 chains x 80 sweeps (>= 99.9 %, printed); Philox
-    mode against ``philox_uniforms``;
+    shape at 256 and 1,024 chains x 80 sweeps and 2,048 x 4 (G × threads
+    128 to 1,024); one scaled step under the profiler;
+17. K1-bf16 and K1-int8 (the gather) against the gather's plain version
+    with fed uniforms, with and without dE: on the fresh flagship plan at
+    256 chains (beta = 1) and 2,048 (the 8-rung ladder's per-chain beta)
+    x 16 sweeps, and on the 2,048-latent plan (n_pad 2,432) at 256·k
+    chains, k = 1, 2, 4, 8, 16 (every launch shape serving selects) x 80
+    sweeps; no K1-bf16 chain may differ (the int8 modes: the chain rule),
+    and K1-bf16 against the dense plain version under the chain rule; the
+    dE rule (1e-3·(1 + |E|)); K1-int8 against the dense plain version at
+    256 chains x 80 sweeps (>= 99.9 %, printed); Philox mode against
+    ``philox_uniforms``;
     moments against exact enumeration of the model each mode samples (the
     bf16-rounded and the dequantized couplings) on the 12-spin graph;
 18. the 2,048-latent model trained one epoch through K2-bf16
@@ -124,12 +132,12 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
     through K1-int8-dE, then K1-int8-dE): finite losses, carried ladder
     energies against energies recomputed on the card;
 21. K1-bf16, K1-bf16-dE, K1-int8 and K1-int8-dE timed at the paths'
-    shapes beside the plain version and ``sweep_bound`` (int8 on both the
+    shapes beside the plain version and ``sweep_bound`` (on both the
     gather's bytes and the stored form), and K2-bf16 at the 2,048-latent
     training shape (the trained model's coupling and chains, 256 x 16,
-    both bounds), K1-bf16 by rows per block and the gather by launch
-    shape at 256 and 1,024 chains x 80 sweeps and 2,048 x 16 on the
-    2,048-latent plan;
+    both bounds); by launch shape, K1-bf16 and K1-bf16-dE at the flagship
+    shapes (256 and 2,048 chains x 16 sweeps) and K1-int8 at 256 and
+    1,024 chains x 80 sweeps and 2,048 x 16 on the 2,048-latent plan;
 22. the span-update kernel K4 against its plain version: the fed entry
     bit-identical at 1, 37 and 2,048 chain rows over every class-span
     width of the scaled plan and a 23,936-wide row (the P32 fabric's
@@ -186,10 +194,13 @@ MODEL = ROOT / "runs" / "models" / "tpu_digits_40_epochs"
 CHAIN_RULE = 0.98  # least fraction of chains bit-identical to the plain version
 # the gather kernel against its own plain version: the same sums in the same
 # order, so every chain is expected identical; this is the least fraction held
+# on the streaming route (K2, K3); K1's f32 and bf16 modes are held to it
+# exactly (no chain differing)
 GATHER_RULE = 0.999
 GATHERED = ("int8", "bf16")  # the streaming route's value types the gather kernel takes
 GATHER_SOURCE = "image_generation_tpu_torch/csrc/gibbs_sparse.cu"
-VALUE_BYTES = {"int8": 1, "bf16": 2}
+VALUE_BYTES = {"f32": 4, "int8": 1, "bf16": 2}
+SHAPE_THREADS = (128, 256, 512, 1024)  # threads per block the launch-shape sweeps time
 SERVING_CHAINS = (256, 512, 1024, 2048, 4096)  # 256·k chains, k = 1, 2, 4, 8, 16
 MOMENT_ATOL = 0.06  # ≈4σ of a ±1 mean over 4096 chains
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): f32 outside the tensor
@@ -230,6 +241,11 @@ def identical_fraction(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a == b).all(dim=1).float().mean())
 
 
+def differing(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Chains (rows) of ``a`` not bit-identical to ``b``."""
+    return int((~(a == b).all(dim=1)).sum())
+
+
 def sweep_bound(plan, stored_bytes: int, peak_ops: float, chains: int, sweeps: int,
                 delta_e: bool, meta_bytes: int = 0):
     """(bound ms, "bytes" | "operations") of one sweep run: the field
@@ -260,25 +276,31 @@ def gather_bytes(plan, chunk=None, value_bytes: int = 1) -> int:
             + 8 * len(class_spans(plan)))
 
 
-def shape_sweep(run, plan, tag: str, label: str, cases, card: str) -> None:
+def shape_sweep(run, plan, tag: str, label: str, cases, card: str) -> dict:
     """Time the gather kernel at every launch shape (chains per block G,
-    threads per block) for each (chains, sweeps) of ``cases``, on spins
-    drawn here; ``run(spins, sweeps, shape)`` launches it once.  Prints one
-    line per chain count beside the default ``launch_shape``."""
+    threads per block of ``SHAPE_THREADS``) for each (chains, sweeps) of
+    ``cases``, on spins drawn here; ``run(spins, sweeps, shape)`` launches
+    it once.  Prints one line per chain count beside the default
+    ``launch_shape`` and returns {(chains, sweeps): {(G, threads): ms}}."""
     from image_generation_tpu_torch.ops import gibbs_sparse
     from image_generation_tpu_torch.ops.gibbs import random_spins
 
     gk = torch.Generator(device="cuda")
     gk.manual_seed(23)
+    times = {}
     for n_c, n_sw in cases:
         s = random_spins(gk, plan, n_c, "cuda")
-        row = []
-        for g in sorted(gibbs_sparse._CHAINS):
-            for threads in (512, 1024):
-                ms = cuda_ms(lambda: run(s, n_sw, (g, threads)), 2, warmup=1)
-                row.append(f"G={g}/T={threads}: {ms:.4f} ms")
+        by_shape = times[(n_c, n_sw)] = {}
+        default = launch_shape(plan, n_c)
+        for shape in sorted({(g, t) for g in gibbs_sparse._CHAINS for t in SHAPE_THREADS}
+                            | {default}):
+            by_shape[shape] = cuda_ms(lambda: run(s, n_sw, shape), 2, warmup=1)
+        best = min(by_shape, key=by_shape.get)
+        row = [f"G={g}/T={t}: {ms:.4f} ms" for (g, t), ms in by_shape.items()]
         print(f"[{tag}] {label} {n_c} chains x {n_sw} sweeps by launch shape (default "
-              f"{launch_shape(plan, n_c)}): {'; '.join(row)}  [{card}]")
+              f"{default}: {by_shape[default]:.4f} ms; fastest {best}: {by_shape[best]:.4f} ms): "
+              f"{'; '.join(row)}  [{card}]")
+    return times
 
 
 def launch_shape(plan, n_chains: int):
@@ -319,9 +341,10 @@ def main() -> int:
     from image_generation_tpu_torch.ops.cuda_build import load_libraries
     from image_generation_tpu_torch.ops.exact import exact_moments
     from image_generation_tpu_torch.ops.gibbs import (
-        build_plan, gibbs_sweeps_reference, ising_energies, permuted_model, random_spins,
+        build_plan, gibbs_sweeps_kernel_reference, ising_energies, permuted_model, random_spins,
         to_original,
     )
+    from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse_reference
     from image_generation_tpu_torch.training.step import make_sample_fns
     from image_generation_tpu_torch.training.trainer import Trainer
     from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
@@ -342,7 +365,6 @@ def main() -> int:
     # ---- 2. build every kernel (one nvcc per source, started together) ----
     t0 = time.perf_counter()
     libs = load_libraries()
-    gibbs_cuda.load_library()
     gibbs_hbm_cuda.load_library()
     gibbs_sparse.load_library()
     print(f"[2] kernels loaded after {time.perf_counter() - t0:.2f} s")
@@ -368,11 +390,11 @@ def main() -> int:
     s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32, device=dev)
     beta_mixed = torch.tensor(rng.uniform(0.5, 2.0, chains), dtype=torch.float32, device=dev)
     max_abs_err = 0.0
-    rows_checked = set()
+    shapes_checked = set()
     print(f"[3] plan: n={plan.n} n_pad={plan.n_pad} blocks={len(plan.blocks)} "
           f"couplers={graph.n_edges}; {sweeps} sweeps, fed uniforms")
     for n_c in SERVING_CHAINS:
-        rows = gibbs_cuda.default_rows(plan, n_c)
+        shape = launch_shape(plan, n_c)
         g3 = torch.Generator(device=dev)
         g3.manual_seed(n_c)
         s3 = random_spins(g3, plan, n_c, dev)
@@ -381,20 +403,23 @@ def main() -> int:
         for name, hp, a, beta in (("checkpoint model", hp_ckpt, a_ckpt, 1.0),
                                   ("|J|<=1, beta in [0.5, 2]", hp_strong, a_strong, beta3)):
             k1 = gibbs_cuda.gibbs_sweeps_cuda(hp, a, plan, s3, sweeps, beta, uniforms=u3)
-            twin = gibbs_sweeps_reference(hp, a, plan, s3, sweeps, beta, uniforms=u3)
+            twin = gibbs_sweeps_sparse_reference(hp, a, plan, s3, sweeps, beta, uniforms=u3)
+            dense = gibbs_sweeps_kernel_reference(hp, a, plan, s3, sweeps, beta, uniforms=u3)
             torch.cuda.synchronize()
-            frac = identical_fraction(k1, twin)
             err = float((k1 - twin).abs().max())
             max_abs_err = max(max_abs_err, err)
-            differing = int(round((1 - frac) * n_c))
-            print(f"[3] {n_c} chains (R={rows}), {name}: {differing}/{n_c} chains differ, "
-                  f"max|K1-twin| {err}")
-            check(frac >= CHAIN_RULE,
-                  f"K1 vs twin ({n_c} chains, {name}): only {frac:.4f} of chains identical")
-        rows_checked.add(rows)
+            n_diff, frac = differing(k1, twin), identical_fraction(k1, dense)
+            print(f"[3] {n_c} chains (G, threads {shape}), {name}: {n_diff}/{n_c} chains differ "
+                  f"from the gather's plain version, max|K1-twin| {err}; {frac:.6f} identical "
+                  f"to the dense plain version")
+            check(n_diff == 0, f"K1 vs the gather's plain version ({n_c} chains, {name}): "
+                  f"{n_diff} chains differ")
+            check(frac >= CHAIN_RULE, f"K1 vs the dense plain version ({n_c} chains, {name}): "
+                  f"only {frac:.4f} of chains identical")
+        shapes_checked.add(shape[0])
         del u3
-    check(rows_checked == set(gibbs_cuda._ROWS),
-          f"rows per block checked {sorted(rows_checked)}, built {sorted(gibbs_cuda._ROWS)}")
+    check(shapes_checked == set(gibbs_sparse._CHAINS),
+          f"chains per block checked {sorted(shapes_checked)}, built {sorted(gibbs_sparse._CHAINS)}")
 
     # ---- 4. Philox mode --------------------------------------------------
     gen = torch.Generator(device=dev)
@@ -405,11 +430,12 @@ def main() -> int:
     n_ph = 8
     k1 = gibbs_cuda.gibbs_sweeps_cuda(hp_strong, a_strong, plan, s0, n_ph, beta_mixed, generator=gen)
     u_ph = torch.tensor(gibbs_cuda.philox_uniforms(seed, n_ph, chains, plan.n_pad), device=dev)
-    twin = gibbs_sweeps_reference(hp_strong, a_strong, plan, s0, n_ph, beta_mixed, uniforms=u_ph)
-    frac = identical_fraction(k1, twin)
-    print(f"[4] Philox stream vs plain version fed philox_uniforms: "
-          f"{int(round((1 - frac) * chains))}/{chains} chains differ ({n_ph} sweeps)")
-    check(frac >= CHAIN_RULE, f"K1 Philox stream: only {frac:.4f} of chains identical")
+    twin = gibbs_sweeps_sparse_reference(hp_strong, a_strong, plan, s0, n_ph, beta_mixed,
+                                         uniforms=u_ph)
+    n_diff = differing(k1, twin)
+    print(f"[4] Philox stream vs the gather's plain version fed philox_uniforms: "
+          f"{n_diff}/{chains} chains differ ({n_ph} sweeps)")
+    check(n_diff == 0, f"K1 Philox stream: {n_diff} chains differ")
 
     small = GRBMGraph(n=12, edge_i=np.array(SMALL_EDGES)[:, 0], edge_j=np.array(SMALL_EDGES)[:, 1])
     small_plan = build_plan(small)
@@ -499,17 +525,12 @@ def main() -> int:
     hp6, a6 = trainer.fns.build_sampler_model(trainer.grbm_params)
     s6 = random_spins(g6, plan, 256, dev)
     k1_ms = cuda_ms(lambda: gibbs_cuda.gibbs_sweeps_cuda(hp6, a6, plan, s6, sweeps, generator=g6), 20)
-    twin_ms = cuda_ms(lambda: gibbs_sweeps_reference(hp6, a6, plan, s6, sweeps, generator=g6), 5)
+    twin_ms = cuda_ms(lambda: gibbs_sweeps_sparse_reference(hp6, a6, plan, s6, sweeps,
+                                                            generator=g6), 3, warmup=1)
     print(f"[6] K1 256 chains x {sweeps} sweeps: {k1_ms:.4f} ms; plain twin {twin_ms:.4f} ms  [{card}]")
-    for c in (256, 4096):
-        sc = random_spins(g6, plan, c, dev)
-        row = []
-        for r in sorted(gibbs_cuda._ROWS):
-            ms = cuda_ms(lambda: gibbs_cuda.gibbs_sweeps_cuda(
-                hp6, a6, plan, sc, sweeps, generator=g6, _rows_per_block=r), 10)
-            row.append(f"R={r}: {ms:.4f} ms")
-        print(f"[6] K1 {c} chains x {sweeps} sweeps by rows per block "
-              f"(default R={gibbs_cuda.default_rows(plan, c)}): {'; '.join(row)}  [{card}]")
+    shape_sweep(lambda s_, n_, shape: gibbs_cuda.gibbs_sweeps_cuda(
+        hp6, a6, plan, s_, n_, generator=g6, _shape=shape),
+        plan, "6", "K1-f32 (serving, n_pad 640)", ((256, sweeps), (4096, sweeps)), card)
     lone_ms = []
     for _ in range(100):
         t0 = time.perf_counter()
@@ -531,7 +552,7 @@ def main() -> int:
           f"median {np.median(burst_ms):.3f} ms, max {max(burst_ms):.3f} ms  [{card}]")
 
     # device time of one warm request by kernel (torch.profiler)
-    profile_request(lambda: w.serve(MODEL), "6", "flagship", card)
+    profile_request(lambda: w.serve(MODEL), "6", "flagship", card, expect=GATHER_KERNELS)
 
     # ---- 7. K1-ΔE against the plain version -------------------------------
     fgraph, _ = cached_latent_graph(cfg.QPU, cfg.N_LATENTS, cfg.RANDOM_SEED)
@@ -555,19 +576,24 @@ def main() -> int:
                 u7 = torch.rand((n_sw, n_c, mplan.n_pad), generator=g7, device=dev)
                 out, de = gibbs_cuda.gibbs_sweeps_cuda(hp, a, mplan, s7, n_sw, beta, uniforms=u7,
                                                        track_delta_e=True)
-                ref, de_ref = gibbs_sweeps_reference(hp, a, mplan, s7, n_sw, beta, uniforms=u7,
-                                                     track_delta_e=True)
+                ref, de_ref = gibbs_sweeps_sparse_reference(hp, a, mplan, s7, n_sw, beta,
+                                                            uniforms=u7, track_delta_e=True)
+                dense = gibbs_sweeps_kernel_reference(hp, a, mplan, s7, n_sw, beta, uniforms=u7)
                 torch.cuda.synchronize()
                 same = (out == ref).all(dim=1)
                 err = (de - de_ref).abs()[same]
                 e_abs = ising_energies(hp, a, ref).abs()[same]
                 limit = 1e-3 * (1 + e_abs) if strong else torch.full_like(err, 1e-4)
                 de_err = max(de_err, float(err.max()))
-                print(f"[7] {name}, {n_c} chains (R={gibbs_cuda.default_rows(mplan, n_c)}), "
-                      f"{n_sw} sweeps: {int((~same).sum())}/{n_c} chains differ, "
-                      f"max|dE err| {float(err.max()):.3e} (|E| up to {float(e_abs.max()):.1f})")
-                check(float(same.float().mean()) >= CHAIN_RULE,
-                      f"K1-dE vs plain ({name}, {n_c} x {n_sw}): chains differ")
+                frac = identical_fraction(out, dense)
+                print(f"[7] {name}, {n_c} chains (G, threads {launch_shape(mplan, n_c)}), "
+                      f"{n_sw} sweeps: {int((~same).sum())}/{n_c} chains differ from the "
+                      f"gather's plain version, max|dE err| {float(err.max()):.3e} (|E| up to "
+                      f"{float(e_abs.max()):.1f}); {frac:.6f} identical to the dense plain version")
+                check(bool(same.all()), f"K1-dE vs the gather's plain version ({name}, "
+                      f"{n_c} x {n_sw}): chains differ")
+                check(frac >= CHAIN_RULE, f"K1-dE vs the dense plain version ({name}, "
+                      f"{n_c} x {n_sw}): only {frac:.4f} of chains identical")
                 check(bool((err <= limit).all()), f"K1-dE vs plain ({name}, {n_c} x {n_sw}): dE")
                 del u7
     for name, mplan, hp, a in (("checkpoint model", plan, hp_ckpt, a_ckpt),
@@ -660,7 +686,7 @@ def main() -> int:
     # ---- 10. one step of each sampler under the profiler ----------------------
     batch = flag.images[: flag.config.BATCH_SIZE]
     for label, t in (("plain Gibbs", flag), ("PT", pt)):
-        profile_step(t, batch, "10", label, card)
+        profile_step(t, batch, "10", label, card, expect=GATHER_KERNELS)
 
     # ---- kernel times at the training shapes ----------------------------------
     gk = torch.Generator(device=dev)
@@ -671,37 +697,58 @@ def main() -> int:
     sw = flag.config.GIBBS_SWEEPS
     k1_train_ms = cuda_ms(lambda: gibbs_cuda.gibbs_sweeps_cuda(hp8, a8, flag.plan, s8, sw,
                                                                generator=gk), 50)
-    k1_train_plain = cuda_ms(lambda: gibbs_sweeps_reference(hp8, a8, flag.plan, s8, sw,
-                                                            generator=gk), 10)
+    k1_train_plain = cuda_ms(lambda: gibbs_sweeps_sparse_reference(hp8, a8, flag.plan, s8, sw,
+                                                                   generator=gk), 3, warmup=1)
     hp9, a9 = st.sampler_h, st.sampler_coupling
     s9 = st.chains.reshape(-1, pt.plan.n_pad)
     b9 = st.pt_betas.repeat_interleave(pt.config.NUM_READS)
     de_ms = cuda_ms(lambda: gibbs_cuda.gibbs_sweeps_cuda(hp9, a9, pt.plan, s9, sw, b9,
                                                          generator=gk, track_delta_e=True), 50)
-    de_plain = cuda_ms(lambda: gibbs_sweeps_reference(hp9, a9, pt.plan, s9, sw, b9,
-                                                      generator=gk, track_delta_e=True), 10)
+    de_plain = cuda_ms(lambda: gibbs_sweeps_sparse_reference(hp9, a9, pt.plan, s9, sw, b9,
+                                                             generator=gk, track_delta_e=True),
+                       3, warmup=1)
     u_serve = torch.rand((sweeps, 256, plan.n_pad), generator=gk, device=dev)
     k1f_ms = cuda_ms(lambda: gibbs_cuda.gibbs_sweeps_cuda(hp6, a6, plan, s6, sweeps,
                                                           uniforms=u_serve), 20)
-    k1f_plain = cuda_ms(lambda: gibbs_sweeps_reference(hp6, a6, plan, s6, sweeps,
-                                                       uniforms=u_serve), 5)
+    k1f_plain = cuda_ms(lambda: gibbs_sweeps_sparse_reference(hp6, a6, plan, s6, sweeps,
+                                                              uniforms=u_serve), 3, warmup=1)
     del u_serve
-    k1_bound = sweep_bound(flag.plan, stored_bytes(a8), PEAK_F32_FLOPS, s8.shape[0], sw, False)
-    de_bound = sweep_bound(pt.plan, stored_bytes(a9), PEAK_F32_FLOPS, s9.shape[0], sw, True)
-    serve_bound = sweep_bound(plan, stored_bytes(a6), PEAK_F32_FLOPS, 256, sweeps, False)
-    k1f_bound = sweep_bound(plan, stored_bytes(a6), PEAK_F32_FLOPS, 256, sweeps, False,
-                            4 * sweeps * 256 * plan.n_pad)  # the fed uniforms
-    print(f"[11] K1 {s8.shape[0]} chains x {sw} sweeps (training, n_pad {flag.plan.n_pad}): "
-          f"{k1_train_ms:.4f} ms, plain {k1_train_plain:.4f} ms, bound {k1_bound[0] * 1e3:.3f} us "
-          f"({k1_bound[1]})  [{card}]")
-    print(f"[11] K1-dE {s9.shape[0]} chains x {sw} sweeps (PT training): {de_ms:.4f} ms, plain "
-          f"{de_plain:.4f} ms, bound {de_bound[0] * 1e3:.3f} us ({de_bound[1]})  [{card}]")
-    print(f"[11] K1 256 chains x {sweeps} sweeps (serving, n_pad {plan.n_pad}): {k1_ms:.4f} ms, "
-          f"bound {serve_bound[0] * 1e3:.3f} us ({serve_bound[1]}); dense-product work "
+
+    def bounds(bplan, coupling, chains, n_sw, de, meta=0):
+        """(bound on the bytes the gather reads, bound on the stored form)."""
+        return (sweep_bound(bplan, gather_bytes(bplan, None, VALUE_BYTES["f32"]), PEAK_F32_FLOPS,
+                            chains, n_sw, de, meta),
+                sweep_bound(bplan, stored_bytes(coupling), PEAK_F32_FLOPS, chains, n_sw, de, meta))
+
+    k1_bound, k1_stored = bounds(flag.plan, a8, s8.shape[0], sw, False)
+    de_bound, de_stored = bounds(pt.plan, a9, s9.shape[0], sw, True)
+    serve_bound, serve_stored = bounds(plan, a6, 256, sweeps, False)
+    k1f_bound, k1f_stored = bounds(plan, a6, 256, sweeps, False,
+                                   4 * sweeps * 256 * plan.n_pad)  # the fed uniforms
+    print(f"[11] K1 {s8.shape[0]} chains x {sw} sweeps (training, n_pad {flag.plan.n_pad}, G, "
+          f"threads {launch_shape(flag.plan, s8.shape[0])}): {k1_train_ms:.4f} ms, plain "
+          f"{k1_train_plain:.4f} ms, bound {k1_bound[0] * 1e3:.3f} us ({k1_bound[1]}), "
+          f"stored-form bound {k1_stored[0] * 1e3:.3f} us ({k1_stored[1]})  [{card}]")
+    print(f"[11] K1-dE {s9.shape[0]} chains x {sw} sweeps (PT training, G, threads "
+          f"{launch_shape(pt.plan, s9.shape[0])}): {de_ms:.4f} ms, plain {de_plain:.4f} ms, bound "
+          f"{de_bound[0] * 1e3:.3f} us ({de_bound[1]}), stored-form bound "
+          f"{de_stored[0] * 1e3:.3f} us ({de_stored[1]})  [{card}]")
+    print(f"[11] K1 256 chains x {sweeps} sweeps (serving, n_pad {plan.n_pad}, G, threads "
+          f"{launch_shape(plan, 256)}): {k1_ms:.4f} ms, bound {serve_bound[0] * 1e3:.3f} us "
+          f"({serve_bound[1]}), stored-form bound {serve_stored[0] * 1e3:.3f} us "
+          f"({serve_stored[1]}); dense-product work "
           f"{2 * 256 * sweeps * plan.n_pad ** 2 / 1e9:.2f} GFLOP = "
           f"{2 * 256 * sweeps * plan.n_pad ** 2 / PEAK_F32_FLOPS * 1e3:.3f} ms at the f32 peak")
     print(f"[11] K1f (fed uniforms) 256 chains x {sweeps} sweeps (serving shape): {k1f_ms:.4f} ms, "
-          f"plain {k1f_plain:.4f} ms, bound {k1f_bound[0] * 1e3:.3f} us ({k1f_bound[1]})  [{card}]")
+          f"plain {k1f_plain:.4f} ms, bound {k1f_bound[0] * 1e3:.3f} us ({k1f_bound[1]}), "
+          f"stored-form bound {k1f_stored[0] * 1e3:.3f} us ({k1f_stored[1]})  [{card}]")
+    # the launch shape at the flagship training shapes (measured, not tuned)
+    shape_sweep(lambda s_, n_, shape: gibbs_cuda.gibbs_sweeps_cuda(
+        hp8, a8, flag.plan, s_, n_, generator=gk, _shape=shape),
+        flag.plan, "11", "K1-f32 (flagship training)", ((256, sw),), card)
+    shape_sweep(lambda s_, n_, shape: gibbs_cuda.gibbs_sweeps_cuda(
+        hp9, a9, pt.plan, s_, n_, b9, generator=gk, track_delta_e=True, _shape=shape),
+        pt.plan, "11", "K1-f32-dE (flagship PT)", ((s9.shape[0], sw),), card)
     print(f"[11] step medians: plain Gibbs {gibbs_step_s * 1e3:.3f} ms, PT {pt_step_s * 1e3:.3f} ms"
           f"  [{card}]")
     del flag, pt, st, w, trainer
@@ -718,35 +765,64 @@ def main() -> int:
              **scaled["paths"], **k1_dtypes["paths"], **sharded["paths"]}
     print(json.dumps({"kernels": [
         {
-            "name": "gibbs_sweeps (K1)",
+            "name": "gibbs_sparse (K1-f32)",
             "route": "cuda",
-            "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
+            "source": GATHER_SOURCE,
+            "kernel": "sparse_sweeps_kernel<float, G>",
             "replaces": "image_generation_tpu/ops/gibbs_pallas.py:141",
-            "launches": gibbs_counts["K1-f32"],
+            "launches": sum(v.get("K1-f32", 0) for v in paths.values()),
             "launches_by_path": {k: v.get("K1-f32", 0) for k, v in paths.items()},
             "max_abs_err": max_abs_err,
-            "tolerance": f">= {CHAIN_RULE:.0%} of chains bit-identical to the plain version",
+            "tolerance": "no chain differing from the gather's plain version; >= "
+                         f"{CHAIN_RULE:.0%} of chains bit-identical to the dense plain version",
             "ms": k1_train_ms,
             "plain_ms": k1_train_plain,
             "bound_ms": k1_bound[0],
             "bound_by": k1_bound[1],
+            "bound_stored_ms": k1_stored[0],
+            "bound_stored_by": k1_stored[1],
             "library_ms": None,
             "shape": f"{s8.shape[0]} chains x {sw} sweeps, n_pad {flag_n_pad}",
+            "serving_ms": k1_ms,
+            "serving_bound_ms": serve_bound[0],
+            "serving_bound_stored_ms": serve_stored[0],
+            "serving_shape": f"256 chains x {sweeps} sweeps, n_pad {plan.n_pad}",
         },
         {
-            "name": "gibbs_sweeps with the energy carry (K1-dE)",
+            "name": "gibbs_sparse with fed uniforms (K1f)",
             "route": "cuda",
-            "source": "image_generation_tpu_torch/csrc/gibbs_sweeps.cu",
+            "source": GATHER_SOURCE,
+            "kernel": "sparse_sweeps_kernel<float, G>, uniforms given",
+            "replaces": "image_generation_tpu/ops/gibbs_pallas.py:166",
+            "launches": 0,  # no path feeds uniforms: the checks of phases 3, 5 and 7 do
+            "max_abs_err": max_abs_err,
+            "tolerance": "as K1-f32",
+            "ms": k1f_ms,
+            "plain_ms": k1f_plain,
+            "bound_ms": k1f_bound[0],
+            "bound_by": k1f_bound[1],
+            "bound_stored_ms": k1f_stored[0],
+            "bound_stored_by": k1f_stored[1],
+            "library_ms": None,
+            "shape": f"256 chains x {sweeps} sweeps, n_pad {plan.n_pad}, fed uniforms",
+        },
+        {
+            "name": "gibbs_sparse with the energy carry (K1-f32-dE)",
+            "route": "cuda",
+            "source": GATHER_SOURCE,
+            "kernel": "sparse_sweeps_kernel<float, G>, delta_e given",
             "replaces": "image_generation_tpu/ops/gibbs_pallas.py:121",
-            "launches": pt_counts["K1-f32-dE"],
+            "launches": sum(v.get("K1-f32-dE", 0) for v in paths.values()),
             "launches_by_path": {k: v.get("K1-f32-dE", 0) for k, v in paths.items()},
             "max_abs_err": de_err,
-            "tolerance": "chain rule as K1; dE within 1e-4 (checkpoint model), "
+            "tolerance": "chain rules as K1-f32; dE within 1e-4 (checkpoint model), "
                          "1e-3*(1+|E|) (|J|<=1 model) on identical chains",
             "ms": de_ms,
             "plain_ms": de_plain,
             "bound_ms": de_bound[0],
             "bound_by": de_bound[1],
+            "bound_stored_ms": de_stored[0],
+            "bound_stored_by": de_stored[1],
             "library_ms": None,
             "shape": f"{s9.shape[0]} chains x {sw} sweeps, n_pad {flag_n_pad}",
         },
@@ -775,16 +851,29 @@ def mode_name(kernel: str, dtype: str, de: bool) -> str:
     return f"{kernel}-{dtype}" + ("-dE" if de else "")
 
 
+# the gather's two kernels, which every K1 launch runs
+GATHER_KERNELS = ("sparse_sweeps_kernel", "gather_table_kernel")
+
+
 def is_sweep_kernel(name: str) -> bool:
-    """Whether a profiler kernel name is one of the sweep kernels: K1
-    (gibbs_sweeps_kernel), the f32 K2/K3 (gibbs_stream_kernel) or the
-    gather (sparse_sweeps_kernel and its gather_table_kernel pass)."""
+    """Whether a profiler kernel name is one of the sweep kernels: the
+    gather (sparse_sweeps_kernel and its gather_table_kernel pass), which
+    takes K1 in every value type and K2's and K3's int8 and bf16 modes, or
+    the f32 K2/K3 (gibbs_stream_kernel)."""
     return any(k in name for k in ("sweeps_kernel", "stream_kernel", "gather_table_kernel"))
 
 
-def profile_request(serve, tag: str, label: str, card: str) -> None:
+def check_profiled(events, expect, tag: str, label: str) -> None:
+    """Raise unless every kernel name of ``expect`` is among the profiled
+    device events."""
+    missing = [k for k in expect if not any(k in e.key for e in events)]
+    check(not missing, f"[{tag}] the profiled {label} shows no {missing}")
+
+
+def profile_request(serve, tag: str, label: str, card: str, expect=()) -> None:
     """One warm request under ``torch.profiler``: device busy share of the
-    wall clock and the top kernels by device time."""
+    wall clock, the top kernels by device time and the sweep kernels among
+    the rest; every name of ``expect`` must appear."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -796,13 +885,16 @@ def profile_request(serve, tag: str, label: str, card: str) -> None:
     print(f"[{tag}] profiled {label} warm request: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), idle share {1 - busy_ms / wall_ms:.1%}"
           f"  [{card}]")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:6] + [e for e in ranked[6:] if is_sweep_kernel(e.key)]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<3d} {e.key[:90]}")
+    check_profiled(events, expect, tag, f"{label} request")
 
 
-def profile_step(trainer, batch, tag: str, label: str, card: str) -> None:
+def profile_step(trainer, batch, tag: str, label: str, card: str, expect=()) -> None:
     """One unscheduled training step under ``torch.profiler``: device busy
-    share of the wall clock and the top kernels by device time."""
+    share of the wall clock and the top kernels by device time; every
+    name of ``expect`` must appear."""
     from torch.profiler import ProfilerActivity, profile
 
     trainer.step(batch, 99)  # epoch 99: an unscheduled step (no GRBM update)
@@ -823,6 +915,7 @@ def profile_step(trainer, batch, tag: str, label: str, card: str) -> None:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:80]}")
     if not any(is_sweep_kernel(e.key) for e in ranked):
         print(f"[{tag}]   the profiler recorded no sweep kernel (see the CUDA-event times)")
+    check_profiled(events, expect, tag, f"{label} training step")
 
 
 def scaled_phases(dev, card: str, rng) -> dict:
@@ -1177,7 +1270,7 @@ def scaled_phases(dev, card: str, rng) -> dict:
 # K2-bf16 in training; served int8 through K1-int8)
 SERVE2K = dict(QPU="Advantage_system6", N_LATENTS=2048)
 K1_MODES = [(dtype, de) for dtype in ("bf16", "int8") for de in (False, True)]
-K1_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}  # the stored coupling's type
+K1_KERNEL_TYPES = {"bf16": "bf16 bits", "int8": "int8"}  # the kernel's value type
 
 
 def k1_mode(dtype: str, de: bool) -> str:
@@ -1217,8 +1310,7 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
     from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
 
     k1 = gibbs_cuda.gibbs_sweeps_cuda
-    plains = {"bf16": gibbs_sweeps_kernel_reference,  # each mode's plain version
-              "int8": gibbs_sweeps_sparse_reference}
+    plain = gibbs_sweeps_sparse_reference  # every K1 mode's plain version: the gather's
     flag_cfg = TrainingConfig()
     cfg2k = TrainingConfig(**SERVE2K)
 
@@ -1240,7 +1332,7 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
 
     ladder8 = torch.tensor(flag_cfg.initial_pt_betas(), dtype=torch.float32, device=dev)
     errs = {k1_mode(*m): 0.0 for m in K1_MODES}
-    rows_checked = {"bf16": set(), "int8": set()}  # R of K1-bf16, launch shapes of the gather
+    shapes_checked = {"bf16": set(), "int8": set()}  # the gather's chains per block G
     cases = [("fresh flagship plan", fplan, fgraph, n_c, 16) for n_c in (256, 2048)]
     cases += [("2,048-latent plan", plan2k, graph2k, n_c, 80) for n_c in SERVING_CHAINS]
     models = {}
@@ -1260,14 +1352,20 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
             c = forms[dtype]
             name = k1_mode(dtype, de)
             out = k1(hp, c, mplan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
-            ref = plains[dtype](hp, c, mplan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
+            ref = plain(hp, c, mplan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
             torch.cuda.synchronize()
             if de:
                 (out, d_out), (ref, d_ref) = out, ref
             same = (out == ref).all(dim=1)
-            check(float(same.float().mean()) >= CHAIN_RULE,
+            check(bool(same.all()) if dtype == "bf16" else float(same.float().mean()) >= CHAIN_RULE,
                   f"{name} vs plain ({label}, {n_c} x {n_sw}): chains differ")
             note = f"{name} {int((~same).sum())}"
+            if dtype == "bf16" and not de:  # the gather against the dense plain version
+                frac = identical_fraction(out, gibbs_sweeps_kernel_reference(
+                    hp, c, mplan, s0, n_sw, beta, uniforms=u))
+                check(frac >= CHAIN_RULE, f"{name} vs the dense plain version ({label}, "
+                      f"{n_c} x {n_sw}): {frac:.6f} of chains identical")
+                note += f" (vs dense plain: {frac:.6f} identical)"
             if de:
                 err = (d_out - d_ref).abs()[same]
                 e_abs = ising_energies(hp, c, ref).abs()[same]
@@ -1278,9 +1376,7 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
                 errs[name] = max(errs[name], float((out - ref).abs().max()))
             line.append(note)
             if mplan is plan2k:
-                rows_checked[dtype].add(
-                    launch_shape(mplan, n_c)[0] if dtype == "int8"
-                    else gibbs_cuda.default_rows(mplan, n_c, K1_DTYPES[dtype]))
+                shapes_checked[dtype].add(launch_shape(mplan, n_c)[0])
         if mplan is plan2k and n_c == 256:  # the K1 route's gather against the dense plain version
             frac = identical_fraction(k1(hp, forms["int8"], mplan, s0, n_sw, beta, uniforms=u),
                                       gibbs_sweeps_kernel_reference(hp, forms["int8"], mplan, s0,
@@ -1291,14 +1387,12 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
         print(f"[17] {label}, {n_c} chains x {n_sw} sweeps, fed uniforms; chains differing "
               f"from the plain version: {'; '.join(line)}")
         del u
-    check(rows_checked["bf16"] == set(gibbs_cuda._ROWS),
-          f"K1-bf16: rows per block checked {sorted(rows_checked['bf16'])}, built "
-          f"{sorted(gibbs_cuda._ROWS)}")
-    check(rows_checked["int8"] == set(gibbs_sparse._CHAINS),
-          f"K1-int8: chains per block checked {sorted(rows_checked['int8'])}, built "
-          f"{sorted(gibbs_sparse._CHAINS)}")
-    print(f"[17] rows per block (bf16) and chains per block (int8 gather) checked on the serving "
-          f"chain counts: { {d: sorted(v) for d, v in rows_checked.items()} }")
+    for dtype, checked in shapes_checked.items():
+        check(checked == set(gibbs_sparse._CHAINS),
+              f"K1-{dtype}: chains per block checked {sorted(checked)}, built "
+              f"{sorted(gibbs_sparse._CHAINS)}")
+    print(f"[17] chains per block checked on the serving chain counts: "
+          f"{ {d: sorted(v) for d, v in shapes_checked.items()} }")
     # Philox mode against the numpy twin, on the 2,048-latent plan
     hp2k, a2k = models["2,048-latent plan"]
     g = torch.Generator(device=dev)
@@ -1313,8 +1407,9 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
     for dtype, c in k1_forms(a2k).items():
         g.set_state(state)
         out = k1(hp2k, c, plan2k, s0, 4, generator=g)
-        frac = identical_fraction(out, plains[dtype](hp2k, c, plan2k, s0, 4, uniforms=u_ph))
-        check(frac >= CHAIN_RULE, f"K1-{dtype} Philox stream: only {frac:.4f} of chains identical")
+        frac = identical_fraction(out, plain(hp2k, c, plan2k, s0, 4, uniforms=u_ph))
+        check(frac == 1.0 if dtype == "bf16" else frac >= CHAIN_RULE,
+              f"K1-{dtype} Philox stream: only {frac:.4f} of chains identical")
         line.append(f"K1-{dtype} {int(round((1 - frac) * 256))}/256")
     print(f"[17] Philox stream vs plain fed philox_uniforms (2,048-latent plan, 256 chains, "
           f"4 sweeps): chains differing {'; '.join(line)}")
@@ -1538,39 +1633,35 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
         args, what = shapes[name]
         n_c, n_sw = args[3].shape[0], args[4]
         ms = cuda_ms(lambda: k1(*args, generator=gk, track_delta_e=de), 10, warmup=2)
-        plain_ms = cuda_ms(lambda: plains[dtype](*args, generator=gk, track_delta_e=de), 3,
-                           warmup=1)
-        entry = {}
-        if dtype == "int8":  # the gather: bound on the bytes it must read, and on the stored form
-            bound = sweep_bound(args[2], gather_bytes(args[2]), PEAK_OPS[dtype], n_c, n_sw, de)
-            stored = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_sw, de)
-            entry = {"bound_stored_ms": stored[0], "bound_stored_by": stored[1]}
-            shape = f"G, threads {launch_shape(args[2], n_c)}"
-            note = f", stored-form bound {stored[0] * 1e3:.3f} us ({stored[1]})"
-            source = GATHER_SOURCE
-        else:
-            bound = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_sw, de)
-            shape = f"R={gibbs_cuda.default_rows(args[2], n_c, K1_DTYPES[dtype])}"
-            note = (f"; dense-product work {2 * n_c * n_sw * args[2].n_pad ** 2 / 1e9:.2f} G")
-            source = "image_generation_tpu_torch/csrc/gibbs_sweeps.cu"
-        print(f"[21] {name} {n_c} chains x {n_sw} sweeps ({what}, n_pad {args[2].n_pad}, {shape}): "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0] * 1e3:.3f} us ({bound[1]})"
-              f"{note}  [{card}]")
+        plain_ms = cuda_ms(lambda: plain(*args, generator=gk, track_delta_e=de), 3, warmup=1)
+        # the gather: bound on the bytes it must read, and on the stored form
+        bound = sweep_bound(args[2], gather_bytes(args[2], None, VALUE_BYTES[dtype]),
+                            PEAK_OPS[dtype], n_c, n_sw, de)
+        stored = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_sw, de)
+        print(f"[21] {name} {n_c} chains x {n_sw} sweeps ({what}, n_pad {args[2].n_pad}, G, "
+              f"threads {launch_shape(args[2], n_c)}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound[0] * 1e3:.3f} us ({bound[1]}), stored-form bound "
+              f"{stored[0] * 1e3:.3f} us ({stored[1]})  [{card}]")
         kernels.append({
-            "name": f"{'gibbs_sparse' if dtype == 'int8' else 'gibbs_sweeps'} ({name})",
+            "name": f"gibbs_sparse ({name})",
             "mode": name,
             "route": "cuda",
-            "source": source,
+            "source": GATHER_SOURCE,
+            "kernel": f"sparse_sweeps_kernel<{K1_KERNEL_TYPES[dtype]}, G>",
             "replaces": "image_generation_tpu/ops/gibbs_pallas.py:" + ("121" if de else "141"),
             "launches": 0,  # filled in from the paths below
             "max_abs_err": errs[name],
-            "tolerance": f">= {CHAIN_RULE:.0%} of chains bit-identical to the plain version"
+            "tolerance": ("no chain differing from the gather's plain version; >= "
+                          f"{CHAIN_RULE:.0%} bit-identical to the dense plain version"
+                          if dtype == "bf16" else
+                          f">= {CHAIN_RULE:.0%} of chains bit-identical to the plain version")
                          + ("; dE within 1e-3*(1+|E|) on identical chains" if de else ""),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound[0],
             "bound_by": bound[1],
-            **entry,
+            "bound_stored_ms": stored[0],
+            "bound_stored_by": stored[1],
             "library_ms": None,
             "shape": f"{n_c} chains x {n_sw} sweeps, n_pad {args[2].n_pad} ({what})",
         })
@@ -1615,17 +1706,12 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
         "library_ms": None,
         "shape": f"{n_c} chains x {n_sw} sweeps, n_pad {plan_k2.n_pad} (2,048-latent training)",
     })
-    # rows per thread block of K1-bf16 at the 2,048-latent serving shape (measured, not tuned)
-    s_serve = random_spins(gk, plan_s, 256, dev)
-    c_bf16 = dequantize_coupling(c_s).to(torch.bfloat16)
-    row = []
-    for r in sorted(gibbs_cuda._ROWS):
-        ms_r = cuda_ms(lambda: k1(hp_s, c_bf16, plan_s, s_serve, serve_sweeps, generator=gk,
-                                  _rows_per_block=r), 3, warmup=1)
-        row.append(f"R={r}: {ms_r:.4f} ms")
-    print(f"[21] K1-bf16 256 chains x {serve_sweeps} sweeps (2,048-latent serving shape) by rows per "
-          f"block (default R={gibbs_cuda.default_rows(plan_s, 256, torch.bfloat16)}): "
-          f"{'; '.join(row)}  [{card}]")
+    # K1-bf16's launch shape at the flagship training shapes (measured, not tuned)
+    for name, (args, _what) in (("K1-bf16", shapes["K1-bf16"]),
+                                ("K1-bf16-dE", shapes["K1-bf16-dE"])):
+        shape_sweep(lambda s, n, shape: k1(*args[:3], s, n, args[5], generator=gk,
+                                           track_delta_e=name.endswith("dE"), _shape=shape),
+                    args[2], "21", f"{name} (flagship)", ((args[3].shape[0], args[4]),), card)
     # the int8 gather's launch shape on the served coupling: serving, a 4-way burst, a PT round
     shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse(hp_s, c_s, plan_s, s, n, generator=gk,
                                                         _shape=shape),

@@ -4,8 +4,9 @@ The JAX package beside this one is the reference: every module here keeps
 its counterpart's name (``config``, ``ops.gibbs``, ``models.dvae``, ...)
 and is held against it by the ``tests/test_torch_*.py`` parity tests.
 The Pallas TPU kernel of the serving and training paths becomes a CUDA
-C++ kernel (``csrc/gibbs_sweeps.cu``, with the parallel-tempering energy
-carry, bound in ``ops/gibbs_cuda.py``), built with ``nvcc`` at first use.
+C++ kernel, the sparse field gather (``csrc/gibbs_sparse.cu``, with the
+parallel-tempering energy carry, bound in ``ops/gibbs_sparse.py`` and
+reached through ``ops/gibbs_cuda.py``), built with ``nvcc`` at first use.
 Ported: warm serving (``app.warm``) and training (``training.trainer``)
 under plain Gibbs and parallel tempering.
 

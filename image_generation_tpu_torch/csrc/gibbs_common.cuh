@@ -1,15 +1,14 @@
-// Pieces the sweep kernels share (K1 in gibbs_sweeps.cu, the f32 K2 and K3
-// in gibbs_hbm.cu, the int8 and bf16 gather in gibbs_sparse.cu): the
-// in-kernel Philox generator and, per dense coupling type, how spins are
-// held and how kStep coupling rows meet R spin rows.
+// Pieces the sweep kernels share (the f32 K2 and K3 in gibbs_hbm.cu, the
+// sparse field gather in gibbs_sparse.cu): the in-kernel Philox generator,
+// the uniform draw, the bf16 storage type and, for the dense f32 coupling
+// of K2 and K3, how spins are held and how kStep coupling rows meet R spin
+// rows.
 //
-// Coupling types of the dense kernels: f32; bf16 stored as its 16 bits
-// (read with shifts, no bf16 conversion intrinsics needed).  Spins are held
-// in the coupling's type (+-1 and 0 are exact in each), and products
-// accumulate in f32.  Each step adds coupling rows k .. k + kStep - 1 of
-// one column (read at stride ld, coalesced across the threads that own
-// neighbouring columns) into R accumulators, in row order, against spins
-// read from shared memory as broadcast vectors.
+// Spins are held as f32 (+-1 and 0 are exact), and products accumulate in
+// f32.  Each step adds coupling rows k .. k + kStep - 1 of one column
+// (read at stride ld, coalesced across the threads that own neighbouring
+// columns) into R accumulators, in row order, against spins read from
+// shared memory as broadcast vectors.
 
 #pragma once
 
@@ -67,15 +66,9 @@ __device__ __forceinline__ float draw_uniform(const float* uniforms, int c,
   return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xFFFF0000u);
-}
-
-// Per coupling type: the accumulator, +-1 and 0 in the spin type, the spin
-// as f32, and kStep coupling rows times R spin rows accumulated into acc.
+// Per dense coupling type (K2 and K3 take f32): the accumulator, +-1 and 0
+// in the spin type, the spin as f32, and kStep coupling rows times R spin
+// rows accumulated into acc.
 template <typename T>
 struct Ops;
 
@@ -106,44 +99,6 @@ struct Ops<float> {
       acc[r] = fmaf(y.y, av[5], acc[r]);
       acc[r] = fmaf(y.z, av[6], acc[r]);
       acc[r] = fmaf(y.w, av[7], acc[r]);
-    }
-  }
-};
-
-template <>
-struct Ops<bf16_bits> {
-  typedef float Acc;
-  static __device__ __forceinline__ bf16_bits spin(bool up) {
-    return up ? 0x3F80u : 0xBF80u;  // +1.0, -1.0
-  }
-  static __device__ __forceinline__ bf16_bits zero() { return 0u; }
-  static __device__ __forceinline__ float to_f32(bf16_bits s) {
-    return __uint_as_float(static_cast<uint32_t>(s) << 16);
-  }
-  static __device__ __forceinline__ bf16_bits from_f32(float s) {
-    return static_cast<bf16_bits>(__float_as_uint(s) >> 16);  // exact for +-1, 0
-  }
-  static __device__ __forceinline__ float acc_f32(float a) { return a; }
-  template <int R>
-  static __device__ __forceinline__ void step(float (&acc)[R],
-                                              const bf16_bits* a, size_t ld,
-                                              const bf16_bits* s, int n_pad) {
-    float av[kStep];
-#pragma unroll
-    for (int j = 0; j < kStep; ++j) {
-      av[j] = __uint_as_float(static_cast<uint32_t>(__ldg(a + j * ld)) << 16);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const uint4 w = *reinterpret_cast<const uint4*>(s + r * n_pad);
-      acc[r] = fmaf(bf16_lo(w.x), av[0], acc[r]);
-      acc[r] = fmaf(bf16_hi(w.x), av[1], acc[r]);
-      acc[r] = fmaf(bf16_lo(w.y), av[2], acc[r]);
-      acc[r] = fmaf(bf16_hi(w.y), av[3], acc[r]);
-      acc[r] = fmaf(bf16_lo(w.z), av[4], acc[r]);
-      acc[r] = fmaf(bf16_hi(w.z), av[5], acc[r]);
-      acc[r] = fmaf(bf16_lo(w.w), av[6], acc[r]);
-      acc[r] = fmaf(bf16_hi(w.w), av[7], acc[r]);
     }
   }
 };

@@ -1,40 +1,50 @@
-// Colored block-Gibbs as a sparse field gather, for Hopper (sm_90a): the
-// int8 modes of K1, K2 and K3, and the bf16 modes of K2 and K3.
+// Colored block-Gibbs as a sparse field gather, for Hopper (sm_90a): kernel
+// K1 in every value type (f32, bf16, int8), and the int8 and bf16 modes of
+// K2 and K3.
 //
-// Replaces these modes of the Pallas TPU kernels:
-// image_generation_tpu/ops/gibbs_pallas.py (_color_update with a
-// QuantCoupling, under _kernel / _kernel_fed) and
-// image_generation_tpu/ops/gibbs_pallas_hbm.py (_kernel and _kernel_bs with
-// int8 or bf16 panels).  It computes what they compute: n_sweeps sweeps,
-// each updating the color blocks,
+// Replaces these Pallas TPU kernels and modes:
+// image_generation_tpu/ops/gibbs_pallas.py (_kernel, _kernel_fed and their
+// shared body _color_update, with an f32 or bf16 coupling or a
+// QuantCoupling) and image_generation_tpu/ops/gibbs_pallas_hbm.py (_kernel
+// and _kernel_bs with int8 or bf16 panels).  It computes what they compute:
+// n_sweeps sweeps, each updating the color blocks,
 //
 //     fields = S . A[:, c] + h[c]
 //     p      = sigmoid(-2 * beta_chain * fields)
 //     S[:, c] = u < p ? +1 : -1
 //
-// with the coupling in one of two value types:
+// with the coupling in one of three value types:
+//   * f32: each product f32 x +-1 is exact, and the products are summed
+//     in f32 in the table's slot order (ascending neighbour), then h is
+//     added.  The dense K1 this replaced added fmaf(spin, A[k, c], acc) for
+//     every k ascending; a zero coupling adds an exact 0, so the two give
+//     the same fields bit for bit;
+//   * bf16: the same, each bf16 value widened to f32;
 //   * int8: the products summed exactly in int32, in the quantized units
 //     of the Pallas kernels (the caller passes h / scale and
-//     beta * scale and multiplies delta_e by the scale);
-//   * bf16: each product bf16 x +-1 is exact in f32, and the products are
-//     summed in f32 in the table's slot order (ascending neighbour), then
-//     h is added; h, beta and delta_e are the caller's own.
+//     beta * scale and multiplies delta_e by the scale).
 // u is fed ((>= n_sweeps, chains, n_pad) f32 read at [sweep, row, column])
 // or drawn from K1's Philox4x32-10 with the counter (column, global chain
 // row, sweep, 0) and the seed as key (gibbs_common.cuh).  With delta_e the
 // kernel also writes each chain's energy change of the run, the sum of
-// fields . (new - old) over sweeps and columns, reduced once at the end.
+// fields . (new - old) over sweeps and columns (the Pallas kernels'
+// de_ref), reduced once at the end.
 //
 // What bounds it on the H100.  The couplings are the graph's: at most 15
 // neighbours a spin on Pegasus, 20 on Zephyr, so the stored matrix is
-// 99 % zeros (0.7 % of the scaled plan's packed panels, 0.5 % of the
-// 2,048-latent dense matrix).  The dense kernels streamed every element of
-// it from L2 once per chain block per sweep: at the serving shape (256
-// chains, one a thread block) that was 239 GB of L2 traffic for the scaled
-// int8 request, and 2,048-latent bf16 training at 256 chains x 16 sweeps
-// read its 11.8 MB dense matrix 4,096 times a refresh.  The graph's own
-// work is 2 operations a nonzero a chain a sweep (1.7 G at the scaled
-// serving shape), and a sweep has one dependent step per color class.
+// 99 % zeros (the flagship's 768 x 768 holds 4,654 nonzeros, 0.79 %; 0.7 %
+// of the scaled plan's packed panels, 0.5 % of the 2,048-latent dense
+// matrix).  The dense kernels streamed every element of it from L2 once
+// per chain block per sweep or color step: the dense f32 K1 read the
+// flagship's 2.4 MB panel set 256 x 16 times a training refresh.  The
+// graph's own work is 2 operations a nonzero a chain a sweep (38 MFLOP at
+// the flagship's 256 x 16, well under a microsecond at any peak), and the
+// bytes it must move are the table (122,880 B of f32 words at the
+// flagship) and the spins in and out.  What is left is latency: a sweep
+// is one dependent step per color class (6 at the flagship, 5 on the
+// served checkpoint, 7 on the Pegasus plans), each step deg table loads,
+// deg shared-memory reads, a Philox draw and an expf per (column, chain),
+// then a barrier.
 //
 // How the design meets that.
 //   * A static neighbour table per plan (ops/gibbs_sparse.py, built on the
@@ -44,17 +54,14 @@
 //     as it is stored (dense: k * n_pad + c; packed panels: the panel row
 //     of k's chunk in c's color, times the panel width, plus c - c0), or
 //     -1 for an empty slot.  The table holds no values, so one table
-//     serves both value types.  The coupling is zero off the plan's edges,
+//     serves every value type.  The coupling is zero off the plan's edges,
 //     so these entries are all of its nonzeros.  A first pass of every
-//     launch gathers the coupling's current values into one 32-bit word a
-//     slot, laid out [d][c] so that neighbouring columns read neighbouring
-//     words: (k << 8) | (A & 0xff) for int8, (k << 16) | bf16 bits for
-//     bf16 (read unsigned).  The bf16 word keeps the int8 word's 4 bytes,
-//     so a field still costs deg word loads, at the price of n_pad <=
-//     65,536: the plans that reach this kernel have n_pad 2,432 and 6,016
-//     (the P32 fabric, 23,936, is graph-sharded and never comes here).  An
-//     8-byte word would double the table traffic for no plan the repo has.
-//     The wrapper refuses a wider plan.
+//     launch gathers the coupling's current values into one word a slot,
+//     laid out [d][c] so that neighbouring columns read neighbouring
+//     words: (k << 8) | (A & 0xff) for int8 and (k << 16) | bf16 bits for
+//     bf16 (4 bytes, read unsigned; a bf16 plan may be at most 65,536
+//     wide), and an 8-byte {k, f32 bits} pair for f32, read with one
+//     64-bit load.  The wrapper refuses a plan wider than the word holds.
 //   * A thread block owns G chains for the whole run and holds their spins
 //     in shared memory as int8, chain-fastest ([k][G]).  Its threads are
 //     (column, chain) pairs, chain fastest: the G threads of a column share
@@ -66,11 +73,12 @@
 //     plan-order block loop bit for bit.  New spins are written in place:
 //     no column of a span reads another's.  Between spans the block needs
 //     one __syncthreads(), and no grid sync, because a chain never leaves
-//     its block.  The scaled plan has 7 spans a sweep (47 blocks).
+//     its block.
 //   * The wrapper picks G (1, 2, 4, 8 or 16) so that the chains make at
 //     least one full wave of blocks on the card's SMs (on an H100's 132:
 //     256 chains G = 1, 256 blocks; 2,048 chains G = 8) and the spins fit
-//     shared memory.
+//     shared memory, and the threads a block (ops/gibbs_sparse.py
+//     launch_shape).
 //
 // Plain C interface for ctypes: the wrapper allocates everything (the
 // gathered table too), both kernels launch on the caller's stream, nothing
@@ -88,19 +96,22 @@ constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kGatherThreads = 256;
 constexpr int kMaxNPadInt8 = (1 << 23) - 1;  // the neighbour in 24 bits
 constexpr int kMaxNPadBf16 = 1 << 16;        // the neighbour in 16 bits
+constexpr int kMaxNPadF32 = 0x7fffffff;      // the neighbour in its own 32 bits
 
-// Per value type: the table word, the field accumulator, and one slot's
-// product added into it.
+// Per value type: the table word T, the field accumulator, the neighbour a
+// word names, and one slot's product added into the accumulator.
 template <typename V>
 struct Word;
 
 template <>
 struct Word<int8_t> {
+  typedef uint32_t T;
   typedef int Acc;
-  static constexpr int kShift = 8;
   static __device__ __forceinline__ uint32_t make(int k, int8_t a) {
     return (static_cast<uint32_t>(k) << 8) | static_cast<uint8_t>(a);
   }
+  static __device__ __forceinline__ uint32_t empty() { return 0u; }
+  static __device__ __forceinline__ int nbr(uint32_t w) { return static_cast<int>(w >> 8); }
   static __device__ __forceinline__ void add(int& acc, uint32_t w, int8_t s) {
     acc += static_cast<int>(static_cast<int8_t>(w & 0xffu)) * s;
   }
@@ -109,11 +120,13 @@ struct Word<int8_t> {
 
 template <>
 struct Word<bf16_bits> {
+  typedef uint32_t T;
   typedef float Acc;
-  static constexpr int kShift = 16;
   static __device__ __forceinline__ uint32_t make(int k, bf16_bits a) {
     return (static_cast<uint32_t>(k) << 16) | a;
   }
+  static __device__ __forceinline__ uint32_t empty() { return 0u; }
+  static __device__ __forceinline__ int nbr(uint32_t w) { return static_cast<int>(w >> 16); }
   // bf16 x +-1 (or 0) is exact in f32, so the fma rounds once, as a
   // multiply then an add would
   static __device__ __forceinline__ void add(float& acc, uint32_t w, int8_t s) {
@@ -122,16 +135,34 @@ struct Word<bf16_bits> {
   static __device__ __forceinline__ float field(float acc) { return acc; }
 };
 
-// entry[i] = the word of (nbr[i], A[off[i]]), 0 for an empty slot
+// An f32 value does not fit beside a neighbour in 32 bits: the word is the
+// pair {k, f32 bits}, 8 bytes, read with one 64-bit load.
+template <>
+struct Word<float> {
+  typedef uint2 T;
+  typedef float Acc;
+  static __device__ __forceinline__ uint2 make(int k, float a) {
+    return make_uint2(static_cast<uint32_t>(k), __float_as_uint(a));
+  }
+  static __device__ __forceinline__ uint2 empty() { return make_uint2(0u, 0u); }
+  static __device__ __forceinline__ int nbr(uint2 w) { return static_cast<int>(w.x); }
+  // f32 x +-1 (or 0) is exact, so the fma rounds once, as an add would
+  static __device__ __forceinline__ void add(float& acc, uint2 w, int8_t s) {
+    acc = fmaf(__uint_as_float(w.y), static_cast<float>(s), acc);
+  }
+  static __device__ __forceinline__ float field(float acc) { return acc; }
+};
+
+// entry[i] = the word of (nbr[i], A[off[i]]), zero for an empty slot
 template <typename V>
 __global__ void gather_table_kernel(const V* __restrict__ coupling,
                                     const int* __restrict__ nbr,
                                     const int* __restrict__ off,
-                                    uint32_t* __restrict__ entry, const int n) {
+                                    typename Word<V>::T* __restrict__ entry, const int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
     const int o = off[i];
-    entry[i] = o >= 0 ? Word<V>::make(nbr[i], coupling[o]) : 0u;
+    entry[i] = o >= 0 ? Word<V>::make(nbr[i], coupling[o]) : Word<V>::empty();
   }
 }
 
@@ -139,7 +170,7 @@ template <typename V, int G>
 __global__ void __launch_bounds__(kMaxThreads)
 sparse_sweeps_kernel(const float* __restrict__ spins_in,
                      float* __restrict__ spins_out,
-                     const uint32_t* __restrict__ entry,  // (deg, n_pad)
+                     const typename Word<V>::T* __restrict__ entry,  // (deg, n_pad)
                      const float* __restrict__ h,
                      const float* __restrict__ beta,
                      const float* __restrict__ uniforms,  // null: Philox
@@ -181,11 +212,11 @@ sparse_sweeps_kernel(const float* __restrict__ spins_in,
       const int c1 = __ldg(spans + 2 * sp + 1);
       for (int c = __ldg(spans + 2 * sp) + tid / G; c < c1; c += col_step) {
         typename Word<V>::Acc acc = 0;
-        const uint32_t* e = entry + c;
+        const typename Word<V>::T* e = entry + c;
 #pragma unroll 5
         for (int d = 0; d < deg; ++d) {  // ascending slots: the plain version's order
-          const uint32_t w = __ldg(e + static_cast<size_t>(d) * n_pad);
-          Word<V>::add(acc, w, spins[(w >> Word<V>::kShift) * G + g]);
+          const typename Word<V>::T w = __ldg(e + static_cast<size_t>(d) * n_pad);
+          Word<V>::add(acc, w, spins[Word<V>::nbr(w) * G + g]);
         }
         if (live) {
           const float f = Word<V>::field(acc) + __ldg(h + c);
@@ -238,7 +269,7 @@ struct Args {
   const void* coupling;
   const int* nbr;
   const int* off;
-  uint32_t* entry;
+  void* entry;
   const float* spins_in;
   float* spins_out;
   const float* h;
@@ -260,8 +291,9 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   const int grid = (a.n_chains + G - 1) / G;
   sparse_sweeps_kernel<V, G><<<grid, a.threads, smem, a.stream>>>(
-      a.spins_in, a.spins_out, a.entry, a.h, a.beta, a.uniforms, a.seed,
-      a.delta_e, a.spans, a.n_spans, a.deg, a.n_chains, a.n_pad, a.n_sweeps);
+      a.spins_in, a.spins_out, static_cast<const typename Word<V>::T*>(a.entry), a.h,
+      a.beta, a.uniforms, a.seed, a.delta_e, a.spans, a.n_spans, a.deg, a.n_chains,
+      a.n_pad, a.n_sweeps);
   return cudaGetLastError();
 }
 
@@ -270,7 +302,7 @@ cudaError_t launch_type(const Args& a, int chains_per_block) {
   const int n = a.deg * a.n_pad;
   gather_table_kernel<V><<<(n + kGatherThreads - 1) / kGatherThreads, kGatherThreads, 0,
                            a.stream>>>(static_cast<const V*>(a.coupling), a.nbr, a.off,
-                                       a.entry, n);
+                                       static_cast<typename Word<V>::T*>(a.entry), n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   switch (chains_per_block) {
@@ -298,17 +330,35 @@ long long gibbs_sparse_smem_bytes(int chains_per_block, int n_pad) {
 }
 
 // The widest plan (n_pad) a table word of the value type holds (dtype 0
-// int8, 1 bf16; 0 for another): the wrapper checks it before a launch.
+// int8, 1 bf16, 2 f32; 0 for another): the wrapper checks it before a
+// launch.
 int gibbs_sparse_max_n_pad(int dtype) {
-  return dtype == 0 ? kMaxNPadInt8 : dtype == 1 ? kMaxNPadBf16 : 0;
+  switch (dtype) {
+    case 0: return kMaxNPadInt8;
+    case 1: return kMaxNPadBf16;
+    case 2: return kMaxNPadF32;
+    default: return 0;
+  }
 }
 
-// dtype: 0 int8, 1 bf16 (the stored coupling's values).  coupling: the
-// stored coupling (dense or packed panels); nbr, off: the (deg, n_pad)
+// Bytes of one table word of the value type (0 for another): the wrapper
+// sizes the gathered table's scratch by it.
+int gibbs_sparse_word_bytes(int dtype) {
+  switch (dtype) {
+    case 0: return static_cast<int>(sizeof(Word<int8_t>::T));
+    case 1: return static_cast<int>(sizeof(Word<bf16_bits>::T));
+    case 2: return static_cast<int>(sizeof(Word<float>::T));
+    default: return 0;
+  }
+}
+
+// dtype: 0 int8, 1 bf16, 2 f32 (the stored coupling's values).  coupling:
+// the stored coupling (dense or packed panels); nbr, off: the (deg, n_pad)
 // int32 neighbour table (off -1 for an empty slot); entry: (deg, n_pad)
-// 32-bit scratch for the gathered table.  spans: device int32, (c0, c1)
-// per color-class span in plan order.  int8: h and beta in quantized
-// units (h / scale, beta * scale); bf16: as they are.  uniforms: null, or
+// scratch for the gathered table, gibbs_sparse_word_bytes(dtype) a slot.
+// spans: device int32, (c0, c1) per color-class span in plan order.  int8:
+// h and beta in quantized units (h / scale, beta * scale); bf16 and f32:
+// as they are.  uniforms: null, or
 // f32 with at least n_sweeps rows of (n_chains, n_pad); seed: null (fed)
 // or one int64.  delta_e: null, or (n_chains,) f32.  chains_per_block: 1,
 // 2, 4, 8 or 16; threads: a multiple of 32 and of chains_per_block, at
@@ -324,11 +374,16 @@ int gibbs_sparse(int dtype, const void* coupling, const int* nbr, const int* off
       threads > kMaxThreads || threads % 32 != 0 || threads % chains_per_block != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{coupling, nbr, off, static_cast<uint32_t*>(entry), spins_in, spins_out,
+  const Args a{coupling, nbr, off, entry, spins_in, spins_out,
                h, beta, uniforms, seed, delta_e, spans, n_spans, deg, n_chains, n_pad,
                n_sweeps, threads, static_cast<cudaStream_t>(stream)};
-  const cudaError_t err = dtype == 0 ? launch_type<int8_t>(a, chains_per_block)
-                                     : launch_type<bf16_bits>(a, chains_per_block);
+  cudaError_t err;
+  switch (dtype) {
+    case 0: err = launch_type<int8_t>(a, chains_per_block); break;
+    case 1: err = launch_type<bf16_bits>(a, chains_per_block); break;
+    case 2: err = launch_type<float>(a, chains_per_block); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

@@ -26,10 +26,9 @@ __all__ = ["KernelLibrary", "SOURCES", "load_libraries"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {  # library name -> source
-    "gibbs_sweeps": _PKG / "csrc" / "gibbs_sweeps.cu",  # K1
-    "gibbs_hbm": _PKG / "csrc" / "gibbs_hbm.cu",  # K2, K3
+    "gibbs_hbm": _PKG / "csrc" / "gibbs_hbm.cu",  # f32 K2, K3
     "span_update": _PKG / "csrc" / "span_update.cu",  # K4
-    "gibbs_sparse": _PKG / "csrc" / "gibbs_sparse.cu",  # int8 K1, K2, K3; bf16 K2, K3
+    "gibbs_sparse": _PKG / "csrc" / "gibbs_sparse.cu",  # K1; int8 and bf16 K2, K3
 }
 _HEADERS = (_PKG / "csrc" / "gibbs_common.cuh",)  # included by the sources above
 _BUILD_DIR = _PKG / "_build"

@@ -388,9 +388,11 @@ def gibbs_sweeps_kernel_reference(
     uniforms: Optional[torch.Tensor] = None,
     track_delta_e: bool = False,
 ):
-    """The plain version of the sweep kernel K1 in every mode
-    (``ops/gibbs_cuda.py``), with the Pallas kernel's semantics
-    (``gibbs_pallas.py`` ``_color_update``): per block of ``plan.blocks`` in
+    """The dense plain version of the sweep kernel K1 in every mode, with
+    the Pallas kernel's semantics (``gibbs_pallas.py`` ``_color_update``):
+    the dense product the JAX package computes, which the tests and
+    ``chip_smoke.py`` hold K1's kernel (the sparse field gather,
+    ``ops/gibbs_cuda.py``) against.  Per block of ``plan.blocks`` in
     order, padding columns included; f32 and bf16 couplings as
     ``gibbs_sweeps_reference`` (a bf16 coupling read as f32: f32
     accumulation of exact ±1 × bf16 products), and a ``QuantCoupling`` in

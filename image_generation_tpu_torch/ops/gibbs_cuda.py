@@ -1,31 +1,33 @@
-"""Kernel K1: fused multi-sweep colored block-Gibbs in CUDA C++ for Hopper.
+"""Kernel K1: fused multi-sweep colored block-Gibbs on Hopper, in every
+coupling type.
 
 Replaces ``image_generation_tpu/ops/gibbs_pallas.py`` (``_kernel``,
 ``_kernel_fed``, ``_color_update``; wrapper ``gibbs_sweeps_pallas``, gate
-``supported_by_pallas``) with an f32 or bf16 coupling.  The kernel source
-is ``csrc/gibbs_sweeps.cu``; its header note says what bounds it on the
-H100 and how the design meets that.  ``ops/cuda_build.py`` compiles it
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface at first use, and it is bound here with ``ctypes``.  K1's int8
-mode (a ``QuantCoupling``) is the sparse field gather of
-``ops/gibbs_sparse.py``, reached through the same wrapper.
+``supported_by_pallas``) with an f32 or bf16 coupling or a
+``QuantCoupling``.  Every mode is the sparse field gather of
+``ops/gibbs_sparse.py`` (CUDA C++ in ``csrc/gibbs_sparse.cu``, whose
+header note says what bounds it on the H100 and how the design meets
+that), fed the dense coupling with dense offsets: it reads the coupling
+only at the plan's edges, so the coupling must be zero everywhere else,
+as every coupling ``permuted_model`` builds is.
 
 ``selects_k1`` keeps the JAX package's VMEM gate as the dispatch rule
-between K1 and the streaming kernels (``ops/gibbs_hbm_cuda.py``).
-
-The kernel also carries the energy change of the run (``track_delta_e``,
-the Pallas kernels' ``de_ref``), which parallel tempering uses to carry its
-ladder energies across rounds.
+between K1 and the streaming route (``ops/gibbs_hbm_cuda.py``), so each
+call reaches the counterpart of the kernel the JAX package picks.
 
 ``gibbs_sweeps_cuda`` is the wrapper.  It takes a dense f32 or bf16
 coupling or a ``QuantCoupling``; an int8 coupling works in the Pallas
 wrapper's quantized units (h / scale and β · scale go in, computed on the
-device, and ΔE comes back × scale).  For a tensor on the CPU it runs the
-plain PyTorch version (``ops.gibbs.gibbs_sweeps_kernel_reference``; for
-int8 the gather kernel's, ``gibbs_sweeps_sparse_reference``); for a
-CUDA tensor it launches the kernel or raises.
+device, and ΔE comes back × scale).  With ``track_delta_e`` it also
+returns each chain's energy change of the run (the Pallas kernels'
+``de_ref``), which parallel tempering uses to carry its ladder energies
+across rounds.  For a tensor on the CPU it runs the gather's plain
+version (``gibbs_sparse.gibbs_sweeps_sparse_reference``: fields summed in
+the table's slot order, in f32 for f32 and bf16, in int32 for int8); for
+a CUDA tensor it launches the kernel or raises.
 ``gibbs_sweeps_cuda.launches`` counts its launches by mode: ``"K1-f32"``,
-``"K1-bf16-dE"``, ``"K1-int8"``, ...
+``"K1-f32-dE"``, ``"K1-bf16"``, ``"K1-bf16-dE"``, ``"K1-int8"``,
+``"K1-int8-dE"``.
 
 ``philox_uniforms`` is the numpy twin of the kernels' in-kernel generator:
 fed to the plain version, it reproduces the kernel's Philox mode.
@@ -34,19 +36,12 @@ fed to the plain version, it reproduces the kernel's Philox mode.
 from __future__ import annotations
 
 import collections
-import ctypes
-import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
-from image_generation_tpu_torch.ops.cuda_build import KernelLibrary, load_libraries
-from image_generation_tpu_torch.ops.gibbs import (
-    GibbsPlan,
-    _check_uniforms,
-    gibbs_sweeps_kernel_reference,
-)
+from image_generation_tpu_torch.ops.gibbs import GibbsPlan, _check_uniforms
 from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse, supported
 from image_generation_tpu_torch.ops.quant import QuantCoupling
 
@@ -54,78 +49,15 @@ __all__ = [
     "gibbs_sweeps_cuda",
     "supported_by_kernel",
     "selects_k1",
-    "default_rows",
-    "load_library",
     "draw_seed",
     "philox_uniforms",
 ]
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-_STATIC_SMEM = 8 * 4 * 4  # the energy carry's per-warp partial sums (R ≤ 8)
-_MAX_BLOCKS = 128  # color blocks a launch takes (kMaxBlocks in the source)
-_STEP = 8  # coupling rows per step (kStep in csrc/gibbs_common.cuh)
-_ROWS = (8, 4, 2, 1)  # chain rows per thread block the source instantiates
-# coupling dtype -> (code of the C entry, mode name, itemsize of the held spins)
-_DTYPES = {torch.float32: (0, "f32", 4), torch.bfloat16: (1, "bf16", 2)}
-# The default R keeps at least this many thread blocks in flight.  On an
-# H100 SXM (700 W), 80 sweeps of the 640-spin checkpoint plan ran fastest
-# at R=1 for 256 chains (256 blocks) and at R=8 for 4096 chains (512
-# blocks); fewer, fatter blocks leave SMs idle, more re-read the coupling
-# from L2 (PERF.md).  Serving (256·k chains, k <= 16) selects every R.
-_MIN_GRID = 512
 # The JAX package's VMEM budget, kept only as the dispatch rule (selects_k1)
 _VMEM_BUDGET = 12 * 1024 * 1024
-
-_library: Optional[KernelLibrary] = None
-_library_lock = threading.Lock()
-
-
-def load_library() -> KernelLibrary:
-    """Build (once per source hash, with the other kernels) and load K1's
-    library."""
-    global _library
-    with _library_lock:
-        if _library is not None:
-            return _library
-        built = load_libraries()["gibbs_sweeps"]
-        lib = built.lib
-        lib.gibbs_sweeps.argtypes = [
-            ctypes.c_int,  # dtype: 0 f32, 1 bf16
-            ctypes.c_void_p,  # spins_in
-            ctypes.c_void_p,  # spins_out
-            ctypes.c_void_p,  # coupling
-            ctypes.c_void_p,  # h
-            ctypes.c_void_p,  # beta
-            ctypes.c_void_p,  # uniforms (null: Philox)
-            ctypes.c_void_p,  # seed (null: fed)
-            ctypes.c_void_p,  # delta_e (null: no energy carry)
-            ctypes.c_void_p,  # host block bounds
-            ctypes.c_int,  # n_blocks
-            ctypes.c_int,  # n_chains
-            ctypes.c_int,  # n_pad
-            ctypes.c_int,  # max_width
-            ctypes.c_int,  # n_sweeps
-            ctypes.c_int,  # rows_per_block
-            ctypes.c_void_p,  # stream
-        ]
-        lib.gibbs_sweeps.restype = ctypes.c_int
-        lib.gibbs_sweeps_error_string.argtypes = [ctypes.c_int]
-        lib.gibbs_sweeps_error_string.restype = ctypes.c_char_p
-        lib.gibbs_sweeps_max_blocks.argtypes = []
-        lib.gibbs_sweeps_max_blocks.restype = ctypes.c_int
-        lib.gibbs_sweeps_step.argtypes = []
-        lib.gibbs_sweeps_step.restype = ctypes.c_int
-        lib.gibbs_sweeps_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.gibbs_sweeps_smem_bytes.restype = ctypes.c_longlong
-        if lib.gibbs_sweeps_max_blocks() != _MAX_BLOCKS or lib.gibbs_sweeps_step() != _STEP:
-            raise RuntimeError("kernel library and wrapper disagree on kMaxBlocks or kStep")
-        for code, _name, size in _DTYPES.values():
-            for r in _ROWS:
-                if lib.gibbs_sweeps_smem_bytes(code, r, 2432, 512) != _dynamic_smem(
-                        size, r, 2432, 512):
-                    raise RuntimeError("kernel library and wrapper disagree on shared memory")
-        _library = built
-        return _library
+# the coupling's stored type -> K1's mode name
+_MODES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def selects_k1(plan: GibbsPlan, n_chains: int, coupling_itemsize: int = 4) -> bool:
@@ -151,46 +83,12 @@ def _max_width(plan: GibbsPlan) -> int:
     return max(c1 - c0 for c0, _v, c1 in plan.blocks)
 
 
-def _dynamic_smem(itemsize: int, rows: int, n_pad: int, max_width: int) -> int:
-    """``smem_bytes`` in the source: R rows of spins plus R rows of one
-    color's staged spins, in the coupling's type."""
-    return rows * (n_pad + max_width) * itemsize
-
-
-def _smem_bytes(plan: GibbsPlan, rows: int, dtype=torch.float32) -> int:
-    return _dynamic_smem(_DTYPES[dtype][2], rows, plan.n_pad, _max_width(plan)) + _STATIC_SMEM
-
-
-def default_rows(plan: GibbsPlan, n_chains: int, dtype=torch.float32) -> int:
-    """Chain rows per thread block: the largest R whose grid still holds
-    ``_MIN_GRID`` blocks and whose spins, held in the coupling's
-    ``dtype``, fit shared memory (1 otherwise)."""
-    for r in _ROWS:
-        if -(-n_chains // r) >= _MIN_GRID and _smem_bytes(plan, r, dtype) <= _SMEM_LIMIT:
-            return r
-    return 1
-
-
 def supported_by_kernel(plan: GibbsPlan, n_chains: int, dtype=torch.float32) -> bool:
-    """Whether K1 takes this problem.  f32 / bf16: the chain rows of one
-    thread block plus one color block of staging, in the coupling's
-    ``dtype``, fit Hopper's 227 KB of shared memory, the padded width is a
-    multiple of 8 (the kernel's step), and the plan has at most
-    ``_MAX_BLOCKS`` color blocks.  int8: the gather kernel's rule
-    (``gibbs_sparse.supported``)."""
-    if dtype == torch.int8:
-        return supported(plan, n_chains)
-    return _fits(plan, n_chains, default_rows(plan, n_chains, dtype), dtype)
-
-
-def _fits(plan: GibbsPlan, n_chains: int, rows: int, dtype=torch.float32) -> bool:
-    return (
-        n_chains >= 1
-        and rows in _ROWS
-        and plan.n_pad % _STEP == 0
-        and 1 <= len(plan.blocks) <= _MAX_BLOCKS
-        and _smem_bytes(plan, rows, dtype) <= _SMEM_LIMIT
-    )
+    """Whether K1 takes this problem with a coupling stored as ``dtype``
+    (f32, bf16 or int8): the gather kernel's rule, ``gibbs_sparse.supported``
+    (one chain's spins fit shared memory, a table word holds a spin
+    position)."""
+    return supported(plan, n_chains, dtype)
 
 
 def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -227,90 +125,37 @@ def gibbs_sweeps_cuda(
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[torch.Tensor] = None,
     track_delta_e: bool = False,
-    _rows_per_block: Optional[int] = None,
+    _shape: Optional[tuple] = None,
 ):
     """``n_sweeps`` colored block-Gibbs sweeps through K1.
 
     Same contract as ``gibbs_sweeps_kernel_reference``: ``hp`` (n_pad,)
     and ``spins_p`` (chains, n_pad) f32; ``coupling_p`` (n_pad, n_pad) f32
-    or bf16, or a ``QuantCoupling``; ``beta`` scalar or (chains,);
-    optional fed ``uniforms`` (n_sweeps, chains, n_pad).  Without them the
-    kernel draws from its Philox stream, keyed by a seed drawn from
-    ``generator``.  Returns new f32 spins, or (spins, delta_e) with
-    ``track_delta_e``: the (chains,) f32 energy change of the run.
+    or bf16, or a ``QuantCoupling``, zero off the plan's edges; ``beta``
+    scalar or (chains,); optional fed ``uniforms`` (n_sweeps, chains,
+    n_pad).  Without them the kernel draws from its Philox stream, keyed
+    by a seed drawn from ``generator``.  Returns new f32 spins, or (spins,
+    delta_e) with ``track_delta_e``: the (chains,) f32 energy change of
+    the run.
 
-    A ``QuantCoupling`` goes to the int8 gather kernel
-    (``gibbs_sparse.gibbs_sweeps_sparse``), which reads the
-    coupling only at the plan's edges: it must be zero everywhere else, as
-    every coupling ``permuted_model`` builds is.
-
-    A CPU ``spins_p`` runs the plain version.  A CUDA one launches the
-    kernel; anything it does not take raises.  ``_rows_per_block``
-    overrides the chain rows per thread block (``default_rows``) of the
-    f32 / bf16 kernel for measuring it at each R.
+    A CPU ``spins_p`` runs the gather's plain version.  A CUDA one
+    launches the gather kernel; anything it does not take raises.
+    ``_shape`` overrides its launch shape (chains per block, threads) for
+    measuring it at each shape.
     """
+    _check_uniforms(uniforms, n_sweeps, *spins_p.shape)
     if isinstance(coupling_p, QuantCoupling):
-        _check_uniforms(uniforms, n_sweeps, *spins_p.shape)
-        return gibbs_sweeps_sparse(
-            hp, coupling_p, plan, spins_p, n_sweeps, beta, generator=generator,
-            uniforms=uniforms, track_delta_e=track_delta_e,
-            count=(gibbs_sweeps_cuda.launches, "K1-int8" + ("-dE" if track_delta_e else "")))
-    if spins_p.device.type == "cpu":
-        return gibbs_sweeps_kernel_reference(
-            hp, coupling_p, plan, spins_p, n_sweeps, beta,
-            generator=generator, uniforms=uniforms, track_delta_e=track_delta_e,
-        )
-    if spins_p.device.type != "cuda":
-        raise ValueError(f"no sweep kernel for device {spins_p.device}")
-    dev = spins_p.device
-    n_chains, n_pad = spins_p.shape
-    if n_pad != plan.n_pad:
-        raise ValueError(f"spins have {n_pad} columns, the plan {plan.n_pad}")
-    if coupling_p.dtype not in _DTYPES:
-        raise TypeError(f"K1 takes an f32 or bf16 coupling or a QuantCoupling, "
-                        f"got a {coupling_p.dtype} {type(coupling_p).__name__}")
-    code, dname, _size = _DTYPES[coupling_p.dtype]
-    _check("spins_p", spins_p, (n_chains, n_pad), dev)
-    _check("coupling_p", coupling_p, (n_pad, n_pad), dev, coupling_p.dtype)
-    _check("hp", hp, (n_pad,), dev)
-    rows = _rows_per_block or default_rows(plan, n_chains, coupling_p.dtype)
-    if not _fits(plan, n_chains, rows, coupling_p.dtype):
-        raise ValueError(
-            f"plan (n_pad={n_pad}, {len(plan.blocks)} blocks) at {n_chains} "
-            f"chains does not fit K1's shared memory; the streaming kernels "
-            f"(ops/gibbs_hbm_cuda.py) take it"
-        )
-    beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
-    if beta_t.ndim == 0:
-        beta_t = beta_t.expand(n_chains)
-    beta_t = beta_t.contiguous()
-    _check("beta", beta_t, (n_chains,), dev)
-    if uniforms is not None:
-        _check("uniforms", uniforms, (n_sweeps, n_chains, n_pad), dev)
-        seed = None
+        mode = "int8"
+    elif isinstance(coupling_p, torch.Tensor) and coupling_p.dtype in _MODES:
+        mode = _MODES[coupling_p.dtype]
     else:
-        seed = draw_seed(generator, dev)
-    out = torch.empty_like(spins_p)
-    delta_e = torch.empty(n_chains, dtype=torch.float32, device=dev) if track_delta_e else None
-    flat = [c for c0, _v, c1 in plan.blocks for c in (c0, c1)]
-    bounds = (ctypes.c_int * len(flat))(*flat)
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gibbs_sweeps(
-            code, spins_p.data_ptr(), out.data_ptr(), coupling_p.data_ptr(),
-            hp.data_ptr(), beta_t.data_ptr(),
-            uniforms.data_ptr() if uniforms is not None else None,
-            seed.data_ptr() if seed is not None else None,
-            delta_e.data_ptr() if delta_e is not None else None,
-            ctypes.cast(bounds, ctypes.c_void_p), len(plan.blocks), n_chains,
-            n_pad, _max_width(plan), int(n_sweeps), rows, stream,
-        )
-    if err != 0:
-        msg = lib.gibbs_sweeps_error_string(err).decode()
-        raise RuntimeError(f"gibbs_sweeps (K1, {dname}) launch failed: {msg} ({err})")
-    gibbs_sweeps_cuda.launches[f"K1-{dname}" + ("-dE" if track_delta_e else "")] += 1
-    return (out, delta_e) if track_delta_e else out
+        what = (f"a {coupling_p.dtype} tensor" if isinstance(coupling_p, torch.Tensor)
+                else type(coupling_p).__name__)
+        raise TypeError(f"K1 takes an f32 or bf16 coupling or a QuantCoupling, got {what}")
+    return gibbs_sweeps_sparse(
+        hp, coupling_p, plan, spins_p, n_sweeps, beta, generator=generator,
+        uniforms=uniforms, track_delta_e=track_delta_e, _shape=_shape,
+        count=(gibbs_sweeps_cuda.launches, f"K1-{mode}" + ("-dE" if track_delta_e else "")))
 
 
 gibbs_sweeps_cuda.launches = collections.Counter()

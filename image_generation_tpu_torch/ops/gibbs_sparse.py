@@ -1,41 +1,43 @@
 """The sparse field gather: colored block-Gibbs sweeps that read the
 coupling only at the plan's edges.
 
-One CUDA C++ kernel for Hopper takes every int8 sweep of the port and the
-bf16 sweeps of the streaming route: K1's int8 mode (a ``QuantCoupling`` on
-the K1 route, ``ops/gibbs_cuda.py``), and K2's and K3's int8 and bf16
-modes (a ``QuantCoupling`` or dense bf16 matrix, or int8 or bf16
-``BlockSparseCoupling`` panels, on the streaming route,
+One CUDA C++ kernel for Hopper takes K1 in every value type and the int8
+and bf16 sweeps of the streaming route: K1 with an f32 or bf16 dense
+coupling or a ``QuantCoupling`` (``ops/gibbs_cuda.py``), and K2's and K3's
+int8 and bf16 modes (a ``QuantCoupling`` or dense bf16 matrix, or int8 or
+bf16 ``BlockSparseCoupling`` panels, on the streaming route,
 ``ops/gibbs_hbm_cuda.py``).  It replaces those modes of
-``image_generation_tpu/ops/gibbs_pallas.py`` (``_color_update`` with a
-``QuantCoupling``) and ``gibbs_pallas_hbm.py`` (``_kernel`` /
+``image_generation_tpu/ops/gibbs_pallas.py`` (``_kernel``, ``_kernel_fed``
+and ``_color_update``) and ``gibbs_pallas_hbm.py`` (``_kernel`` /
 ``_kernel_bs`` with int8 or bf16 panels), and computes what they compute:
-int8 in their quantized units (h / scale, β · scale, ΔE × scale), bf16 as
-f32 sums of the exact bf16 × ±1 products.  The source is
+int8 in their quantized units (h / scale, β · scale, ΔE × scale), f32 and
+bf16 as f32 sums of the exact value × ±1 products.  The source is
 ``csrc/gibbs_sparse.cu``; its header note says what bounds it on the H100
-and how the design meets that.  ``ops/cuda_build.py`` builds it beside the
-other kernels; it is bound here with ``ctypes``.
+(at the flagship's 256 chains × 16 sweeps, not the bytes or operations
+but one dependent step per color class) and how the design meets that.
+``ops/cuda_build.py`` builds it beside the other kernels; it is bound
+here with ``ctypes``.
 
 The kernel reads the coupling only at its nonzeros, through a static
 neighbour table per plan (``neighbor_table``): for each padded column, its
 neighbours' spin positions and the offsets of their couplings in the
 coupling as it is stored (dense or packed panels).  The table holds no
 values: every launch first gathers the coupling's current values into one
-32-bit word a slot (``table_words`` is the plain version of that pass).
-This relies on a contract the sampler model keeps: **the coupling is zero
-off the plan's edges** (``permuted_model`` / ``permuted_model_rows`` write
-couplings only there, and the bf16 cast, ``quantize_coupling`` and
-``pack_coupling`` keep zeros zero).  A coupling with other nonzeros is
-sampled as if they were zero.
+word a slot (``table_words`` is the plain version of that pass): 4 bytes
+for int8 and bf16, 8 for f32.  This relies on a contract the sampler model
+keeps: **the coupling is zero off the plan's edges** (``permuted_model`` /
+``permuted_model_rows`` write couplings only there, and the bf16 cast,
+``quantize_coupling`` and ``pack_coupling`` keep zeros zero).  A coupling
+with other nonzeros is sampled as if they were zero.
 
 ``gibbs_sweeps_sparse`` is the wrapper, called by the two routes'
 wrappers; it adds one to the counter and mode name they pass where it
 launches the kernel.  For a tensor on the CPU it runs the plain version,
 ``gibbs_sweeps_sparse_reference`` (the same words, fields summed per class
-span in the kernel's slot order: exact int32 for int8, f32 for bf16, so
-the kernel's fields equal it bit for bit); for a CUDA tensor it launches
-the kernel or raises.  ``launch_shape`` is the rule for the chains per
-thread block and the threads.
+span in the kernel's slot order: exact int32 for int8, f32 for f32 and
+bf16, so the kernel's fields equal it bit for bit); for a CUDA tensor it
+launches the kernel or raises.  ``launch_shape`` is the rule for the
+chains per thread block and the threads.
 """
 
 from __future__ import annotations
@@ -69,8 +71,10 @@ _STATIC_SMEM = 32 * 16 * 4  # the energy carry's per-warp partial sums (G ≤ 16
 _SMS = 132  # streaming multiprocessors of an H100 SXM: launch_shape's default
 _CHAINS = (16, 8, 4, 2, 1)  # chains per thread block the source instantiates
 # stored value type -> (code of the C entry, bits of the value in a table
-# word, the widest n_pad whose spin positions fit the word's other bits)
-_VALUES = {torch.int8: (0, 8, (1 << 23) - 1), torch.bfloat16: (1, 16, 1 << 16)}
+# word, the widest n_pad whose spin positions fit the word's other bits,
+# bytes of the word)
+_VALUES = {torch.int8: (0, 8, (1 << 23) - 1, 4), torch.bfloat16: (1, 16, 1 << 16, 4),
+           torch.float32: (2, 32, (1 << 31) - 1, 8)}
 
 _library: Optional[KernelLibrary] = None
 _library_lock = threading.Lock()
@@ -86,11 +90,11 @@ def load_library() -> KernelLibrary:
         built = load_libraries()["gibbs_sparse"]
         lib = built.lib
         lib.gibbs_sparse.argtypes = [
-            ctypes.c_int,  # dtype: 0 int8, 1 bf16
+            ctypes.c_int,  # dtype: 0 int8, 1 bf16, 2 f32
             ctypes.c_void_p,  # coupling (dense or panels)
             ctypes.c_void_p,  # nbr (deg, n_pad) int32
             ctypes.c_void_p,  # off (deg, n_pad) int32
-            ctypes.c_void_p,  # entry scratch (deg, n_pad) 32-bit words
+            ctypes.c_void_p,  # entry scratch (deg, n_pad) words
             ctypes.c_int,  # deg
             ctypes.c_void_p,  # spins_in
             ctypes.c_void_p,  # spins_out
@@ -115,11 +119,14 @@ def load_library() -> KernelLibrary:
         lib.gibbs_sparse_smem_bytes.restype = ctypes.c_longlong
         lib.gibbs_sparse_max_n_pad.argtypes = [ctypes.c_int]
         lib.gibbs_sparse_max_n_pad.restype = ctypes.c_int
+        lib.gibbs_sparse_word_bytes.argtypes = [ctypes.c_int]
+        lib.gibbs_sparse_word_bytes.restype = ctypes.c_int
         for g in _CHAINS:
             if lib.gibbs_sparse_smem_bytes(g, 6016) != _dynamic_smem(g, 6016):
                 raise RuntimeError("kernel library and wrapper disagree on shared memory")
-        for code, _bits, widest in _VALUES.values():
-            if lib.gibbs_sparse_max_n_pad(code) != widest:
+        for code, _bits, widest, word in _VALUES.values():
+            if (lib.gibbs_sparse_max_n_pad(code) != widest
+                    or lib.gibbs_sparse_word_bytes(code) != word):
                 raise RuntimeError("kernel library and wrapper disagree on the table word")
         _library = built
         return _library
@@ -183,8 +190,8 @@ def _device_table(plan: GibbsPlan, chunk: Optional[int], device):
 
 def _stored(coupling_p, plan: GibbsPlan):
     """(flat stored coupling, scale or None, chunk or None) of a
-    ``QuantCoupling``, a dense bf16 (n_pad, n_pad) matrix, or int8 (with
-    their scale) or bf16 ``BlockSparseCoupling`` panels."""
+    ``QuantCoupling``, a dense f32 or bf16 (n_pad, n_pad) matrix, or int8
+    (with their scale) or bf16 ``BlockSparseCoupling`` panels."""
     if isinstance(coupling_p, BlockSparseCoupling):
         if coupling_p.plan is not plan:
             raise ValueError("the packed coupling was cut for another plan")
@@ -197,13 +204,14 @@ def _stored(coupling_p, plan: GibbsPlan):
                         f"got {dtype} panels")
     if isinstance(coupling_p, QuantCoupling) and coupling_p.q.dtype == torch.int8:
         mat, scale = coupling_p.q, coupling_p.scale
-    elif isinstance(coupling_p, torch.Tensor) and coupling_p.dtype == torch.bfloat16:
+    elif (isinstance(coupling_p, torch.Tensor)
+          and coupling_p.dtype in (torch.float32, torch.bfloat16)):
         mat, scale = coupling_p, None
     else:
         what = (f"a {coupling_p.dtype} tensor" if isinstance(coupling_p, torch.Tensor)
                 else type(coupling_p).__name__)
-        raise TypeError(f"the gather sweep takes a QuantCoupling, a bf16 matrix or int8 / bf16 "
-                        f"panels, got {what}")
+        raise TypeError(f"the gather sweep takes a QuantCoupling, an f32 or bf16 matrix or "
+                        f"int8 / bf16 panels, got {what}")
     if tuple(mat.shape) != (plan.n_pad, plan.n_pad):
         raise ValueError(f"the coupling must be ({plan.n_pad}, {plan.n_pad}), "
                          f"got {tuple(mat.shape)}")
@@ -218,30 +226,35 @@ def _check_word(dtype, n_pad: int) -> None:
 
 def table_words(coupling_p, plan: GibbsPlan) -> torch.Tensor:
     """The (deg, n_pad) table the kernel's first pass gathers, as int64
-    holding each unsigned 32-bit word: ``(k << 8) | (A[k, c] & 0xff)`` for
-    int8, ``(k << 16) | bf16 bits of A[k, c]`` for bf16, 0 for an empty
-    slot; on the coupling's device.  Raises on a plan wider than the word
-    holds (n_pad above 2²³ − 1 for int8, 2¹⁶ for bf16)."""
+    holding each unsigned word: ``(k << 8) | (A[k, c] & 0xff)`` for int8,
+    ``(k << 16) | bf16 bits of A[k, c]`` for bf16, ``(k << 32) | f32 bits``
+    for f32 (the kernel's {k, f32 bits} pair, read as one little-endian
+    64-bit word), 0 for an empty slot; on the coupling's device.  Raises
+    on a plan wider than the word holds (n_pad above 2²³ − 1 for int8, 2¹⁶
+    for bf16, 2³¹ − 1 for f32)."""
     mat, _scale, chunk = _stored(coupling_p, plan)
     _check_word(mat.dtype, plan.n_pad)
     nbr, off, _spans = _device_table(plan, chunk, mat.device)
     vals = mat.reshape(-1)[off.clamp(min=0).long()]
     if mat.dtype == torch.int8:
         bits = vals.long() & 0xFF
-    else:
+    elif mat.dtype == torch.bfloat16:
         bits = vals.view(torch.int16).long() & 0xFFFF
+    else:
+        bits = vals.view(torch.int32).long() & 0xFFFFFFFF
     return torch.where(off >= 0, (nbr.long() << _VALUES[mat.dtype][1]) | bits, 0)
 
 
 def _word_values(words: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(neighbour positions int64, values: int32 for int8, f32 for bf16)
-    of ``table_words``' words, decoded as the kernel decodes them."""
+    """(neighbour positions int64, values: int32 for int8, f32 for f32 and
+    bf16) of ``table_words``' words, decoded as the kernel decodes them."""
     bits = _VALUES[dtype][1]
     low = words & ((1 << bits) - 1)
     if dtype == torch.int8:
         vals = (low - ((low >> 7) << 8)).to(torch.int32)  # sign of the low byte
     else:
-        f32_bits = low << 16  # the bf16 as the high half of an f32, read as int32
+        # f32: the low word; bf16: its bits as the high half of an f32
+        f32_bits = low if dtype == torch.float32 else low << 16
         vals = torch.where(f32_bits >= 2**31, f32_bits - 2**32, f32_bits).to(
             torch.int32).view(torch.float32)
     return words >> bits, vals
@@ -274,11 +287,17 @@ def _fits(chains_per_block: int, n_pad: int) -> bool:
 
 def _threads(chains_per_block: int) -> int:
     """Threads per block: 512 (column, chain) pairs a pass for one chain a
-    block, 1,024 for more.  Measured on an H100 SXM (700 W) over every G
-    at 512 and 1,024 threads, at 256, 1,024 and 2,048 chains on the
-    2,048-latent and scaled plans, three runs: with the G of
+    block, 1,024 for more.  Measured on an NVIDIA H100 80GB HBM3 (700 W)
+    over every G at 512 and 1,024 threads, at 256, 1,024 and 2,048 chains
+    on the 2,048-latent and scaled plans, three runs: with the G of
     ``launch_shape`` these were within 9 % of the fastest shape in each
-    case (PERF.md)."""
+    case.  The flagship's class spans are only 128 columns wide, so at
+    G = 1 three quarters of the 512 threads idle in each class step; yet
+    over every G at 128, 256, 512 and 1,024 threads, at the flagship's
+    K1 shapes (256 and 4,096 chains x 80 sweeps on the served plan, 256
+    and 2,048 x 16 on the fresh one, f32 and bf16), no shape beat this
+    one by more than 10 % in both of two runs (``chip_smoke.py`` phases
+    6, 11 and 21; PERF.md)."""
     return 512 if chains_per_block == 1 else 1024
 
 
@@ -296,11 +315,11 @@ def launch_shape(plan: GibbsPlan, n_chains: int, sms: int = _SMS) -> Tuple[int, 
     return g, _threads(g)
 
 
-def supported(plan: GibbsPlan, n_chains: int) -> bool:
-    """Whether the kernel takes this problem with an int8 coupling (K1's
-    gate): one chain's spins fit shared memory and a table word holds a
-    spin position."""
-    return (n_chains >= 1 and plan.n_pad <= _VALUES[torch.int8][2]
+def supported(plan: GibbsPlan, n_chains: int, dtype=torch.int8) -> bool:
+    """Whether the kernel takes this problem with a coupling stored as
+    ``dtype`` (int8, bf16 or f32; K1's gate): one chain's spins fit shared
+    memory and a table word holds a spin position."""
+    return (n_chains >= 1 and plan.n_pad <= _VALUES[dtype][2]
             and launch_shape(plan, n_chains)[0] > 0)
 
 
@@ -324,13 +343,14 @@ def gibbs_sweeps_sparse_reference(
     sweep, per color-class span of ``class_spans(plan)``, fields = the sum
     over the table's slots, in slot order, of A[k, c] · s[k] (decoded from
     ``table_words``) + h: int8 in int32 and in quantized units (h / scale,
-    β · scale, ΔE × scale at the end), bf16 in f32 (each product exact).
+    β · scale, ΔE × scale at the end), f32 and bf16 in f32 (each product
+    exact).
     Then the sigmoid, the draw and ΔE as ``gibbs_sweeps_kernel_reference``
     computes them (per block of the span: uniforms drawn from
     ``generator`` block by block in plan order, ΔE summed block by block).
 
-    ``coupling_p``: a ``QuantCoupling``, a dense bf16 matrix, or int8 /
-    bf16 ``BlockSparseCoupling`` panels; ``uniforms``: at least
+    ``coupling_p``: a ``QuantCoupling``, a dense f32 or bf16 matrix, or
+    int8 / bf16 ``BlockSparseCoupling`` panels; ``uniforms``: at least
     ``n_sweeps`` rows of (chains, n_pad), read at [sweep, row, column].
     Returns new f32 spins, or (spins, delta_e)."""
     chains, n_pad = spins_p.shape
@@ -386,8 +406,8 @@ def gibbs_sweeps_sparse(
 ):
     """``n_sweeps`` colored block-Gibbs sweeps through the sparse gather
     kernel, with an int8 coupling (a ``QuantCoupling``, or int8
-    ``BlockSparseCoupling`` panels) or a bf16 one (a dense (n_pad, n_pad)
-    matrix, or bf16 panels).
+    ``BlockSparseCoupling`` panels), a bf16 one (a dense (n_pad, n_pad)
+    matrix, or bf16 panels) or a dense f32 matrix.
 
     ``hp`` (n_pad,) and ``spins_p`` (chains, n_pad) f32, ``beta`` scalar
     or (chains,); optional fed ``uniforms`` (>= n_sweeps, chains, n_pad)
@@ -439,7 +459,8 @@ def gibbs_sweeps_sparse(
     else:
         seed = draw_seed(generator, dev)
     out = torch.empty_like(spins_p)
-    entry = torch.empty(nbr.shape, dtype=torch.int32, device=dev)  # the words' scratch
+    # the words' scratch, in 32-bit units: one a slot (int8, bf16) or two (f32)
+    entry = torch.empty((*nbr.shape, _VALUES[mat.dtype][3] // 4), dtype=torch.int32, device=dev)
     delta_e = torch.empty(n_chains, dtype=torch.float32, device=dev) if track_delta_e else None
     lib = load_library().lib
     with torch.cuda.device(dev):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the streaming sweep route (K2, K3) and the training runs around it on one CUDA card.
+"""Time the sweep kernels (K1, K2, K3) and the serving and training runs around them on one CUDA card.
 
     python3 stream_times.py [--root DIR] [--out FILE]
 
@@ -8,10 +8,21 @@ script's directory), so that two commits of the port can be timed on one
 card in one call: unpack the other one with ``git archive`` into a
 directory ``.gitignore`` lists and pass it as the root (run them in turns:
 parent, change, change, parent).  It needs only the entry points every
-commit of the port since its scaled slice has: ``gibbs_sweeps_hbm_cuda``
-and ``Trainer``.  Measured, with random |J| <= 1 models and spins drawn
-from fixed seeds:
+commit of the port since its scaled slice has: ``gibbs_sweeps_cuda``,
+``gibbs_sweeps_hbm_cuda``, ``WarmGenerator`` and ``Trainer``.  Measured,
+with random |J| <= 1 models (the served checkpoint's own for K1 at the
+serving shapes) and spins drawn from fixed seeds:
 
+* K1 in f32 and bf16 at the flagship paths' shapes, by CUDA events over 10
+  calls after a warm-up: 256 and 4,096 chains x 80 sweeps on the served
+  checkpoint's plan (n_pad 640), 256 chains x 16 sweeps and, with the
+  energy carry under the 8-rung ladder's beta, 2,048 x 16 on the fresh
+  flagship plan (n_pad 768); and K1f, f32 with fed uniforms, at 256 x 80;
+* the warm request (256 images from ``runs/models/tpu_digits_40_epochs``),
+  host clock: median and p90 of 100 after the warm-up;
+* flagship training, plain Gibbs and parallel tempering (8 rungs): one
+  epoch each, the median step after 4 warm-up steps (host clock after
+  ``torch.cuda.synchronize``);
 * the streaming route in its bf16 modes at the paths' shapes, by CUDA
   events over 5 calls after a warm-up: K3-bf16 and K3-bf16-dE (the scaled
   plan, 5,640 latents, n_pad 6,016, packed at chunk 256) and K2-bf16 and
@@ -42,6 +53,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+ROOT = Path(__file__).resolve().parent
+MODEL = ROOT / "runs" / "models" / "tpu_digits_40_epochs"
 SCALED = dict(QPU="Advantage_system6", N_LATENTS=5640, NUM_READS=64, BATCH_SIZE=1024,
               N_REPLICAS=2, SAMPLER="pt", PT_NUM_BETAS=32, PT_BETA_MIN=0.2, GIBBS_SWEEPS=4,
               GIBBS_BURN_IN=4)
@@ -59,6 +72,105 @@ def cuda_ms(fn, reps: int = 5) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def k1_times(dev, out: dict) -> None:
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.io.checkpoint import load_model_dir
+    from image_generation_tpu_torch.models.grbm import scaled_ising
+    from image_generation_tpu_torch.ops.gibbs import build_plan, permuted_model, random_spins
+    from image_generation_tpu_torch.ops.gibbs_cuda import gibbs_sweeps_cuda as k1
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    cfg = TrainingConfig()
+    _, params, graph, _, _ = load_model_dir(MODEL, dev)
+    plan = build_plan(graph)
+    served = permuted_model(plan, *scaled_ising(params, cfg.PREFACTOR, cfg.H_RANGE, cfg.J_RANGE))
+    fgraph, _ = cached_latent_graph(cfg.QPU, cfg.N_LATENTS, cfg.RANDOM_SEED)
+    fplan = build_plan(fgraph)
+    rng = np.random.default_rng(256)
+    flagship = permuted_model(
+        fplan, torch.tensor(rng.uniform(-0.5, 0.5, fgraph.n), dtype=torch.float32, device=dev),
+        torch.tensor(rng.uniform(-1.0, 1.0, fgraph.n_edges), dtype=torch.float32, device=dev))
+    ladder = torch.tensor(cfg.initial_pt_betas(), dtype=torch.float32, device=dev)
+    serve_sweeps = cfg.GIBBS_BURN_IN + cfg.GIBBS_SWEEPS
+    g = torch.Generator(device=dev)
+    for label, kplan, (hp, a), chains, sweeps, de in (
+            ("serving", plan, served, 256, serve_sweeps, False),
+            ("serving", plan, served, 4096, serve_sweeps, False),
+            ("flagship", fplan, flagship, 256, cfg.GIBBS_SWEEPS, False),
+            ("flagship PT", fplan, flagship, 2048, cfg.GIBBS_SWEEPS, True)):
+        g.manual_seed(chains + sweeps)
+        s = random_spins(g, kplan, chains, dev)
+        beta = ladder.repeat_interleave(chains // len(ladder)) if de else 1.0
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            c = a.to(dtype)
+            ms = cuda_ms(lambda: k1(hp, c, kplan, s, sweeps, beta, generator=g, track_delta_e=de),
+                         10)
+            key = f"K1-{name}{'-dE' if de else ''} {chains}x{sweeps} n_pad {kplan.n_pad}"
+            out[key + " ms"] = ms
+            print(f"[times] {key} ({label}): {ms:.4f} ms", flush=True)
+        if chains == 256 and label == "serving":  # K1f: the fed entry at the serving shape
+            u = torch.rand((sweeps, chains, kplan.n_pad), generator=g, device=dev)
+            ms = cuda_ms(lambda: k1(hp, a, kplan, s, sweeps, uniforms=u), 10)
+            key = f"K1f-f32 {chains}x{sweeps} n_pad {kplan.n_pad}"
+            out[key + " ms"] = ms
+            print(f"[times] {key} (serving, fed uniforms): {ms:.4f} ms", flush=True)
+
+
+def flagship_times(dev, out: dict) -> None:
+    from image_generation_tpu_torch.app.warm import WarmGenerator
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    w = WarmGenerator(ROOT / "runs", device=dev)
+    w.warm_buckets(MODEL, 1)
+    lat = []
+    for _ in range(100):
+        t0 = time.perf_counter()
+        w.serve(MODEL)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    out["warm request median ms"] = float(np.median(lat))
+    out["warm request p90 ms"] = float(np.percentile(lat, 90))
+    print(f"[times] warm request (256 images, {w._trainer.fns.sampler_impl}), 100 after the "
+          f"warm-up: median {out['warm request median ms']:.3f} ms, p90 "
+          f"{out['warm request p90 ms']:.3f} ms", flush=True)
+    del w
+    base = None
+    for label, overrides in (("flagship plain", {}), ("flagship PT", dict(SAMPLER="pt"))):
+        tr = Trainer(config=TrainingConfig(**overrides), device=dev)
+        if base is None:
+            tr.setup()
+            base = tr
+        else:
+            tr.graph, tr.plan, tr.physical_nodes = base.graph, base.plan, base.physical_nodes
+            tr.images, tr.data_source = base.images, base.data_source
+        times, _wall = _epoch_steps(tr)
+        med = float(np.median(times[4:]))
+        out[f"{label} step median ms"] = med * 1e3
+        print(f"[times] {label} training ({tr.fns.sampler_impl}): {len(times)} steps, median "
+              f"after 4 {med * 1e3:.3f} ms; steps (ms) {', '.join(f'{t * 1e3:.3f}' for t in times)}",
+              flush=True)
+    del base, tr
+    torch.cuda.empty_cache()
+
+
+def _epoch_steps(tr, epochs: int = 1):
+    """(seconds of each step of ``epochs`` epochs, seconds of the epochs
+    after ``train_init``), host clock after ``torch.cuda.synchronize``."""
+    times, last = [], [0.0]
+
+    def cb(_epoch, _done, _nb):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    tr.train_init(epochs)
+    torch.cuda.synchronize()
+    t0 = last[0] = time.perf_counter()
+    tr.train(epochs, batch_cb=cb, epoch_chunks=tr.n_batches)
+    return times, time.perf_counter() - t0
 
 
 def sweep_times(dev, out: dict) -> None:
@@ -98,22 +210,9 @@ def train_times(dev, out: dict) -> None:
     from image_generation_tpu_torch.config import TrainingConfig
     from image_generation_tpu_torch.training.trainer import Trainer
 
-    def on_batch(times, last):
-        def cb(_epoch, _done, _nb):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            times.append(now - last[0])
-            last[0] = now
-        return cb
-
     for label, overrides, epochs in (("scaled PT", SCALED, 2), ("2,048-latent", LATENTS2K, 1)):
         tr = Trainer(config=TrainingConfig(**overrides), device=dev)
-        tr.train_init(epochs)
-        times, last = [], [0.0]
-        torch.cuda.synchronize()
-        t0 = last[0] = time.perf_counter()
-        tr.train(epochs, batch_cb=on_batch(times, last), epoch_chunks=tr.n_batches)
-        wall = time.perf_counter() - t0
+        times, wall = _epoch_steps(tr, epochs)
         med = float(np.median(times[2:]))
         out[f"{label} step median ms"] = med * 1e3
         out[f"{label} {epochs}-epoch wall s"] = wall
@@ -163,6 +262,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"card": card, "root": str(args.root)}
+    k1_times(dev, out)
+    flagship_times(dev, out)
     sweep_times(dev, out)
     train_times(dev, out)
     line = json.dumps(out)

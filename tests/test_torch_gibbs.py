@@ -32,6 +32,7 @@ from image_generation_tpu_torch.models import grbm as tgrbm
 from image_generation_tpu_torch.ops import exact as texact
 from image_generation_tpu_torch.ops import gibbs as tgibbs
 from image_generation_tpu_torch.ops import gibbs_cuda
+from image_generation_tpu_torch.ops import gibbs_sparse
 
 MODEL = Path(__file__).resolve().parent.parent / "runs" / "models" / "tpu_digits_40_epochs"
 CHAIN_RULE = 0.98
@@ -188,14 +189,15 @@ def test_exact_matches_jax(tiny, beta):
 
 
 def test_cuda_wrapper_on_cpu_runs_plain_version(ckpt):
-    """A CPU tensor takes the plain version inside the kernel wrapper; the
-    launch counter does not move."""
+    """A CPU tensor takes the plain version inside the kernel wrapper (the
+    sparse field gather's, which K1 runs on the card); the launch counter
+    does not move."""
     _, tplan, models = ckpt
     thp, ta = tgibbs.permuted_model(tplan, *map(_t, models["strong"]))
     s0, u, _ = _inputs(tplan, 8, 2, 4, "one")
     n0 = dict(gibbs_cuda.gibbs_sweeps_cuda.launches)
     out = gibbs_cuda.gibbs_sweeps_cuda(thp, ta, tplan, _t(s0), 2, uniforms=_t(u))
-    ref = tgibbs.gibbs_sweeps_reference(thp, ta, tplan, _t(s0), 2, uniforms=_t(u))
+    ref = gibbs_sparse.gibbs_sweeps_sparse_reference(thp, ta, tplan, _t(s0), 2, uniforms=_t(u))
     assert torch.equal(out, ref)
     assert dict(gibbs_cuda.gibbs_sweeps_cuda.launches) == n0
     # the energy carry too: (spins, ΔE) from the plain version
@@ -206,22 +208,30 @@ def test_cuda_wrapper_on_cpu_runs_plain_version(ckpt):
 
 
 def test_kernel_gate_and_rows(ckpt):
+    """K1's gate and launch shape on the checkpoint's plan: the gather's
+    rule in every value type; serving (256·k chains, k = 1..16) selects
+    every chains-per-block G the source instantiates, each shape fitting
+    shared memory and the threads a multiple of 32 and of G; a plan too
+    wide for 16 chains' int8 spins takes a smaller G."""
     _, tplan, _ = ckpt
-    assert gibbs_cuda.supported_by_kernel(tplan, 256)
-    assert gibbs_cuda.supported_by_kernel(tplan, 4096)
-    assert gibbs_cuda.default_rows(tplan, 4096) == 8
-    assert gibbs_cuda.default_rows(tplan, 256) == 1
-    # serving (256·k chains, k = 1..16) selects every R the source instantiates
-    rows = {gibbs_cuda.default_rows(tplan, 256 * k) for k in range(1, 17)}
-    assert rows == set(gibbs_cuda._ROWS)
-    assert not gibbs_cuda._fits(tplan, 256, 3)
-    # the scaled Pegasus plan's width: spins no longer fit shared memory
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        assert gibbs_cuda.supported_by_kernel(tplan, 256, dtype)
+        assert gibbs_cuda.supported_by_kernel(tplan, 4096, dtype)
+        assert not gibbs_cuda.supported_by_kernel(tplan, 0, dtype)
+    assert gibbs_sparse.launch_shape(tplan, 4096)[0] == 16
+    assert gibbs_sparse.launch_shape(tplan, 256)[0] == 1
+    shapes = {gibbs_sparse.launch_shape(tplan, 256 * k) for k in range(1, 17)}
+    assert {g for g, _t in shapes} == set(gibbs_sparse._CHAINS)
+    for g, threads in shapes:
+        assert gibbs_sparse._fits(g, tplan.n_pad)
+        assert threads % 32 == 0 and threads % g == 0 and 32 <= threads <= 1024
+    # the P32 fabric's width: 16 chains' spins no longer fit shared memory
     wide = tgibbs.GibbsPlan(
-        n=6000, n_pad=6016, blocks=((0, 6000, 6016),), orig_to_perm=np.arange(6000),
-        perm_edge_i=np.zeros(0), perm_edge_j=np.zeros(0), valid_mask=np.ones(6016, bool),
+        n=23560, n_pad=23936, blocks=((0, 23560, 23936),), orig_to_perm=np.arange(23560),
+        perm_edge_i=np.zeros(0), perm_edge_j=np.zeros(0), valid_mask=np.ones(23936, bool),
     )
-    assert not gibbs_cuda._fits(wide, 4096, 8)
-    assert gibbs_cuda.default_rows(wide, 4096) == 4
+    assert not gibbs_sparse._fits(16, wide.n_pad)
+    assert gibbs_sparse.launch_shape(wide, 4096)[0] == 8
 
 
 def test_philox_known_answers():

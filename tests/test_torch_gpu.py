@@ -1,6 +1,6 @@
-"""Kernels K1 (f32, bf16), K2 and K3 (f32), the gather kernel that takes
-K1's int8 mode and K2's and K3's int8 and bf16 modes, and K4 on the card:
-the CUDA kernels against their plain versions.
+"""The gather kernel, which takes K1 in every value type (f32, bf16,
+int8) and K2's and K3's int8 and bf16 modes, the f32 K2 and K3, and K4 on
+the card: the CUDA kernels against their plain versions.
 
 These tests need a CUDA device and ``nvcc``; without a card they skip.
 This file imports no JAX, so on the GPU machine (which has none) it runs
@@ -8,19 +8,20 @@ without the JAX test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerance: K1 and the plain version sum the fields in another order and
-compute the sigmoid with different code, so they differ by about an ulp;
-a draw whose uniform falls within that ulp of its probability flips
-(probability ~1e-7 per draw) and its chain then diverges.  So the rule is
-that at least 98% of the chains come out bit-identical.  On identical
-chains ΔE agrees within 1e-4 (checkpoint model) or 1e-3·(1 + |E|)
-(|J| ≤ 1); on integer-valued couplings every sum is exact, so the packed
-kernel K3 equals the dense K2 bit for bit.  The gather kernel sums
-exact integer fields (int8), or f32 fields in its plain version's slot
-order (bf16), so against its plain version the expectation is every chain
-identical; the rule held is the same 98 % for int8 (99.9 % against the
-dense plain versions) and 99.9 % for bf16 (the chain rule against the
-dense plain versions, which sum bf16 fields in another order).
+Tolerance: a kernel and a plain version that sum the fields in another
+order (the f32 K2 / K3 against theirs, the gather against the dense plain
+versions) differ by about an ulp; a draw whose uniform falls within that
+ulp of its probability flips (probability ~1e-7 per draw) and its chain
+then diverges.  So the rule there is that at least 98% of the chains
+come out bit-identical.  On identical chains ΔE agrees within 1e-4
+(checkpoint model) or 1e-3·(1 + |E|) (|J| ≤ 1); on integer-valued
+couplings every sum is exact, so the packed kernel K3 equals the dense K2
+bit for bit.  The gather kernel sums exact integer fields (int8), or f32
+fields in its plain version's slot order (f32, bf16), so against its
+plain version every chain is expected identical: K1's f32 and bf16 modes
+are held to that (no chain differing), the int8 modes to the same 98 %
+(99.9 % against the dense plain versions) and the streaming bf16 modes
+to 99.9 %.
 """
 
 from pathlib import Path
@@ -35,11 +36,13 @@ from image_generation_tpu_torch.ops import gibbs_cuda
 from image_generation_tpu_torch.ops.exact import exact_moments
 from image_generation_tpu_torch.ops.gibbs import (
     build_plan,
+    gibbs_sweeps_kernel_reference,
     gibbs_sweeps_reference,
     permuted_model,
     random_spins,
     to_original,
 )
+from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse_reference
 
 pytestmark = pytest.mark.gpu
 
@@ -70,12 +73,18 @@ def _identical(a, b):
     return float((a == b).all(dim=1).float().mean())
 
 
+def _differing(a, b):
+    return int((~(a == b).all(dim=1)).sum())
+
+
 @pytest.mark.parametrize("strong", [False, True])
 @pytest.mark.parametrize("chains", [256, 512, 1024, 2048, 4096, 2050, 37])
 def test_fed_kernel_matches_plain(dev, ckpt, strong, chains):
-    """At the default R of every serving group size (256·k chains: R = 1,
-    1, 2, 4, 8), at a chain count whose last thread block is partial
-    (2050, R = 4) and at one below a full grid (37, R = 1)."""
+    """K1-f32 at the default G of every serving group size (256·k chains:
+    G = 1, 2, 4, 8, 16 on 132 SMs), at a chain count whose last thread
+    block is partial (2050) and at one below a full grid (37): no chain
+    differing from the gather's plain version, the chain rule against the
+    dense plain version."""
     plan, model, strong_model = ckpt
     hp, a = strong_model if strong else model
     rng = np.random.default_rng(chains)
@@ -84,9 +93,11 @@ def test_fed_kernel_matches_plain(dev, ckpt, strong, chains):
     beta = torch.tensor(rng.uniform(0.5, 2.0, chains), dtype=torch.float32, device=dev)
     s_in = s0.clone()
     out = gibbs_cuda.gibbs_sweeps_cuda(hp, a, plan, s0, 16, beta, uniforms=u)
-    ref = gibbs_sweeps_reference(hp, a, plan, s0, 16, beta, uniforms=u)
+    ref = gibbs_sweeps_sparse_reference(hp, a, plan, s0, 16, beta, uniforms=u)
+    dense = gibbs_sweeps_kernel_reference(hp, a, plan, s0, 16, beta, uniforms=u)
     torch.cuda.synchronize()
-    assert _identical(out, ref) >= CHAIN_RULE
+    assert _differing(out, ref) == 0
+    assert _identical(out, dense) >= CHAIN_RULE
     assert torch.equal(s0, s_in)  # the input is left as it was
 
 
@@ -100,9 +111,10 @@ def _ladder_beta(chains, dev):
 @pytest.mark.parametrize("strong", [False, True])
 @pytest.mark.parametrize("chains", [256, 2048])
 def test_delta_e_matches_plain(dev, ckpt, strong, chains):
-    """K1-ΔE, fed uniforms: spins under the chain rule, and on identical
-    chains ΔE within 1e-4 (checkpoint model) or 1e-3·(1 + |E|) (|J| ≤ 1);
-    256 chains at β = 1, 2,048 at the 8-rung ladder's per-chain β."""
+    """K1-ΔE, fed uniforms: no chain differing from the gather's plain
+    version, and ΔE within 1e-4 (checkpoint model) or 1e-3·(1 + |E|)
+    (|J| ≤ 1); 256 chains at β = 1, 2,048 at the 8-rung ladder's
+    per-chain β."""
     from image_generation_tpu_torch.ops.gibbs import ising_energies
 
     plan, model, strong_model = ckpt
@@ -112,10 +124,11 @@ def test_delta_e_matches_plain(dev, ckpt, strong, chains):
     u = torch.tensor(rng.random((16, chains, plan.n_pad), dtype=np.float32), device=dev)
     beta = 1.0 if chains == 256 else _ladder_beta(chains, dev)
     out, de = gibbs_cuda.gibbs_sweeps_cuda(hp, a, plan, s0, 16, beta, uniforms=u, track_delta_e=True)
-    ref, de_ref = gibbs_sweeps_reference(hp, a, plan, s0, 16, beta, uniforms=u, track_delta_e=True)
+    ref, de_ref = gibbs_sweeps_sparse_reference(hp, a, plan, s0, 16, beta, uniforms=u,
+                                                track_delta_e=True)
     torch.cuda.synchronize()
     same = (out == ref).all(dim=1)
-    assert float(same.float().mean()) >= CHAIN_RULE
+    assert bool(same.all())
     err = (de - de_ref).abs()[same]
     if strong:
         e_abs = ising_energies(hp, a, ref).abs()[same]
@@ -154,8 +167,8 @@ def test_philox_stream_matches_numpy_twin(dev, ckpt):
     s0 = random_spins(probe, plan, 128, dev)
     out = gibbs_cuda.gibbs_sweeps_cuda(hp, a, plan, s0, 4, generator=g)
     u = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 128, plan.n_pad), device=dev)
-    ref = gibbs_sweeps_reference(hp, a, plan, s0, 4, uniforms=u)
-    assert _identical(out, ref) >= CHAIN_RULE
+    ref = gibbs_sweeps_sparse_reference(hp, a, plan, s0, 4, uniforms=u)
+    assert _differing(out, ref) == 0
 
 
 def test_philox_moments_match_exact(dev):
@@ -305,7 +318,9 @@ def test_training_step_on_card_matches_cpu(dev, sampler):
 def _k1_coupling(a, form):
     from image_generation_tpu_torch.ops.quant import quantize_coupling
 
-    return a.to(torch.bfloat16) if form == "bf16" else quantize_coupling(a)
+    if form == "int8":
+        return quantize_coupling(a)
+    return a.to(torch.bfloat16) if form == "bf16" else a
 
 
 @pytest.fixture(scope="module")
@@ -322,15 +337,23 @@ def plan2k(dev):
     return plan, permuted_model(plan, hs, js)
 
 
+def _k1_shapes():
+    """Every (chains per block G, threads) K1's launch-shape sweeps time."""
+    from image_generation_tpu_torch.ops.gibbs_sparse import _CHAINS
+
+    return [(g, t) for g in _CHAINS for t in (128, 256, 512, 1024)]
+
+
 @pytest.mark.parametrize("track", [False, True])
-@pytest.mark.parametrize("form", ["bf16", "int8"])
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("chains", [256, 1030, 37])
 def test_k1_modes_match_plain(dev, ckpt, plan2k, form, chains, track):
-    """K1-bf16 / K1-int8 (and their ΔE modes) against the plain version,
-    fed uniforms and per-chain β, on the checkpoint's plan and the
-    2,048-latent plan, at every R; chains by the chain rule, ΔE within
-    1e-3·(1 + |E|) on identical chains."""
-    from image_generation_tpu_torch.ops.gibbs import gibbs_sweeps_kernel_reference, ising_energies
+    """K1-f32 / K1-bf16 / K1-int8 (and their ΔE modes) against the gather's
+    plain version, fed uniforms and per-chain β, on the checkpoint's plan
+    and the 2,048-latent plan, at the default launch shape and (f32, bf16)
+    at every G and threads: f32 and bf16 no chain differing, int8 the
+    chain rule; ΔE within 1e-3·(1 + |E|) on identical chains."""
+    from image_generation_tpu_torch.ops.gibbs import ising_energies
 
     for plan, (hp, a) in ((ckpt[0], ckpt[2]), plan2k):
         coupling = _k1_coupling(a, form)
@@ -339,27 +362,66 @@ def test_k1_modes_match_plain(dev, ckpt, plan2k, form, chains, track):
                           device=dev)
         u = torch.tensor(rng.random((3, chains, plan.n_pad), dtype=np.float32), device=dev)
         beta = torch.tensor(rng.uniform(0.5, 2.0, chains), dtype=torch.float32, device=dev)
-        ref = gibbs_sweeps_kernel_reference(hp, coupling, plan, s0, 3, beta, uniforms=u,
+        ref = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 3, beta, uniforms=u,
                                             track_delta_e=track)
-        # int8 is the gather kernel (its launch shapes: the gather tests below)
-        for rows in ((None, 1, 2, 4, 8) if form == "bf16" else (None,)):
+        rule = CHAIN_RULE if form == "int8" else 1.0
+        # the int8 launch shapes: the gather tests below
+        for shape in [None] + (_k1_shapes() if form != "int8" else []):
             out = gibbs_cuda.gibbs_sweeps_cuda(hp, coupling, plan, s0, 3, beta, uniforms=u,
-                                               track_delta_e=track, _rows_per_block=rows)
+                                               track_delta_e=track, _shape=shape)
             torch.cuda.synchronize()
             if not track:
-                assert _identical(out, ref) >= CHAIN_RULE
+                assert _identical(out, ref) >= rule, shape
                 continue
             same = (out[0] == ref[0]).all(dim=1)
-            assert float(same.float().mean()) >= CHAIN_RULE
+            assert float(same.float().mean()) >= rule, shape
             e_abs = ising_energies(hp, coupling, ref[0]).abs()[same]
             assert bool(((out[1] - ref[1]).abs()[same] <= 1e-3 * (1 + e_abs)).all())
 
 
-@pytest.mark.parametrize("form", ["bf16", "int8"])
+@pytest.mark.parametrize("form", ["f32", "bf16"])
+@pytest.mark.parametrize("chains", [37, 2050])
+def test_k1_every_shape_fed_philox_and_delta_e(dev, plan2k, form, chains):
+    """K1-f32 / K1-bf16 at every (G, threads), on 37 and 2,050 chains
+    (partial last blocks), per-chain β: fed with ΔE and in Philox mode,
+    against the gather's plain version (fed ``philox_uniforms`` for the
+    Philox stream): no chain differing, ΔE within 1e-3·(1 + |E|)."""
+    from image_generation_tpu_torch.ops.gibbs import ising_energies
+
+    plan, (hp, a) = plan2k
+    coupling = _k1_coupling(a, form)
+    rng = np.random.default_rng(chains + 7)
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32,
+                      device=dev)
+    u = torch.tensor(rng.random((3, chains, plan.n_pad), dtype=np.float32), device=dev)
+    beta = torch.tensor(rng.uniform(0.5, 2.0, chains), dtype=torch.float32, device=dev)
+    ref, de_ref = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 3, beta, uniforms=u,
+                                                track_delta_e=True)
+    e_abs = ising_energies(hp, coupling, ref).abs()
+    g = torch.Generator(device=dev)
+    for shape in _k1_shapes():
+        out, de = gibbs_cuda.gibbs_sweeps_cuda(hp, coupling, plan, s0, 3, beta, uniforms=u,
+                                               track_delta_e=True, _shape=shape)
+        torch.cuda.synchronize()
+        assert _differing(out, ref) == 0, shape
+        assert bool(((de - de_ref).abs() <= 1e-3 * (1 + e_abs)).all()), shape
+        g.manual_seed(shape[0] * 1024 + shape[1])
+        probe = torch.Generator(device=dev)
+        probe.set_state(g.get_state())
+        seed = int(gibbs_cuda.draw_seed(probe, dev).item())
+        drawn = gibbs_cuda.gibbs_sweeps_cuda(hp, coupling, plan, s0, 3, beta, generator=g,
+                                             _shape=shape)
+        u_ph = torch.tensor(gibbs_cuda.philox_uniforms(seed, 3, chains, plan.n_pad), device=dev)
+        assert _differing(drawn, gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 3, beta,
+                                                               uniforms=u_ph)) == 0, shape
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
 def test_k1_modes_philox_match_numpy_twin(dev, plan2k, form):
-    """Philox mode against the plain version fed ``philox_uniforms``, and
-    ΔE against the f64 energy change of the model the mode samples."""
-    from image_generation_tpu_torch.ops.gibbs import gibbs_sweeps_kernel_reference
+    """Philox mode against the gather's plain version fed
+    ``philox_uniforms`` (f32 and bf16: no chain differing; int8: the chain
+    rule), and ΔE against the f64 energy change of the model the mode
+    samples."""
     from image_generation_tpu_torch.ops.quant import dequantize_coupling
 
     plan, (hp, a) = plan2k
@@ -373,8 +435,8 @@ def test_k1_modes_philox_match_numpy_twin(dev, plan2k, form):
     out, de = gibbs_cuda.gibbs_sweeps_cuda(hp, coupling, plan, s0, 4, generator=g,
                                            track_delta_e=True)
     u = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 256, plan.n_pad), device=dev)
-    ref = gibbs_sweeps_kernel_reference(hp, coupling, plan, s0, 4, uniforms=u)
-    assert _identical(out, ref) >= CHAIN_RULE
+    ref = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 4, uniforms=u)
+    assert _identical(out, ref) >= (CHAIN_RULE if form == "int8" else 1.0)
     dense = (dequantize_coupling(coupling) if form == "int8" else coupling.float()).double()
 
     def e64(s):
@@ -787,17 +849,20 @@ def test_bf16_routes_match_the_dense_plain_version(dev, bf16_plans):
 
 def test_bf16_gather_refuses_without_fallback(dev, bf16_plans):
     """What the gather does not take raises before a launch, and the route
-    counts nothing: an f32 matrix (the dense kernel's), a launch shape that
-    does not fit, a non-contiguous coupling, a plan wider than a bf16 table
-    word holds."""
+    counts nothing: an f64 matrix, f32 panels (the dense K3's), a launch
+    shape that does not fit, a non-contiguous coupling, a plan wider than a
+    bf16 table word holds."""
     from image_generation_tpu_torch.ops.block_sparse import BlockSparseCoupling
     from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
     from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse
 
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+
     plan, hp, a, _ = bf16_plans["latents2048"]
     s0 = torch.ones((64, plan.n_pad), device=dev)
-    with pytest.raises(TypeError):
-        gibbs_sweeps_sparse(hp, a.float(), plan, s0, 2)
+    for other in (a.double(), pack_coupling(plan, a.float(), 256)):
+        with pytest.raises(TypeError):
+            gibbs_sweeps_sparse(hp, other, plan, s0, 2)
     for shape in ((3, 512), (2, 48), (1, 2048), (32, 1024)):
         with pytest.raises(ValueError):
             gibbs_sweeps_sparse(hp, a, plan, s0, 2, _shape=shape)

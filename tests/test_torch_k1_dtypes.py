@@ -6,8 +6,9 @@ JAX side runs the Pallas kernel as its own tests do on the CPU, in
 interpret mode with fed uniforms: ``matmul_dtype=bfloat16`` for bf16, a
 JAX ``quantize_coupling`` result for int8.  The port's side is
 ``gibbs_cuda.gibbs_sweeps_cuda`` on CPU tensors, which runs K1's plain
-version (``gibbs_sweeps_kernel_reference``: int8 in the Pallas kernel's
-quantized units, h / scale and β · scale, ΔE × scale).
+version, the sparse field gather's (``gibbs_sweeps_sparse_reference``:
+int8 in the Pallas kernel's quantized units, h / scale and β · scale,
+ΔE × scale).
 
 Tolerances (tests/test_torch_gibbs.py's): at least 98 % of the chains
 bit-identical over the run (the two sum the fields in another order and
@@ -36,6 +37,7 @@ from image_generation_tpu.training import step as jstep
 from image_generation_tpu_torch.config import TrainingConfig
 from image_generation_tpu_torch.ops import gibbs as tgibbs
 from image_generation_tpu_torch.ops import gibbs_cuda
+from image_generation_tpu_torch.ops import gibbs_sparse as gs
 from image_generation_tpu_torch.ops.quant import QuantCoupling, quantize_coupling
 from image_generation_tpu_torch.training.step import (
     make_sample_fns,
@@ -224,17 +226,24 @@ def test_dispatch_reaches_k1_modes_as_jax(dispatch_graphs, case):
 
 
 def test_k1_kernel_gate_and_rows_by_dtype(plans):
-    """The shared memory the f32 / bf16 kernel takes is sized by the held
-    spins' type, and the 2,048-latent serving chain counts select every R
-    the source instantiates in each mode; int8 is the gather kernel's
-    (its launch shape: tests/test_torch_sparse_int8.py)."""
+    """K1 is the gather kernel in every mode: its gate takes the
+    2,048-latent plan in f32, bf16 and int8 (the spins are held as int8
+    whatever the coupling's type, so the shared memory a block takes does
+    not depend on it), the serving chain counts select every chains-per-
+    block G the source instantiates, and a bf16 table word refuses a plan
+    wider than 65,536; the dispatch between K1 and the streaming route
+    stays the JAX gate."""
     tplan = plans["latents2048"][3]
-    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
-        assert gibbs_cuda._smem_bytes(tplan, 8, dtype) == 8 * (2432 + 512) * size + 128
-        rows = {gibbs_cuda.default_rows(tplan, 256 * k, dtype) for k in (1, 2, 4, 8, 16)}
-        assert rows == set(gibbs_cuda._ROWS)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
         assert gibbs_cuda.supported_by_kernel(tplan, 4096, dtype)
-    assert gibbs_cuda.supported_by_kernel(tplan, 4096, torch.int8)
+    assert gs._dynamic_smem(16, tplan.n_pad) == 16 * 2432
+    shapes = {gs.launch_shape(tplan, 256 * k)[0] for k in (1, 2, 4, 8, 16)}
+    assert shapes == set(gs._CHAINS)
+    wide = tgibbs.GibbsPlan(n=65664, n_pad=65664, blocks=((0, 65664, 65664),),
+                            orig_to_perm=np.arange(65664), perm_edge_i=np.zeros(0, np.int64),
+                            perm_edge_j=np.zeros(0, np.int64), valid_mask=np.ones(65664, bool))
+    assert not gibbs_cuda.supported_by_kernel(wide, 1, torch.bfloat16)
+    assert gibbs_cuda.supported_by_kernel(wide, 1, torch.float32)
     assert [gibbs_cuda.selects_k1(tplan, 256, it) for it in (4, 2, 1)] == [False, False, True]
 
 

@@ -30,6 +30,7 @@ from image_generation_tpu_torch.models import grbm as tgrbm
 from image_generation_tpu_torch.ops import gibbs as tgibbs
 from image_generation_tpu_torch.ops import gibbs_cuda
 from image_generation_tpu_torch.ops import pt_tune as tpt_tune
+from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse_reference
 
 MODEL = Path(__file__).resolve().parent.parent / "runs" / "models" / "tpu_digits_40_epochs"
 CHAIN_RULE = 0.98
@@ -101,7 +102,8 @@ def test_cuda_wrapper_delta_e_on_cpu_is_plain_version(ckpt):
     u = _t(rng.random((3, 16, tplan.n_pad), dtype=np.float32))
     n0 = dict(gibbs_cuda.gibbs_sweeps_cuda.launches)
     s, de = gibbs_cuda.gibbs_sweeps_cuda(hp, a, tplan, s0, 3, uniforms=u, track_delta_e=True)
-    rs, rde = tgibbs.gibbs_sweeps_reference(hp, a, tplan, s0, 3, uniforms=u, track_delta_e=True)
+    # the plain version K1 runs on CPU tensors: the sparse field gather's
+    rs, rde = gibbs_sweeps_sparse_reference(hp, a, tplan, s0, 3, uniforms=u, track_delta_e=True)
     assert torch.equal(s, rs) and torch.equal(de, rde)
     assert dict(gibbs_cuda.gibbs_sweeps_cuda.launches) == n0
 
