@@ -138,12 +138,18 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
     both bounds); by launch shape, K1-bf16 and K1-bf16-dE at the flagship
     shapes (256 and 2,048 chains x 16 sweeps) and K1-int8 at 256 and
     1,024 chains x 80 sweeps and 2,048 x 16 on the 2,048-latent plan;
-22. the span-update kernel K4 against its plain version: the fed entry
-    bit-identical at 1, 37 and 2,048 chain rows over every class-span
-    width of the scaled plan and a 23,936-wide row (the P32 fabric's
-    n_pad), with per-chain beta; the Philox entry equal to the plain
-    version fed ``philox_span_uniforms`` at a global row, column and sweep
-    offset;
+22. the span-update kernel K4 against its plain version: the owned-window
+    entry at 1, 37 and 2,048 chain rows on every window the 4-rank mesh
+    gives the scaled plan and, at each class-span width, a window inside
+    the span, straddling its left or right edge and covering it; in the
+    f32, bf16 and int8 carries, with the span's products (f32, or int32
+    totals and a scale) and without, scalar and per-chain beta, fed (a
+    strided plane) and Philox: spins bit-identical, ΔE within
+    1e-4·(1 + |ΔE|); the int8 fields rounded twice (not one fma) on totals
+    where the two differ; the whole-span entry bit-identical at every
+    class-span width and a 23,936-wide row (the P32 fabric's n_pad), and
+    its Philox mode equal to the plain version fed
+    ``philox_span_uniforms`` at a global row, column and sweep offset;
 23. the scaled configuration with ``GRAPH_SHARDED="on"`` on a (1, 4) mesh:
     4 processes on cuda:0 (``torch.multiprocessing``), joined by a gloo
     process group (NCCL refuses two ranks on one device; gloo stages CUDA
@@ -152,7 +158,8 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
     of the coupling rows (packed on its shard-local grid, bf16) and of the
     chain columns; one epoch (4 steps plus burn-in) through K4
     (``torch_graph_sharded+plrng+bs``), saved on rank 0, ``sample_spins(64)``;
-    on every rank K4 launched and K1/K2/K3 never, finite losses equal on
+    on every rank K4 launched exactly once for each (sweep, class span)
+    the rank owns columns of, and K1/K2/K3 never, finite losses equal on
     all ranks; the 4-rank sweep with fed uniforms against the
     single-device K3 on the same chains (chain rule); two steps with
     ``SWEEP_BLOCK_SPARSE="off"`` (dense bf16 row blocks of 1,504 x 6,016);
@@ -161,10 +168,13 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
     from the edge list: 64 chains x 2 sweeps dense bf16, then packed at
     chunk 128 in bf16 and in int8 (1 sweep), energies finite; each rank's
     coupling bytes and peak device memory below the whole f32 matrix;
-25. K4 per launch at the scaled path's shapes (CUDA events) beside its
-    bound and its plain version; the sharded step's median and the host
-    clock's share of the collectives in it (gloo, 4 processes on one
-    card).
+25. K4 at the scaled path's owned windows (every rank's, 2,048 rows, bf16
+    carry, ΔE, Philox, per-chain beta): per launch by CUDA events, by the
+    profiler's device time and on the host clock, beside its bound (the
+    owned window's bytes) and its plain version; its launches per rank in
+    the epoch; the whole-span entry at each class-span width; the sharded
+    step's median and the host clock's share of the collectives in it
+    (gloo, 4 processes on one card).
 
 Each path (serving, plain training, PT training, scaled training, the K2
 steps, scaled serving, the 2,048-latent training, resume and serving, the
@@ -1730,12 +1740,64 @@ GS_SCALED = dict(SCALED, GRAPH_SHARDED="on")
 K4_REPLACES = "image_generation_tpu/ops/gibbs_graph_sharded_pallas.py:127"
 
 
-def span_bound(rows: int, width: int, per_row_beta: bool, fed: bool):
-    """(bound ms, "bytes") of one K4 launch: fields in and spins out (and
-    the fed uniforms), 4 B each, plus beta and the seed, at HBM bandwidth;
-    its handful of f32 operations per element take far less."""
-    nbytes = 4.0 * rows * width * (3 if fed else 2) + 4.0 * (rows if per_row_beta else 1) + 8
+def span_bound(rows: int, width: int, per_row_beta: bool, fed: bool, spin_bytes: int = 4,
+               delta_e: bool = False, h: bool = False):
+    """(bound ms, "bytes") of one K4 launch over ``width`` owned columns:
+    the f32 partial (or fields) in, the new spin out in the carry's dtype
+    (``spin_bytes``), with ΔE the old spin in and the (rows,) accumulator
+    read and written, h's columns, the fed uniforms, beta and the seed, each
+    once at HBM bandwidth; its handful of f32 operations per element take
+    far less (its Philox integer work has no peak in the table)."""
+    per = 4 + spin_bytes * (2 if delta_e else 1) + (4 if fed else 0)
+    nbytes = (float(rows) * width * per + 4.0 * (rows if per_row_beta else 1) + 8
+              + (4.0 * width if h else 0.0) + (8.0 * rows if delta_e else 0.0))
     return nbytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def owned_spans(plan, lo: int, hi: int) -> list:
+    """The class spans (start, stop) a rank with window [lo, hi) owns
+    columns of: one K4 launch each per sweep."""
+    from image_generation_tpu_torch.ops.gibbs import class_spans
+
+    return [(a, b) for a, b, _b0, _b1 in class_spans(plan) if max(a, lo) < min(b, hi)]
+
+
+SWEEPS = [0]  # graph-sharded sweeps run in this process since the last reset
+
+
+def k4_windows(plan, ranks: int = GS_RANKS) -> list:
+    """(label, start, stop, lo, cols) of K4's owned-window launches: every
+    rank's owned spans at a (1, ranks) mesh, and at each class-span width a
+    window inside a span, straddling its left or right edge, and covering
+    it."""
+    from image_generation_tpu_torch.ops.gibbs import class_spans
+
+    l_loc = plan.n_pad // ranks
+    out = [(f"rank {r} [{a}, {b})", a, b, r * l_loc, l_loc) for r in range(ranks)
+           for a, b in owned_spans(plan, r * l_loc, (r + 1) * l_loc)]
+    spans = {b - a: (a, b) for a, b, _b0, _b1 in class_spans(plan)
+             if a >= 64 and b + 64 <= plan.n_pad}
+    for w, (a, b) in sorted(spans.items()):
+        for case, (lo, cols) in (("inside", (a + w // 4, w // 2)),
+                                 ("left", (a - 37, 37 + w // 3)),
+                                 ("right", (b - w // 3, w // 3 + 50)),
+                                 ("covering", (a - 5, w + 10))):
+            out.append((f"{case} [{a}, {b})", a, b, lo, cols))
+    return out
+
+
+def count_sweeps() -> None:
+    """Count the sweeps every ``gibbs_sweeps_graph_sharded`` call runs
+    (the training step imports the function at call time)."""
+    from image_generation_tpu_torch.ops import gibbs_graph_sharded as gs
+
+    run = gs.gibbs_sweeps_graph_sharded
+
+    def counted(*args, **kw):
+        SWEEPS[0] += args[4] if len(args) > 4 else kw["n_sweeps"]
+        return run(*args, **kw)
+
+    gs.gibbs_sweeps_graph_sharded = counted
 
 
 def launch_counts() -> dict:
@@ -1753,6 +1815,7 @@ def reset_launch_counts() -> None:
 
     reset_counts(gibbs_cuda, gibbs_hbm_cuda)
     span_update.launches.clear()
+    SWEEPS[0] = 0
 
 
 def _gs_rank(rank: int, world: int, port: int, out_dir: str, task: str, task_arg) -> None:
@@ -1766,6 +1829,7 @@ def _gs_rank(rank: int, world: int, port: int, out_dir: str, task: str, task_arg
     from image_generation_tpu_torch.parallel.mesh import create_mesh
 
     torch.cuda.set_device(0)
+    count_sweeps()
     torch.backends.cuda.matmul.allow_tf32 = False  # not inherited from the parent
     torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
@@ -1813,7 +1877,7 @@ def _gs_scaled(mesh, model_dir: str) -> dict:
     tr.train(1, batch_cb=on_batch, epoch_chunks=tr.n_batches)
     epoch_s = time.perf_counter() - t0
     comm_s, comm_calls = mesh.comm_seconds, mesh.comm_calls
-    counts = launch_counts()
+    counts, sweeps = launch_counts(), SWEEPS[0]
     st = tr.state
     cp = st.sampler_coupling
     out = {
@@ -1824,12 +1888,13 @@ def _gs_scaled(mesh, model_dir: str) -> dict:
         "chains": list(st.chains.shape), "window": [lo, hi],
         "coupling": f"{type(cp).__name__} shard {cp.shard} of {cp.n_shards}, panels "
                     f"{tuple(cp.panels.shape)} {cp.panels.dtype}, {stored_bytes(cp)} bytes",
-        "coupling_bytes": stored_bytes(cp), "n_batches": tr.n_batches,
+        "coupling_bytes": stored_bytes(cp), "n_batches": tr.n_batches, "sweeps": sweeps,
+        "owned": owned_spans(plan, lo, hi),
     }
     reset_launch_counts()
     tr.save(model_dir)
     spins = tr.sample_spins(64)
-    out["sample_counts"] = launch_counts()
+    out["sample_counts"], out["sample_sweeps"] = launch_counts(), SWEEPS[0]
     out["sample"] = [list(spins.shape), float(spins.abs().min()), float(spins.abs().max()),
                      float(spins.double().sum())]
     out["saved"] = sorted(q.name for q in Path(model_dir).iterdir())
@@ -1876,7 +1941,7 @@ def _gs_scaled(mesh, model_dir: str) -> dict:
         dense_times.append(time.perf_counter() - t0)
     c2 = k2.state.sampler_coupling
     out.update(dense_impl=k2.fns.sampler_impl, dense_losses=dense_losses,
-               dense_step_s=dense_times, dense_counts=launch_counts(),
+               dense_step_s=dense_times, dense_counts=launch_counts(), dense_sweeps=SWEEPS[0],
                dense_coupling=[list(c2.shape), str(c2.dtype)])
     return out
 
@@ -1925,7 +1990,7 @@ def _gs_p32(mesh, graph) -> dict:
                      "energies_finite": bool(torch.isfinite(e).all()),
                      "e_mean": float(e.mean()), "spins_ok": bool((s.abs() == 1).all())}
     out.update(build_s=build_s, peak_bytes=torch.cuda.max_memory_allocated(),
-               counts=launch_counts())
+               counts=launch_counts(), sweeps=SWEEPS[0], owned=owned_spans(plan, lo, hi))
     return out
 
 
@@ -1952,10 +2017,13 @@ def graph_sharded_phases(dev, card: str) -> dict:
     from image_generation_tpu_torch.config import TrainingConfig
     from image_generation_tpu_torch.ops.gibbs import build_plan, class_spans
     from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import (
+        SpanWindowUpdate,
         load_library,
         philox_span_uniforms,
         span_update,
         span_update_reference,
+        span_update_window,
+        span_update_window_reference,
     )
     from image_generation_tpu_torch.utils.graph_cache import (
         cached_latent_graph,
@@ -1974,40 +2042,98 @@ def graph_sharded_phases(dev, card: str) -> dict:
     load_library()
     g = torch.Generator(device=dev)
     g.manual_seed(22)
-    max_err, checked = 0.0, 0
+    n_pad, row0, sweep = plan.n_pad, 64, 3
+    seed_v = 0x5EED5EED1234
+    seed = torch.tensor([seed_v], dtype=torch.int64, device=dev)
+    windows = k4_windows(plan)
+    max_err, de_err, checked, whole = 0.0, 0.0, 0, 0
+    h = torch.randn(n_pad, generator=g, device=dev)
+    scale = torch.tensor(0.0123456789, device=dev)
     for rows in (1, 37, c_path):
-        u_all = torch.rand((2, rows, plan.n_pad), generator=g, device=dev)
+        u_all = torch.rand((2, rows, n_pad), generator=g, device=dev)
+        u_ph = torch.tensor(philox_span_uniforms(seed_v, sweep, row0, rows, 0, n_pad), device=dev)
         beta = 0.2 + 1.8 * torch.rand(rows, generator=g, device=dev)
-        for (start, stop, _b0, _b1) in class_spans(plan):
+        for (start, stop, _b0, _b1) in class_spans(plan):  # the whole-span entry
             f = 3.0 * torch.randn((rows, stop - start), generator=g, device=dev)
             for b in (1.0, beta):
                 u = u_all[1, :, start:stop]  # the span's columns of a sweep: a strided view
                 out = span_update(f, b, uniforms=u)
                 ref = span_update_reference(f, b, uniforms=u)
                 torch.cuda.synchronize()
-                check(torch.equal(out, ref), f"K4 fed != plain ({rows} x {stop - start})")
-                max_err = max(max_err, float((out - ref).abs().max()))
-                checked += 1
-        del u_all
+                check(torch.equal(out, ref), f"K4 whole span fed != plain ({rows} x "
+                                             f"{stop - start})")
+                whole += 1
+        for label, start, stop, lo, cols in windows:  # the owned-window entry
+            width = stop - start
+            wide = 3.0 * torch.randn((rows, width + 9), generator=g, device=dev)
+            ints = torch.randint(-300, 301, (rows, width + 9), generator=g, device=dev,
+                                 dtype=torch.int32)
+            for carry in (torch.float32, torch.bfloat16, torch.int8):
+                old = torch.where(torch.rand((rows, cols + 7), generator=g, device=dev) < 0.5,
+                                  1.0, -1.0).to(carry)
+                for partial, sc in (((ints, scale) if carry == torch.int8 else (wide, None)),
+                                    (None, None)):
+                    part = None if partial is None else partial[:, 3:3 + width]  # rows strided
+                    for b in (0.7, beta):
+                        for fed in (True, False):
+                            s_k, s_p = old.clone()[:, :cols], old.clone()[:, :cols]
+                            de_k = torch.zeros(rows, device=dev)
+                            de_p = torch.zeros(rows, device=dev)
+                            span_update_window(part, h, b, s_k, lo, start, stop, scale=sc,
+                                               uniforms=u_all[1] if fed else None,
+                                               seed=None if fed else seed, row0=row0,
+                                               sweep=sweep, delta_e=de_k)
+                            span_update_window_reference(part, h, b, s_p, lo, start, stop,
+                                                         scale=sc, uniforms=u_all[1] if fed
+                                                         else u_ph, row0=row0, sweep=sweep,
+                                                         delta_e=de_p)
+                            torch.cuda.synchronize()
+                            what = (f"K4 window != plain ({rows} x {label}, {carry}, "
+                                    f"{'products' if part is not None else 'h only'}, "
+                                    f"{'fed' if fed else 'Philox'})")
+                            check(torch.equal(s_k, s_p), what)
+                            max_err = max(max_err, float((s_k.float() - s_p.float()).abs().max()))
+                            err = (de_k - de_p).abs()
+                            check(bool((err <= 1e-4 * (1 + de_p.abs())).all()), what + ": dE")
+                            de_err = max(de_err, float(err.max()))
+                            checked += 1
+        del u_all, u_ph
+    # the int8 scale-out and + h round twice (the JAX body's fields), not one fma
+    q = np.random.default_rng(0).integers(-5000, 5001, 4096).astype(np.int32)
+    sc_v, h_v = np.float32(0.0123456789), np.float32(0.3456789)
+    two = (q.astype(np.float32) * sc_v) + h_v
+    fused = (q.astype(np.float64) * np.float64(sc_v) + np.float64(h_v)).astype(np.float32)
+    s1 = torch.full((q.size, 1), -1, dtype=torch.int8, device=dev)
+    de1 = torch.zeros(q.size, device=dev)
+    span_update_window(torch.tensor(q.reshape(-1, 1), device=dev),
+                       torch.tensor([0.0, 0.0, 0.0, float(h_v)], device=dev), 1e-3, s1, 3, 3, 4,
+                       scale=torch.tensor(sc_v, device=dev),
+                       uniforms=torch.zeros((q.size, 4), device=dev), delta_e=de1)
+    torch.cuda.synchronize()
+    check(bool((s1 == 1).all()) and np.array_equal(de1.cpu().numpy() / 2, two),
+          "K4's int8 fields are not the two roundings of the plain version")
     for rows in (1, 64):
         f = 3.0 * torch.randn((rows, 23936), generator=g, device=dev)
         u = torch.rand((rows, 23936), generator=g, device=dev)
         check(torch.equal(span_update(f, 0.9, uniforms=u),
                           span_update_reference(f, 0.9, uniforms=u)),
-              f"K4 fed != plain ({rows} x 23936)")
-        checked += 1
+              f"K4 whole span fed != plain ({rows} x 23936)")
+        whole += 1
     f = 3.0 * torch.randn((c_path, max(widths)), generator=g, device=dev)
     beta = 0.2 + 1.8 * torch.rand(c_path, generator=g, device=dev)
-    seed = torch.tensor([0x5EED5EED1234], dtype=torch.int64, device=dev)
     out = span_update(f, beta, seed=seed, row0=64, col0=2816, sweep=3)
-    u = torch.tensor(philox_span_uniforms(0x5EED5EED1234, 3, 64, c_path, 2816, max(widths)),
+    u = torch.tensor(philox_span_uniforms(seed_v, 3, 64, c_path, 2816, max(widths)),
                      device=dev)
     check(torch.equal(out, span_update_reference(f, beta, uniforms=u)),
-          "K4 Philox != plain fed philox_span_uniforms")
-    print(f"[22] K4 fed entry bit-identical to the plain version in {checked} checks (rows 1, 37, "
-          f"{c_path} x span widths {widths}, scalar and per-chain beta, strided uniforms; rows "
-          f"1 and 64 x 23936); Philox entry at row 64, column 2816, sweep 3 equal to the plain "
-          f"version fed philox_span_uniforms ({c_path} x {max(widths)})")
+          "K4 whole span Philox != plain fed philox_span_uniforms")
+    print(f"[22] K4 owned-window entry equal to its plain version in {checked} checks (rows 1, "
+          f"37, {c_path} x {len(windows)} windows: every rank's owned spans at the (1, 4) mesh "
+          f"and inside / left / right / covering at widths {sorted(set(widths))}; carries f32, "
+          f"bf16, int8; products and h only; scalar and per-chain beta; fed strided and Philox): "
+          f"spins bit-identical, dE max |diff| {de_err:.3e} (<= 1e-4 (1 + |dE|)); int8 fields "
+          f"the two roundings on 4,096 totals of which {(two != fused).sum()} differ from one "
+          f"fma; whole-span entry bit-identical in {whole} checks (span widths {widths}, rows 1 "
+          f"and 64 x 23936) and in Philox mode at row 64, column 2816, sweep 3")
 
     # ---- 23. the scaled slice, graph-sharded on 4 gloo ranks on this card -------
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gs_"))
@@ -2020,7 +2146,8 @@ def graph_sharded_phases(dev, card: str) -> dict:
               f"sampler {r0['impl']}; rank windows {[r['window'] for r in res]}; chains "
               f"{r0['chains']} a rank; coupling {r0['coupling']}")
         for r, x in enumerate(res):
-            print(f"[23] rank {r}: losses {x['losses']}; launches {x['counts']}; step times (ms) "
+            print(f"[23] rank {r}: losses {x['losses']}; launches {x['counts']} ({x['sweeps']} "
+                  f"sweeps x {len(x['owned'])} owned spans {x['owned']}); step times (ms) "
                   f"{', '.join(f'{t * 1e3:.3f}' for t in x['step_s'])}; collectives "
                   f"{x['comm_calls']} calls, {x['comm_s']:.3f} s of the {x['epoch_s']:.3f} s "
                   f"epoch; peak memory {x['peak_gib']:.3f} GiB  [{card}]")
@@ -2035,19 +2162,22 @@ def graph_sharded_phases(dev, card: str) -> dict:
                   "sharded training losses")
             check(x["losses"] == r0["losses"] and x["mse"] == r0["mse"],
                   "the ranks' losses differ")
-            check(x["counts"].get("K4", 0) > 0, "a rank never launched K4")
+            n_owned = len(x["owned"])
+            check(x["counts"].get("K4", 0) == x["sweeps"] * n_owned > 0,
+                  f"K4 launches {x['counts'].get('K4', 0)} != {x['sweeps']} sweeps x {n_owned} "
+                  "owned spans on a rank")
             check(not any(k.startswith(("K1", "K2", "K3")) for k in x["counts"]),
                   "a rank launched K1, K2 or K3 on the graph-sharded path")
-            check(x["sample_counts"].get("K4", 0) > 0
+            check(x["sample_counts"].get("K4", 0) == x["sample_sweeps"] * n_owned > 0
                   and not any(k.startswith(("K1", "K2", "K3")) for k in x["sample_counts"]),
-                  "sample_spins did not run through K4 alone")
+                  "sample_spins did not run through K4 alone, once per owned span and sweep")
             check(x["sample"] == r0["sample"], "the ranks sampled different spins")
             check(x["dense_impl"] == "torch_graph_sharded+plrng", "dense steps: sampler")
             check(x["dense_coupling"] == [[plan.n_pad // 4, plan.n_pad], "torch.bfloat16"],
                   "dense row block is not a quarter of the coupling")
-            check(x["dense_counts"].get("K4", 0) > 0
+            check(x["dense_counts"].get("K4", 0) == x["dense_sweeps"] * n_owned > 0
                   and not any(k.startswith(("K1", "K2", "K3")) for k in x["dense_counts"]),
-                  "dense steps did not run through K4 alone")
+                  "dense steps did not run through K4 alone, once per owned span and sweep")
             check(bool(np.isfinite(x["dense_losses"]).all())
                   and x["dense_losses"] == r0["dense_losses"], "dense step losses")
         check(r0["sample"][0] == [64, plan.n] and r0["sample"][1:3] == [1.0, 1.0],
@@ -2088,47 +2218,85 @@ def graph_sharded_phases(dev, card: str) -> dict:
         for k in ("dense bf16", "packed bf16", "packed int8"):
             check(x[k]["energies_finite"] and x[k]["spins_ok"], f"P32 {k}: energies or spins")
             check(x[k]["bytes"] < whole_f32, f"P32 {k}: coupling bytes")
-        check(x["counts"].get("K4", 0) > 0
+        check(x["counts"].get("K4", 0) == x["sweeps"] * len(x["owned"]) > 0
               and not any(k.startswith(("K1", "K2", "K3")) for k in x["counts"]),
-              "the P32 sweeps did not run through K4 alone")
+              "the P32 sweeps did not run through K4 alone, once per owned span and sweep")
 
     # ---- 25. times ------------------------------------------------------------
     g.manual_seed(25)
-    per_span, tot_ms, tot_plain, tot_bound = [], 0.0, 0.0, 0.0
     beta = torch.tensor(cfg.initial_pt_betas(), dtype=torch.float32,
                         device=dev).repeat_interleave(cfg.NUM_READS)
-    for w in widths:
-        f = 3.0 * torch.randn((c_path, w), generator=g, device=dev)
-        u = torch.rand((c_path, w), generator=g, device=dev)
-        ms = cuda_ms(lambda: span_update(f, beta, seed=seed), 50, warmup=3)
-        plain_ms = cuda_ms(lambda: span_update_reference(f, beta, uniforms=u), 20, warmup=2)
-        bound = span_bound(c_path, w, True, False)[0]
-        per_span.append(f"{w}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound * 1e3:.3f} us)")
-        tot_ms, tot_plain, tot_bound = tot_ms + ms, tot_plain + plain_ms, tot_bound + bound
-    n_spans = len(widths)
+    h = torch.randn(plan.n_pad, generator=g, device=dev)
+    u_sweep = torch.rand((c_path, plan.n_pad), generator=g, device=dev)
+    l_loc = plan.n_pad // GS_RANKS
+    per_win, tot = [], {"ms": 0.0, "plain": 0.0, "bound": 0.0, "host": 0.0}
+    n_win = 0
+    for r in range(GS_RANKS):  # the path's launches: bf16 carry, dE, Philox, per-chain beta
+        lo = r * l_loc
+        spins = torch.where(torch.rand((c_path, l_loc), generator=g, device=dev) < 0.5, 1.0,
+                            -1.0).to(torch.bfloat16)
+        de = torch.zeros(c_path, device=dev)
+        upd = SpanWindowUpdate(spins, lo, beta, h=h, seed=seed, row0=0, delta_e=de)
+        for a, b in owned_spans(plan, lo, lo + l_loc):
+            part = 3.0 * torch.randn((c_path, b - a), generator=g, device=dev)
+            ms = cuda_ms(lambda: upd(part, a, b, 1), 50, warmup=3)
+            plain_ms = cuda_ms(lambda: span_update_window_reference(
+                part, h, beta, spins, lo, a, b, uniforms=u_sweep, delta_e=de), 20, warmup=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                upd(part, a, b, 1)
+            host_us = (time.perf_counter() - t0) / 50 * 1e6  # enqueue only: no synchronise
+            torch.cuda.synchronize()
+            own = min(b, lo + l_loc) - max(a, lo)
+            bound = span_bound(c_path, own, True, False, spin_bytes=2, delta_e=True, h=True)[0]
+            per_win.append(f"rank {r} [{max(a, lo)}, {min(b, lo + l_loc)}) of [{a}, {b}): "
+                           f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {bound * 1e3:.3f} us, "
+                           f"host {host_us:.2f} us)")
+            for k, v in (("ms", ms), ("plain", plain_ms), ("bound", bound), ("host", host_us)):
+                tot[k] += v
+            n_win += 1
     # the device's own time per launch: back-to-back launches of a kernel
     # this short can be paced by the wrapper's host work, not the card
     from torch.profiler import ProfilerActivity, profile
 
-    f = 3.0 * torch.randn((c_path, max(widths)), generator=g, device=dev)
+    a, b = owned_spans(plan, l_loc, 2 * l_loc)[0]  # rank 1's widest window: [1504, 2816)
+    part = 3.0 * torch.randn((c_path, b - a), generator=g, device=dev)
+    spins = torch.ones((c_path, l_loc), dtype=torch.bfloat16, device=dev)
+    upd = SpanWindowUpdate(spins, l_loc, beta, h=h, seed=seed, delta_e=torch.zeros(c_path,
+                                                                                  device=dev))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
-            span_update(f, beta, seed=seed)
+            upd(part, a, b, 1)
         torch.cuda.synchronize()
     k4_events = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and "span_update" in e.key]
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "span_window" in e.key]
     n_ev = sum(e.count for e in k4_events)
     device_us = sum(e.self_device_time_total for e in k4_events) / n_ev if n_ev else None
-    print(f"[25] K4 device time per launch by torch.profiler at {c_path} x {max(widths)}: "
+    print(f"[25] K4 device time per launch by torch.profiler on rank 1's window [{l_loc}, {b}) "
+          f"({c_path} x {b - l_loc}, bf16, dE, Philox): "
           + (f"{device_us:.3f} us over {n_ev} launches" if n_ev else "not recorded")
           + f"  [{card}]")
+    print(f"[25] K4 (owned window, bf16 carry, dE, Philox, per-chain beta) per launch at "
+          f"{c_path} rows, by CUDA events: {'; '.join(per_win)}; mean over the {n_win} launches "
+          f"of a sweep on the 4 ranks {tot['ms'] / n_win:.4f} ms, plain "
+          f"{tot['plain'] / n_win:.4f} ms, bound {tot['bound'] / n_win * 1e3:.3f} us (bytes), "
+          f"host {tot['host'] / n_win:.2f} us a launch  [{card}]")
+    whole_ms = []
+    for w in sorted(set(widths)):  # the whole-span entry, the same kernel
+        f = 3.0 * torch.randn((c_path, w), generator=g, device=dev)
+        whole_ms.append(f"{w}: {cuda_ms(lambda: span_update(f, beta, seed=seed), 50, warmup=3):.4f}"
+                        f" ms")
+    print(f"[25] K4's whole-span entry (fresh f32 buffer, Philox) at {c_path} rows by span "
+          f"width: {'; '.join(whole_ms)}  [{card}]")
     steps = [t for x in res for t in x["step_s"]]
     med = float(np.median(r0["step_s"]))
     share = [x["comm_s"] / x["epoch_s"] for x in res]
-    print(f"[25] K4 (Philox, per-chain beta) per launch at {c_path} rows by span width: "
-          f"{'; '.join(per_span)}; mean over the {n_spans} spans of a sweep {tot_ms / n_spans:.4f}"
-          f" ms, plain {tot_plain / n_spans:.4f} ms, bound {tot_bound / n_spans * 1e3:.3f} us "
-          f"(bytes)  [{card}]")
+    by_rank = [x["counts"].get("K4", 0) for x in res]
+    print(f"[25] K4 launches per rank in the graph-sharded epoch (burn-in + {r0['n_batches']} "
+          f"steps): {by_rank} ({[x['sweeps'] for x in res]} sweeps x "
+          f"{[len(x['owned']) for x in res]} owned spans; the whole-span update launched "
+          f"{len(widths)} a sweep on every rank)")
     print(f"[25] graph-sharded scaled step (gloo, 4 processes on one card; not a multi-GPU "
           f"number): rank 0 median {med * 1e3:.3f} ms over {len(r0['step_s'])} steps (all ranks' "
           f"steps {min(steps) * 1e3:.3f}-{max(steps) * 1e3:.3f} ms); host-clock share of the "
@@ -2138,23 +2306,29 @@ def graph_sharded_phases(dev, card: str) -> dict:
              "train_scaled_sharded_dense": _sum_counts(x["dense_counts"] for x in res),
              "p32_sharded": _sum_counts(x["counts"] for x in res32)}
     kernel = {
-        "name": "span_update (K4)",
+        "name": "span_update (K4), owned window",
         "mode": "K4",
+        "kernel": "span_window_kernel<bf16 bits, false> (one launch a rank's owned columns of a "
+                  "class span: + h, draw, write in the carry's dtype, dE)",
         "route": "cuda",
         "source": "image_generation_tpu_torch/csrc/span_update.cu",
         "replaces": K4_REPLACES,
         "launches": paths["train_scaled_sharded"].get("K4", 0),
-        "launches_by_rank": [x["counts"].get("K4", 0) for x in res],
+        "launches_by_rank": by_rank,
         "max_abs_err": max_err,
-        "tolerance": "bit-identical to the plain version (fed and Philox)",
-        "ms": tot_ms / n_spans,
-        "plain_ms": tot_plain / n_spans,
-        "bound_ms": tot_bound / n_spans,
+        "max_de_err": de_err,
+        "tolerance": "spins bit-identical to the plain version (fed and Philox), dE within "
+                     "1e-4 (1 + |dE|)",
+        "ms": tot["ms"] / n_win,
+        "plain_ms": tot["plain"] / n_win,
+        "bound_ms": tot["bound"] / n_win,
         "bound_by": "bytes",
         "library_ms": None,
         "device_us_by_profiler": device_us,
-        "shape": f"{c_path} rows x a class span of the scaled plan (widths {widths}), Philox, "
-                 f"per-chain beta; mean per launch over a sweep's {n_spans} spans",
+        "host_us_per_launch": tot["host"] / n_win,
+        "shape": f"{c_path} rows x each rank's owned columns of each class span at the (1, 4) "
+                 f"mesh (n_pad {plan.n_pad}, windows of {l_loc}), bf16 carry, dE, Philox, "
+                 f"per-chain beta; mean per launch over a sweep's {n_win} launches",
     }
     return {"paths": paths, "kernels": [kernel]}
 

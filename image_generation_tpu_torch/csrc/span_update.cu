@@ -1,42 +1,73 @@
 // The class-span Bernoulli update of the graph-sharded Gibbs sweep for
-// Hopper (sm_90a): kernel K4.
+// Hopper (sm_90a): kernel K4, one owned-window update.
 //
 // Replaces the Pallas TPU kernels of
 // image_generation_tpu/ops/gibbs_graph_sharded_pallas.py: _update_hw_kernel
 // (hardware PRNG seeded per row tile), _update_hw_rowseed_kernel (re-seeded
 // per 8-row group from global row ids) and _update_fed_kernel (fed
 // uniforms), built by make_pallas_update.  The graph-sharded sweep
-// (ops/gibbs_graph_sharded.py) computes each rank's partial fields of a
-// color-class span with a matrix product, all-reduces them over the graph
-// axis and adds h; this kernel then turns the span's fields into new spins:
+// (ops/gibbs_graph_sharded.py) computes each rank's partial products of a
+// color-class span [start, stop) with a matrix product and all-reduces
+// them over the graph axis.  This kernel then does the rest of the span's
+// update for the columns [a, b) = [max(start, lo), min(stop, lo + L)) that
+// the rank owns, in one launch:
 //
-//     p   = sigmoid(-2 * beta_row * fields)
-//     out = u < p ? +1 : -1                         (f32, like the TPU kernel)
+//     f    = partial + h[col]                  (f32 partial)
+//          = (partial_int32 * scale) + h[col]  (int8 coupling: two roundings)
+//          = h[col]                            (no shard couples into the span)
+//     p    = sigmoid(-2 * beta_row * f)        (the expression of the plain
+//                                               version, torch.sigmoid's bits)
+//     new  = u < p ? +1 : -1
+//     dE  += f * (new - old)                   (optional, per chain row)
+//     spins[row, col - lo] = new               (in place, in the carry's
+//                                               dtype: f32, bf16 or int8)
 //
-// Fields arrive f32 in real units whatever the coupling form (dense f32 or
-// bf16, int8 scaled out after the all-reduce, packed panels), so one kernel
-// serves every composition.  beta is per chain row or one scalar.
+// A color-class span has no internal edge and f is formed before the
+// write, so the in-place update is safe.  The int8 scale-out and the add
+// of h use __fmul_rn / __fadd_rn: nvcc -O3 would otherwise contract them
+// into one fmaf, and the fields would differ by an ulp from the JAX body's
+// (and the plain version's) two roundings.  beta is per chain row or one
+// scalar.
 //
-// Uniforms: fed (a (rows, width) f32 view with leading dimension ld_u, the
-// span's columns of the sweep's (n_sweeps, chains, n_pad) array), or drawn
-// from Philox4x32-10 keyed by the run's 64-bit seed with the counter
+// Uniforms: fed (rows of ld_u floats whose column 0 is global column
+// u_col0; the sweep's (chains, n_pad) plane is read at global columns), or
+// drawn from Philox4x32-10 keyed by the run's 64-bit seed with the counter
 // (global column, global chain row, sweep, 0) and u = (bits >> 8) * 2^-24:
 // the counter layout of K1 (gibbs_common.cuh), so gibbs_cuda.philox_uniforms
-// is this kernel's numpy twin too.  The span is implied by the column, so
-// the stream does not depend on how the mesh splits rows or columns: every
-// rank of a graph axis draws the same update from the same seed (which the
-// agreement of the ranks requires), and a run on another mesh draws the
-// same chain.  That covers both TPU variants, so PLRNG_ROW_SEED selects
-// nothing here.
+// is this kernel's numpy twin too.  The counter holds global coordinates,
+// never window-relative ones: an owned window draws exactly the bits a
+// whole-span update draws for the same element, every rank of a graph
+// axis agrees, and a run on another mesh draws the same chain.  That
+// covers both TPU variants, so PLRNG_ROW_SEED selects nothing here.
 //
-// What bounds it on the H100.  Elementwise: 4 B of fields in and 4 B of
-// spins out per element (plus 4 B of uniforms when fed), ~40 integer
-// operations of Philox and one expf per element.  At the scaled slice's
-// shape (2,048 chain rows x a class span of up to ~1,000 columns) that is
-// a few MB a launch, a few microseconds at 3.35 TB/s: memory-bound, and at
-// these sizes launch-bound.  One thread per element, threads of a warp on
-// neighbouring columns (coalesced loads and stores), a 2-D grid of
-// (column tiles, row slices).
+// The whole-span update (the wrapper's span_update) is the case where the
+// window is the span, h is absent (the fields are the partial) and the
+// spins are a fresh f32 buffer; no second kernel.
+//
+// What bounds it on the H100.  Elementwise: per owned element 4 B of f32
+// (or int32) partial in, the old spin read (only with dE) and the new one
+// written in the carry's dtype (1-4 B), 4 B of uniforms when fed; ~60
+// integer operations of Philox and one expf.  At the scaled plan a rank
+// owns 1,504 of 6,016 columns of 2,048 chain rows: ~25 MB a sweep, ~7 us
+// at 3.35 TB/s.  On the card a launch takes about three times that at
+// the widest window, with Philox or fed uniforms alike (PERF.md section
+// 6): the integer work and the load latency bound it, not the bytes.
+// Launched back to back, the narrow windows are paced by the wrapper's
+// host time a launch.
+//
+// Launch shape.  One warp per (chain row, column chunk of up to 256
+// columns): the lanes walk the chunk with stride 32, so loads and stores
+// of a warp are coalesced, and the row's dE partial is one warp-shuffle
+// sum and one atomicAdd per row and block.  8 warps, so 8 chain rows, a
+// block: the scaled plan's 128-column spans and the few-dozen-column
+// windows where a span straddles two ranks are narrow, and a block of 256
+// threads along one row's columns (the earlier one-thread-per-element
+// tiling) would leave most of them idle there.  The grid is (row groups,
+// column chunks): 256 x 6 blocks at 2,048 rows x 1,504 columns.  Chunks
+// of 32, 64 and 128 columns and the loop unrolled 4 times were timed
+// against it (k4_variants.py, PERF.md section 6): each took longer at the
+// widest window, and none was faster in both rounds over a sweep's
+// launches, which the host paces.
 //
 // C interface (bound with ctypes by ops/gibbs_graph_sharded_cuda.py); each
 // entry returns a cudaError_t (0 on success).
@@ -46,44 +77,153 @@
 
 #include "gibbs_common.cuh"
 
+// What stays fixed over a sweep run (set once by the wrapper's per-call
+// object); the per-span arguments go with each launch.  Outside the
+// anonymous namespace: the C entry takes it, and is exported.
+struct SpanWindowArgs {
+  const float* h;         // (n_pad,) global; null: the fields are the partial
+  const float* beta;      // (rows,) or one value
+  const float* scale;     // () the int8 coupling's scale, or null
+  const float* uniforms;  // fed: sweep 0's plane; null: Philox
+  const int64_t* seed;    // Philox seed (one int64 on the device), or null
+  void* spins;            // (rows, ld_s) window in the carry's dtype
+  float* delta_e;         // (rows,) accumulator, or null
+  long long ld_u;         // uniforms' row stride (floats)
+  long long sweep_u;      // uniforms' sweep stride (floats)
+  long long ld_s;         // spins' row stride (elements)
+  int beta_per_row;
+  int spin_type;          // SpinType
+  int rows;
+  int lo;                 // global column of the window's column 0
+  int cols;               // the window's width L
+  int u_col0;             // global column of the uniforms' column 0
+  int row0;               // global chain row of row 0
+  int device;             // CUDA device of every pointer
+  void* stream;
+};
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxRowBlocks = 65535;
+constexpr int kWarp = 32;
+constexpr int kRowsPerBlock = kThreads / kWarp;
+constexpr int kChunk = 256;  // columns a warp walks (8 a lane)
+constexpr int kMaxChunks = 65535;
 
-__global__ void span_update_kernel(const float* __restrict__ fields,
-                                   const float* __restrict__ beta,
-                                   int beta_per_row,
-                                   const float* __restrict__ uniforms,
-                                   long long ld_u,
-                                   const int64_t* __restrict__ seed,
-                                   float* __restrict__ out, int rows,
-                                   int width, int row0, int col0, int sweep) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= width) return;
+enum PartialKind { kNoPartial = 0, kF32Partial = 1, kI32Partial = 2 };
+enum SpinType { kSpinF32 = 0, kSpinBF16 = 1, kSpinI8 = 2 };
+
+template <typename S>
+struct Spin;
+
+template <>
+struct Spin<float> {
+  static __device__ __forceinline__ float load(const float* p) { return *p; }
+  static __device__ __forceinline__ void store(float* p, bool up) {
+    *p = up ? 1.0f : -1.0f;
+  }
+};
+
+template <>
+struct Spin<bf16_bits> {
+  static __device__ __forceinline__ float load(const bf16_bits* p) {
+    return __uint_as_float(static_cast<uint32_t>(*p) << 16);
+  }
+  static __device__ __forceinline__ void store(bf16_bits* p, bool up) {
+    *p = up ? static_cast<bf16_bits>(0x3F80u) : static_cast<bf16_bits>(0xBF80u);
+  }
+};
+
+template <>
+struct Spin<int8_t> {
+  static __device__ __forceinline__ float load(const int8_t* p) {
+    return static_cast<float>(*p);
+  }
+  static __device__ __forceinline__ void store(int8_t* p, bool up) {
+    *p = up ? static_cast<int8_t>(1) : static_cast<int8_t>(-1);
+  }
+};
+
+template <typename S, bool kFed>
+__global__ void __launch_bounds__(kThreads)
+span_window_kernel(SpanWindowArgs args, const void* __restrict__ partial,
+                   int kind, long long ld_p, int start, int a, int b,
+                   int sweep) {
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int r = blockIdx.x * kRowsPerBlock + warp;
+  if (r >= args.rows) return;  // whole warps leave: the shuffle below is safe
+  const int c_begin = a + blockIdx.y * kChunk;
+  const int c_end = min(b, c_begin + kChunk);
+
+  const float neg2beta = -2.0f * args.beta[args.beta_per_row ? r : 0];
+  const float scale = kind == kI32Partial ? *args.scale : 0.0f;
+  const float* __restrict__ h = args.h;
+  // row offsets that take global columns (c >= a >= each array's column 0)
+  long long u_off = 0;
   uint32_t key0 = 0u, key1 = 0u;
-  if (uniforms == nullptr) {
-    const uint64_t s = static_cast<uint64_t>(*seed);
+  if (kFed) {
+    u_off = static_cast<long long>(sweep) * args.sweep_u +
+            static_cast<long long>(r) * args.ld_u - args.u_col0;
+  } else {
+    const uint64_t s = static_cast<uint64_t>(*args.seed);
     key0 = static_cast<uint32_t>(s);
     key1 = static_cast<uint32_t>(s >> 32);
   }
-  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
-    const size_t i = static_cast<size_t>(r) * width + c;
-    const float neg2beta = -2.0f * beta[beta_per_row ? r : 0];
-    const float x = neg2beta * fields[i];
+  const long long p_off = static_cast<long long>(r) * ld_p - start;
+  const long long s_off = static_cast<long long>(r) * args.ld_s - args.lo;
+  S* __restrict__ spins = static_cast<S*>(args.spins);
+  float* de = args.delta_e;
+
+  float acc = 0.0f;
+  for (int c = c_begin + lane; c < c_end; c += kWarp) {
+    // the old spin is loaded first, with the partial: loaded where dE uses
+    // it, after Philox, its latency stalled every element and a launch took
+    // more than twice as long (k4_variants.py, PERF.md section 6)
+    S* const slot = spins + (s_off + c);
+    const float old = de != nullptr ? Spin<S>::load(slot) : 0.0f;
+    float f;
+    if (kind == kNoPartial) {
+      f = __ldg(h + c);
+    } else {
+      float q;
+      if (kind == kI32Partial) {
+        q = __fmul_rn(__int2float_rn(__ldg(static_cast<const int*>(partial) + (p_off + c))),
+                      scale);
+      } else {
+        q = __ldg(static_cast<const float*>(partial) + (p_off + c));
+      }
+      f = h != nullptr ? __fadd_rn(q, __ldg(h + c)) : q;
+    }
+    const float x = neg2beta * f;
     const float p = 1.0f / (1.0f + expf(-x));
     float u;
-    if (uniforms != nullptr) {
-      u = uniforms[static_cast<size_t>(r) * ld_u + c];
+    if (kFed) {
+      u = __ldg(args.uniforms + (u_off + c));
     } else {
-      const uint32_t bits = philox4x32_10(static_cast<uint32_t>(col0 + c),
-                                          static_cast<uint32_t>(row0 + r),
+      const uint32_t bits = philox4x32_10(static_cast<uint32_t>(c),
+                                          static_cast<uint32_t>(args.row0 + r),
                                           static_cast<uint32_t>(sweep), 0u,
                                           key0, key1);
       u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
     }
-    out[i] = u < p ? 1.0f : -1.0f;
+    const bool up = u < p;
+    if (de != nullptr) acc += f * ((up ? 1.0f : -1.0f) - old);
+    Spin<S>::store(slot, up);
   }
+  if (de != nullptr) {
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o /= 2) acc += __shfl_down_sync(0xffffffffu, acc, o);
+    if (lane == 0) atomicAdd(de + r, acc);
+  }
+}
+
+template <typename S, bool kFed>
+void launch(const SpanWindowArgs& args, dim3 grid, const void* partial,
+            int kind, long long ld_p, int start, int a, int b, int sweep) {
+  span_window_kernel<S, kFed><<<grid, kThreads, 0,
+                                static_cast<cudaStream_t>(args.stream)>>>(
+      args, partial, kind, ld_p, start, a, b, sweep);
 }
 
 }  // namespace
@@ -96,26 +236,61 @@ const char* span_update_error_string(int err) {
 
 int span_update_threads() { return kThreads; }
 
-// fields, out: (rows, width) f32, contiguous.  beta: (rows,) f32 when
-// beta_per_row, else one f32.  Exactly one of uniforms (fed, rows of ld_u
-// floats) and seed (one int64 on the device: Philox) is non-null.  row0 /
-// col0: the global chain row / padded column of element (0, 0); sweep: the
-// sweep index of the counter.
-int span_update(const float* fields, const float* beta, int beta_per_row,
-                const float* uniforms, long long ld_u, const int64_t* seed,
-                float* out, int rows, int width, int row0, int col0, int sweep,
-                void* stream) {
-  if (rows < 1 || width < 1 || row0 < 0 || col0 < 0 || sweep < 0 ||
-      (uniforms == nullptr) == (seed == nullptr) ||
-      (uniforms != nullptr && ld_u < width)) {
+int span_window_args_size() { return static_cast<int>(sizeof(SpanWindowArgs)); }
+
+// One class span's owned-window update.  args: what is fixed over the run
+// (struct above).  partial: the span's all-reduced products, (rows, ld_p)
+// with column 0 at global column start: f32 (kind 1), int32 with
+// args->scale (kind 2), or null (kind 0: fields = h).  [a, b): the owned
+// global columns, inside [start, ...) and the window [lo, lo + cols).
+// sweep: the Philox counter's sweep and the fed plane.
+int span_window(const SpanWindowArgs* args, const void* partial, int kind,
+                long long ld_p, int start, int a, int b, int sweep) {
+  const SpanWindowArgs& x = *args;
+  const int width = b - a;
+  if (x.rows < 1 || width < 1 || start < 0 || a < start || a < x.lo ||
+      b > x.lo + x.cols || x.row0 < 0 || sweep < 0 || x.beta == nullptr ||
+      x.spins == nullptr || x.ld_s < x.cols ||
+      (x.uniforms == nullptr) == (x.seed == nullptr) ||
+      (x.uniforms != nullptr && (x.u_col0 > a || x.ld_u < b - x.u_col0)) ||
+      (kind == kNoPartial) != (partial == nullptr) ||
+      (kind == kNoPartial && x.h == nullptr) ||
+      (kind == kI32Partial && x.scale == nullptr) ||
+      (kind != kNoPartial && ld_p < b - start) || kind < 0 || kind > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((width + kThreads - 1) / kThreads,
-                  rows < kMaxRowBlocks ? rows : kMaxRowBlocks);
-  span_update_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      fields, beta, beta_per_row, uniforms, ld_u, seed, out, rows, width,
-      row0, col0, sweep);
-  return static_cast<int>(cudaGetLastError());
+  const int row_groups = (x.rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int chunks = (width + kChunk - 1) / kChunk;
+  if (chunks > kMaxChunks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (current != x.device && (err = cudaSetDevice(x.device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const dim3 grid(row_groups, chunks);
+  const bool fed = x.uniforms != nullptr;
+  switch (x.spin_type) {
+    case kSpinF32:
+      fed ? launch<float, true>(x, grid, partial, kind, ld_p, start, a, b, sweep)
+          : launch<float, false>(x, grid, partial, kind, ld_p, start, a, b, sweep);
+      break;
+    case kSpinBF16:
+      fed ? launch<bf16_bits, true>(x, grid, partial, kind, ld_p, start, a, b, sweep)
+          : launch<bf16_bits, false>(x, grid, partial, kind, ld_p, start, a, b, sweep);
+      break;
+    case kSpinI8:
+      fed ? launch<int8_t, true>(x, grid, partial, kind, ld_p, start, a, b, sweep)
+          : launch<int8_t, false>(x, grid, partial, kind, ld_p, start, a, b, sweep);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (current != x.device) cudaSetDevice(current);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -17,17 +17,22 @@ A color-class span [c0, c1) (``gibbs.class_spans``: a whole color class,
 possibly several blocks wide) is updated at once:
 
     partial = S[:, own rows] @ A[own rows, c0:c1]      # torch.matmul
-    fields  = all_reduce(partial) (· scale) + h[c0:c1]  # one collective
-    new     = span_update(fields, β, u)                 # kernel K4
-    S[:, own columns ∩ [c0, c1)] = new[...]             # plain slices
+    total   = all_reduce(partial)                       # one collective
+    K4: S[:, own columns ∩ [c0, c1)] = update(total (· scale) + h, β, u)
 
-Every rank of the graph axis computes the same update from the same
-all-reduced fields and the same uniforms, and writes its own columns of
-it.  The uniforms are fed (n_sweeps, C, n_pad) and read at the span's
-global columns, or drawn from K4's Philox stream keyed by one seed per
-call (drawn from a generator seeded alike on every rank) with the counter
-(global column, global row, sweep, 0), or, in the plain update
-(``USE_PALLAS="off"``), drawn per span from the generator.  The contraction
+Every rank of the graph axis all-reduces the same span's products, and
+K4 (``SpanWindowUpdate``, made once per call) forms the fields of the
+columns the rank owns, draws their spins, adds their ΔE and writes them
+into the rank's window in the carry's dtype, in one launch per (sweep,
+span) where the rank owns columns and none where it owns none.  The
+uniforms are fed (n_sweeps, C, n_pad) and read at global columns, or
+drawn from K4's Philox stream keyed by one seed per call (drawn from a
+generator seeded alike on every rank) with the counter (global column,
+global row, sweep, 0): either way an owned window draws what the whole
+span's update would draw for its columns.  The plain update
+(``USE_PALLAS="off"``) forms the whole span's fields, draws every span's
+uniforms from the generator (owned or not, as the JAX body does), and
+writes its columns with plain slices.  The contraction
 is split over the ranks, so each span's products divide evenly.  An int8
 coupling's partial products are exact integers (±1 × int8 summed in f32
 stays below 2²⁴), rounded to int32 and all-reduced in int32 as the JAX
@@ -38,8 +43,9 @@ reads them and the coupling as f32, so bf16 products accumulate in f32 and
 come out f32.
 
 With ``track_delta_e`` each rank sums fields·(new − old) over the columns
-it owns and one all-reduce at the end gives every rank the run's energy
-change per chain, which parallel tempering carries.
+it owns (inside K4, or with plain ops) and one all-reduce at the end gives
+every rank the run's energy change per chain, which parallel tempering
+carries.
 
 ``ising_energies_graph_sharded`` computes E = h·s + ½ sᵀAs for (C, L) or
 (T, C, L) spins: this rank's partial S@A over all n_pad columns,
@@ -130,13 +136,23 @@ def _span_products(coupling, s_own, plan: GibbsPlan, span, matmul_dtype):
     return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
 
 
-def _reduce_products(partial: torch.Tensor, coupling, mesh) -> torch.Tensor:
-    """The all-reduced products in real units: int8 partials (exact
-    integers) go over the wire as int32 and are scaled out after."""
+def _all_reduce_products(partial: torch.Tensor, coupling, mesh) -> torch.Tensor:
+    """The all-reduced products: int8 partials (exact integers) go over
+    the wire, and come back, as int32; K4 scales them out."""
     if _is_quant(coupling):
-        total = mesh.all_reduce(torch.round(partial).to(torch.int32))
-        return total.to(torch.float32) * coupling.scale
+        return mesh.all_reduce(torch.round(partial).to(torch.int32))
     return mesh.all_reduce(partial)
+
+
+def _scale_out(total: torch.Tensor, coupling) -> torch.Tensor:
+    """All-reduced products in real units: int8 totals times the scale."""
+    return total.to(torch.float32) * coupling.scale if _is_quant(coupling) else total
+
+
+def _reduce_products(partial: torch.Tensor, coupling, mesh) -> torch.Tensor:
+    """The all-reduced products in real units (scaled out after the
+    collective)."""
+    return _scale_out(_all_reduce_products(partial, coupling, mesh), coupling)
 
 
 def plain_update(fields: torch.Tensor, beta_col, generator=None,
@@ -182,7 +198,7 @@ def gibbs_sweeps_graph_sharded(
     Returns this rank's new (C, L) f32 spins, or (spins, ΔE) with
     ``track_delta_e``, ΔE (C,) the same on every rank."""
     from image_generation_tpu_torch.ops.gibbs_cuda import draw_seed
-    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import span_update
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import SpanWindowUpdate
 
     if not supports_graph_sharding(plan, mesh):
         raise ValueError(
@@ -213,22 +229,29 @@ def gibbs_sweeps_graph_sharded(
         seed = draw_seed(generator, dev)
     s = spins_loc.to(carry).clone()
     de = torch.zeros(c_loc, dtype=torch.float32, device=dev)
+    update = None
+    if use_kernel:  # K4 over this rank's window, prepared once for the run
+        update = SpanWindowUpdate(s, lo, beta_t, h=hp, scale=coupling_loc.scale if quant else None,
+                                  uniforms=uniforms, seed=None if uniforms is not None else seed,
+                                  row0=row0, delta_e=de if track_delta_e else None)
     spans = class_spans(plan)
     for sweep in range(n_sweeps):
         for span in spans:
             start, stop = span[0], span[1]
             partial = _span_products(coupling_loc, s, plan, span, matmul_dtype)
+            if partial is not None:
+                partial = _all_reduce_products(partial, coupling_loc, mesh)
+            a, b = max(start, lo), min(stop, hi)  # this rank's columns of the span
+            if update is not None:
+                if a < b:
+                    update(partial, start, stop, sweep)
+                continue
             if partial is None:
                 fields = hp[start:stop].expand(c_loc, stop - start).contiguous()
             else:
-                fields = _reduce_products(partial, coupling_loc, mesh) + hp[start:stop]
+                fields = _scale_out(partial, coupling_loc) + hp[start:stop]
             u = None if uniforms is None else uniforms[sweep, :, start:stop]
-            if use_kernel:
-                new = span_update(fields, beta_t, uniforms=u, seed=None if u is not None else seed,
-                                  row0=row0, col0=start, sweep=sweep)
-            else:
-                new = plain_update(fields, beta_col, generator, u)
-            a, b = max(start, lo), min(stop, hi)  # this rank's columns of the span
+            new = plain_update(fields, beta_col, generator, u)
             if a >= b:
                 continue
             mine = new[:, a - start: b - start]

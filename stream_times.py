@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the sweep kernels (K1, K2, K3) and the serving and training runs around them on one CUDA card.
+"""Time the sweep kernels (K1, K2, K3, K4) and the serving and training runs around them on one CUDA card.
 
-    python3 stream_times.py [--root DIR] [--out FILE]
+    python3 stream_times.py [--root DIR] [--out FILE] [--only k1,flagship,sweeps,train,k4]
 
 Imports ``image_generation_tpu_torch`` from ``--root`` (default: this
 script's directory), so that two commits of the port can be timed on one
@@ -34,7 +34,18 @@ serving shapes) and spins drawn from fixed seeds:
   ``torch.cuda.synchronize``); four unscheduled steps with
   ``SWEEP_BLOCK_SPARSE="off"`` (K2), the median of the last three;
 * the 2,048-latent configuration: one epoch, its wall time and median
-  step.
+  step;
+* K4 at the graph-sharded scaled shapes (2,048 chain rows, the 4-rank
+  mesh's windows of 1,504 columns, a bf16 carry, ΔE, Philox, the 32-rung
+  ladder's beta), by CUDA events over 20 calls after a warm-up and on the
+  host clock (the enqueue alone): the whole-span entry ``span_update`` at
+  each class-span width; one sweep's update on each rank after the
+  all-reduce, as the sweep composed it around ``span_update`` (the
+  span's fields, the whole-span update, the slice, ΔE and the write for
+  the 7 spans) and, where the tree has it, through ``SpanWindowUpdate``
+  (one launch per owned span).  Every commit since the graph-sharded
+  slice has ``span_update``, so the composed run times the other tree's
+  K4 at the same shapes.
 
 Prints the card's name and power limit (``nvidia-smi``), one line per
 number, and last one JSON object of them all (also written to ``--out``).
@@ -242,12 +253,97 @@ def train_times(dev, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def k4_times(dev, out: dict) -> None:
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.ops import gibbs_graph_sharded_cuda as k4
+    from image_generation_tpu_torch.ops.gibbs import build_plan, class_spans
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    cfg = TrainingConfig(**SCALED)
+    graph, _ = cached_latent_graph(cfg.QPU, cfg.N_LATENTS, cfg.RANDOM_SEED)
+    plan = build_plan(graph)
+    rows, ranks = cfg.PT_NUM_BETAS * cfg.NUM_READS, 4
+    l_loc = plan.n_pad // ranks
+    beta = torch.tensor(cfg.initial_pt_betas(), dtype=torch.float32,
+                        device=dev).repeat_interleave(cfg.NUM_READS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    seed = torch.tensor([0x5EED5EED1234], dtype=torch.int64, device=dev)
+    hp = torch.randn(plan.n_pad, generator=g, device=dev)
+    spans = [(a, b) for a, b, _b0, _b1 in class_spans(plan)]
+    partials = {span: 3.0 * torch.randn((rows, span[1] - span[0]), generator=g, device=dev)
+                for span in spans}
+    for w in sorted({b - a for a, b in spans}):
+        f = partials[next(span for span in spans if span[1] - span[0] == w)]
+        ms = cuda_ms(lambda: k4.span_update(f, beta, seed=seed), 20)
+        out[f"K4 whole span {rows}x{w} ms"] = ms
+        print(f"[times] K4 whole-span entry {rows} x {w} (Philox, f32 out): {ms:.4f} ms",
+              flush=True)
+
+    def host_us(fn, reps: int = 20) -> float:
+        """Host microseconds per call, the enqueue alone (no synchronise)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    for r in range(ranks):
+        lo, hi = r * l_loc, (r + 1) * l_loc
+        s = torch.where(torch.rand((rows, l_loc), generator=g, device=dev) < 0.5, 1.0,
+                        -1.0).to(torch.bfloat16)
+        de = torch.zeros(rows, device=dev)
+        owned = [(a, b) for a, b in spans if max(a, lo) < min(b, hi)]
+
+        def composed():  # the sweep's epilogue around the whole-span entry
+            nonlocal de
+            for a, b in spans:
+                fields = partials[(a, b)] + hp[a:b]
+                new = k4.span_update(fields, beta, seed=seed, row0=0, col0=a, sweep=1)
+                x0, x1 = max(a, lo), min(b, hi)
+                if x0 >= x1:
+                    continue
+                mine = new[:, x0 - a: x1 - a]
+                old = s[:, x0 - lo: x1 - lo].to(torch.float32)
+                de = de + (fields[:, x0 - a: x1 - a] * (mine - old)).sum(-1)
+                s[:, x0 - lo: x1 - lo] = mine.to(s.dtype)
+
+        key = f"K4 rank {r} sweep composed"
+        out[key + " ms"], out[key + " host us"] = cuda_ms(composed, 20), host_us(composed)
+        line = (f"[times] K4 one sweep on rank {r} (window [{lo}, {hi}), {len(owned)} owned "
+                f"spans of 7): composed around span_update {out[key + ' ms']:.4f} ms, host "
+                f"{out[key + ' host us']:.1f} us")
+        if hasattr(k4, "SpanWindowUpdate"):
+            upd = k4.SpanWindowUpdate(s, lo, beta, h=hp, seed=seed, delta_e=de)
+
+            def window():
+                for a, b in owned:
+                    upd(partials[(a, b)], a, b, 1)
+
+            key = f"K4 rank {r} sweep window"
+            out[key + " ms"], out[key + " host us"] = cuda_ms(window, 20), host_us(window)
+            line += (f"; owned-window kernel {out[key + ' ms']:.4f} ms, host "
+                     f"{out[key + ' host us']:.1f} us")
+        print(line, flush=True)
+
+
+SECTIONS = ("k1", "flagship", "sweeps", "train", "k4")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
                     help="the checkout whose image_generation_tpu_torch is timed")
     ap.add_argument("--out", type=Path, default=None, help="also write the JSON object here")
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help=f"comma-separated sections to time, of {', '.join(SECTIONS)}")
     args = ap.parse_args()
+    only = args.only.split(",")
+    if not set(only) <= set(SECTIONS):
+        ap.error(f"--only takes {', '.join(SECTIONS)}")
     if not torch.cuda.is_available():
         print("stream_times: no CUDA device visible", file=sys.stderr)
         return 1
@@ -262,10 +358,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"card": card, "root": str(args.root)}
-    k1_times(dev, out)
-    flagship_times(dev, out)
-    sweep_times(dev, out)
-    train_times(dev, out)
+    for name, fn in (("k1", k1_times), ("flagship", flagship_times), ("sweeps", sweep_times),
+                     ("train", train_times), ("k4", k4_times)):
+        if name in only:
+            fn(dev, out)
     line = json.dumps(out)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -949,6 +949,188 @@ def test_span_update_refuses_without_fallback(dev):
     assert not span_update.launches
 
 
+# the class-span widths of the scaled plan (5,640 latents, n_pad 6,016: 4 x
+# 1,408 and 3 x 128 columns) and the window cases of a span [start, stop)
+SCALED_SPAN_WIDTHS = (1408, 128)
+WINDOW_CASES = ("inside", "left", "right", "covering")
+CARRY_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def _window(case, start, width):
+    """(lo, cols) of a rank window that lies inside the span, straddles its
+    left or right edge, or covers it."""
+    return {"inside": (start + width // 4, width // 2),
+            "left": (start - 37, 37 + width // 3),
+            "right": (start + width - width // 3, width // 3 + 50),
+            "covering": (start - 5, width + 10)}[case]
+
+
+@pytest.mark.parametrize("carry", CARRY_DTYPES, ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("rows", [1, 37, 2048])
+def test_span_window_matches_plain(dev, rows, carry):
+    """The window kernel against ``span_update_window_reference`` over
+    every span width of the scaled plan and every window case, with the
+    products (f32, or int32 totals and a scale for an int8 carry) and with
+    no partial, scalar and per-chain β, fed (a strided plane of a (sweeps,
+    rows, n_pad) array) and Philox uniforms, in a window whose rows are
+    strided: spins bit for bit, ΔE within 1e-4·(1 + |ΔE|); one launch
+    each."""
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import (
+        philox_span_uniforms,
+        span_update,
+        span_update_window,
+        span_update_window_reference,
+    )
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(rows)
+    n_pad, start, row0, sweep = 6016, 2816, 64, 3
+    seed = torch.tensor([0x5EED5EED1234], dtype=torch.int64, device=dev)
+    h = torch.randn(n_pad, generator=g, device=dev)
+    u_all = torch.rand((2, rows, n_pad), generator=g, device=dev)
+    beta_rows = 0.2 + 1.8 * torch.rand(rows, generator=g, device=dev)
+    scale = torch.tensor(0.0123456789, device=dev)
+    checked = 0
+    for width in SCALED_SPAN_WIDTHS:
+        stop = start + width
+        wide = torch.randn((rows, width + 9), generator=g, device=dev)
+        f32_partial = (3.0 * wide)[:, 3:3 + width]  # rows strided by width + 9
+        i32_partial = torch.randint(-300, 301, (rows, width + 9), generator=g, device=dev,
+                                    dtype=torch.int32)[:, 2:2 + width]
+        ph = torch.tensor(philox_span_uniforms(0x5EED5EED1234, sweep, row0, rows, start, width),
+                          device=dev)
+        u_ph = torch.zeros((rows, n_pad), device=dev)
+        u_ph[:, start:stop] = ph
+        for case in WINDOW_CASES:
+            lo, cols = _window(case, start, width)
+            old = torch.where(torch.rand((rows, cols + 7), generator=g, device=dev) < 0.5,
+                              1.0, -1.0).to(carry)
+            for partial in ("products", None):
+                part, sc = None, None
+                if partial is not None:
+                    part, sc = (i32_partial, scale) if carry == torch.int8 else (f32_partial,
+                                                                                   None)
+                for beta in (0.7, beta_rows):
+                    for fed in (True, False):
+                        s_k, s_p = old.clone()[:, :cols], old.clone()[:, :cols]
+                        de_k = torch.zeros(rows, device=dev)
+                        de_p = torch.zeros(rows, device=dev)
+                        kw = dict(scale=sc, row0=row0, sweep=sweep)
+                        span_update.launches.clear()
+                        span_update_window(part, h, beta, s_k, lo, start, stop,
+                                           uniforms=u_all[1] if fed else None,
+                                           seed=None if fed else seed, delta_e=de_k, **kw)
+                        assert dict(span_update.launches) == {"K4f" if fed else "K4": 1}
+                        span_update_window_reference(part, h, beta, s_p, lo, start, stop,
+                                                     uniforms=u_all[1] if fed else u_ph,
+                                                     delta_e=de_p, **kw)
+                        torch.cuda.synchronize()
+                        assert s_k.dtype == carry
+                        assert torch.equal(s_k, s_p), (width, case, partial, fed)
+                        assert bool(((de_k - de_p).abs() <= 1e-4 * (1 + de_p.abs())).all())
+                        checked += 1
+    assert checked == len(SCALED_SPAN_WIDTHS) * len(WINDOW_CASES) * 8
+
+
+def test_span_window_int8_fields_round_twice(dev):
+    """On int32 totals where one fused multiply-add differs from the
+    scale-out and the add of h rounded apart, the kernel's fields (2·f
+    read back from ΔE on a one-column window, new spin +1, old −1) equal
+    the two roundings bit for bit, as the plain version's and JAX's do
+    (tests/test_torch_k4_window.py)."""
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import span_update_window
+
+    q = np.random.default_rng(0).integers(-5000, 5001, 4096).astype(np.int32)
+    scale, h = np.float32(0.0123456789), np.float32(0.3456789)
+    two = (q.astype(np.float32) * scale) + h
+    fused = (q.astype(np.float64) * np.float64(scale) + np.float64(h)).astype(np.float32)
+    assert (two != fused).mean() > 0.05
+    s = torch.full((q.size, 1), -1, dtype=torch.int8, device=dev)
+    de = torch.zeros(q.size, device=dev)
+    span_update_window(torch.tensor(q.reshape(-1, 1), device=dev),
+                       torch.tensor([0.0, 0.0, 0.0, float(h)], device=dev), 1e-3, s, 3, 3, 4,
+                       scale=torch.tensor(scale, device=dev),
+                       uniforms=torch.zeros((q.size, 4), device=dev), delta_e=de)
+    torch.cuda.synchronize()
+    assert bool((s == 1).all())
+    np.testing.assert_array_equal(de.cpu().numpy() / 2, two)
+
+
+def test_span_window_refuses_without_fallback(dev):
+    """A CPU tensor in the CUDA path, a dtype or shape the kernel does not
+    take, or a window that owns no column of the span raises, and nothing
+    launches."""
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import (
+        SpanWindowUpdate,
+        span_update,
+        span_update_window,
+    )
+
+    s = torch.ones((8, 32), device=dev)
+    h = torch.zeros(128, device=dev)
+    u = torch.rand((8, 128), device=dev)
+    part = torch.zeros((8, 40), device=dev)
+    ok = dict(uniforms=u)
+    span_update.launches.clear()
+    for args, kw in (
+            ((part, h.cpu(), 1.0, s, 0, 10, 50), ok),  # h on the CPU
+            ((part.cpu(), h, 1.0, s, 0, 10, 50), ok),  # partial on the CPU
+            ((part, h, 1.0, s, 0, 10, 50), dict(uniforms=u.cpu())),  # uniforms on the CPU
+            ((part, h, 1.0, s.double(), 0, 10, 50), ok),  # spin dtype
+            ((part.half(), h, 1.0, s, 0, 10, 50), ok),  # partial dtype
+            ((part.to(torch.int32), h, 1.0, s, 0, 10, 50), ok),  # int32 without a scale
+            ((part, h, 1.0, s, 0, 10, 50), dict(ok, scale=torch.ones((), device=dev))),
+            ((part[:, :30], h, 1.0, s, 0, 10, 50), ok),  # partial narrower than the span
+            ((part, h, 1.0, s, 0, 10, 50), dict(seed=torch.tensor([1], device=dev,
+                                                                   dtype=torch.int32))),
+            ((part, h, 1.0, s, 64, 10, 50), ok),  # the window owns no column
+            ((part, h, 1.0, s.t(), 0, 10, 50), ok),  # column-strided window
+            ((part, h, torch.ones(3, device=dev), s, 0, 10, 50), ok),  # β rows
+            ((part, h, 1.0, s, 0, 10, 50), dict(uniforms=u, delta_e=torch.zeros(8))),
+    ):
+        with pytest.raises(ValueError):
+            span_update_window(*args, **kw)
+    with pytest.raises(ValueError):  # h does not reach the span
+        SpanWindowUpdate(s, 100, 1.0, h=h, uniforms=u)(None, 120, 140, 0)
+    with pytest.raises(ValueError):  # the uniforms do not reach the span
+        SpanWindowUpdate(s, 100, 1.0, h=torch.zeros(256, device=dev), uniforms=u)(None, 120,
+                                                                                   140, 0)
+    assert not span_update.launches
+
+
+def test_graph_sharded_sweep_launches_once_per_owned_span(dev, ckpt):
+    """Two gloo ranks on cuda:0 sweep the checkpoint's plan (int8, ΔE, fed
+    uniforms): K4 launches once per (sweep, class span) a rank owns
+    columns of, and the sweep equals the plain update on the same
+    uniforms up to ΔE's summation order."""
+    from image_generation_tpu_torch.ops.gibbs import class_spans
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded import gibbs_sweeps_graph_sharded
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import span_update
+    from image_generation_tpu_torch.ops.quant import quantize_coupling
+
+    plan, _, (hp, a) = ckpt
+    rng = np.random.default_rng(8)
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (256, plan.n_pad)), dtype=torch.float32,
+                      device=dev)
+    u = torch.tensor(rng.random((3, 256, plan.n_pad), dtype=np.float32), device=dev)
+
+    def rank(mesh):
+        lo, hi = mesh.window(plan.n_pad)
+        rows = quantize_coupling(a[lo:hi].contiguous(), mesh=mesh)
+        return [gibbs_sweeps_graph_sharded(hp, rows, plan, s0[:, lo:hi].contiguous(), 3, mesh,
+                                           uniforms=u, track_delta_e=True, use_kernel=k)
+                for k in (True, False)]
+
+    span_update.launches.clear()
+    outs = _gloo_ranks(2, rank)
+    owned = sum(max(start, g * plan.n_pad // 2) < min(stop, (g + 1) * plan.n_pad // 2)
+                for g in range(2) for start, stop, _b0, _b1 in class_spans(plan))
+    assert dict(span_update.launches) == {"K4f": 3 * owned}
+    (k0, p0), (k1, p1) = outs
+    assert torch.equal(torch.cat([k0[0], k1[0]], 1), torch.cat([p0[0], p1[0]], 1))
+    assert bool(((k0[1] - p0[1]).abs() <= 1e-4 * (1 + p0[1].abs())).all())
+
+
 def _gloo_ranks(n_ranks, fn):
     """``fn(mesh)`` on ``n_ranks`` threads, each a graph rank of a
     (1, n_ranks) mesh over its own gloo group (the CPU tests' harness)."""
