@@ -19,15 +19,18 @@ then K1 with a bf16 and an int8 coupling: a 2,048-latent model on
 Advantage_system6 (the config defaults otherwise: a dense bf16 coupling
 through K2-bf16, the gather kernel, in training; served int8 through
 K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL_DTYPE`` "bfloat16" and
-"int8" (one epoch each).  Phases:
+"int8" (one epoch each); and the config defaults at 1,280 latents on
+Advantage2_system1 (n_pad 1,664, too large for K1 in f32: a dense f32
+coupling through K2-f32, the gather, in plain Gibbs, PT and serving; one
+epoch each, at full width).  Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    nvcc; exits non-zero without a CUDA device;
-2. builds the kernels from ``csrc/`` (the gather kernel
-   ``gibbs_sparse.cu``, which takes K1 in every value type and K2's and
-   K3's int8 and bf16 modes; the f32 K2 and K3; K4; one ``nvcc`` per
-   source, started together) and prints the build time and the ptxas
-   report (registers and spills of every instantiation);
+2. builds the kernels from ``csrc/``, two sources (the gather kernel
+   ``gibbs_sparse.cu``, which takes K1, K2 and K3 in every value type, and
+   K4's ``span_update.cu``; one ``nvcc`` per source, started together) and
+   prints the build time and the ptxas report (registers and spills of
+   every instantiation);
 3. K1 (the gather, f32) against its plain PyTorch version with fed
    uniforms, on the checkpoint's plan at 80 sweeps and at 256·k chains for
    k = 1, 2, 4, 8, 16 (the serving group sizes at which the default chains
@@ -77,13 +80,14 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
     scaled plan (47 color blocks, chunk 256 with the final chunk clamped):
     f32, bf16 and int8, each with and without ΔE, 256 chains at β = 1 and
     2,048 chains at the 32-rung ladder's per-chain β, 4 sweeps and 3 (run
-    as 4), under the chain rule and the ΔE rule (1e-3·(1 + |E|)); the int8
-    and bf16 modes (the gather kernel) against the gather's plain version
-    (>= 99.9 % of chains identical, the fraction printed) and the bf16
-    modes also against the dense plain version (the chain rule, the
-    fraction printed); K3 equal to K2 bit for bit on an integer-valued
-    coupling; K3-int8 against the dense plain version at 256 chains x 80
-    sweeps (>= 99.9 %, printed); Philox mode against ``philox_uniforms``;
+    as 4), every mode the gather kernel, against the gather's plain
+    version (f32: no chain differing; int8, bf16: >= 99.9 % of chains
+    identical; the fraction printed), the f32 and bf16 modes also against
+    the dense plain version ``gibbs_sweeps_hbm_reference`` (the chain
+    rule, the fraction printed), the ΔE rule (1e-3·(1 + |E|)); K3 equal to
+    K2 bit for bit on an integer-valued coupling; K3-int8 against the
+    dense plain version at 256 chains x 80 sweeps (>= 99.9 %, printed);
+    Philox mode against ``philox_uniforms`` (f32: no chain differing);
     moments against exact enumeration on the 12-spin graph through both
     kernels in f32 and in bf16 (the bf16-rounded model);
 13. scaled PT training: ``Trainer(cfg, device="cuda")`` sets up the P16
@@ -99,11 +103,11 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
     256 finite images in [0, 1]; the lone-request latency over 10
     requests;
 16. K2 and K3 in every mode timed at the path's shapes (2,048 chains × 4
-    sweeps; the served K3-int8 at 256 chains × 80 sweeps) beside the plain
-    version and ``sweep_bound`` on the stored form (packed or int8 bytes,
-    nonzeros from the plan's edge list), the gather's modes (int8, bf16)
-    also on the bytes the gather reads (its table and the nonzeros);
-    K3-bf16-dE by launch shape at 2,048 x 4; the served K3-int8 by launch
+    sweeps; the served K3-int8 at 256 chains × 80 sweeps) beside the
+    gather's plain version and ``sweep_bound`` on the bytes the gather
+    reads (its table and the nonzeros) and on the stored form (dense,
+    packed or int8 bytes; nonzeros from the plan's edge list);
+    K3-bf16-dE and K2-f32-dE by launch shape at 2,048 x 4; the served K3-int8 by launch
     shape at 256 and 1,024 chains x 80 sweeps and 2,048 x 4 (G × threads
     128 to 1,024); one scaled step under the profiler;
 17. K1-bf16 and K1-int8 (the gather) against the gather's plain version
@@ -149,7 +153,9 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
     where the two differ; the whole-span entry bit-identical at every
     class-span width and a 23,936-wide row (the P32 fabric's n_pad), and
     its Philox mode equal to the plain version fed
-    ``philox_span_uniforms`` at a global row, column and sweep offset;
+    ``philox_span_uniforms`` at a global row, column and sweep offset; ΔE
+    repeating itself: 20 launches from the same spins and a zeroed ΔE
+    equal bit for bit at 2,048 rows on every window, in every carry;
 23. the scaled configuration with ``GRAPH_SHARDED="on"`` on a (1, 4) mesh:
     4 processes on cuda:0 (``torch.multiprocessing``), joined by a gloo
     process group (NCCL refuses two ranks on one device; gloo stages CUDA
@@ -174,12 +180,28 @@ K1-int8; one epoch, resumed for a second) and the flagship with ``SAMPLER_MATMUL
     owned window's bytes) and its plain version; its launches per rank in
     the epoch; the whole-span entry at each class-span width; the sharded
     step's median and the host clock's share of the collectives in it
-    (gloo, 4 processes on one card).
+    (gloo, 4 processes on one card);
+26. (in a fresh process spawned after phase 21: in the main process,
+    after the earlier phases, the profiler recorded none of the step's
+    sweep launches) the 1,280-latent configuration (the config defaults with
+    ``N_LATENTS=1280`` on Advantage2_system1, n_pad 1,664; batch 128, 8
+    replicas, 256 chains x 16 sweeps): one epoch of plain Gibbs through
+    K2-f32 and one of 8-rung PT through K2-f32-dE (``cuda_hbm``, K1 never
+    launched, finite losses, carried ladder energies against
+    ``ising_energies`` recomputed on the card), one profiled step of each
+    (the gather's two kernels must appear), the model saved and served
+    through ``WarmGenerator`` (256 x 80, every dispatch K2-f32; 256 finite
+    images in [0, 1]; the lone-request latency over 10; a profiled
+    request); K2-f32 and K2-f32-dE fed at the path's shapes against the
+    gather's plain version (no chain differing) and the dense plain
+    version (the chain rule), timed at 256 x 80, 256 x 16 and 2,048 x 16
+    beside both bounds and by launch shape; the step medians.
 
 Each path (serving, plain training, PT training, scaled training, the K2
 steps, scaled serving, the 2,048-latent training, resume and serving, the
-flagship bf16 / int8 epochs, and on every rank the graph-sharded epoch,
-its sampling, its dense steps and the P32 sweeps) runs with the launch
+flagship bf16 / int8 epochs, on every rank the graph-sharded epoch,
+its sampling, its dense steps and the P32 sweeps, and the 1,280-latent
+training, PT training and serving) runs with the launch
 counters set to 0 just before it and read just after.  The line before
 the last is a JSON object describing the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -207,7 +229,9 @@ CHAIN_RULE = 0.98  # least fraction of chains bit-identical to the plain version
 # on the streaming route (K2, K3); K1's f32 and bf16 modes are held to it
 # exactly (no chain differing)
 GATHER_RULE = 0.999
-GATHERED = ("int8", "bf16")  # the streaming route's value types the gather kernel takes
+# the least fraction of chains the streaming route's modes hold against the
+# gather's plain version: f32 none differing, as K1-f32
+TWIN_RULE = {"f32": 1.0, "bf16": GATHER_RULE, "int8": GATHER_RULE}
 GATHER_SOURCE = "image_generation_tpu_torch/csrc/gibbs_sparse.cu"
 VALUE_BYTES = {"f32": 4, "int8": 1, "bf16": 2}
 SHAPE_THREADS = (128, 256, 512, 1024)  # threads per block the launch-shape sweeps time
@@ -341,6 +365,37 @@ def read_counts(gibbs_cuda, gibbs_hbm_cuda) -> dict:
             **gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda.launches}
 
 
+def timed_epoch(trainer, label: str, card: str, require_fall: bool = True):
+    """One epoch, a CUDA-synchronised host clock around every step:
+    (the epoch's statistics, the median step after 4 warm-up steps).
+    Raises unless the losses are finite and, with ``require_fall``, the
+    last 8 steps' MSE is below the first 8's."""
+    times, last, stats = [], [0.0], {}
+
+    def on_batch(_epoch, _done, _nb):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    trainer.train_init(1)
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    trainer.train(1, batch_cb=on_batch, epoch_chunks=trainer.n_batches,
+                  epoch_cb=lambda _e, st: stats.update(st))
+    mses = trainer.losses["mse_losses"]
+    med = float(np.median(times[4:]))
+    print(f"[{label}] {len(mses)} steps on '{trainer.data_source.origin}' data: loss finite "
+          f"{bool(np.isfinite(trainer.losses['dvae_losses']).all())}; MSE first 8 "
+          f"{np.mean(mses[:8]):.5f}, last 8 {np.mean(mses[-8:]):.5f}; step median "
+          f"{med * 1e3:.3f} ms (after 4 warm-up steps, n = {len(times) - 4}), "
+          f"{trainer.config.BATCH_SIZE / med:.1f} images/s  [{card}]")
+    check(bool(np.isfinite(trainer.losses["dvae_losses"]).all()), f"[{label}] losses not finite")
+    check(not require_fall or np.mean(mses[-8:]) < np.mean(mses[:8]),
+          f"[{label}] MSE did not fall")
+    return stats, med
+
+
 def main() -> int:
     from image_generation_tpu_torch.app.warm import WarmGenerator
     from image_generation_tpu_torch.config import TrainingConfig
@@ -375,7 +430,6 @@ def main() -> int:
     # ---- 2. build every kernel (one nvcc per source, started together) ----
     t0 = time.perf_counter()
     libs = load_libraries()
-    gibbs_hbm_cuda.load_library()
     gibbs_sparse.load_library()
     print(f"[2] kernels loaded after {time.perf_counter() - t0:.2f} s")
     for name, built in libs.items():
@@ -622,32 +676,6 @@ def main() -> int:
         check(bool((diff <= tol).all()), f"K1-dE Philox ({name}): dE is not the energy change")
 
     # ---- 8. flagship training, plain Gibbs ---------------------------------
-    def timed_epoch(trainer, label):
-        """One epoch, a CUDA-synchronised host clock around every step."""
-        times, last, stats = [], [0.0], {}
-
-        def on_batch(_epoch, _done, _nb):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            times.append(now - last[0])
-            last[0] = now
-
-        trainer.train_init(1)
-        torch.cuda.synchronize()
-        last[0] = time.perf_counter()
-        trainer.train(1, batch_cb=on_batch, epoch_chunks=trainer.n_batches,
-                      epoch_cb=lambda _e, st: stats.update(st))
-        mses = trainer.losses["mse_losses"]
-        med = float(np.median(times[4:]))
-        print(f"[{label}] {len(mses)} steps on '{trainer.data_source.origin}' data: loss finite "
-              f"{bool(np.isfinite(trainer.losses['dvae_losses']).all())}; MSE first 8 "
-              f"{np.mean(mses[:8]):.5f}, last 8 {np.mean(mses[-8:]):.5f}; step median "
-              f"{med * 1e3:.3f} ms (after 4 warm-up steps, n = {len(times) - 4}), "
-              f"{trainer.config.BATCH_SIZE / med:.1f} images/s  [{card}]")
-        check(bool(np.isfinite(trainer.losses["dvae_losses"]).all()), f"[{label}] losses not finite")
-        check(np.mean(mses[-8:]) < np.mean(mses[:8]), f"[{label}] MSE did not fall")
-        return stats, med
-
     reset_counts(gibbs_cuda, gibbs_hbm_cuda)
     flag = Trainer(device=dev)
     flag.setup()
@@ -656,7 +684,7 @@ def main() -> int:
           f"sampler {flag.config.SAMPLER}, {flag.config.NUM_READS} chains")
     check((flag.graph.n, flag.graph.n_edges, flag.plan.n_pad, len(flag.plan.blocks))
           == (256, 2327, 768, 6), "the flagship graph or plan differs from the JAX package's")
-    _, gibbs_step_s = timed_epoch(flag, "8")
+    _, gibbs_step_s = timed_epoch(flag, "8", card)
     gibbs_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
     print(f"[8] launches in plain-Gibbs training: {gibbs_counts}")
     check(gibbs_counts.get("K1-f32", 0) > 0, "plain-Gibbs training never launched K1")
@@ -680,7 +708,7 @@ def main() -> int:
     pt = Trainer(config=TrainingConfig(SAMPLER="pt"), device=dev)
     pt.graph, pt.plan, pt.physical_nodes = flag.graph, flag.plan, flag.physical_nodes
     pt.images, pt.data_source = flag.images, flag.data_source  # the same data
-    pt_stats, pt_step_s = timed_epoch(pt, "9")
+    pt_stats, pt_step_s = timed_epoch(pt, "9", card)
     pt_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
     st = pt.state
     e_rec = ising_energies(st.sampler_h, st.sampler_coupling, st.chains)
@@ -768,11 +796,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1_dtypes = k1_dtype_phases(dev, card, rng)
     torch.cuda.empty_cache()
+    latents1280 = run_in_fresh_process(_latents1280_child)
     sharded = graph_sharded_phases(dev, card)
 
     print(card_line())
     paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts,
-             **scaled["paths"], **k1_dtypes["paths"], **sharded["paths"]}
+             **scaled["paths"], **k1_dtypes["paths"], **sharded["paths"],
+             **latents1280["paths"]}
     print(json.dumps({"kernels": [
         {
             "name": "gibbs_sparse (K1-f32)",
@@ -837,7 +867,8 @@ def main() -> int:
             "shape": f"{s9.shape[0]} chains x {sw} sweeps, n_pad {flag_n_pad}",
         },
         *[dict(entry, launches_by_path={k: v.get(entry["mode"], 0) for k, v in paths.items()})
-          for entry in scaled["kernels"] + k1_dtypes["kernels"] + sharded["kernels"]],
+          for entry in (scaled["kernels"] + k1_dtypes["kernels"] + sharded["kernels"]
+                        + latents1280["kernels"])],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -868,9 +899,8 @@ GATHER_KERNELS = ("sparse_sweeps_kernel", "gather_table_kernel")
 def is_sweep_kernel(name: str) -> bool:
     """Whether a profiler kernel name is one of the sweep kernels: the
     gather (sparse_sweeps_kernel and its gather_table_kernel pass), which
-    takes K1 in every value type and K2's and K3's int8 and bf16 modes, or
-    the f32 K2/K3 (gibbs_stream_kernel)."""
-    return any(k in name for k in ("sweeps_kernel", "stream_kernel", "gather_table_kernel"))
+    takes K1, K2 and K3 in every value type."""
+    return any(k in name for k in GATHER_KERNELS)
 
 
 def check_profiled(events, expect, tag: str, label: str) -> None:
@@ -952,17 +982,11 @@ def scaled_phases(dev, card: str, rng) -> dict:
     stream = gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda
     dense_plain = gibbs_hbm_cuda.gibbs_sweeps_hbm_reference
 
-    def plain_of(dtype: str):
-        """Each mode's plain version: the int8 and bf16 modes are the
-        gather kernel's, run for the even sweep count as the route runs
-        it."""
-        if dtype not in GATHERED:
-            return dense_plain
-
-        def gather(hp_, c_, plan_, s_, n_, beta_=1.0, **kw):
-            return gibbs_sweeps_sparse_reference(hp_, c_, plan_, s_,
-                                                 gibbs_hbm_cuda.round_sweeps(n_), beta_, **kw)
-        return gather
+    def plain(hp_, c_, plan_, s_, n_, beta_=1.0, **kw):
+        """Every mode's plain version: the gather kernel's, run for the even
+        sweep count as the route runs it."""
+        return gibbs_sweeps_sparse_reference(hp_, c_, plan_, s_,
+                                             gibbs_hbm_cuda.round_sweeps(n_), beta_, **kw)
 
     cfg = TrainingConfig(**SCALED)
 
@@ -1000,19 +1024,16 @@ def scaled_phases(dev, card: str, rng) -> dict:
                 for de in (False, True):
                     name = mode_name(kernel, dtype, de)
                     out = stream(hp, c, plan, s0, n_sw, beta, uniforms=u, track_delta_e=de)
-                    ref = plain_of(dtype)(hp, c, plan, s0, n_sw, beta, uniforms=u,
+                    ref = plain(hp, c, plan, s0, n_sw, beta, uniforms=u,
                                           track_delta_e=de)
                     torch.cuda.synchronize()
                     if de:
                         (out, d_out), (ref, d_ref) = out, ref
                     same = (out == ref).all(dim=1)
-                    rule = GATHER_RULE if dtype in GATHERED else CHAIN_RULE
-                    check(float(same.float().mean()) >= rule,
+                    check(float(same.float().mean()) >= TWIN_RULE[dtype],
                           f"{name} vs plain ({n_c} chains x {n_sw} sweeps): chains differ")
-                    note = f"{name} {int((~same).sum())}"
-                    if dtype in GATHERED:
-                        note += f" ({float(same.float().mean()):.6f} identical)"
-                    if dtype == "bf16":  # the gather against the dense plain version
+                    note = f"{name} {int((~same).sum())} ({float(same.float().mean()):.6f} identical)"
+                    if dtype in ("bf16", "f32"):  # the gather against the dense plain version
                         dense = dense_plain(hp, c, plan, s0, n_sw, beta, uniforms=u)
                         frac = identical_fraction(out, dense)
                         check(frac >= CHAIN_RULE, f"{name} vs the dense plain version "
@@ -1029,8 +1050,8 @@ def scaled_phases(dev, card: str, rng) -> dict:
                         errs[name] = max(errs[name], float((out - ref).abs().max()))
                     line.append(note)
             print(f"[12] {n_c} chains x {n_sw} sweeps (run as {gibbs_hbm_cuda.round_sweeps(n_sw)}),"
-                  f" chains differing from the plain version (the int8 and bf16 modes: the "
-                  f"gather's, >= {GATHER_RULE:.1%} identical): {'; '.join(line)}")
+                  f" chains differing from the gather's plain version (f32: none; int8, bf16: "
+                  f">= {GATHER_RULE:.1%} identical): {'; '.join(line)}")
             del u
     # integer couplings: every sum exact, so K3 equals K2 bit for bit
     hi = torch.tensor(np.round(rng.normal(size=plan.n)), dtype=torch.float32, device=dev)
@@ -1073,12 +1094,14 @@ def scaled_phases(dev, card: str, rng) -> dict:
     s0 = random_spins(probe, plan, 256, dev)
     u_ph = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 256, plan.n_pad), device=dev)
     line = []
-    for key in (("K2", "f32"), ("K3", "bf16"), ("K2", "bf16"), ("K3", "int8"), ("K2", "int8")):
+    for key in (("K2", "f32"), ("K3", "f32"), ("K3", "bf16"), ("K2", "bf16"), ("K3", "int8"),
+                ("K2", "int8")):
         g.set_state(state)
         out = stream(hp, couplings[key], plan, s0, 3, generator=g)
-        ref = plain_of(key[1])(hp, couplings[key], plan, s0, 3, uniforms=u_ph)
+        ref = plain(hp, couplings[key], plan, s0, 3, uniforms=u_ph)
         frac = identical_fraction(out, ref)
-        check(frac >= CHAIN_RULE, f"{key} Philox stream: only {frac:.4f} of chains identical")
+        check(frac >= (1.0 if key[1] == "f32" else CHAIN_RULE),
+              f"{key} Philox stream: only {frac:.4f} of chains identical")
         line.append(f"{'-'.join(key)} {int(round((1 - frac) * 256))}/256")
     print(f"[12] Philox stream vs plain fed philox_uniforms (256 chains, 3 sweeps run as 4): "
           f"chains differing {'; '.join(line)}")
@@ -1219,51 +1242,47 @@ def scaled_phases(dev, card: str, rng) -> dict:
         else:
             args, n_c, n_sw, reps = (hp, c, plan, s_train, cfg.GIBBS_SWEEPS, ladder), 2048, 4, 5
         ms = cuda_ms(lambda: stream(*args, generator=gk, track_delta_e=de), reps, warmup=1)
-        plain_ms = cuda_ms(lambda: plain_of(dtype)(*args, generator=gk, track_delta_e=de), 2,
+        plain_ms = cuda_ms(lambda: plain(*args, generator=gk, track_delta_e=de), 2,
                            warmup=1)
         k_chunk = chunk if kernel == "K3" else None
         n_run = gibbs_hbm_cuda.round_sweeps(n_sw)
-        entry = {}
-        if dtype in GATHERED:  # the gather: bound on the bytes it must read, and on the stored form
-            bound = sweep_bound(args[2], gather_bytes(args[2], k_chunk, VALUE_BYTES[dtype]),
-                                PEAK_OPS[dtype], n_c, n_run, de)
-            stored = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_run, de)
-            entry = {"bound_stored_ms": stored[0], "bound_stored_by": stored[1]}
-            source = GATHER_SOURCE
-            note = f", stored-form bound {stored[0] * 1e3:.3f} us ({stored[1]})"
-        else:
-            meta = 4 * len(gibbs_hbm_cuda._meta_list(args[2], k_chunk))
-            bound = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_run, de,
-                                meta)
-            source = "image_generation_tpu_torch/csrc/gibbs_hbm.cu"
-            note = ""
+        # the gather: bound on the bytes it must read, and on the stored form
+        bound = sweep_bound(args[2], gather_bytes(args[2], k_chunk, VALUE_BYTES[dtype]),
+                            PEAK_OPS[dtype], n_c, n_run, de)
+        stored = sweep_bound(args[2], stored_bytes(args[1]), PEAK_OPS[dtype], n_c, n_run, de)
         print(f"[16] {name} {n_c} chains x {n_sw} sweeps: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound[0] * 1e3:.3f} us ({bound[1]}){note}  [{card}]")
+              f"bound {bound[0] * 1e3:.3f} us ({bound[1]}), stored-form bound "
+              f"{stored[0] * 1e3:.3f} us ({stored[1]})  [{card}]")
         kernels.append({
-            "name": f"{'gibbs_sparse' if dtype in GATHERED else 'gibbs_stream'} ({name})",
+            "name": f"gibbs_sparse ({name})",
             "mode": name,
             "route": "cuda",
-            "source": source,
+            "source": GATHER_SOURCE,
             "replaces": STREAM_REPLACES[kernel],
             "launches": sum(cnt.get(name, 0) for cnt in (train_counts, k2_counts, serve_counts)),
             "max_abs_err": errs[name],
-            "tolerance": f">= {GATHER_RULE if dtype in GATHERED else CHAIN_RULE:.1%} of chains "
-                         f"bit-identical to the plain version"
-                         + ("; dE within 1e-3*(1+|E|) on identical chains" if de else ""),
+            "tolerance": (f">= {TWIN_RULE[dtype]:.1%} of chains bit-identical to the gather's "
+                          f"plain version"
+                          + (f", >= {CHAIN_RULE:.0%} to the dense plain version"
+                             if dtype != "int8" else "")
+                          + ("; dE within 1e-3*(1+|E|) on identical chains" if de else "")),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound[0],
             "bound_by": bound[1],
-            **entry,
+            "bound_stored_ms": stored[0],
+            "bound_stored_by": stored[1],
             "library_ms": None,
             "shape": f"{n_c} chains x {n_sw} sweeps, n_pad {plan.n_pad}, {len(plan.blocks)} blocks"
                      + (f", chunk {chunk}" if kernel == "K3" else ""),
         })
-    # the gather's launch shape for K3-bf16-dE at the PT shape (measured, not tuned)
-    shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse(
-        hp, couplings[("K3", "bf16")], plan, s, gibbs_hbm_cuda.round_sweeps(n), ladder,
-        generator=gk, track_delta_e=True, _shape=shape),
-        plan, "16", "K3-bf16-dE", ((2048, cfg.GIBBS_SWEEPS),), card)
+    # the gather's launch shape for K3-bf16-dE and K2-f32-dE at the PT shape
+    # (measured, not tuned)
+    for key in (("K3", "bf16"), ("K2", "f32")):
+        shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse(
+            hp, couplings[key], plan, s, gibbs_hbm_cuda.round_sweeps(n), ladder,
+            generator=gk, track_delta_e=True, _shape=shape),
+            plan, "16", f"{mode_name(*key, True)}", ((2048, cfg.GIBBS_SWEEPS),), card)
     # the gather's launch shape on the served coupling: serving, a 4-way burst, PT
     shape_sweep(lambda s, n, shape: gibbs_sweeps_sparse(
         hp_s, c_s, plan_s, s, gibbs_hbm_cuda.round_sweeps(n), generator=gk, _shape=shape),
@@ -1735,9 +1754,238 @@ def k1_dtype_phases(dev, card: str, rng) -> dict:
 
 
 # the scaled configuration with its graph split over 4 ranks on one card
+# the 1,280-latent configuration: the config defaults on Advantage2_system1
+# with N_LATENTS=1280 (n_pad 1,664), too large for K1 in f32 ("auto" stays
+# f32 below n_pad 2,048), so plain Gibbs, PT and serving stream a dense f32
+# coupling through K2-f32 (the gather)
+LATENTS1280 = dict(N_LATENTS=1280)
+
+
+def run_in_fresh_process(task) -> dict:
+    """Run ``task(rank, out_path)`` in one spawned process on cuda:0 and
+    return the JSON it wrote; its exception fails the run.  Phase 26 runs
+    so: in this process, after the earlier phases, ``torch.profiler``
+    recorded none of the profiled step's sweep launches (made through the
+    kernels' ctypes entries) in two runs, while a fresh process records
+    every one."""
+    import torch.multiprocessing as mp
+
+    sys.stdout.flush()  # the child's lines follow this process's
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_child_") as tmp:
+        out = Path(tmp) / "result.json"
+        mp.start_processes(task, args=(str(out),), nprocs=1, join=True, start_method="spawn")
+        return json.loads(out.read_text())
+
+
+def _latents1280_child(_rank: int, out_path: str) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain twins in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    result = latents1280_phases(torch.device("cuda", 0), card_line())
+    Path(out_path).write_text(json.dumps(result))
+
+
+def latents1280_phases(dev, card: str) -> dict:
+    """Phase 26: the 1,280-latent default configuration at full width
+    (batch 128, 8 replicas, 256 chains x 16 sweeps) trained one epoch under
+    plain Gibbs through K2-f32 and one under 8-rung PT through K2-f32-dE,
+    saved and served (256 x 80, K2-f32); K2-f32 / K2-f32-dE held to the
+    gather's plain version and the dense plain version at the path's
+    shapes, timed beside both bounds and by launch shape.  Returns the
+    launch counts of each path and the kernels' JSON entries."""
+    from image_generation_tpu_torch.app.warm import WarmGenerator
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.ops.gibbs import ising_energies, random_spins
+    from image_generation_tpu_torch.ops.gibbs_sparse import (
+        gibbs_sweeps_sparse, gibbs_sweeps_sparse_reference,
+    )
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    stream = gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda
+    cfg = TrainingConfig(**LATENTS1280)
+
+    # ---- 26. the 1,280-latent configuration through K2-f32 ----------------------
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+    tr = Trainer(config=cfg, device=dev)
+    tr.setup()
+    plan = tr.plan
+    print(f"[26] 1,280-latent configuration: {cfg.QPU} n={tr.graph.n} couplers="
+          f"{tr.graph.n_edges} n_pad={plan.n_pad} blocks {[c1 - c0 for c0, _v, c1 in plan.blocks]}; "
+          f"batch {cfg.BATCH_SIZE} x {cfg.N_REPLICAS} replicas, {cfg.NUM_READS} chains x "
+          f"{cfg.GIBBS_SWEEPS} sweeps, SAMPLER_MATMUL_DTYPE={cfg.SAMPLER_MATMUL_DTYPE}")
+    check((tr.graph.n, tr.graph.n_edges, plan.n_pad, len(plan.blocks)) == (1280, 12194, 1664, 6),
+          "the 1,280-latent graph or plan differs from the one the JAX package builds")
+    _, gibbs_step_s = timed_epoch(tr, "26", card, require_fall=False)
+    gibbs_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+    st = tr.state
+    print(f"[26] plain Gibbs: sampler {tr.fns.sampler_impl}, coupling "
+          f"{tuple(st.sampler_coupling.shape)} {st.sampler_coupling.dtype}; launches {gibbs_counts}")
+    check(tr.fns.sampler_impl == "cuda_hbm", "the 1,280-latent trainer did not select K2")
+    check(st.sampler_coupling.dtype == torch.float32
+          and tuple(st.sampler_coupling.shape) == (plan.n_pad, plan.n_pad),
+          "the 1,280-latent coupling is not the dense f32 matrix")
+    check(gibbs_counts.get("K2-f32", 0) > 0, "1,280-latent training never launched K2-f32")
+    check(not any(k.startswith("K1") for k in gibbs_counts), "1,280-latent training launched K1")
+
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+    pt = Trainer(config=cfg.replace(SAMPLER="pt"), device=dev)
+    pt.graph, pt.plan, pt.physical_nodes = tr.graph, tr.plan, tr.physical_nodes
+    pt.images, pt.data_source = tr.images, tr.data_source  # the same data
+    pt_stats, pt_step_s = timed_epoch(pt, "26", card, require_fall=False)
+    pt_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+    pst = pt.state
+    e_rec = ising_energies(pst.sampler_h, pst.sampler_coupling, pst.chains)
+    e_gap = float((pst.chain_energies - e_rec).abs().max())
+    print(f"[26] PT ({pt.config.PT_NUM_BETAS} rungs): sampler {pt.fns.sampler_impl}; launches "
+          f"{pt_counts}; ladder {tuple(pst.chains.shape)}; carried vs recomputed energies: max "
+          f"gap {e_gap:.3e} (|E| up to {float(e_rec.abs().max()):.2f}); acceptance mean "
+          f"{pt_stats['pt_accept_mean']:.4f}")
+    check(pt.fns.sampler_impl == "cuda_hbm", "the 1,280-latent PT trainer did not select K2")
+    check(pt_counts.get("K2-f32-dE", 0) > 0, "1,280-latent PT training never launched K2-f32-dE")
+    check(not any(k.startswith("K1") for k in pt_counts), "1,280-latent PT training launched K1")
+    check(e_gap <= 1e-3 * (1 + float(e_rec.abs().max())), "carried PT energies drifted")
+    batch = tr.images[: cfg.BATCH_SIZE]
+    for label, t in (("1,280-latent plain Gibbs", tr), ("1,280-latent PT", pt)):
+        profile_step(t, batch, "26", label, card, expect=GATHER_KERNELS)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_1280_"))
+    try:
+        model_dir = tmp / "latents1280_1_epoch"
+        tr.save(model_dir)
+        w = WarmGenerator(tmp, device=dev)
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        w.warm_buckets(model_dir, 1)
+        lat, outs = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            outs.append(w.serve(model_dir)["images"])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        serve_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        sc = w._trainer.config
+        serve_sweeps = sc.GIBBS_BURN_IN + sc.GIBBS_SWEEPS
+        print(f"[26] served: SAMPLER={sc.SAMPLER} NUM_READS={sc.NUM_READS} sweeps {serve_sweeps} "
+              f"SAMPLER_MATMUL_DTYPE={sc.SAMPLER_MATMUL_DTYPE}; sampler "
+              f"{w._trainer.fns.sampler_impl}; launches {serve_counts}; lone request over 10: "
+              f"median {np.median(lat):.3f} ms, max {max(lat):.3f} ms  [{card}]")
+        check(w._trainer.fns.sampler_impl == "cuda_hbm", "1,280-latent serving did not select K2")
+        check(serve_counts == {"K2-f32": 11}, "1,280-latent serving did not run K2-f32 alone")
+        for img in outs:
+            check(img.shape == (256, 32, 32, 1) and bool(np.isfinite(img).all())
+                  and img.min() >= 0.0 and img.max() <= 1.0, "1,280-latent served images")
+        profile_request(lambda: w.serve(model_dir), "26", "1,280-latent", card,
+                        expect=GATHER_KERNELS)
+        hp_s, c_s = w._trainer.fns.build_sampler_model(w._trainer.grbm_params)
+        del w
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # K2-f32 / K2-f32-dE at the path's shapes: fed, against both plain versions
+    gk = torch.Generator(device=dev)
+    gk.manual_seed(26)
+    hp_t, a_t, s_t = st.sampler_h, st.sampler_coupling, st.chains
+    hp_p, a_p = pst.sampler_h, pst.sampler_coupling
+    s_p = pst.chains.reshape(-1, plan.n_pad)
+    b_p = pst.pt_betas.repeat_interleave(pt.config.NUM_READS)
+    s_s = random_spins(gk, plan, 256, dev)
+    cases = {  # label: (mode, (hp, coupling, spins, beta), sweeps, dE)
+        "serving": ("K2-f32", (hp_s, c_s, s_s, 1.0), serve_sweeps, False),
+        "training": ("K2-f32", (hp_t, a_t, s_t, 1.0), cfg.GIBBS_SWEEPS, False),
+        "PT training": ("K2-f32-dE", (hp_p, a_p, s_p, b_p), cfg.GIBBS_SWEEPS, True),
+    }
+    errs = {"K2-f32": 0.0, "K2-f32-dE": 0.0}
+    line = []
+    for label, (name, (hp_, c_, s_, b_), n_sw, de) in cases.items():
+        u = torch.rand((n_sw, s_.shape[0], plan.n_pad), generator=gk, device=dev)
+        out = stream(hp_, c_, plan, s_, n_sw, b_, uniforms=u, track_delta_e=de)
+        twin = gibbs_sweeps_sparse_reference(hp_, c_, plan, s_, n_sw, b_, uniforms=u,
+                                             track_delta_e=de)
+        dense = gibbs_hbm_cuda.gibbs_sweeps_hbm_reference(hp_, c_, plan, s_, n_sw, b_,
+                                                          uniforms=u, track_delta_e=de)
+        torch.cuda.synchronize()
+        if de:
+            (out, d_out), (twin, d_twin), (dense, d_dense) = out, twin, dense
+        n_diff = differing(out, twin)
+        frac = identical_fraction(out, dense)
+        check(n_diff == 0, f"{name} ({label}) differs from the gather's plain version")
+        check(frac >= CHAIN_RULE, f"{name} ({label}) vs the dense plain version: {frac:.6f}")
+        note = (f"{name} {s_.shape[0]} x {n_sw} ({label}): {n_diff} chains differing from the "
+                f"gather's plain version, {frac:.6f} identical to the dense one")
+        if de:
+            same = (out == dense).all(dim=1)
+            e_abs = ising_energies(hp_, c_, twin).abs()
+            err = (d_out - d_twin).abs()
+            err_dense = (d_out - d_dense).abs()[same]
+            check(bool((err <= 1e-3 * (1 + e_abs)).all())
+                  and bool((err_dense <= 1e-3 * (1 + e_abs[same])).all()), f"{name}: dE")
+            errs[name] = max(errs[name], float(err.max()))
+            note += f", dE err {float(err.max()):.2e} (dense {float(err_dense.max()):.2e})"
+        else:
+            errs[name] = max(errs[name], float((out - twin).abs().max()))
+        line.append(note)
+        del u
+    print(f"[26] fed uniforms: {'; '.join(line)}")
+
+    # times beside both bounds, and by launch shape
+    kernels, timed = [], {}
+    for label, (name, (hp_, c_, s_, b_), n_sw, de) in cases.items():
+        ms = cuda_ms(lambda: stream(hp_, c_, plan, s_, n_sw, b_, generator=gk,
+                                    track_delta_e=de), 10)
+        plain_ms = cuda_ms(lambda: gibbs_sweeps_sparse_reference(
+            hp_, c_, plan, s_, n_sw, b_, generator=gk, track_delta_e=de), 2, warmup=1)
+        bound = sweep_bound(plan, gather_bytes(plan, None, VALUE_BYTES["f32"]), PEAK_F32_FLOPS,
+                            s_.shape[0], n_sw, de)
+        stored = sweep_bound(plan, stored_bytes(c_), PEAK_F32_FLOPS, s_.shape[0], n_sw, de)
+        timed[label] = (ms, plain_ms, bound, stored)
+        print(f"[26] {name} {s_.shape[0]} chains x {n_sw} sweeps ({label}, n_pad {plan.n_pad}, "
+              f"G, threads {launch_shape(plan, s_.shape[0])}): {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound[0] * 1e3:.3f} us ({bound[1]}), stored-form bound "
+              f"{stored[0] * 1e3:.3f} us ({stored[1]})  [{card}]")
+    for label, (name, (hp_, c_, _s, b_), n_sw, de) in cases.items():
+        shape_sweep(lambda s_, n_, shape: gibbs_sweeps_sparse(
+            hp_, c_, plan, s_, n_, b_, generator=gk, track_delta_e=de, _shape=shape),
+            plan, "26", f"{name} ({label})", ((cases[label][1][2].shape[0], n_sw),), card)
+    paths = {"train_1280": gibbs_counts, "train_1280_pt": pt_counts, "serve_1280": serve_counts}
+    for name, label in (("K2-f32", "training"), ("K2-f32-dE", "PT training")):
+        ms, plain_ms, bound, stored = timed[label]
+        entry = {
+            "name": f"gibbs_sparse ({name}, 1,280-latent path)",
+            "mode": name,
+            "route": "cuda",
+            "source": GATHER_SOURCE,
+            "kernel": "sparse_sweeps_kernel<float, G> on dense offsets",
+            "replaces": STREAM_REPLACES["K2"],
+            "launches": sum(cnt.get(name, 0) for cnt in paths.values()),
+            "max_abs_err": errs[name],
+            "tolerance": "no chain differing from the gather's plain version; >= "
+                         f"{CHAIN_RULE:.0%} bit-identical to the dense plain version"
+                         + ("; dE within 1e-3*(1+|E|)" if "dE" in name else ""),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "bound_stored_ms": stored[0],
+            "bound_stored_by": stored[1],
+            "library_ms": None,
+            "shape": f"{cases[label][1][2].shape[0]} chains x {cases[label][2]} sweeps, "
+                     f"n_pad {plan.n_pad}",
+        }
+        if name == "K2-f32":
+            s_ms, _p, s_bound, s_stored = timed["serving"]
+            entry.update(serving_ms=s_ms, serving_bound_ms=s_bound[0],
+                         serving_bound_stored_ms=s_stored[0],
+                         serving_shape=f"256 chains x {serve_sweeps} sweeps")
+        kernels.append(entry)
+    print(f"[26] step medians: plain Gibbs {gibbs_step_s * 1e3:.3f} ms, PT {pt_step_s * 1e3:.3f} "
+          f"ms  [{card}]")
+    del tr, pt
+    torch.cuda.empty_cache()
+    return {"paths": paths, "kernels": kernels}
+
+
 GS_RANKS = 4
 GS_SCALED = dict(SCALED, GRAPH_SHARDED="on")
 K4_REPLACES = "image_generation_tpu/ops/gibbs_graph_sharded_pallas.py:127"
+K4_REPEATS = 20  # launches on the same inputs that must give the same dE
 
 
 def span_bound(rows: int, width: int, per_row_beta: bool, fed: bool, spin_bytes: int = 4,
@@ -2098,6 +2346,28 @@ def graph_sharded_phases(dev, card: str) -> dict:
                             de_err = max(de_err, float(err.max()))
                             checked += 1
         del u_all, u_ph
+    # dE repeats itself: one summation order, whatever the launch
+    repeats = 0
+    for label, start, stop, lo, cols in windows:
+        part = 3.0 * torch.randn((c_path, stop - start), generator=g, device=dev)
+        beta = 0.2 + 1.8 * torch.rand(c_path, generator=g, device=dev)
+        for carry in (torch.float32, torch.bfloat16, torch.int8):
+            s0 = torch.where(torch.rand((c_path, cols), generator=g, device=dev) < 0.5, 1.0,
+                             -1.0).to(carry)
+            runs = []
+            for _ in range(K4_REPEATS):
+                s_k, de_k = s0.clone(), torch.zeros(c_path, device=dev)
+                span_update_window(part, h, beta, s_k, lo, start, stop, seed=seed, sweep=1,
+                                   delta_e=de_k)
+                runs.append((s_k, de_k))
+            torch.cuda.synchronize()
+            check(all(torch.equal(s_k, runs[0][0]) and torch.equal(de_k, runs[0][1])
+                      for s_k, de_k in runs), f"K4 dE or spins differ between launches "
+                                              f"({c_path} x {label}, {carry})")
+            repeats += 1
+    print(f"[22] K4 dE repeats itself: {K4_REPEATS} launches from the same spins and a zeroed "
+          f"dE equal bit for bit (dE and spins) at {c_path} rows on each of the {len(windows)} "
+          f"windows x 3 carries ({repeats} cases; Philox, per-chain beta)")
     # the int8 scale-out and + h round twice (the JAX body's fields), not one fma
     q = np.random.default_rng(0).integers(-5000, 5001, 4096).astype(np.int32)
     sc_v, h_v = np.float32(0.0123456789), np.float32(0.3456789)
@@ -2318,7 +2588,8 @@ def graph_sharded_phases(dev, card: str) -> dict:
         "max_abs_err": max_err,
         "max_de_err": de_err,
         "tolerance": "spins bit-identical to the plain version (fed and Philox), dE within "
-                     "1e-4 (1 + |dE|)",
+                     f"1e-4 (1 + |dE|); dE and spins bit-identical over {K4_REPEATS} launches "
+                     "on the same inputs",
         "ms": tot["ms"] / n_win,
         "plain_ms": tot["plain"] / n_win,
         "bound_ms": tot["bound"] / n_win,

@@ -1,14 +1,6 @@
-// Pieces the sweep kernels share (the f32 K2 and K3 in gibbs_hbm.cu, the
-// sparse field gather in gibbs_sparse.cu): the in-kernel Philox generator,
-// the uniform draw, the bf16 storage type and, for the dense f32 coupling
-// of K2 and K3, how spins are held and how kStep coupling rows meet R spin
-// rows.
-//
-// Spins are held as f32 (+-1 and 0 are exact), and products accumulate in
-// f32.  Each step adds coupling rows k .. k + kStep - 1 of one column
-// (read at stride ld, coalesced across the threads that own neighbouring
-// columns) into R accumulators, in row order, against spins read from
-// shared memory as broadcast vectors.
+// Pieces the kernels share (the sparse field gather in gibbs_sparse.cu, the
+// span update in span_update.cu): the in-kernel Philox generator, the
+// uniform draw and the bf16 storage type.
 
 #pragma once
 
@@ -16,8 +8,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int kStep = 8;  // coupling rows a thread loads before using them
 
 typedef uint16_t bf16_bits;  // bf16 stored as its 16 bits
 
@@ -65,42 +55,5 @@ __device__ __forceinline__ float draw_uniform(const float* uniforms, int c,
                                       key1);
   return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
 }
-
-// Per dense coupling type (K2 and K3 take f32): the accumulator, +-1 and 0
-// in the spin type, the spin as f32, and kStep coupling rows times R spin
-// rows accumulated into acc.
-template <typename T>
-struct Ops;
-
-template <>
-struct Ops<float> {
-  typedef float Acc;
-  static __device__ __forceinline__ float spin(bool up) { return up ? 1.0f : -1.0f; }
-  static __device__ __forceinline__ float zero() { return 0.0f; }
-  static __device__ __forceinline__ float to_f32(float s) { return s; }
-  static __device__ __forceinline__ float from_f32(float s) { return s; }
-  static __device__ __forceinline__ float acc_f32(float a) { return a; }
-  template <int R>
-  static __device__ __forceinline__ void step(float (&acc)[R], const float* a,
-                                              size_t ld, const float* s,
-                                              int n_pad) {
-    float av[kStep];
-#pragma unroll
-    for (int j = 0; j < kStep; ++j) av[j] = __ldg(a + j * ld);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(s + r * n_pad);
-      const float4 y = *reinterpret_cast<const float4*>(s + r * n_pad + 4);
-      acc[r] = fmaf(x.x, av[0], acc[r]);
-      acc[r] = fmaf(x.y, av[1], acc[r]);
-      acc[r] = fmaf(x.z, av[2], acc[r]);
-      acc[r] = fmaf(x.w, av[3], acc[r]);
-      acc[r] = fmaf(y.x, av[4], acc[r]);
-      acc[r] = fmaf(y.y, av[5], acc[r]);
-      acc[r] = fmaf(y.z, av[6], acc[r]);
-      acc[r] = fmaf(y.w, av[7], acc[r]);
-    }
-  }
-};
 
 }  // namespace

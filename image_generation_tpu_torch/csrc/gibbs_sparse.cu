@@ -1,13 +1,13 @@
-// Colored block-Gibbs as a sparse field gather, for Hopper (sm_90a): kernel
-// K1 in every value type (f32, bf16, int8), and the int8 and bf16 modes of
-// K2 and K3.
+// Colored block-Gibbs as a sparse field gather, for Hopper (sm_90a): kernels
+// K1, K2 and K3 in every value type (f32, bf16, int8).
 //
-// Replaces these Pallas TPU kernels and modes:
+// Replaces these Pallas TPU kernels:
 // image_generation_tpu/ops/gibbs_pallas.py (_kernel, _kernel_fed and their
 // shared body _color_update, with an f32 or bf16 coupling or a
 // QuantCoupling) and image_generation_tpu/ops/gibbs_pallas_hbm.py (_kernel
-// and _kernel_bs with int8 or bf16 panels).  It computes what they compute:
-// n_sweeps sweeps, each updating the color blocks,
+// on the dense f32 or bf16 matrix or a QuantCoupling, _kernel_bs on f32,
+// bf16 or int8 panels).  It computes what they compute: n_sweeps sweeps,
+// each updating the color blocks,
 //
 //     fields = S . A[:, c] + h[c]
 //     p      = sigmoid(-2 * beta_chain * fields)
@@ -18,7 +18,9 @@
 //     in f32 in the table's slot order (ascending neighbour), then h is
 //     added.  The dense K1 this replaced added fmaf(spin, A[k, c], acc) for
 //     every k ascending; a zero coupling adds an exact 0, so the two give
-//     the same fields bit for bit;
+//     the same fields bit for bit.  The Pallas K2 / K3 add one f32 dot
+//     per column panel or chunk, another order: against them the fields
+//     agree within an ulp or so, not bit for bit;
 //   * bf16: the same, each bf16 value widened to f32;
 //   * int8: the products summed exactly in int32, in the quantized units
 //     of the Pallas kernels (the caller passes h / scale and
@@ -45,6 +47,17 @@
 // served checkpoint, 7 on the Pegasus plans), each step deg table loads,
 // deg shared-memory reads, a Philox draw and an expf per (column, chain),
 // then a barrier.
+//
+// In f32 on the streaming route the same holds.  The 1,280-latent
+// Advantage2_system1 plan (n_pad 1,664, 6 class spans of at most 384
+// columns, 12,194 couplers, degree <= 20) stores an 11.1 MB dense f32
+// matrix, which the dense streaming kernel this replaced read once per
+// chain block and sweep; the gather reads a 266 KB table of 8-byte words
+// (L2-resident), and its graph work at 256 chains x 80 sweeps is 1 GFLOP,
+// 15 us at the f32 peak.  The scaled plan (n_pad 6,016, 7 spans, degree
+// <= 15) stores 46.7 MB of f32 panels at chunk 256 (145 MB dense); its
+// table is 722 KB.  Both are bound by the 6 or 7 dependent class steps a
+// sweep, as above, not by the coupling's bytes.
 //
 // How the design meets that.
 //   * A static neighbour table per plan (ops/gibbs_sparse.py, built on the

@@ -55,19 +55,36 @@
 // Launched back to back, the narrow windows are paced by the wrapper's
 // host time a launch.
 //
-// Launch shape.  One warp per (chain row, column chunk of up to 256
-// columns): the lanes walk the chunk with stride 32, so loads and stores
-// of a warp are coalesced, and the row's dE partial is one warp-shuffle
-// sum and one atomicAdd per row and block.  8 warps, so 8 chain rows, a
-// block: the scaled plan's 128-column spans and the few-dozen-column
-// windows where a span straddles two ranks are narrow, and a block of 256
-// threads along one row's columns (the earlier one-thread-per-element
-// tiling) would leave most of them idle there.  The grid is (row groups,
-// column chunks): 256 x 6 blocks at 2,048 rows x 1,504 columns.  Chunks
-// of 32, 64 and 128 columns and the loop unrolled 4 times were timed
-// against it (k4_variants.py, PERF.md section 6): each took longer at the
-// widest window, and none was faster in both rounds over a sweep's
-// launches, which the host paces.
+// Launch shape.  Without dE, one warp per (chain row, column chunk of up
+// to 256 columns): the lanes walk the chunk with stride 32, so loads and
+// stores of a warp are coalesced.  8 warps, so 8 chain rows, a block: the
+// scaled plan's 128-column spans and the few-dozen-column windows where a
+// span straddles two ranks are narrow, and a block of 256 threads along
+// one row's columns (the earlier one-thread-per-element tiling) would
+// leave most of them idle there.  The grid is (row groups, column
+// chunks): 256 x 6 blocks at 2,048 rows x 1,504 columns.  Chunks of 32,
+// 64 and 128 columns and the loop unrolled 4 times were timed against it
+// (k4_variants.py, PERF.md section 6): each took longer at the widest
+// window, and none was faster in both rounds over a sweep's launches,
+// which the host paces.
+//
+// With dE the sum must repeat itself: the carried ladder energies feed
+// the parallel-tempering swap test, so two runs with one seed must add a
+// row's terms in one order.  Float atomics from several column chunks
+// into one row do not (their order changes from launch to launch: 20
+// distinct dE vectors in 20 launches of the earlier kernel).  So with dE
+// a block holds whole rows, kDeWarps = 2 warps a row interleaving its
+// owned columns in 32-column steps (the grid is row groups only): each
+// lane sums its columns in ascending order, a warp adds its lanes in a
+// fixed shuffle tree, the row's two totals are added in warp order
+// through shared memory, and the row's one writer adds that to the
+// accumulator, launches following each other on the stream.  Timed at
+// 2,048 rows x 1,408 columns, bf16 carry, dE, Philox (k4_variants.py,
+// PERF.md section 6): 2 warps a row 20.0 us, as fast as the atomics
+// (20.3 us); 1 warp a row 34.5 us (a quarter of the warps in flight),
+// 4 or 8 warps 22.2-22.6 us, and the other fixed-order design (each
+// (row, chunk) warp's partial written to a scratch buffer and summed in
+// chunk order by the row group's last block) 22.6 us.
 //
 // C interface (bound with ctypes by ops/gibbs_graph_sharded_cuda.py); each
 // entry returns a cudaError_t (0 on success).
@@ -107,7 +124,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = kThreads / kWarp;
-constexpr int kChunk = 256;  // columns a warp walks (8 a lane)
+constexpr int kChunk = 256;  // columns a warp walks without dE (8 a lane)
+constexpr int kDeWarps = 2;  // warps that share one row's columns with dE
+static_assert(kRowsPerBlock % kDeWarps == 0, "a block holds whole rows with dE");
 constexpr int kMaxChunks = 65535;
 
 enum PartialKind { kNoPartial = 0, kF32Partial = 1, kI32Partial = 2 };
@@ -151,12 +170,25 @@ span_window_kernel(SpanWindowArgs args, const void* __restrict__ partial,
                    int sweep) {
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int r = blockIdx.x * kRowsPerBlock + warp;
-  if (r >= args.rows) return;  // whole warps leave: the shuffle below is safe
-  const int c_begin = a + blockIdx.y * kChunk;
-  const int c_end = min(b, c_begin + kChunk);
+  float* de = args.delta_e;
+  // without dE a warp takes (row, chunk); with dE kDeWarps warps take all
+  // of a row's columns, so that the row's sum has one order
+  int r, c_begin, c_end, step;
+  if (de == nullptr) {
+    r = blockIdx.x * kRowsPerBlock + warp;
+    c_begin = a + blockIdx.y * kChunk + lane;
+    c_end = min(b, a + (static_cast<int>(blockIdx.y) + 1) * kChunk);
+    step = kWarp;
+  } else {
+    r = blockIdx.x * (kRowsPerBlock / kDeWarps) + warp / kDeWarps;
+    c_begin = a + (warp % kDeWarps) * kWarp + lane;
+    c_end = b;
+    step = kWarp * kDeWarps;
+  }
+  const bool live = r < args.rows;
+  if (!live && de == nullptr) return;  // whole warps leave; with dE they reach the barrier
 
-  const float neg2beta = -2.0f * args.beta[args.beta_per_row ? r : 0];
+  const float neg2beta = live ? -2.0f * args.beta[args.beta_per_row ? r : 0] : 0.0f;
   const float scale = kind == kI32Partial ? *args.scale : 0.0f;
   const float* __restrict__ h = args.h;
   // row offsets that take global columns (c >= a >= each array's column 0)
@@ -173,10 +205,9 @@ span_window_kernel(SpanWindowArgs args, const void* __restrict__ partial,
   const long long p_off = static_cast<long long>(r) * ld_p - start;
   const long long s_off = static_cast<long long>(r) * args.ld_s - args.lo;
   S* __restrict__ spins = static_cast<S*>(args.spins);
-  float* de = args.delta_e;
 
   float acc = 0.0f;
-  for (int c = c_begin + lane; c < c_end; c += kWarp) {
+  for (int c = c_begin; live && c < c_end; c += step) {
     // the old spin is loaded first, with the partial: loaded where dE uses
     // it, after Philox, its latency stalled every element and a launch took
     // more than twice as long (k4_variants.py, PERF.md section 6)
@@ -211,10 +242,17 @@ span_window_kernel(SpanWindowArgs args, const void* __restrict__ partial,
     if (de != nullptr) acc += f * ((up ? 1.0f : -1.0f) - old);
     Spin<S>::store(slot, up);
   }
-  if (de != nullptr) {
+  if (de != nullptr) {  // uniform across the block: the barrier is safe
 #pragma unroll
     for (int o = kWarp / 2; o > 0; o /= 2) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (lane == 0) atomicAdd(de + r, acc);
+    __shared__ float total[kThreads / kWarp];
+    if (lane == 0) total[warp] = acc;
+    __syncthreads();
+    if (live && lane == 0 && warp % kDeWarps == 0) {
+      float sum = 0.0f;
+      for (int k = 0; k < kDeWarps; ++k) sum += total[warp + k];
+      de[r] += sum;  // the row's one writer in this launch
+    }
   }
 }
 
@@ -259,8 +297,11 @@ int span_window(const SpanWindowArgs* args, const void* partial, int kind,
       (kind != kNoPartial && ld_p < b - start) || kind < 0 || kind > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int row_groups = (x.rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const int chunks = (width + kChunk - 1) / kChunk;
+  // with dE a block holds whole rows (kDeWarps warps each), one chunk
+  const bool whole_rows = x.delta_e != nullptr;
+  const int rows_per_block = whole_rows ? kRowsPerBlock / kDeWarps : kRowsPerBlock;
+  const int row_groups = (x.rows + rows_per_block - 1) / rows_per_block;
+  const int chunks = whole_rows ? 1 : (width + kChunk - 1) / kChunk;
   if (chunks > kMaxChunks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

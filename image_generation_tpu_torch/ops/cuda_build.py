@@ -26,9 +26,8 @@ __all__ = ["KernelLibrary", "SOURCES", "load_libraries"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {  # library name -> source
-    "gibbs_hbm": _PKG / "csrc" / "gibbs_hbm.cu",  # f32 K2, K3
     "span_update": _PKG / "csrc" / "span_update.cu",  # K4
-    "gibbs_sparse": _PKG / "csrc" / "gibbs_sparse.cu",  # K1; int8 and bf16 K2, K3
+    "gibbs_sparse": _PKG / "csrc" / "gibbs_sparse.cu",  # K1, K2, K3 in every value type
 }
 _HEADERS = (_PKG / "csrc" / "gibbs_common.cuh",)  # included by the sources above
 _BUILD_DIR = _PKG / "_build"

@@ -1,22 +1,21 @@
 """The sparse field gather: colored block-Gibbs sweeps that read the
 coupling only at the plan's edges.
 
-One CUDA C++ kernel for Hopper takes K1 in every value type and the int8
-and bf16 sweeps of the streaming route: K1 with an f32 or bf16 dense
-coupling or a ``QuantCoupling`` (``ops/gibbs_cuda.py``), and K2's and K3's
-int8 and bf16 modes (a ``QuantCoupling`` or dense bf16 matrix, or int8 or
-bf16 ``BlockSparseCoupling`` panels, on the streaming route,
-``ops/gibbs_hbm_cuda.py``).  It replaces those modes of
-``image_generation_tpu/ops/gibbs_pallas.py`` (``_kernel``, ``_kernel_fed``
-and ``_color_update``) and ``gibbs_pallas_hbm.py`` (``_kernel`` /
-``_kernel_bs`` with int8 or bf16 panels), and computes what they compute:
-int8 in their quantized units (h / scale, β · scale, ΔE × scale), f32 and
-bf16 as f32 sums of the exact value × ±1 products.  The source is
-``csrc/gibbs_sparse.cu``; its header note says what bounds it on the H100
-(at the flagship's 256 chains × 16 sweeps, not the bytes or operations
-but one dependent step per color class) and how the design meets that.
-``ops/cuda_build.py`` builds it beside the other kernels; it is bound
-here with ``ctypes``.
+One CUDA C++ kernel for Hopper takes every sweep of K1, K2 and K3 in every
+value type: K1 with an f32 or bf16 dense coupling or a ``QuantCoupling``
+(``ops/gibbs_cuda.py``), and the streaming route's modes
+(``ops/gibbs_hbm_cuda.py``): K2 with a dense f32 or bf16 matrix or a
+``QuantCoupling``, K3 with f32, bf16 or int8 ``BlockSparseCoupling``
+panels.  It replaces ``image_generation_tpu/ops/gibbs_pallas.py``
+(``_kernel``, ``_kernel_fed`` and ``_color_update``) and
+``gibbs_pallas_hbm.py`` (``_kernel`` / ``_kernel_bs``), and computes what
+they compute: int8 in their quantized units (h / scale, β · scale, ΔE ×
+scale), f32 and bf16 as f32 sums of the exact value × ±1 products.  The
+source is ``csrc/gibbs_sparse.cu``; its header note says what bounds it
+on the H100 (at the flagship's 256 chains × 16 sweeps, not the bytes or
+operations but one dependent step per color class) and how the design
+meets that.  ``ops/cuda_build.py`` builds it beside K4; it is bound here
+with ``ctypes``.
 
 The kernel reads the coupling only at its nonzeros, through a static
 neighbour table per plan (``neighbor_table``): for each padded column, its
@@ -191,17 +190,17 @@ def _device_table(plan: GibbsPlan, chunk: Optional[int], device):
 def _stored(coupling_p, plan: GibbsPlan):
     """(flat stored coupling, scale or None, chunk or None) of a
     ``QuantCoupling``, a dense f32 or bf16 (n_pad, n_pad) matrix, or int8
-    (with their scale) or bf16 ``BlockSparseCoupling`` panels."""
+    (with their scale), bf16 or f32 ``BlockSparseCoupling`` panels."""
     if isinstance(coupling_p, BlockSparseCoupling):
         if coupling_p.plan is not plan:
             raise ValueError("the packed coupling was cut for another plan")
         dtype = coupling_p.panels.dtype
         if coupling_p.quantized and dtype == torch.int8:
             return coupling_p.panels, coupling_p.scale, coupling_p.chunk
-        if not coupling_p.quantized and dtype == torch.bfloat16:
+        if not coupling_p.quantized and dtype in (torch.bfloat16, torch.float32):
             return coupling_p.panels, None, coupling_p.chunk
-        raise TypeError(f"the gather sweep takes int8 panels with their scale or bf16 panels, "
-                        f"got {dtype} panels")
+        raise TypeError(f"the gather sweep takes int8 panels with their scale or bf16 or f32 "
+                        f"panels, got {dtype} panels")
     if isinstance(coupling_p, QuantCoupling) and coupling_p.q.dtype == torch.int8:
         mat, scale = coupling_p.q, coupling_p.scale
     elif (isinstance(coupling_p, torch.Tensor)
@@ -211,7 +210,7 @@ def _stored(coupling_p, plan: GibbsPlan):
         what = (f"a {coupling_p.dtype} tensor" if isinstance(coupling_p, torch.Tensor)
                 else type(coupling_p).__name__)
         raise TypeError(f"the gather sweep takes a QuantCoupling, an f32 or bf16 matrix or "
-                        f"int8 / bf16 panels, got {what}")
+                        f"int8 / bf16 / f32 panels, got {what}")
     if tuple(mat.shape) != (plan.n_pad, plan.n_pad):
         raise ValueError(f"the coupling must be ({plan.n_pad}, {plan.n_pad}), "
                          f"got {tuple(mat.shape)}")
@@ -350,7 +349,7 @@ def gibbs_sweeps_sparse_reference(
     ``generator`` block by block in plan order, ΔE summed block by block).
 
     ``coupling_p``: a ``QuantCoupling``, a dense f32 or bf16 matrix, or
-    int8 / bf16 ``BlockSparseCoupling`` panels; ``uniforms``: at least
+    int8 / bf16 / f32 ``BlockSparseCoupling`` panels; ``uniforms``: at least
     ``n_sweeps`` rows of (chains, n_pad), read at [sweep, row, column].
     Returns new f32 spins, or (spins, delta_e)."""
     chains, n_pad = spins_p.shape
@@ -406,8 +405,8 @@ def gibbs_sweeps_sparse(
 ):
     """``n_sweeps`` colored block-Gibbs sweeps through the sparse gather
     kernel, with an int8 coupling (a ``QuantCoupling``, or int8
-    ``BlockSparseCoupling`` panels), a bf16 one (a dense (n_pad, n_pad)
-    matrix, or bf16 panels) or a dense f32 matrix.
+    ``BlockSparseCoupling`` panels), a bf16 or an f32 one (a dense
+    (n_pad, n_pad) matrix, or panels).
 
     ``hp`` (n_pad,) and ``spins_p`` (chains, n_pad) f32, ``beta`` scalar
     or (chains,); optional fed ``uniforms`` (>= n_sweeps, chains, n_pad)

@@ -26,8 +26,9 @@ the on-chip sweep kernel K1 (``ops/gibbs_cuda.py``, with an f32, bf16 or
 int8 coupling) and the streaming kernels K2 / K3
 (``ops/gibbs_hbm_cuda.py``), each with its ΔE mode under parallel
 tempering.  A CUDA tensor launches the kernel, a CPU tensor runs its plain
-version (for K1 the sparse field gather's, ``gibbs_sweeps_sparse_reference``:
-the Pallas kernels' quantized units for int8); ``USE_PALLAS="off"``
+version (for K1, K2 and K3 alike the sparse field gather's,
+``gibbs_sweeps_sparse_reference``: the Pallas kernels' quantized units for
+int8); ``USE_PALLAS="off"``
 selects the plain XLA-semantics ``gibbs_sweeps_reference`` everywhere.
 
 Graph sharding (``GRAPH_SHARDED``, the JAX dispatch of

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of K4's owned-window kernel on one CUDA card.
 
-    python3 k4_variants.py
+    python3 k4_variants.py [--parent DIR]
 
 Builds each variant from a copy of
 ``image_generation_tpu_torch/csrc/span_update.cu`` with one change, loads
@@ -11,22 +11,32 @@ warm-up) at the graph-sharded scaled shapes: 2,048 chain rows, the
 widest window (1,408 columns of span [0, 1,408)) with a bf16 carry and ΔE
 under Philox and fed uniforms, without ΔE, and with f32 and int8
 carries; and one sweep's 10 launches over the 4 ranks' windows of 1,504
-columns (bf16, ΔE, Philox).  The variants:
+columns (bf16, ΔE, Philox).  The variants are the designs that sum a
+row's ΔE in one fixed order:
 
-* ``shipped``: the source as it is;
-* ``old spin where used``: the old spin loaded after Philox, where ΔE
-  uses it, instead of first;
-* ``chunk 32`` / ``64`` / ``128``: columns a warp walks (shipped: 256);
-* ``unroll 4``: the column loop unrolled 4 times.
+* ``shipped``: with ΔE two warps share all of a row's owned columns (a
+  grid of row groups only), their totals added in warp order through
+  shared memory;
+* ``dE 1 / 4 / 8 warps a row``: that many warps share a row's columns;
+* ``dE chunk partials, last block sums``: the grid of (row groups,
+  256-column chunks) kept with ΔE, each (row, chunk) warp writing its
+  partial to a scratch buffer that the row group's last block (found
+  with a ``__threadfence`` and an atomic counter) sums in chunk order;
+* ``parent`` (with ``--parent DIR``, a checkout of another commit): that
+  tree's source as it is, e.g. the earlier kernel whose column chunks
+  added a row's ΔE with float atomics.
 
 Every variant's spins must equal the shipped kernel's bit for bit (its ΔE
-is printed beside them).  Prints the card's name and power limit and one
-line per variant and round (two rounds).  Exits non-zero without a CUDA
-device.
+is printed beside them), and at the widest window with ΔE (bf16, Philox)
+20 launches from the same inputs are compared: the number of distinct ΔE
+vectors among them is printed (1: the sum repeats itself).  Prints the
+card's name and power limit and one line per variant and round (two
+rounds).  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import re
 import subprocess
@@ -38,30 +48,75 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "image_generation_tpu_torch" / "csrc"
-LOOP = "  for (int c = c_begin + lane; c < c_end; c += kWarp) {\n"
-OLD_FIRST = "    const float old = de != nullptr ? Spin<S>::load(slot) : 0.0f;\n"
-OLD_USE = "    if (de != nullptr) acc += f * ((up ? 1.0f : -1.0f) - old);"
+REPEATS = 20
+# design (b): scratch for the (row, chunk) partials and the row groups' counters
+B_GLOBALS = """__device__ float g_partial[1 << 16];       // rows x chunks of one launch
+__device__ unsigned int g_arrived[1 << 13];  // blocks of a row group done
+
+template <typename S, bool kFed>
+__global__ void __launch_bounds__(kThreads)
+span_window_kernel("""
+B_MAP = """  const int r = blockIdx.x * kRowsPerBlock + warp;
+  const int c_begin = a + blockIdx.y * kChunk + lane;
+  const int c_end = min(b, a + (static_cast<int>(blockIdx.y) + 1) * kChunk);
+  const int step = kWarp;
+  const bool live = r < args.rows;
+  if (!live && de == nullptr) return;
+"""
+B_SUM = """    if (live && lane == 0) g_partial[r * gridDim.y + blockIdx.y] = acc;
+    __threadfence();
+    __syncthreads();
+    __shared__ bool last;
+    if (threadIdx.x == 0) last = atomicAdd(&g_arrived[blockIdx.x], 1u) == gridDim.y - 1;
+    __syncthreads();
+    if (last) {
+      if (live && lane == 0) {
+        float sum = 0.0f;
+        for (unsigned k = 0; k < gridDim.y; ++k) sum += __ldcg(&g_partial[r * gridDim.y + k]);
+        de[r] += sum;
+      }
+      if (threadIdx.x == 0) g_arrived[blockIdx.x] = 0u;
+    }
+  }
+}
+"""
 
 
-def variants(src: str) -> dict:
+def _between(text: str, begin: str, end: str) -> str:
+    """The text from ``begin`` up to (not including) ``end``."""
+    i = text.index(begin)
+    return text[i:text.index(end, i)]
+
+
+def variants(src: str, parent: Path = None) -> dict:
     def sub(text, old, new):
         if old not in text:
-            raise RuntimeError(f"the source no longer has {old.strip()!r}")
+            raise RuntimeError(f"the source no longer has {old.strip()[:80]!r}")
         return text.replace(old, new)
 
     out = {"shipped": src}
-    late = sub(src, OLD_FIRST, "")
-    out["old spin where used"] = sub(
-        late, OLD_USE,
-        "    if (de != nullptr) acc += f * ((up ? 1.0f : -1.0f) - Spin<S>::load(slot));")
-    for chunk in (32, 64, 128):
-        out[f"chunk {chunk}"] = sub(src, "constexpr int kChunk = 256;",
-                                    f"constexpr int kChunk = {chunk};")
-    out["unroll 4"] = sub(src, LOOP, "#pragma unroll 4\n" + LOOP)
+    for w in (1, 4, 8):
+        out[f"dE {w} warp{'s' if w > 1 else ''} a row"] = sub(
+            src, "constexpr int kDeWarps = 2;", f"constexpr int kDeWarps = {w};")
+    b = sub(src, "template <typename S, bool kFed>\n__global__ void __launch_bounds__(kThreads)\n"
+                 "span_window_kernel(", B_GLOBALS)
+    b = sub(b, _between(b, "  // without dE a warp takes (row, chunk)", "\n  const float neg2beta"),
+            B_MAP)
+    b = sub(b, _between(b, "    __shared__ float total[kThreads / kWarp];",
+                        "template <typename S, bool kFed>\nvoid launch("), B_SUM + "\n")
+    out["dE chunk partials, last block sums"] = sub(
+        b, "const bool whole_rows = x.delta_e != nullptr;", "const bool whole_rows = false;")
+    if parent is not None:
+        out["parent"] = (parent / "image_generation_tpu_torch" / "csrc" /
+                         "span_update.cu").read_text()
     return out
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout whose span_update.cu is timed as the variant 'parent'")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k4_variants: no CUDA device visible", file=sys.stderr)
         return 1
@@ -74,7 +129,8 @@ def main() -> int:
     tmp = Path(tempfile.mkdtemp(prefix="k4_variants_"))
     (tmp / "gibbs_common.cuh").write_text((CSRC / "gibbs_common.cuh").read_text())
     builds = {}
-    for i, (name, text) in enumerate(variants((CSRC / "span_update.cu").read_text()).items()):
+    for i, (name, text) in enumerate(variants((CSRC / "span_update.cu").read_text(),
+                                              args.parent).items()):
         (tmp / f"v{i}.cu").write_text(text)
         cmd = [cuda_build._nvcc(), *cuda_build._NVCC_FLAGS, "-o", str(tmp / f"v{i}.so"),
                str(tmp / f"v{i}.cu")]
@@ -133,6 +189,15 @@ def main() -> int:
                 t = us(lambda: upd(parts[(0, width)], 0, width, 1))
                 res.append(f"{str(carry)[6:]}{' dE' if de_on else ''} "
                            f"{'fed' if fed else 'Philox'} {t:.2f} us")
+                if carry == torch.bfloat16 and de_on and not fed:  # does dE repeat itself?
+                    runs = []
+                    for _ in range(REPEATS):
+                        s.copy_(init[:, :width].to(carry))
+                        upd.delta_e.zero_()
+                        upd(parts[(0, width)], 0, width, 1)
+                        runs.append(upd.delta_e.clone())
+                    distinct = len({tuple(x.tolist()) for x in runs})
+                    res.append(f"dE distinct over {REPEATS} launches {distinct}")
             sweep_us, outs, des = 0.0, [], []
             for r in range(4):
                 lo = r * l_loc

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the sweep kernels (K1, K2, K3, K4) and the serving and training runs around them on one CUDA card.
 
-    python3 stream_times.py [--root DIR] [--out FILE] [--only k1,flagship,sweeps,train,k4]
+    python3 stream_times.py [--root DIR] [--out FILE] [--only k1,flagship,sweeps,train,k4,f32]
 
 Imports ``image_generation_tpu_torch`` from ``--root`` (default: this
 script's directory), so that two commits of the port can be timed on one
@@ -45,7 +45,18 @@ serving shapes) and spins drawn from fixed seeds:
   the 7 spans) and, where the tree has it, through ``SpanWindowUpdate``
   (one launch per owned span).  Every commit since the graph-sharded
   slice has ``span_update``, so the composed run times the other tree's
-  K4 at the same shapes.
+  K4 at the same shapes;
+* the streaming route in f32 (``f32``), by CUDA events over 5 calls after
+  a warm-up: K2-f32 and K3-f32 (packed at chunk 256), each with and
+  without the energy carry, at 2,048 chains x 4 sweeps under the 32-rung
+  ladder's beta on the scaled plan; on the 1,280-latent Advantage2_system1
+  plan (n_pad 1,664) K2-f32 at 256 chains x 80 sweeps (a request) and x
+  16 (a training refresh) and K2-f32-dE at 2,048 x 16 (the 8-rung PT
+  refresh); then the 1,280-latent default configuration trained one epoch
+  under plain Gibbs (saved) and one under PT (the median step after 4
+  warm-up steps each, host clock after ``torch.cuda.synchronize``) and
+  the saved model served: the lone request's median and p90 over 20
+  after the warm-up.
 
 Prints the card's name and power limit (``nvidia-smi``), one line per
 number, and last one JSON object of them all (also written to ``--out``).
@@ -330,7 +341,89 @@ def k4_times(dev, out: dict) -> None:
         print(line, flush=True)
 
 
-SECTIONS = ("k1", "flagship", "sweeps", "train", "k4")
+def f32_times(dev, out: dict) -> None:
+    import shutil
+    import tempfile
+
+    from image_generation_tpu_torch.app.warm import WarmGenerator
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+    from image_generation_tpu_torch.ops.gibbs import build_plan, permuted_model, random_spins
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda as stream
+    from image_generation_tpu_torch.training.trainer import Trainer
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    scaled = TrainingConfig(**SCALED)
+    ladder32 = torch.tensor(scaled.initial_pt_betas(), dtype=torch.float32,
+                            device=dev).repeat_interleave(scaled.NUM_READS)
+    ladder8 = torch.tensor(TrainingConfig().initial_pt_betas(), dtype=torch.float32,
+                           device=dev).repeat_interleave(256)
+    g = torch.Generator(device=dev)
+    for qpu, n_latents, cases in (
+            ("Advantage_system6", 5640, (("K2", 2048, 4, ladder32, False),
+                                         ("K2", 2048, 4, ladder32, True),
+                                         ("K3", 2048, 4, ladder32, False),
+                                         ("K3", 2048, 4, ladder32, True))),
+            ("Advantage2_system1", 1280, (("K2", 256, 80, 1.0, False),
+                                          ("K2", 256, 16, 1.0, False),
+                                          ("K2", 2048, 16, ladder8, True)))):
+        graph, _ = cached_latent_graph(qpu, n_latents, scaled.RANDOM_SEED)
+        plan = build_plan(graph)
+        rng = np.random.default_rng(n_latents + 11)
+        hp, a = permuted_model(
+            plan, torch.tensor(rng.uniform(-0.5, 0.5, graph.n), dtype=torch.float32, device=dev),
+            torch.tensor(rng.uniform(-1.0, 1.0, graph.n_edges), dtype=torch.float32, device=dev))
+        packed = pack_coupling(plan, a, scaled.SWEEP_BS_CHUNK)
+        for kernel, chains, sweeps, beta, de in cases:
+            g.manual_seed(chains + sweeps)
+            s = random_spins(g, plan, chains, dev)
+            c = packed if kernel == "K3" else a
+            ms = cuda_ms(lambda: stream(hp, c, plan, s, sweeps, beta, generator=g,
+                                        track_delta_e=de))
+            key = f"{kernel}-f32{'-dE' if de else ''} {chains}x{sweeps} n_pad {plan.n_pad}"
+            out[key + " ms"] = ms
+            print(f"[times] {key}: {ms:.4f} ms", flush=True)
+        del a, packed
+        torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="stream_times_1280_"))
+    try:
+        base = None
+        for label, overrides in (("1,280-latent plain", {}), ("1,280-latent PT", dict(SAMPLER="pt"))):
+            tr = Trainer(config=TrainingConfig(N_LATENTS=1280, **overrides), device=dev)
+            if base is None:
+                tr.setup()
+                base = tr
+            else:
+                tr.graph, tr.plan, tr.physical_nodes = base.graph, base.plan, base.physical_nodes
+                tr.images, tr.data_source = base.images, base.data_source
+            times, _wall = _epoch_steps(tr)
+            med = float(np.median(times[4:]))
+            out[f"{label} step median ms"] = med * 1e3
+            print(f"[times] {label} training ({tr.fns.sampler_impl}): {len(times)} steps, median "
+                  f"after 4 {med * 1e3:.3f} ms; steps (ms) "
+                  f"{', '.join(f'{t * 1e3:.3f}' for t in times)}", flush=True)
+            if label == "1,280-latent plain":
+                tr.save(tmp / "latents1280")
+        del base, tr
+        w = WarmGenerator(tmp, device=dev)
+        w.warm_buckets(tmp / "latents1280", 1)
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            w.serve(tmp / "latents1280")
+            lat.append((time.perf_counter() - t0) * 1e3)
+        out["1,280-latent request median ms"] = float(np.median(lat))
+        out["1,280-latent request p90 ms"] = float(np.percentile(lat, 90))
+        print(f"[times] 1,280-latent request (256 images, {w._trainer.fns.sampler_impl}), 20 after "
+              f"the warm-up: median {out['1,280-latent request median ms']:.3f} ms, p90 "
+              f"{out['1,280-latent request p90 ms']:.3f} ms", flush=True)
+        del w
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+SECTIONS = ("k1", "flagship", "sweeps", "train", "k4", "f32")
 
 
 def main() -> int:
@@ -359,7 +452,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     out = {"card": card, "root": str(args.root)}
     for name, fn in (("k1", k1_times), ("flagship", flagship_times), ("sweeps", sweep_times),
-                     ("train", train_times), ("k4", k4_times)):
+                     ("train", train_times), ("k4", k4_times), ("f32", f32_times)):
         if name in only:
             fn(dev, out)
     line = json.dumps(out)

@@ -1,6 +1,6 @@
-"""The gather kernel, which takes K1 in every value type (f32, bf16,
-int8) and K2's and K3's int8 and bf16 modes, the f32 K2 and K3, and K4 on
-the card: the CUDA kernels against their plain versions.
+"""The gather kernel, which takes K1, K2 and K3 in every value type (f32,
+bf16, int8), and K4 on the card: the CUDA kernels against their plain
+versions.
 
 These tests need a CUDA device and ``nvcc``; without a card they skip.
 This file imports no JAX, so on the GPU machine (which has none) it runs
@@ -9,19 +9,20 @@ without the JAX test configuration:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Tolerance: a kernel and a plain version that sum the fields in another
-order (the f32 K2 / K3 against theirs, the gather against the dense plain
-versions) differ by about an ulp; a draw whose uniform falls within that
-ulp of its probability flips (probability ~1e-7 per draw) and its chain
-then diverges.  So the rule there is that at least 98% of the chains
-come out bit-identical.  On identical chains ΔE agrees within 1e-4
-(checkpoint model) or 1e-3·(1 + |E|) (|J| ≤ 1); on integer-valued
-couplings every sum is exact, so the packed kernel K3 equals the dense K2
-bit for bit.  The gather kernel sums exact integer fields (int8), or f32
-fields in its plain version's slot order (f32, bf16), so against its
-plain version every chain is expected identical: K1's f32 and bf16 modes
-are held to that (no chain differing), the int8 modes to the same 98 %
+order (the gather against the dense plain versions) differ by about an
+ulp; a draw whose uniform falls within that ulp of its probability flips
+(probability ~1e-7 per draw) and its chain then diverges.  So the rule
+there is that at least 98% of the chains come out bit-identical.  On
+identical chains ΔE agrees within 1e-4 (checkpoint model) or
+1e-3·(1 + |E|) (|J| ≤ 1); on integer-valued couplings every sum is exact,
+so the packed K3 equals the dense K2 bit for bit.  The gather kernel sums
+exact integer fields (int8), or f32 fields in its plain version's slot
+order (f32, bf16), so against its plain version every chain is expected
+identical: the f32 and bf16 modes of K1 and the f32 modes of K2 / K3 are
+held to that (no chain differing), the int8 modes to the same 98 %
 (99.9 % against the dense plain versions) and the streaming bf16 modes
-to 99.9 %.
+to 99.9 %.  K4's ΔE is summed in one fixed order, so repeated launches on
+the same inputs give the same ΔE bit for bit.
 """
 
 from pathlib import Path
@@ -464,14 +465,17 @@ def _stream_coupling(a, form, chunk, plan):
 @pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
 def test_stream_kernel_matches_plain(dev, ckpt, form, chunk, track):
     """Every mode of K2 and K3 on the checkpoint's plan (blocks up to 512
-    wide, so a block takes several 128-column passes), |J| ≤ 1, per-chain
-    β, 1,030 chains (R = 4, a partial last block at R = 8), 3 sweeps run
-    as 4."""
-    from image_generation_tpu_torch.ops.gibbs import ising_energies
+    wide), |J| ≤ 1, per-chain β, 1,030 chains (a partial last block at
+    every G > 1), 3 sweeps run as 4: through the route at its default
+    launch shape and through the gather at every (chains per block,
+    threads) it can take, against the gather's plain version (f32: no
+    chain differing; bf16: ≥ 99.9 %; int8: the chain rule) and against the dense plain
+    version (the chain rule), ΔE within 1e-3·(1 + |E|)."""
     from image_generation_tpu_torch.ops.gibbs_hbm_cuda import (
         gibbs_sweeps_hbm_cuda,
         gibbs_sweeps_hbm_reference,
     )
+    from image_generation_tpu_torch.ops.gibbs_sparse import _CHAINS, gibbs_sweeps_sparse
 
     plan, _, (hp, a) = ckpt
     coupling = _stream_coupling(a, form, chunk, plan)
@@ -479,19 +483,22 @@ def test_stream_kernel_matches_plain(dev, ckpt, form, chunk, track):
     s0 = torch.tensor(rng.choice([-1.0, 1.0], (1030, plan.n_pad)), dtype=torch.float32, device=dev)
     u = torch.tensor(rng.random((4, 1030, plan.n_pad), dtype=np.float32), device=dev)
     beta = torch.tensor(rng.uniform(0.5, 2.0, 1030), dtype=torch.float32, device=dev)
-    ref = gibbs_sweeps_hbm_reference(hp, coupling, plan, s0, 3, beta, uniforms=u,
-                                     track_delta_e=track)
-    for rows in ((None, 8, 1) if form == "f32" else (None,)):  # bf16, int8: the gather kernel
-        out = gibbs_sweeps_hbm_cuda(hp, coupling, plan, s0, 3, beta, uniforms=u,
-                                    track_delta_e=track, _rows_per_block=rows)
-        torch.cuda.synchronize()
-        if not track:
-            assert _identical(out, ref) >= CHAIN_RULE
-            continue
-        same = (out[0] == ref[0]).all(dim=1)
-        assert float(same.float().mean()) >= CHAIN_RULE
-        e_abs = ising_energies(hp, coupling, ref[0]).abs()[same]
-        assert bool(((out[1] - ref[1]).abs()[same] <= 1e-3 * (1 + e_abs)).all())
+    twin = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 4, beta, uniforms=u,
+                                         track_delta_e=track)
+    dense = gibbs_sweeps_hbm_reference(hp, coupling, plan, s0, 3, beta, uniforms=u,
+                                       track_delta_e=track)
+    outs = [gibbs_sweeps_hbm_cuda(hp, coupling, plan, s0, 3, beta, uniforms=u,
+                                  track_delta_e=track)]
+    for shape in [(g, t) for g in _CHAINS for t in (128, 256, 512, 1024)]:
+        outs.append(gibbs_sweeps_sparse(hp, coupling, plan, s0, 4, beta, uniforms=u,
+                                        track_delta_e=track, _shape=shape))
+    torch.cuda.synchronize()
+    for out in outs:
+        frac = _gather_check(out, twin, hp, coupling,
+                             rule=CHAIN_RULE if form == "int8" else 0.999)
+        if form == "f32":
+            assert frac == 1.0
+        _gather_check(out, dense, hp, coupling)
 
 
 @pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
@@ -518,8 +525,9 @@ def test_stream_k3_equals_k2_on_integer_couplings(dev, ckpt, form):
 
 @pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
 def test_stream_philox_matches_numpy_twin(dev, ckpt, form):
-    """Philox mode of K3 against its plain version fed ``philox_uniforms``
-    for the even sweep count, and ΔE against the f64 energy change."""
+    """Philox mode of K3 against the dense plain version (the chain rule)
+    and the gather's (f32: no chain differing) fed ``philox_uniforms`` for
+    the even sweep count."""
     from image_generation_tpu_torch.ops.gibbs_hbm_cuda import (
         gibbs_sweeps_hbm_cuda,
         gibbs_sweeps_hbm_reference,
@@ -537,6 +545,8 @@ def test_stream_philox_matches_numpy_twin(dev, ckpt, form):
     u = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 256, plan.n_pad), device=dev)
     ref = gibbs_sweeps_hbm_reference(hp, coupling, plan, s0, 3, uniforms=u)
     assert _identical(out, ref) >= CHAIN_RULE
+    twin = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 4, uniforms=u)
+    assert _identical(out, twin) >= CHAIN_RULE and (form != "f32" or _differing(out, twin) == 0)
 
 
 def test_stream_unoccupied_color_and_counters(dev):
@@ -849,9 +859,9 @@ def test_bf16_routes_match_the_dense_plain_version(dev, bf16_plans):
 
 def test_bf16_gather_refuses_without_fallback(dev, bf16_plans):
     """What the gather does not take raises before a launch, and the route
-    counts nothing: an f64 matrix, f32 panels (the dense K3's), a launch
-    shape that does not fit, a non-contiguous coupling, a plan wider than a
-    bf16 table word holds."""
+    counts nothing: an f64 matrix, f16 panels, a launch shape that does not
+    fit, a non-contiguous coupling, a plan wider than a bf16 table word
+    holds."""
     from image_generation_tpu_torch.ops.block_sparse import BlockSparseCoupling
     from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
     from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse
@@ -860,7 +870,7 @@ def test_bf16_gather_refuses_without_fallback(dev, bf16_plans):
 
     plan, hp, a, _ = bf16_plans["latents2048"]
     s0 = torch.ones((64, plan.n_pad), device=dev)
-    for other in (a.double(), pack_coupling(plan, a.float(), 256)):
+    for other in (a.double(), pack_coupling(plan, a.half(), 256)):
         with pytest.raises(TypeError):
             gibbs_sweeps_sparse(hp, other, plan, s0, 2)
     for shape in ((3, 512), (2, 48), (1, 2048), (32, 1024)):
@@ -878,6 +888,147 @@ def test_bf16_gather_refuses_without_fallback(dev, bf16_plans):
         gibbs_sweeps_hbm_cuda(torch.zeros(65664, device=dev), panels, wide,
                               torch.ones((1, 65664), device=dev), 2)
     assert not gibbs_sweeps_hbm_cuda.launches
+
+
+@pytest.fixture(scope="module")
+def f32_plans(dev):
+    """{name: (plan, hp, dense f32 coupling, f32 panels at chunk 256)} for
+    the 1,280-latent Advantage2_system1 plan (n_pad 1,664, the default
+    configuration's K2-f32 path) and the scaled plan, |J| ≤ 1 models."""
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    out = {}
+    for name, qpu, n in (("latents1280", "Advantage2_system1", 1280),
+                         ("scaled", "Advantage_system6", 5640)):
+        graph, _ = cached_latent_graph(qpu, n, 775321899904)
+        plan = build_plan(graph)
+        rng = np.random.default_rng(n + 3)
+        hp, a = permuted_model(
+            plan, torch.tensor(rng.uniform(-0.5, 0.5, graph.n), dtype=torch.float32, device=dev),
+            torch.tensor(rng.uniform(-1, 1, graph.n_edges), dtype=torch.float32, device=dev))
+        out[name] = (plan, hp, a, pack_coupling(plan, a, 256))
+    return out
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("chains", [256, 2048])
+@pytest.mark.parametrize("name", ["latents1280", "scaled"])
+def test_f32_gather_kernel_matches_its_plain_version(dev, f32_plans, name, chains, track):
+    """K2-f32 (the dense matrix) and K3-f32 (its panels) through the
+    gather kernel against its plain version, fed uniforms, β = 1 at 256
+    chains and the 32-rung ladder's β at 2,048, 4 sweeps, at the default
+    launch shape and at every (chains per block, threads) the wrapper can
+    take: no chain differing (the same f32 sums in the same order), ΔE
+    within 1e-3·(1 + |E|)."""
+    from image_generation_tpu_torch.ops.gibbs_sparse import _CHAINS, gibbs_sweeps_sparse
+
+    plan, hp, a, bsc = f32_plans[name]
+    rng = np.random.default_rng(chains + 4)
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32,
+                      device=dev)
+    u = torch.tensor(rng.random((4, chains, plan.n_pad), dtype=np.float32), device=dev)
+    beta = 1.0 if chains == 256 else _ladder_32(chains, dev)
+    shapes = [None] + [(g, t) for g in _CHAINS for t in (512, 1024)]
+    for coupling in (a, bsc):
+        ref = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 4, beta, uniforms=u,
+                                            track_delta_e=track)
+        for shape in shapes:
+            out = gibbs_sweeps_sparse(hp, coupling, plan, s0, 4, beta, uniforms=u,
+                                      track_delta_e=track, _shape=shape)
+            torch.cuda.synchronize()
+            assert _gather_check(out, ref, hp, coupling) == 1.0
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("name", ["latents1280", "scaled"])
+def test_f32_gather_kernel_philox_matches_numpy_twin(dev, f32_plans, name, track):
+    """Philox mode (K2-f32 on the 1,280-latent plan, K3-f32 on the scaled
+    panels) against the plain version fed ``philox_uniforms``: no chain
+    differing."""
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
+
+    plan, hp, a, bsc = f32_plans[name]
+    coupling = bsc if name == "scaled" else a
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    probe = torch.Generator(device=dev)
+    probe.set_state(g.get_state())
+    seed = int(gibbs_cuda.draw_seed(probe, dev).item())
+    s0 = random_spins(probe, plan, 512, dev)
+    out = gibbs_sweeps_hbm_cuda(hp, coupling, plan, s0, 3, generator=g, track_delta_e=track)
+    u = torch.tensor(gibbs_cuda.philox_uniforms(seed, 4, 512, plan.n_pad), device=dev)
+    ref = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, 4, uniforms=u,
+                                        track_delta_e=track)
+    assert _gather_check(out, ref, hp, coupling) == 1.0
+
+
+def test_f32_routes_match_the_dense_plain_version(dev, f32_plans):
+    """The streaming route at the paths' shapes, fed uniforms, against the
+    dense plain version ``gibbs_sweeps_hbm_reference`` (another summation
+    order: the chain rule): the 1,280-latent plain Gibbs refresh (dense,
+    256 chains x 16 sweeps, K2-f32), its PT refresh (8 rungs x 256 chains
+    at the ladder's β, 16 sweeps, ΔE, K2-f32-dE) and the scaled PT refresh
+    (packed, 2,048 chains, 3 sweeps run as 4, ΔE, K3-f32-dE); each launch
+    counted once under its mode."""
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import (
+        gibbs_sweeps_hbm_cuda,
+        gibbs_sweeps_hbm_reference,
+    )
+
+    ladder8 = torch.tensor(TrainingConfig().initial_pt_betas(), dtype=torch.float32,
+                           device=dev).repeat_interleave(256)
+    gibbs_sweeps_hbm_cuda.launches.clear()
+    for name, chains, sweeps, track in (("latents1280", 256, 16, False),
+                                        ("latents1280", 2048, 16, True),
+                                        ("scaled", 2048, 3, True)):
+        plan, hp, a, bsc = f32_plans[name]
+        coupling = a if name == "latents1280" else bsc
+        rng = np.random.default_rng(sweeps + chains)
+        s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32,
+                          device=dev)
+        u = torch.tensor(rng.random((16, chains, plan.n_pad), dtype=np.float32), device=dev)
+        beta = (1.0 if chains == 256 else
+                ladder8 if name == "latents1280" else _ladder_32(chains, dev))
+        out = gibbs_sweeps_hbm_cuda(hp, coupling, plan, s0, sweeps, beta, uniforms=u,
+                                    track_delta_e=track)
+        ref = gibbs_sweeps_hbm_reference(hp, coupling, plan, s0, sweeps, beta, uniforms=u,
+                                         track_delta_e=track)
+        torch.cuda.synchronize()
+        _gather_check(out, ref, hp, coupling)
+    assert dict(gibbs_sweeps_hbm_cuda.launches) == {"K2-f32": 1, "K2-f32-dE": 1, "K3-f32-dE": 1}
+
+
+def test_f32_gather_refuses_without_fallback(dev, f32_plans):
+    """No dense kernel is left: what the gather does not take in f32
+    raises before a launch, and the route counts nothing: f64 panels and an
+    f64 matrix, panels cut for another plan, a launch shape that does not
+    fit, a non-contiguous coupling, too few fed uniforms for the even
+    sweep count."""
+    from image_generation_tpu_torch.ops.block_sparse import BlockSparseCoupling
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
+    from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse
+
+    plan, hp, a, bsc = f32_plans["latents1280"]
+    other_plan = f32_plans["scaled"][0]
+    s0 = torch.ones((64, plan.n_pad), device=dev)
+    gibbs_sweeps_hbm_cuda.launches.clear()
+    f64 = BlockSparseCoupling(panels=bsc.panels.double(), scale=None, plan=plan, chunk=256)
+    for bad in (f64, a.double()):
+        with pytest.raises(TypeError):
+            gibbs_sweeps_hbm_cuda(hp, bad, plan, s0, 2)
+    with pytest.raises(ValueError, match="another plan"):
+        gibbs_sweeps_hbm_cuda(hp, f32_plans["scaled"][3], plan, s0, 2)
+    with pytest.raises(ValueError):
+        gibbs_sweeps_hbm_cuda(hp, a.t(), plan, s0, 2)
+    with pytest.raises(ValueError):
+        gibbs_sweeps_hbm_cuda(hp, a, plan, s0, 3, uniforms=torch.rand((3, 64, plan.n_pad),
+                                                                         device=dev))
+    for shape in ((3, 512), (2, 48), (1, 2048), (32, 1024)):
+        with pytest.raises(ValueError):
+            gibbs_sweeps_sparse(hp, bsc, plan, s0, 2, _shape=shape)
+    assert other_plan.n_pad != plan.n_pad and not gibbs_sweeps_hbm_cuda.launches
 
 
 # ---------------------------------------------------------------------------
@@ -1030,6 +1181,52 @@ def test_span_window_matches_plain(dev, rows, carry):
                         assert bool(((de_k - de_p).abs() <= 1e-4 * (1 + de_p.abs())).all())
                         checked += 1
     assert checked == len(SCALED_SPAN_WIDTHS) * len(WINDOW_CASES) * 8
+
+
+@pytest.mark.parametrize("carry", CARRY_DTYPES, ids=["f32", "bf16", "int8"])
+def test_span_window_delta_e_repeats_itself(dev, carry):
+    """K4's ΔE is summed in one order: at 2,048 chain rows on every window
+    ``chip_smoke.py`` checks on the scaled plan (each rank's owned spans at
+    the (1, 4) mesh, the widest 1,408 columns, and inside / left / right /
+    covering at each class-span width), with ΔE and Philox, 20 launches
+    from the same spins and a zeroed ΔE give the same ΔE and spins bit for
+    bit."""
+    from image_generation_tpu_torch.ops.gibbs import class_spans
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import span_update_window
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    graph, _ = cached_latent_graph("Advantage_system6", 5640, 775321899904)
+    plan = build_plan(graph)
+    rows, ranks = 2048, 4
+    l_loc = plan.n_pad // ranks
+    spans = [(a, b) for a, b, _b0, _b1 in class_spans(plan)]
+    windows = [(a, b, r * l_loc, l_loc) for r in range(ranks) for a, b in spans
+               if max(a, r * l_loc) < min(b, (r + 1) * l_loc)]
+    by_width = {b - a: (a, b) for a, b in spans if a >= 64 and b + 64 <= plan.n_pad}
+    for w, (a, b) in sorted(by_width.items()):
+        windows += [(a, b, *_window(case, a, w)) for case in WINDOW_CASES]
+    owned = [min(b, lo + cols) - max(a, lo) for a, b, lo, cols in windows]
+    assert max(owned) == 1408 and len(windows) == 18
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    seed = torch.tensor([0x5EED5EED1234], dtype=torch.int64, device=dev)
+    h = torch.randn(plan.n_pad, generator=g, device=dev)
+    beta = 0.2 + 1.8 * torch.rand(rows, generator=g, device=dev)
+    for start, stop, lo, cols in windows:
+        partial = 3.0 * torch.randn((rows, stop - start), generator=g, device=dev)
+        s0 = torch.where(torch.rand((rows, cols), generator=g, device=dev) < 0.5, 1.0,
+                         -1.0).to(carry)
+        first = None
+        for _ in range(20):
+            s, de = s0.clone(), torch.zeros(rows, device=dev)
+            span_update_window(partial, h, beta, s, lo, start, stop, seed=seed, sweep=1,
+                               delta_e=de)
+            torch.cuda.synchronize()
+            if first is None:
+                first = (s, de)
+                assert bool(de.abs().sum() > 0)
+                continue
+            assert torch.equal(s, first[0]) and torch.equal(de, first[1]), (start, lo, cols)
 
 
 def test_span_window_int8_fields_round_twice(dev):

@@ -4,8 +4,8 @@ versions of the streaming sweep kernels K2 and K3, on the CPU.
 Inputs are made with numpy from a seed and handed to both packages; the
 JAX side runs ``gibbs_sweeps_pallas_hbm`` in interpret mode with fed
 uniforms, as its own tests do.  The port runs ``gibbs_sweeps_hbm_cuda`` on
-CPU tensors, which is the kernels' plain version (for bf16 and int8 the
-gather kernel's, ``gibbs_sparse.gibbs_sweeps_sparse_reference``).
+CPU tensors, which is the kernels' plain version: in every value type the
+gather kernel's, ``gibbs_sparse.gibbs_sweeps_sparse_reference``.
 
 Tolerances.  Quantization and packing are bit-identical.  Sweeps: at
 least 98 % of the chains bit-identical (the chain rule: the two sum the
@@ -33,8 +33,8 @@ from image_generation_tpu_torch.models import grbm as tgrbm
 from image_generation_tpu_torch.ops import block_sparse as tbs
 from image_generation_tpu_torch.ops import gibbs as tgibbs
 from image_generation_tpu_torch.ops import quant as tquant
+from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse_reference
 from image_generation_tpu_torch.ops.gibbs_hbm_cuda import (
-    default_rows,
     gibbs_sweeps_hbm_cuda,
     gibbs_sweeps_hbm_reference,
     round_sweeps,
@@ -314,14 +314,15 @@ def test_plain_k3_unoccupied_color_takes_fields_h():
 
 
 def test_plain_version_rounds_sweeps_and_counts_nothing(g384):
-    """3 sweeps run as 4 (a 4-sweep run with the same uniforms); the CPU
-    path launches nothing; too few fed sweeps raise."""
+    """3 sweeps run as 4 (the gather's plain version at 4 sweeps with the
+    same uniforms); the CPU path launches nothing; too few fed sweeps
+    raise."""
     _, tplan, models = g384
     hp, a = (_t(x) for x in models["strong"])
     s0, u, _ = _inputs(50, 384)
     gibbs_sweeps_hbm_cuda.launches.clear()
     three = gibbs_sweeps_hbm_cuda(hp, a, tplan, _t(s0), 3, uniforms=_t(u))
-    four = tgibbs.gibbs_sweeps_reference(hp, a, tplan, _t(s0), 4, uniforms=_t(u))
+    four = gibbs_sweeps_sparse_reference(hp, a, tplan, _t(s0), 4, uniforms=_t(u))
     assert torch.equal(three, four) and sum(gibbs_sweeps_hbm_cuda.launches.values()) == 0
     with pytest.raises(ValueError, match="uniforms"):
         gibbs_sweeps_hbm_cuda(hp, a, tplan, _t(s0), 3, uniforms=_t(u[:3]))
@@ -329,12 +330,11 @@ def test_plain_version_rounds_sweeps_and_counts_nothing(g384):
 
 
 def test_default_rows_fit_the_scaled_plan():
-    """The rows per thread block of the f32 kernels at the scaled plan's
-    shapes (n_pad 6,016, 128-wide blocks; the chunk lists do not change
-    the rule): R = 8 for the 2,048 parallel-tempering chains, R = 1 for a
-    256-chain request.  The bf16 and int8 modes are the gather kernel's,
-    whose launch shape gives the same chains per block here: G = 8, 1, 4
-    (tests/test_torch_sparse_int8.py holds it on the real plans)."""
+    """The chains per thread block of the streaming route at the scaled
+    plan's shapes (n_pad 6,016, 128-wide blocks): every mode is the gather
+    kernel's, whose launch shape gives G = 8 for the 2,048
+    parallel-tempering chains, G = 1 for a 256-chain request and G = 4 for
+    1,024 (tests/test_torch_sparse_int8.py holds it on the real plans)."""
     from image_generation_tpu_torch.ops.gibbs_sparse import launch_shape
 
     blocks = tuple((128 * i, 128 * i + 120, 128 * (i + 1)) for i in range(47))
@@ -342,9 +342,6 @@ def test_default_rows_fit_the_scaled_plan():
                             perm_edge_i=np.zeros(0, np.int32),
                             perm_edge_j=np.zeros(0, np.int32),
                             valid_mask=np.zeros(6016, bool))
-    assert default_rows(plan, 2048) == 8
-    assert default_rows(plan, 256) == 1
-    assert default_rows(plan, 1024) == 4
     assert launch_shape(plan, 2048)[0] == 8
     assert launch_shape(plan, 256)[0] == 1
     assert launch_shape(plan, 1024)[0] == 4
