@@ -195,14 +195,27 @@ epoch each, at full width).  Phases:
     request); K2-f32 and K2-f32-dE fed at the path's shapes against the
     gather's plain version (no chain differing) and the dense plain
     version (the chain rule), timed at 256 x 80, 256 x 16 and 2,048 x 16
-    beside both bounds and by launch shape; the step medians.
+    beside both bounds and by launch shape; the step medians;
+27. (in a fresh process, as phase 26) the CLI on the card at the
+    flagship's full width (the config defaults: 256 latents on
+    Advantage2_system1, batch 128, 256 reads, 16 sweeps; ``--dataset-size
+    4096``, 32 steps), each command through ``cli.main`` in one workdir:
+    ``train --name flag --epochs 1``, ``generate --model flag``, ``generate
+    --model runs/models/tpu_digits_40_epochs``, ``generate --model flag
+    --sampler pt``, ``tune --model flag --epochs 1``, ``refresh --model
+    flag``, ``tune-pt --model flag --iters 1 --chains 256``, ``models``.
+    After each: the gather kernel's launch counters moved (``models``
+    samples nothing), no plain sweep version ran on a CUDA tensor, the
+    command's files exist, the images it generated are finite and in
+    [0, 1], ``pt_betas.json`` ascends to 1.0; each command's host seconds
+    beside the card's name and power limit.
 
 Each path (serving, plain training, PT training, scaled training, the K2
 steps, scaled serving, the 2,048-latent training, resume and serving, the
 flagship bf16 / int8 epochs, on every rank the graph-sharded epoch,
-its sampling, its dense steps and the P32 sweeps, and the 1,280-latent
-training, PT training and serving) runs with the launch
-counters set to 0 just before it and read just after.  The line before
+its sampling, its dense steps and the P32 sweeps, the 1,280-latent
+training, PT training and serving, and each CLI command) runs with the
+launch counters set to 0 just before it and read just after.  The line before
 the last is a JSON object describing the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises.
 """
@@ -798,11 +811,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     latents1280 = run_in_fresh_process(_latents1280_child)
     sharded = graph_sharded_phases(dev, card)
+    cli27 = run_in_fresh_process(_cli_child)
 
     print(card_line())
     paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts,
              **scaled["paths"], **k1_dtypes["paths"], **sharded["paths"],
-             **latents1280["paths"]}
+             **latents1280["paths"], **cli27["paths"]}
     print(json.dumps({"kernels": [
         {
             "name": "gibbs_sparse (K1-f32)",
@@ -1980,6 +1994,135 @@ def latents1280_phases(dev, card: str) -> dict:
     del tr, pt
     torch.cuda.empty_cache()
     return {"paths": paths, "kernels": kernels}
+
+
+# phase 27: the CLI's commands, each (label, argv after --workdir, files it must
+# leave under the workdir); the config defaults are the flagship's
+CLI_DATA = ["--dataset-size", "4096"]
+CLI_FIGURES = ["generated_json/generated_epoch_0.json",
+               "generated_json/reconstructed_epoch_0.json",
+               "generated_json/loss_mse_epoch_0.json", "generated_json/problem_details.json",
+               "assets/model_diagram/step_5_output.png",
+               "assets/model_diagram/latent_qpu.json"]
+CLI_COMMANDS = [
+    ("cli_train", ["train", "--name", "flag", "--epochs", "1"] + CLI_DATA,
+     CLI_FIGURES + ["models/flag/dvae.pth", "models/flag/grbm.pth",
+                    "models/flag/parameters.json", "generated_json/metrics.jsonl"]),
+    ("cli_generate", ["generate", "--model", "flag"] + CLI_DATA, CLI_FIGURES),
+    ("cli_generate_checkpoint", ["generate", "--model", str(MODEL)] + CLI_DATA, CLI_FIGURES),
+    ("cli_generate_pt", ["generate", "--model", "flag", "--sampler", "pt"] + CLI_DATA,
+     CLI_FIGURES),
+    ("cli_tune", ["tune", "--model", "flag", "--epochs", "1"] + CLI_DATA,
+     CLI_FIGURES + ["models/flag_tuned_1_epochs/dvae.pth",
+                    "models/flag_tuned_1_epochs/parameters.json"]),
+    ("cli_refresh", ["refresh", "--model", "flag"] + CLI_DATA,
+     ["assets/model_diagram/step_1_input.png", "assets/model_diagram/step_2_encode.png",
+      "assets/model_diagram/step_4_decode.png", "assets/model_diagram/latent_encoded.json"]),
+    ("cli_tune_pt", ["tune-pt", "--model", "flag", "--iters", "1", "--chains", "256"]
+     + CLI_DATA, ["models/flag/pt_betas.json"]),
+    ("cli_models", ["models"], []),
+]
+PLAIN_SWEEPS = ("gibbs_sweeps_reference", "gibbs_sweeps_kernel_reference",
+                "gibbs_sweeps_sparse_reference", "gibbs_sweeps_hbm_reference")
+
+
+def _cli_child(_rank: int, out_path: str) -> None:
+    result = cli_phase(card_line())
+    Path(out_path).write_text(json.dumps(result))
+
+
+def _count_plain_on_card(counts: dict) -> None:
+    """Wrap every plain sweep version, in every port module that holds it,
+    to count its calls on CUDA tensors into ``counts``."""
+    import image_generation_tpu_torch.app.cli  # noqa: F401  (and the modules below)
+    import image_generation_tpu_torch.ops.gibbs_hbm_cuda  # noqa: F401
+    import image_generation_tpu_torch.ops.pt_tune  # noqa: F401
+    import image_generation_tpu_torch.samplers.gibbs_sampler  # noqa: F401
+    import image_generation_tpu_torch.training.trainer  # noqa: F401
+
+    def counted(name, fn):
+        def wrapper(hp, *args, **kw):
+            if hp.device.type == "cuda":
+                counts[name] = counts.get(name, 0) + 1
+            return fn(hp, *args, **kw)
+        return wrapper
+
+    originals = {}
+    for mod in [m for k, m in sys.modules.items() if k.startswith("image_generation_tpu_torch")]:
+        for name in PLAIN_SWEEPS:
+            fn = getattr(mod, name, None)
+            if callable(fn):
+                originals.setdefault(name, fn)
+                setattr(mod, name, counted(name, originals[name]))
+
+
+def cli_phase(card: str) -> dict:
+    """Phase 27: the CLI's commands on the card at the flagship's width
+    (``CLI_COMMANDS``), each with the launch counters set to 0 just before
+    it and read just after.  Returns the launch counts and host seconds of
+    each command."""
+    from image_generation_tpu_torch.app import cli
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    plain: dict = {}
+    _count_plain_on_card(plain)
+    images: list = []  # (method, shape, finite, min, max) of every image stack made
+    originals = {}
+    for name in ("generate_output", "generate_reconstructed_samples"):
+        fn = originals[name] = getattr(Trainer, name)
+
+        def recorded(self, *a, _fn=fn, _name=name, **kw):
+            out = _fn(self, *a, **kw)
+            img = np.asarray(out["images"])
+            images.append((_name, img.shape, bool(np.isfinite(img).all()), float(img.min()),
+                           float(img.max())))
+            return out
+
+        setattr(Trainer, name, recorded)
+    paths, times = {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        for label, argv, files in CLI_COMMANDS:
+            plain.clear()
+            images.clear()
+            reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(["--workdir", str(work), *argv])
+            torch.cuda.synchronize()
+            times[label] = time.perf_counter() - t0
+            counts = paths[label] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+            missing = [f for f in files if not (work / f).is_file()]
+            print(f"[27] {' '.join(argv)}: {times[label]:.3f} s host; launches {counts}; plain "
+                  f"sweeps on the card {plain}; images {images}  [{card}]", flush=True)
+            check(not plain, f"[27] {label}: a plain sweep version ran on a CUDA tensor")
+            check(not missing, f"[27] {label}: missing {missing}")
+            if label != "cli_models":  # listing the models samples nothing
+                check(sum(counts.values()) > 0, f"[27] {label}: the gather kernel never launched")
+                check(set(counts) <= {"K1-f32", "K1-f32-dE"},
+                      f"[27] {label}: the flagship path left K1-f32: {counts}")
+            for name, _shape, finite, lo, hi in images:
+                check(finite and lo >= 0.0 and hi <= 1.0,
+                      f"[27] {label}: {name} images are not finite values in [0, 1]")
+            if label.startswith("cli_generate"):
+                check(any(n == "generate_output" and tuple(s) == (256, 32, 32, 1)
+                          for n, s, *_ in images), f"[27] {label}: no 256 generated images")
+        for label, mode in (("cli_train", "K1-f32"), ("cli_generate", "K1-f32"),
+                            ("cli_generate_pt", "K1-f32-dE"), ("cli_tune_pt", "K1-f32-dE")):
+            check(paths[label].get(mode, 0) > 0, f"[27] {label} never launched {mode}")
+        ladder = json.loads((work / "models" / "flag" / "pt_betas.json").read_text())["betas"]
+        print(f"[27] tuned ladder {[round(b, 5) for b in ladder]}")
+        check(len(ladder) == 8 and ladder[-1] == 1.0
+              and all(b2 > b1 for b1, b2 in zip(ladder, ladder[1:])),
+              "[27] pt_betas.json does not ascend to 1.0")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        for name, fn in originals.items():
+            setattr(Trainer, name, fn)
+    print("[27] CLI host seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"  [{card}]")
+    return {"paths": paths, "times": times}
 
 
 GS_RANKS = 4

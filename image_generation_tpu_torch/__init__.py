@@ -7,8 +7,9 @@ The Pallas TPU kernel of the serving and training paths becomes a CUDA
 C++ kernel, the sparse field gather (``csrc/gibbs_sparse.cu``, with the
 parallel-tempering energy carry, bound in ``ops/gibbs_sparse.py`` and
 reached through ``ops/gibbs_cuda.py``), built with ``nvcc`` at first use.
-Ported: warm serving (``app.warm``) and training (``training.trainer``)
-under plain Gibbs and parallel tempering.
+Ported: warm serving (``app.warm``), training (``training.trainer``)
+under plain Gibbs and parallel tempering, the sampler backends
+(``samplers``) and the CLI (``python -m image_generation_tpu_torch.app.cli``).
 
 Importing this package imports nothing heavy: submodules are imported by
 their callers.

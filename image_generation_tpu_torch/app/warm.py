@@ -12,7 +12,10 @@ the JAX package's, unchanged.
 PyTorch runs eagerly and keeps no compiled executable per shape, so a
 group of k requests runs exactly k·NUM_READS chains: the JAX package's
 padding to a power-of-two bucket would only add work here.
-``WarmGenerator.generate`` (the artifact writer) is not ported yet.
+``WarmGenerator.generate`` is the artifact writer: one request written as
+the CLI's ``generate`` writes it.  The resident trainer is loaded without
+the dataset and train state (``Trainer.load(train_state=False)``);
+``generate`` adds them on first use (``Trainer.load_train_state``).
 """
 
 from __future__ import annotations
@@ -148,9 +151,29 @@ class WarmGenerator:
         if self._key != key:
             cfg = TrainingConfig(**self.config_overrides).for_serving_dir(mp)
             trainer = Trainer(config=cfg, device=self.device)
-            trainer.load(mp)
+            trainer.load(mp, train_state=False)
             self._trainer, self._key = trainer, key
         return self._trainer
+
+    def generate(self, model_path, sharpen: bool = False) -> None:
+        """One generation request written as the CLI's ``generate`` writes
+        it: the ``generated_json`` figures and details and the model-diagram
+        assets under ``workdir``, assets before the epoch-figure trigger."""
+        from image_generation_tpu_torch.app.cli import _write_details, _write_diagram_assets
+        from image_generation_tpu_torch.app.files import RunFiles
+
+        with self.lock:
+            t = self._trainer_for(model_path)
+            if t.state is None:
+                t.load_train_state()
+            gen = t.generate_output(do_sharpen=sharpen)
+            files = RunFiles(self.workdir)
+            files.clean()
+            _write_details(t, files)
+            rec = t.generate_reconstructed_samples(do_sharpen=sharpen)
+            _write_diagram_assets(t, files, gen)
+            files.write_epoch(0, gen["grid"], rec["grid"],
+                              t.losses["mse_losses"], t.losses["dvae_losses"])
 
     @property
     def stats(self) -> dict:

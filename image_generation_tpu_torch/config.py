@@ -3,13 +3,19 @@
 Port of ``image_generation_tpu/config.py``: the same field names, defaults
 and ``__post_init__`` validation, so a parameters YAML or an override dict
 means the same thing to both packages.  The dtype policies return torch
-dtypes.  ``yaml`` is imported only by ``from_yaml`` / ``to_yaml``: the
-serving path never reads a YAML file.
+dtypes.  ``yaml`` is imported only by ``from_yaml`` / ``to_yaml`` (which
+raise an error naming PyYAML where it is absent): the serving path never
+reads a YAML file.  ``parse_overrides`` types ``KEY=VAL`` strings as
+``yaml.safe_load`` would, without PyYAML (``_yaml_value``).
 """
 
 from __future__ import annotations
 
+import codecs
 import dataclasses
+import datetime
+import math
+import re
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
@@ -195,8 +201,7 @@ class TrainingConfig:
 
     @classmethod
     def from_yaml(cls, path, **overrides) -> "TrainingConfig":
-        import yaml
-
+        yaml = _pyyaml()
         with open(path) as f:
             raw = yaml.safe_load(f) or {}
         known = {f.name for f in dataclasses.fields(cls)}
@@ -204,9 +209,26 @@ class TrainingConfig:
         kwargs.update(overrides)
         return cls(**kwargs)
 
-    def to_yaml(self, path) -> None:
-        import yaml
+    @classmethod
+    def parse_overrides(cls, pairs) -> dict:
+        """``--override KEY=VAL`` strings → constructor kwargs, each value
+        typed as ``yaml.safe_load`` types it (``PT_NUM_BETAS=32`` → int,
+        ``PT_BETAS=[0.5,1]`` → list, ``GRAPH_SHARDED=on`` → True, which
+        ``__post_init__`` turns back into "on"); unknown keys and a missing
+        '=' fail here."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        out = {}
+        for ov in pairs or []:
+            k, sep, v = ov.partition("=")
+            if not sep or not k:
+                raise SystemExit(f"--override must be KEY=VAL, got {ov!r}")
+            if k not in known:
+                raise SystemExit(f"--override: {k!r} is not a TrainingConfig field")
+            out[k] = _yaml_value(v)
+        return out
 
+    def to_yaml(self, path) -> None:
+        yaml = _pyyaml()
         d = dataclasses.asdict(self)
         d["H_RANGE"] = list(self.H_RANGE)
         d["J_RANGE"] = list(self.J_RANGE)
@@ -216,3 +238,133 @@ class TrainingConfig:
 
     def replace(self, **kw) -> "TrainingConfig":
         return dataclasses.replace(self, **kw)
+
+
+def _pyyaml():
+    """The ``yaml`` module, or an error that says reading or writing a
+    parameters YAML (``--params``) needs PyYAML."""
+    try:
+        import yaml
+    except ImportError:
+        raise ModuleNotFoundError(
+            "a training-parameters YAML file (--params, TrainingConfig.from_yaml / to_yaml) "
+            "needs PyYAML, which is not installed; pass the settings as CLI flags "
+            "instead") from None
+    return yaml
+
+
+# YAML 1.1 implicit scalar types, as PyYAML's resolver matches them
+_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+                   r"|on|On|ON|off|Off|OFF)$")
+_FLOAT = re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+                    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+                    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+                    |[-+]?\.(?:inf|Inf|INF)
+                    |\.(?:nan|NaN|NAN))$""", re.X)
+_INT = re.compile(r"""^(?:[-+]?0b[0-1_]+
+                    |[-+]?0[0-7_]+
+                    |[-+]?(?:0|[1-9][0-9_]*)
+                    |[-+]?0x[0-9a-fA-F_]+
+                    |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""", re.X)
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_DATE = re.compile(r"^[0-9]{4}-[0-9]{2}-[0-9]{2}$")
+_TIMESTAMP = re.compile(r"^[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:[Tt]|[ \t]+)[0-9]")
+
+
+def _sexagesimal(text: str, cast):
+    value, base = cast(0), 1
+    for part in reversed(text.split(":")):
+        value += cast(part) * base
+        base *= 60
+    return value
+
+
+def _signed(text: str):
+    text = text.replace("_", "")
+    if text[0] in "+-":
+        return (-1 if text[0] == "-" else 1), text[1:]
+    return 1, text
+
+
+def _plain_scalar(text: str):
+    """A plain (unquoted) scalar typed by YAML 1.1's implicit rules."""
+    if _NULL.match(text):
+        return None
+    if _BOOL.match(text):
+        return text.lower() in ("yes", "true", "on")
+    if _INT.match(text):
+        sign, t = _signed(text)
+        if t == "0":
+            return 0
+        if t.startswith("0b"):
+            return sign * int(t[2:], 2)
+        if t.startswith("0x"):
+            return sign * int(t[2:], 16)
+        if t[0] == "0":
+            return sign * int(t, 8)
+        if ":" in t:
+            return sign * _sexagesimal(t, int)
+        return sign * int(t)
+    if _FLOAT.match(text):
+        sign, t = _signed(text.lower())
+        if t == ".inf":
+            return sign * math.inf
+        if t == ".nan":
+            return math.nan
+        if ":" in t:
+            return sign * _sexagesimal(t, float)
+        return sign * float(t)
+    if _DATE.match(text):
+        return datetime.date.fromisoformat(text)
+    if _TIMESTAMP.match(text):
+        raise SystemExit(f"--override: timestamp values are not taken, got {text!r}")
+    return text
+
+
+def _split_flow(body: str) -> list:
+    """Top-level comma-separated items of a flow collection's body."""
+    items, depth, quote, start = [], 0, None, 0
+    for i, ch in enumerate(body):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            items.append(body[start:i])
+            start = i + 1
+    items.append(body[start:])
+    if items and not items[-1].strip():  # a trailing comma ends the collection
+        items.pop()
+    return items
+
+
+def _yaml_value(text: str):
+    """What ``yaml.safe_load`` gives for one override value: plain scalars
+    (YAML 1.1 bools, ints in every base, floats only with a '.', nulls,
+    dates), quoted strings, and flow sequences / mappings of those."""
+    text = text.strip()
+    if text.startswith("#"):
+        return None
+    if text and text[0] in "[{":
+        body, close = text[1:].rstrip(), "]" if text[0] == "[" else "}"
+        if not body.endswith(close):
+            raise SystemExit(f"--override: unterminated flow collection {text!r}")
+        items = _split_flow(body[:-1])
+        if close == "]":
+            return [_yaml_value(item) for item in items]
+        out = {}
+        for item in items:
+            k, sep, v = item.partition(":")
+            out[_yaml_value(k)] = _yaml_value(v) if sep else None
+        return out
+    if len(text) >= 2 and text[0] == text[-1] == "'":
+        return text[1:-1].replace("''", "'")
+    if len(text) >= 2 and text[0] == text[-1] == '"':
+        return codecs.decode(text[1:-1], "unicode_escape")
+    text = re.split(r"\s#", text, maxsplit=1)[0].rstrip()
+    return _plain_scalar(text)

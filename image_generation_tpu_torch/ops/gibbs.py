@@ -569,20 +569,24 @@ def pt_sample(
     init_spins: Optional[torch.Tensor] = None,
     sweeps_fn=None,
     energies_fn=None,
+    feed=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A full parallel-tempering run from optional ``init_spins``
     (T, C, n_pad): the ladder energies are computed once (by
     ``energies_fn``, as in ``pt_round``) and carried through every round.
-    Returns ((C, n_pad) samples at ``betas[-1]``, the (T, C, n_pad)
-    ladder)."""
+    ``feed``: one (sweep uniforms, (even, odd) swap uniforms) pair per
+    round, replacing that round's draws (``pt_round``'s ``uniforms`` and
+    ``swap_uniforms``).  Returns ((C, n_pad) samples at ``betas[-1]``, the
+    (T, C, n_pad) ladder)."""
     t_dim = int(torch.as_tensor(betas).shape[0])
     if init_spins is None:
         init_spins = random_spins(generator, plan, t_dim * n_chains, hp.device).reshape(
             t_dim, n_chains, plan.n_pad
         )
     s, e = init_spins, (energies_fn or ising_energies)(hp, coupling_p, init_spins)
-    for _ in range(n_rounds):
+    for i in range(n_rounds):
+        u, w = (None, None) if feed is None else feed[i]
         s, e = pt_round(generator, hp, coupling_p, plan, s, betas, sweeps_per_round,
                         sweeps_fn=sweeps_fn, energies=e, return_energies=True,
-                        energies_fn=energies_fn)
+                        energies_fn=energies_fn, uniforms=u, swap_uniforms=w)
     return s[-1], s

@@ -14,14 +14,16 @@ acceptances a_k (Syed et al. 2021):
   * ``size_ladder``: the ``PT_NUM_BETAS="auto"`` probe, a geometric
     probe ladder measured, then T rungs at its equal-barrier quantiles;
   * ``round_trip_count``: replica-flow diagnostics (hot→cold→hot trips and
-    ladder coverage).
+    ladder coverage);
+  * ``tune_pt_betas``: the offline tuner (the ``tune-pt`` command),
+    equal-barrier re-spacing iterated on measured acceptance.
 
 The sweeps go through ``sweeps_fn`` (``pt_round``'s contract): the
 dispatch's ``SampleFns.sweeps_fn``, so on the card the probe launches the
 sweep kernel training would (K1, or K2 / K3), or the plain sweep when it
-is None.  JAX's jitted scan is a Python loop here.  ``feed`` replaces
+is None; ``energies_fn`` replaces ``ising_energies`` (the graph-sharded
+layout's).  JAX's jitted scan is a Python loop here.  ``feed`` replaces
 each round's draws (sweep uniforms, swap uniforms) for the parity tests.
-The offline tuner ``tune_pt_betas`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ __all__ = [
     "round_trip_count",
     "size_ladder",
     "swap_acceptance",
+    "tune_pt_betas",
 ]
 
 
@@ -62,23 +65,26 @@ def _round_draws(feed, i: int):
 def make_acceptance_measurer(hp: torch.Tensor, coupling_p, plan: GibbsPlan, t_dim: int,
                              n_chains: int = 256, n_rounds: int = 24,
                              sweeps_per_round: int = 2, burn_rounds: int = 8,
-                             sweeps_fn=None):
+                             sweeps_fn=None, energies_fn=None):
     """``rounds(generator, flat_spins, betas, feed=None) -> (spins,
     accept)``: ``burn_rounds`` then ``n_rounds`` rounds of the exchanging
     process from the (T·C, n_pad) ``flat_spins``, energies computed once
     and carried; ``accept`` is the (T−1,) mean over the measured rounds of
     ``pt_round``'s analytic per-pair acceptance.  ``feed``: one (sweep
-    uniforms, (even, odd) swap uniforms) pair per round, burn-in first."""
+    uniforms, (even, odd) swap uniforms) pair per round, burn-in first.
+    ``energies_fn`` (``pt_round``'s) replaces ``ising_energies``."""
+    energies = energies_fn or ising_energies
 
     def rounds(generator, flat, betas, feed: Optional[Sequence] = None):
         s = flat.reshape(t_dim, n_chains, flat.shape[-1])
-        e = ising_energies(hp, coupling_p, s)
+        e = energies(hp, coupling_p, s)
         acc = torch.zeros(t_dim - 1, dtype=torch.float32, device=flat.device)
         for i in range(burn_rounds + n_rounds):
             u, w = _round_draws(feed, i)
             s, e, pair_acc = pt_round(generator, hp, coupling_p, plan, s, betas,
                                       sweeps_per_round, sweeps_fn=sweeps_fn, energies=e,
-                                      return_accept=True, uniforms=u, swap_uniforms=w)
+                                      return_accept=True, uniforms=u, swap_uniforms=w,
+                                      energies_fn=energies_fn)
             if i >= burn_rounds:
                 acc = acc + pair_acc
         return s.reshape(flat.shape), acc / n_rounds
@@ -90,18 +96,24 @@ def swap_acceptance(generator: Optional[torch.Generator], hp: torch.Tensor, coup
                     plan: GibbsPlan, betas, n_chains: int = 256, n_rounds: int = 24,
                     sweeps_per_round: int = 2, burn_rounds: int = 8, measurer=None,
                     sweeps_fn=None, *, init_spins: Optional[torch.Tensor] = None,
-                    feed: Optional[Sequence] = None) -> PTLadderDiagnostics:
+                    feed: Optional[Sequence] = None, energies_fn=None,
+                    local=None) -> PTLadderDiagnostics:
     """Per-pair swap acceptance E[min(1, e^{Δβ·ΔE})] at ``betas``, measured
     on a real ladder from random spins (``init_spins`` (T·C, n_pad)
     replaces them).  ``measurer``: a ``make_acceptance_measurer`` result
-    built for the same model, T and round counts."""
+    built for the same model, T and round counts.  ``local`` cuts the
+    whole-width random spins to what the sweeps take (a graph-sharded
+    rank's column window)."""
     betas = np.asarray(betas, np.float64)
     t_dim = len(betas)
     if measurer is None:
         measurer = make_acceptance_measurer(hp, coupling_p, plan, t_dim, n_chains, n_rounds,
-                                            sweeps_per_round, burn_rounds, sweeps_fn)
+                                            sweeps_per_round, burn_rounds, sweeps_fn,
+                                            energies_fn)
     if init_spins is None:
         init_spins = random_spins(generator, plan, t_dim * n_chains, hp.device)
+        if local is not None:
+            init_spins = local(init_spins)
     _, acc = measurer(generator, init_spins,
                       torch.tensor(betas, dtype=torch.float32, device=hp.device), feed)
     acc = np.clip(acc.double().cpu().numpy(), 1e-4, 1.0)
@@ -206,3 +218,43 @@ def respace_betas(betas, accept) -> np.ndarray:
     new = np.interp(np.linspace(0.0, lam[-1], len(betas)), lam, betas)
     new[0], new[-1] = betas[0], betas[-1]
     return new
+
+
+def tune_pt_betas(generator: Optional[torch.Generator], hp: torch.Tensor, coupling_p,
+                  plan: GibbsPlan, betas0, n_iters: int = 3, n_chains: int = 256,
+                  n_rounds: int = 24, sweeps_per_round: int = 2, verbose: bool = False,
+                  sweeps_fn=None, energies_fn=None, local=None, *,
+                  feeds: Optional[Sequence] = None):
+    """Iteratively equalize the ladder's swap acceptance: ``n_iters``
+    measurements (``swap_acceptance`` through one measurer), each followed
+    by ``respace_betas``, then one measurement of the tuned ladder.
+    Returns ``(betas_tuned, diag_before, diag_after)``.  ``sweeps_fn`` /
+    ``energies_fn`` / ``local``: the sampler's layout (the dispatch's
+    ``SampleFns``).  ``feeds``: one (initial (T·C, n_pad) spins, round
+    feed) pair per measurement, replacing its draws."""
+    betas = np.asarray(betas0, np.float64)
+    measurer = make_acceptance_measurer(hp, coupling_p, plan, len(betas), n_chains, n_rounds,
+                                        sweeps_per_round, sweeps_fn=sweeps_fn,
+                                        energies_fn=energies_fn)
+
+    def measure(i: int, b) -> PTLadderDiagnostics:
+        init, feed = (None, None) if feeds is None else feeds[i]
+        return swap_acceptance(generator, hp, coupling_p, plan, b, n_chains, n_rounds,
+                               sweeps_per_round, measurer=measurer, init_spins=init,
+                               feed=feed, local=local)
+
+    def report(tag: str, d: PTLadderDiagnostics) -> None:
+        if verbose:
+            print(f"{tag}: acc min/mean/max = {d.accept.min():.3f}/{d.accept.mean():.3f}/"
+                  f"{d.accept.max():.3f} barrier={d.barrier:.3f}")
+
+    diag0 = None
+    for it in range(n_iters):
+        diag = measure(it, betas)
+        if diag0 is None:
+            diag0 = diag
+        report(f"iter {it}", diag)
+        betas = respace_betas(betas, diag.accept)
+    diag_final = measure(n_iters, betas)
+    report("tuned", diag_final)
+    return betas, diag0, diag_final

@@ -3,17 +3,20 @@
 Port of ``image_generation_tpu/training/trainer.py``: ``setup`` selects the
 latent coupling graph, ``train_init(n_epochs)`` builds the step functions,
 schedules and chains, ``step`` / ``train_epoch`` / ``train`` train, ``save``
-writes a reference-format model directory and ``load`` reads one.  Tuning
-(``load`` then ``train_init``) keeps the loaded weights, builds fresh
-optimizers and schedules and burns in fresh chains under the loaded GRBM.
+writes a reference-format model directory and ``load`` reads one, with the
+dataset and a train state around its weights (``load_train_state``).
+Tuning (``load`` then ``train_init``) keeps the loaded weights, builds
+fresh optimizers and schedules and burns in fresh chains under the loaded
+GRBM.  Generation: ``sampler_backend`` (the ``samplers/`` backend in the
+persistent sample cache), ``sample_sampleset``, ``generate_output``,
+``generate_reconstructed_samples`` and ``generate_loss_plot``.
 ``train`` writes a per-epoch JSONL record (``metrics_log``), a profiler
 trace (``profile_dir``) and a native checkpoint per epoch
 (``checkpoint_dir``); ``save_native`` / ``resume_native`` are the
 full-state checkpoints (``io/native_ckpt.py``).  ``PT_NUM_BETAS="auto"``
 is resolved at ``train_init`` and ``load`` by a swap-acceptance probe of
 the model the sampler will run (``ops/pt_tune.size_ladder``), through the
-sweep dispatch.  Not ported yet: ``generate_output`` and the ``samplers/``
-backends.
+sweep dispatch.
 
 On a mesh (``mesh=``, ``parallel/mesh.py``) every rank of the world runs
 its own Trainer with the same config and seed: ``GRAPH_SHARDED`` splits
@@ -62,6 +65,7 @@ from image_generation_tpu_torch.training.step import (
 from image_generation_tpu_torch.parallel.mesh import auto_mesh
 from image_generation_tpu_torch.utils.data import get_dataset, permuted_epoch
 from image_generation_tpu_torch.utils.device import resolve_device
+from image_generation_tpu_torch.utils.grid import interleave, make_grid, sharpen
 
 __all__ = ["Trainer", "TrainingError"]
 
@@ -112,6 +116,8 @@ class Trainer:
         self._seed = self.config.RANDOM_SEED if seed is None else seed
         self._seeds = np.random.default_rng(self._seed)
         self._seeds_lock = threading.Lock()
+        self._backend = None  # sampler_backend's, built at first use
+        self._backend_params = None  # the GRBM tensors (and versions) it sampled
 
     def _next_seed(self) -> int:
         with self._seeds_lock:
@@ -202,8 +208,8 @@ class Trainer:
                 or self.mesh is not None):
             raise ValueError(
                 "PT_NUM_BETAS='auto' cannot probe a beyond-HBM (graph-sharded) model at "
-                "init; pass a ladder as PT_BETAS (the JAX package's tune-pt CLI sizes one "
-                "offline; it is not ported yet)"
+                "init; run the tune-pt CLI command (which measures through the "
+                "graph-sharded layout) and pass its ladder as PT_BETAS / --pt-betas"
             )
         from image_generation_tpu_torch.ops.pt_tune import size_ladder
 
@@ -423,10 +429,13 @@ class Trainer:
                 "(ROADMAP.md queue 1 item 7); save() writes the model directory"
             )
 
-    def load(self, file_path) -> None:
+    def load(self, file_path, train_state: bool = True) -> None:
         """Load a reference-format model directory for sampling (and for
         tuning: ``train_init`` afterwards keeps these weights).  The
-        coupling graph comes from the checkpoint itself."""
+        coupling graph comes from the checkpoint itself.  With
+        ``train_state`` (the JAX ``load``) it also loads the dataset and
+        builds a train state around the weights (``load_train_state``);
+        warm serving leaves both out."""
         dvae_sd, grbm_params, graph, parameters, losses = load_model_dir(
             file_path, self.device)
         if parameters:
@@ -448,6 +457,28 @@ class Trainer:
         self.grbm_params = grbm_params
         self.state = None
         self._init_done = False
+        self._n_epochs_loaded = parameters.get("n_epochs", 1) if parameters else 1
+        if train_state:
+            self.load_train_state()
+
+    def load_train_state(self) -> None:
+        """After ``load``: the dataset, the training functions for the
+        checkpoint's epoch count and a train state around the loaded weights
+        (fresh optimizers, chains burned in under the loaded GRBM), as the
+        JAX ``load`` builds them, so the reconstruction grid,
+        ``current_lrs`` and ``step`` work.  Its generator is seeded aside
+        from the trainer's stream, so sampling after it draws what it drew
+        before."""
+        if self.images is None:
+            self._load_dataset()
+        total_steps = max(self._n_epochs_loaded or 1, 1) * max(self.n_batches, 1)
+        self.fns = make_train_fns(self.config, self.graph, total_steps, self.plan,
+                                  device=self.device, mesh=self.mesh)
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(np.random.default_rng([self._seed, 1]).integers(2**63 - 1)))
+        self.state = self.fns.state_from(self.dvae, self.grbm_params, self.fns.new_chains(g),
+                                         g, burn_in=True)
+        self._init_done = True
 
     def sample_spins(self, num_reads: Optional[int] = None,
                      n_sweeps: Optional[int] = None) -> torch.Tensor:
@@ -460,3 +491,100 @@ class Trainer:
             self._next_generator(), self.grbm_params, num_reads or cfg.NUM_READS,
             n_sweeps or (cfg.GIBBS_BURN_IN + cfg.GIBBS_SWEEPS), betas=betas,
         )
+
+    # ------------------------------------------------------------------
+    # generation
+    # ------------------------------------------------------------------
+    def sampler_backend(self):
+        """The configured sampler backend (``samplers/``: gibbs / pt /
+        exact) in the persistent sample cache, built once per Trainer from
+        the config (MAX_DEQUE_SIZE, ITERATIONS_BEFORE_RESAMPLING)."""
+        if self._backend is None:
+            from image_generation_tpu_torch.samplers.base import get_sampler
+            from image_generation_tpu_torch.samplers.persistent import PersistentSampleCache
+
+            cfg = self.config
+            if cfg.SAMPLER == "pt":
+                backend = get_sampler("pt", sweeps_per_round=max(cfg.GIBBS_SWEEPS, 1),
+                                      persistent=cfg.PERSISTENT_CHAINS,
+                                      betas=cfg.initial_pt_betas())
+            elif cfg.SAMPLER == "exact":
+                backend = get_sampler("exact")
+            else:
+                backend = get_sampler("gibbs", n_sweeps=cfg.GIBBS_BURN_IN + cfg.GIBBS_SWEEPS,
+                                      persistent=cfg.PERSISTENT_CHAINS)
+            self._backend = PersistentSampleCache(backend, cfg.MAX_DEQUE_SIZE,
+                                                  cfg.ITERATIONS_BEFORE_RESAMPLING)
+        return self._backend
+
+    def sample_sampleset(self, num_reads: Optional[int] = None):
+        """One sampling call through the backend protocol: a SampleSet
+        (spins and energies) of the current GRBM.  The sample cache is reset
+        whenever the GRBM parameters changed since it was filled (other
+        tensors, or the same ones updated in place by training).  Under
+        graph sharding it samples through the partitioned sampler
+        (``sample_spins``) and computes energies edge-wise, never building
+        the dense coupling; under PT the backend runs the live ladder."""
+        from image_generation_tpu_torch.models.grbm import GRBMParams, energy, scaled_ising
+        from image_generation_tpu_torch.utils.sampleset import SampleSet
+
+        lin, quad = self.grbm_params.linear, self.grbm_params.quadratic
+        stamp = (lin._version, quad._version)
+        held = self._backend_params
+        if held is None or held[0] is not lin or held[1] is not quad or held[2] != stamp:
+            self.sampler_backend().reset()
+            self._backend_params = (lin, quad, stamp)
+
+        cfg = self.config
+        n = num_reads or cfg.NUM_READS
+        with torch.no_grad():
+            h, q = scaled_ising(self.grbm_params, cfg.PREFACTOR, cfg.H_RANGE, cfg.J_RANGE)
+            if self.fns is not None and self.fns.graph_sharded:
+                spins = self.sample_spins(n)
+                e = energy(GRBMParams(h, q), self.graph, spins)
+                return SampleSet(spins=spins.cpu().numpy(), energies=e.cpu().numpy(),
+                                 info={"sampler": "graph_sharded"})
+            backend = self.sampler_backend()
+            if cfg.SAMPLER == "pt" and self.state is not None and self.state.pt_betas.numel():
+                backend.backend.betas = self.state.pt_betas.detach().clone()
+            return backend.sample(h, q, self.graph, n, self._next_generator())
+
+    def generate_output(self, do_sharpen: bool = False, num_reads: Optional[int] = None) -> dict:
+        """Sample the GRBM (``sample_sampleset``) and decode: returns
+        {'grid', 'images', 'latents', 'sample_set'}, images (N, S, S, 1) in
+        [0, 1] on the host."""
+        sample_set = self.sample_sampleset(num_reads)
+        spins = torch.as_tensor(sample_set.spins, dtype=torch.float32, device=self.device)
+        with torch.inference_mode():
+            imgs = self.dvae.eval().decode(spins[:, None, :])[:, 0]
+            imgs = torch.clamp(imgs, 0.0, 1.0).cpu().numpy()
+        if do_sharpen:
+            imgs = sharpen(imgs)
+        return {"grid": make_grid(imgs, nrow=16), "images": imgs,
+                "latents": np.asarray(sample_set.spins), "sample_set": sample_set}
+
+    def generate_reconstructed_samples(self, do_sharpen: bool = False) -> dict:
+        """The first ``BATCH_SIZE`` dataset images interleaved with their
+        reconstructions (one stochastic spin replica each), a white
+        separator column on every reconstruction."""
+        batch = self.images[: self.config.BATCH_SIZE]
+        with torch.inference_mode():
+            _, _, recon = self.dvae.eval()(batch, 1, self._next_generator())
+            recon = torch.clamp(recon[:, 0], 0.0, 1.0).cpu().numpy().copy()
+        recon[:, :, -1, :] = 1.0  # the white separator column
+        pairs = interleave(batch.cpu().numpy(), recon)
+        if do_sharpen:
+            pairs = sharpen(pairs)
+        return {"grid": make_grid(pairs, nrow=16, padding=0), "images": pairs}
+
+    # the reference's method name, kept as an alias (misspelling and all)
+    generate_reconstucted_samples = generate_reconstructed_samples
+
+    def generate_loss_plot(self, old_loss_data: Optional[dict] = None) -> dict:
+        """Loss histories for plotting, ``old_loss_data`` prepended."""
+        mse = self.losses["mse_losses"]
+        total = self.losses["dvae_losses"]
+        if old_loss_data:
+            mse = old_loss_data["mse_losses"] + mse
+            total = old_loss_data["dvae_losses"] + total
+        return {"mse_losses": mse, "dvae_losses": total}

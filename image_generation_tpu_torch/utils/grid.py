@@ -1,14 +1,15 @@
 """Image-grid assembly and output sharpening (numpy).
 
-Copy of ``image_generation_tpu/utils/grid.py`` ``make_grid`` / ``sharpen``:
-host post-processing that each serving caller runs on its own slice.
+Copy of ``image_generation_tpu/utils/grid.py``: ``make_grid`` /
+``sharpen``, the host post-processing that each serving caller runs on its
+own slice, and ``interleave``, the original/reconstruction pairing.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_grid", "sharpen"]
+__all__ = ["make_grid", "sharpen", "interleave"]
 
 
 def make_grid(
@@ -41,3 +42,13 @@ def sharpen(images: np.ndarray, lower: float = 0.4, upper: float = 0.6) -> np.nd
     over = np.heaviside(images - upper, 0.0)
     under = np.heaviside(images - lower, 0.0)
     return (over + np.abs(over - 1.0) * images) * under
+
+
+def interleave(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Alternate images from two stacks: (N,...)+(N,...) → (2N,...), the
+    reference's ``rearrange([batch, recon], "i b c h w -> (b i) c h w")``."""
+    a, b = np.asarray(a), np.asarray(b)
+    out = np.empty((a.shape[0] + b.shape[0], *a.shape[1:]), dtype=a.dtype)
+    out[0::2] = a
+    out[1::2] = b
+    return out

@@ -1412,3 +1412,36 @@ def test_two_rank_gloo_sweep_on_the_card(dev, ckpt, form):
     assert torch.equal(outs[0][1], outs[1][1]) and torch.equal(outs[0][2], outs[1][2])
     assert bool(torch.isfinite(outs[0][2]).all())
     assert span_update.launches["K4f"] > 0 and span_update.launches["K4"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the sampler backends (samplers/) on the card
+# ---------------------------------------------------------------------------
+
+def test_sampler_backends_sweep_through_the_gather(dev):
+    """``GibbsSampler`` and ``PTSampler`` on CUDA tensors launch the gather
+    (K1-f32, K1-f32-dE), never a plain version, at the exact sweep count:
+    fed the same chains and uniforms, GibbsSampler's spins equal the
+    gather's plain version run on the CPU (no chain differing) at the
+    serving shape (256 reads x 80 sweeps, and 3 sweeps, odd)."""
+    from image_generation_tpu_torch.samplers import GibbsSampler, PTSampler
+
+    _, params, graph, _, _ = load_model_dir(MODEL, dev)
+    h, j = scaled_ising(params, 0.05, (-4.0, 4.0), (-1.0, 1.0))
+    plan = build_plan(graph)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    for sweeps in (80, 3):
+        init = random_spins(g, plan, 256, dev)
+        u = torch.rand((sweeps, 256, plan.n_pad), generator=g, device=dev)
+        gibbs_cuda.gibbs_sweeps_cuda.launches.clear()
+        ours = GibbsSampler(n_sweeps=sweeps).sample(h, j, graph, 256, g, init_spins=init,
+                                                    uniforms=u)
+        assert dict(gibbs_cuda.gibbs_sweeps_cuda.launches) == {"K1-f32": 1}
+        hp, a = permuted_model(plan, h.cpu(), j.cpu())
+        ref = gibbs_sweeps_sparse_reference(hp, a, plan, init.cpu(), sweeps, uniforms=u.cpu())
+        assert (ours.spins == to_original(plan, ref).numpy()).all()
+    gibbs_cuda.gibbs_sweeps_cuda.launches.clear()
+    ss = PTSampler(n_rounds=5, sweeps_per_round=16).sample(h, j, graph, 256, g)
+    assert dict(gibbs_cuda.gibbs_sweeps_cuda.launches) == {"K1-f32-dE": 5}
+    assert ss.spins.shape == (256, graph.n) and np.isfinite(ss.energies).all()

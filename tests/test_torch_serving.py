@@ -242,8 +242,14 @@ def test_serving_path_imports_no_jax_or_host_extras():
         "image_generation_tpu_torch.parallel.mesh, image_generation_tpu_torch.ops.gibbs_graph_sharded, "
         "image_generation_tpu_torch.ops.block_sparse_sharded, "
         "image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda, "
-        "image_generation_tpu_torch.ops.gibbs_sparse; "
-        "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn', "
+        "image_generation_tpu_torch.ops.gibbs_sparse, image_generation_tpu_torch.samplers, "
+        "image_generation_tpu_torch.samplers.base, image_generation_tpu_torch.samplers.gibbs_sampler, "
+        "image_generation_tpu_torch.samplers.exact_sampler, "
+        "image_generation_tpu_torch.samplers.persistent, image_generation_tpu_torch.samplers.factory, "
+        "image_generation_tpu_torch.utils.sampleset, image_generation_tpu_torch.app.cli, "
+        "image_generation_tpu_torch.app.files, image_generation_tpu_torch.app.figures, "
+        "image_generation_tpu_torch.app.diagram, image_generation_tpu_torch.app.ui_config; "
+        "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn', 'PIL', "
         "'image_generation_tpu') if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
