@@ -208,13 +208,34 @@ epoch each, at full width).  Phases:
     samples nothing), no plain sweep version ran on a CUDA tensor, the
     command's files exist, the images it generated are finite and in
     [0, 1], ``pt_betas.json`` ascends to 1.0; each command's host seconds
-    beside the card's name and power limit.
+    beside the card's name and power limit;
+28. (in a fresh process, as phase 26) the web app: ``make_server(...,
+    warm_generate=True)`` on an ephemeral port in a thread, a workdir
+    holding copies of ``runs/models/tpu_digits_40_epochs`` and
+    ``tpu_digits_10_epochs``, ``--dataset-size 4096`` passed through.
+    ``GET /`` equals ``_render_page()``, ``/api/models`` lists both;
+    ``POST /api/generate_now`` for the 40-epoch model, one first request,
+    10 lone ones (the HTTP round trip's median and the server's
+    ``latency_ms``), the group sizes 1–16 warmed (``warm_buckets``), then a
+    burst of 16 concurrent ones (``batched``, the coalescer's dispatches): K1-f32 launched exactly once a dispatch, no
+    plain sweep version on a CUDA tensor, every figure's z finite in [0,
+    255] and 256 images; a warm ``POST /api/generate`` job to done with its
+    files; ``POST /api/train`` (``--epochs 1``): the port's CLI in a
+    subprocess on the card, to done with rc 0 and ``models/web_flag/dvae.pth``,
+    timed; ``/api/render/generated/0.png`` a PNG of the grid's size,
+    ``/api/render/loss_mse/0.svg``, both models' topology SVGs (physical
+    coordinates and the spring layout); a started ``train`` job cancelled
+    (state failed).  Then ``evaluate_checkpoint`` of the 40-epoch model at
+    its defaults (2,048 images, 256 reads, 4 rounds): K1-f32 launched,
+    every metric finite, ``image_mmd`` beside its floor and noise (the
+    card's pool is synthetic digits, not ``runs/generation_quality.json``'s).
 
 Each path (serving, plain training, PT training, scaled training, the K2
 steps, scaled serving, the 2,048-latent training, resume and serving, the
 flagship bf16 / int8 epochs, on every rank the graph-sharded epoch,
 its sampling, its dense steps and the P32 sweeps, the 1,280-latent
-training, PT training and serving, and each CLI command) runs with the
+training, PT training and serving, each CLI command, and the server's lone
+requests, burst, generate job and the evaluation) runs with the
 launch counters set to 0 just before it and read just after.  The line before
 the last is a JSON object describing the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -812,11 +833,12 @@ def main() -> int:
     latents1280 = run_in_fresh_process(_latents1280_child)
     sharded = graph_sharded_phases(dev, card)
     cli27 = run_in_fresh_process(_cli_child)
+    server28 = run_in_fresh_process(_server_child)
 
     print(card_line())
     paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts,
              **scaled["paths"], **k1_dtypes["paths"], **sharded["paths"],
-             **latents1280["paths"], **cli27["paths"]}
+             **latents1280["paths"], **cli27["paths"], **server28["paths"]}
     print(json.dumps({"kernels": [
         {
             "name": "gibbs_sparse (K1-f32)",
@@ -2123,6 +2145,233 @@ def cli_phase(card: str) -> dict:
     print("[27] CLI host seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
           + f"  [{card}]")
     return {"paths": paths, "times": times}
+
+
+# phase 28: the web app over HTTP with warm serving, and checkpoint evaluation
+SERVER_MODELS = ("tpu_digits_40_epochs", "tpu_digits_10_epochs")
+SERVER_EXTRA = ["--dataset-size", "4096"]  # the jobs' and the warm trainer's data
+
+
+def _server_child(_rank: int, out_path: str) -> None:
+    result = server_phase(card_line())
+    Path(out_path).write_text(json.dumps(result))
+
+
+def _http(port: int, path: str, body=None):
+    """GET (``body`` None) or POST JSON to the local server: (status, bytes)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _wait_job(port: int, label: str, deadline_s: float = 600.0) -> dict:
+    deadline = time.perf_counter() + deadline_s
+    while time.perf_counter() < deadline:
+        state = json.loads(_http(port, "/api/state")[1])
+        if state["job"]["state"] in ("done", "failed"):
+            return state
+        time.sleep(0.2)
+    raise RuntimeError(f"[28] {label}: the job did not finish in {deadline_s:.0f} s")
+
+
+def _check_figure(fig: dict, label: str) -> tuple:
+    z = np.asarray(fig["data"][0]["z"], np.float64)
+    check(z.ndim == 2 and np.isfinite(z).all() and z.min() >= 0 and z.max() <= 255,
+          f"[28] {label}: the figure's z is not finite values in [0, 255]")
+    return z.shape
+
+
+def server_phase(card: str) -> dict:
+    """Phase 28: ``make_server(warm_generate=True)`` on an ephemeral port in
+    a thread, driven over HTTP at the flagship's width (the page, the
+    models, ``/api/generate_now`` lone and in a burst, a warm ``generate``
+    job, a ``train`` job of the port's CLI in a subprocess on the card, the
+    render and topology endpoints, a cancelled job), then
+    ``evaluate_checkpoint`` of the serving checkpoint at its defaults.
+    Each path runs with the launch counters set to 0 just before it and
+    read just after; no plain sweep version may run on a CUDA tensor."""
+    from image_generation_tpu_torch.app import server as srvmod
+    from image_generation_tpu_torch.app.evaluate import evaluate_checkpoint
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.utils.grid import make_grid
+
+    plain: dict = {}
+    _count_plain_on_card(plain)
+    paths, times = {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_server_"))
+    srv = None
+    try:
+        for name in SERVER_MODELS:
+            shutil.copytree(ROOT / "runs" / "models" / name, work / "models" / name)
+        t0 = time.perf_counter()
+        srv = srvmod.make_server(work, port=0, extra_cli=SERVER_EXTRA, warm_generate=True)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        port = srv.server_address[1]
+        times["server_start_s"] = time.perf_counter() - t0
+        check(srv.warm.device.type == "cuda", "[28] the warm trainer is not on the card")
+        status, page = _http(port, "/")
+        check(status == 200 and page == srvmod._render_page().encode(),
+              "[28] GET / is not the rendered page")
+        names = sorted(m["name"] for m in json.loads(_http(port, "/api/models")[1]))
+        check(names == sorted(SERVER_MODELS), f"[28] /api/models lists {names}")
+        model = {"model": SERVER_MODELS[0]}
+        coal = srv.warm._coalescer
+        grid_256 = make_grid(np.zeros((256, 32, 32, 1)), nrow=16).shape[:2]
+
+        def generate_now():
+            t = time.perf_counter()
+            status, body = _http(port, "/api/generate_now", model)
+            rt = (time.perf_counter() - t) * 1e3
+            check(status == 200, f"[28] /api/generate_now answered {status}: {body[:200]!r}")
+            resp = json.loads(body)
+            shape = _check_figure(resp["figure"], "generate_now")
+            check(shape == grid_256, f"[28] generate_now grid {shape}, not 256 images")
+            return rt, resp
+
+        torch.cuda.synchronize()
+        first_ms, _ = generate_now()  # loads the model; launches its one dispatch
+        plain.clear()
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        d0 = coal.dispatches
+        lone = [generate_now() for _ in range(10)]
+        counts = paths["server_generate_now_lone"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        n_disp = coal.dispatches - d0
+        check(counts == {"K1-f32": n_disp} and n_disp == 10,
+              f"[28] 10 lone requests: launches {counts}, dispatches {n_disp}")
+        check(all(r["batched"] == 1 for _, r in lone), "[28] a lone request was batched")
+        times["lone_roundtrip_ms"] = float(np.median([rt for rt, _ in lone]))
+        times["lone_latency_ms"] = float(np.median([r["latency_ms"] for _, r in lone]))
+        times["first_request_ms"] = first_ms
+
+        # every group size a burst of 16 can form pays its first cuDNN plans
+        # and allocations once: warm them, as a deployment would before
+        # traffic, so that the burst times the warmed path
+        t0 = time.perf_counter()
+        srv.warm.warm_buckets(work / "models" / SERVER_MODELS[0], 16)
+        torch.cuda.synchronize()
+        times["warm_buckets_s"] = time.perf_counter() - t0
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        d0, s0 = coal.dispatches, coal.served
+        burst: list = [None] * 16
+        threads = [threading.Thread(target=lambda i=i: burst.__setitem__(i, generate_now()))
+                   for i in range(16)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        times["burst16_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        check(all(b is not None for b in burst), "[28] a burst request did not finish")
+        counts = paths["server_generate_now_burst16"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        n_disp = coal.dispatches - d0
+        batched = [r["batched"] for _, r in burst]
+        check(coal.served - s0 == 16 and counts == {"K1-f32": n_disp} and n_disp < 16
+              and max(batched) > 1,
+              f"[28] burst of 16: launches {counts}, dispatches {n_disp}, batched {batched}")
+        times["burst16_dispatches"] = n_disp
+        times["burst16_roundtrip_median_ms"] = float(np.median([rt for rt, _ in burst]))
+        check(not plain, f"[28] a plain sweep version ran on a CUDA tensor: {plain}")
+        print(f"[28] /api/generate_now ({SERVER_MODELS[0]}, 256 images): first request "
+              f"{first_ms:.3f} ms; 10 lone requests, median round trip "
+              f"{times['lone_roundtrip_ms']:.3f} ms, server latency_ms "
+              f"{times['lone_latency_ms']:.3f} ms; group sizes 1-16 warmed in "
+              f"{times['warm_buckets_s']:.3f} s; a burst of 16 in "
+              f"{times['burst16_wall_ms']:.3f} ms over {n_disp} dispatches (batched "
+              f"{sorted(batched)}), median round trip "
+              f"{times['burst16_roundtrip_median_ms']:.3f} ms  [{card}]", flush=True)
+
+        plain.clear()
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        t0 = time.perf_counter()
+        status, body = _http(port, "/api/generate", model)
+        check(status == 200 and json.loads(body)["started"], f"[28] /api/generate: {body!r}")
+        state = _wait_job(port, "generate")
+        torch.cuda.synchronize()
+        times["generate_job_s"] = time.perf_counter() - t0
+        counts = paths["server_generate_job"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        check(state["job"] == {"state": "done", "kind": "generate"}, f"[28] generate: {state}")
+        check(counts.get("K1-f32", 0) > 0 and set(counts) == {"K1-f32"} and not plain,
+              f"[28] the generate job: launches {counts}, plain on the card {plain}")
+        for f in ("generated_json/generated_epoch_0.json", "assets/model_diagram/latent_qpu.json",
+                  "assets/model_diagram/step_5_output.png"):
+            check((work / f).is_file(), f"[28] the generate job left no {f}")
+
+        t0 = time.perf_counter()
+        status, body = _http(port, "/api/train", {"name": "web_flag", "epochs": 1})
+        check(status == 200 and json.loads(body)["started"], f"[28] /api/train: {body!r}")
+        check(srv.jobs.proc.args[2] == "image_generation_tpu_torch.app.cli",
+              f"[28] the train job runs {srv.jobs.proc.args}")
+        state = _wait_job(port, "train")
+        times["train_job_s"] = time.perf_counter() - t0
+        check(state["job"] == {"state": "done", "kind": "train", "rc": 0}, f"[28] train: {state}")
+        check((work / "models" / "web_flag" / "dvae.pth").is_file(), "[28] no web_flag/dvae.pth")
+        meta = json.loads((work / "models" / "web_flag" / "parameters.json").read_text())
+        check(meta["n_latents"] == 256, f"[28] the train job's model has {meta['n_latents']} latents")
+        fig = json.loads(_http(port, "/api/figure/generated/0")[1])
+        h, w = _check_figure(fig, "the train job's generated grid")
+        status, png = _http(port, "/api/render/generated/0.png")
+        check(status == 200 and png[:8] == b"\x89PNG\r\n\x1a\n"
+              and (int.from_bytes(png[16:20], "big"), int.from_bytes(png[20:24], "big")) == (w, h),
+              f"[28] /api/render/generated/0.png is not a {w} x {h} PNG")
+        status, svg = _http(port, "/api/render/loss_mse/0.svg")
+        check(status == 200 and svg.startswith(b"<svg") and b"polyline" in svg,
+              "[28] /api/render/loss_mse/0.svg")
+        for name in SERVER_MODELS:
+            t1 = time.perf_counter()
+            status, svg = _http(port, f"/api/render/topology/{name}/encoded.svg")
+            times[f"topology_{name}_ms"] = (time.perf_counter() - t1) * 1e3
+            check(status == 200 and svg.count(b"<circle") == 256,
+                  f"[28] /api/render/topology/{name}/encoded.svg")
+
+        status, body = _http(port, "/api/train", {"name": "web_cancel", "epochs": 1})
+        check(json.loads(body)["started"], "[28] the job to cancel did not start")
+        time.sleep(1.0)
+        cancelled = json.loads(_http(port, "/api/cancel", {})[1])
+        state = _wait_job(port, "cancel")
+        check(cancelled == {"cancelled": True} and state["job"]["state"] == "failed",
+              f"[28] cancel: {cancelled}, {state}")
+        print(f"[28] warm generate job {times['generate_job_s']:.3f} s (launches "
+              f"{paths['server_generate_job']}); train job (the port's CLI in a subprocess, "
+              f"256 latents, 1 epoch of 4,096) {times['train_job_s']:.3f} s to done, rc 0; "
+              f"topology SVGs {times['topology_tpu_digits_40_epochs_ms']:.3f} ms (physical "
+              f"coordinates) / {times['topology_tpu_digits_10_epochs_ms']:.3f} ms (spring "
+              f"layout); a started train job cancelled  [{card}]", flush=True)
+    finally:
+        if srv is not None:
+            if srv.jobs.running():
+                srv.jobs.cancel()
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    plain.clear()
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = evaluate_checkpoint(MODEL, device="cuda")
+    torch.cuda.synchronize()
+    times["evaluate_s"] = time.perf_counter() - t0
+    counts = paths["evaluate"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+    check(counts.get("K1-f32", 0) > 0 and set(counts) == {"K1-f32"} and not plain,
+          f"[28] evaluate: launches {counts}, plain on the card {plain}")
+    check(all(np.isfinite(v) for v in r.values() if isinstance(v, (int, float))),
+          f"[28] evaluate: a metric is not finite: {r}")
+    print(f"[28] evaluate_checkpoint({MODEL.name}) at its defaults (2,048 images, 256 reads, "
+          f"4 rounds) on the {r['data_source']} pool: image_mmd {r['image_mmd']} (floor "
+          f"{r['image_mmd_floor']}, noise {r['image_mmd_noise']}), latent_mmd "
+          f"{r['latent_mmd']}, recon_mse {r['recon_mse']}; {times['evaluate_s']:.3f} s, "
+          f"launches {counts}. runs/generation_quality.json was measured on the "
+          f"sklearn-digits pool: a number on another pool does not compare with it  [{card}]",
+          flush=True)
+    return {"paths": paths, "times": times, "evaluation": r}
 
 
 GS_RANKS = 4

@@ -8,8 +8,9 @@ Port of ``image_generation_tpu/app/diagram.py``:
   assets/model_diagram/step_4_decode.png  — decoder 2×2 feature maps (grid)
   assets/model_diagram/step_5_output.png  — the decoded reconstruction
 
-``save_png`` writes 8-bit PNGs with ``zlib`` and ``struct`` (the JAX
-package uses PIL, which this package does not need): the same pixels.
+``save_png`` writes 8-bit PNGs through ``png_bytes``, with ``zlib`` and
+``struct`` (the JAX package uses PIL, which this package does not need):
+the same pixels.  ``app/render.py`` encodes its heatmaps with it too.
 """
 
 from __future__ import annotations
@@ -24,12 +25,25 @@ import torch
 
 from image_generation_tpu_torch.utils.grid import make_grid
 
-__all__ = ["save_png", "generate_model_diagram", "save_example_image"]
+__all__ = ["png_bytes", "save_png", "generate_model_diagram", "save_example_image"]
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
     return (struct.pack(">I", len(data)) + tag + data
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def png_bytes(px: np.ndarray) -> bytes:
+    """(H, W) or (H, W, 3) uint8 pixels → the bytes of an 8-bit grey (or
+    RGB) PNG."""
+    px = np.ascontiguousarray(px, dtype=np.uint8)
+    height, width = px.shape[:2]
+    color = 0 if px.ndim == 2 else 2  # grey, or RGB
+    rows = px.reshape(height, -1)
+    raw = b"".join(b"\x00" + rows[y].tobytes() for y in range(height))  # filter 0 per row
+    return (b"\x89PNG\r\n\x1a\n"
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
 
 
 def save_png(image: np.ndarray, path) -> None:
@@ -39,16 +53,8 @@ def save_png(image: np.ndarray, path) -> None:
     arr = np.asarray(image)
     if arr.ndim == 3 and arr.shape[-1] == 1:
         arr = arr[..., 0]
-    px = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
-    height, width = px.shape[:2]
-    color = 0 if px.ndim == 2 else 2  # grey, or RGB
-    rows = px.reshape(height, -1)
-    raw = b"".join(b"\x00" + rows[y].tobytes() for y in range(height))  # filter 0 per row
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(png_bytes((np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)))
 
 
 def _normalized_grid(maps: np.ndarray, nrow: int) -> np.ndarray:

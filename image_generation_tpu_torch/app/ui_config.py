@@ -1,13 +1,13 @@
 """UI/product constants — the reference's ``demo_configs.py`` equivalents.
 
-A copy of ``image_generation_tpu/app/ui_config.py``, used by the model-diagram
-generator and the figure writers.
+A copy of ``image_generation_tpu/app/ui_config.py``, used by the web app
+(``app/server.py``), the model-diagram generator and the figure writers.
 """
 
 THEME_COLOR = "#074C91"  # header/buttons; dark, accessible with white text
 THEME_COLOR_SECONDARY = "#2A7DE1"  # sliders, tabs, loading accents
 
-APP_TITLE = "ML Image Generation"
+APP_TITLE = "ML Image Generation (TPU)"  # the system's name, as the JAX app's page
 MAIN_HEADER = "ML Image Generation"
 DESCRIPTION = (
     "Machine-learning MNIST training and image generation using a Discrete "

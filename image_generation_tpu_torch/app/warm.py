@@ -125,18 +125,25 @@ class _Coalescer:
 
 class WarmGenerator:
     def __init__(self, workdir, config_overrides: Optional[dict] = None,
-                 device="cuda", serve_max_batch: int = 16,
+                 device="cuda", mesh="auto", params=None, serve_max_batch: int = 16,
                  serve_window_ms: float = 5.0):
         """``config_overrides``: TrainingConfig field overrides for the
         serving trainer (the checkpoint's parameters.json still decides
         N_LATENTS).  ``device``: where the trainer runs (the card unless
         ``"cpu"``; with no card visible a CUDA server raises).
+        ``mesh``: the Trainer's (``"auto"``, the CLI's default: the
+        initialised ``torch.distributed`` world, if any; a mesh the port
+        cannot run raises there).  ``params``: a training-parameters YAML
+        path (the CLI's ``--params``), applied under the overrides as the
+        CLI's ``_build_trainer`` applies it.
         ``serve_max_batch`` / ``serve_window_ms``: the most requests
         folded into one dispatch, and the batching window the leader
         waits before each drain."""
         self.workdir = Path(workdir)
         self.config_overrides = dict(config_overrides or {})
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.params = params
         self.lock = threading.Lock()
         self._trainer = None
         self._key = None  # (resolved model dir, dvae.pth mtime_ns)
@@ -149,8 +156,10 @@ class WarmGenerator:
         mp = Path(model_path)
         key = (str(mp.resolve()), (mp / "dvae.pth").stat().st_mtime_ns)
         if self._key != key:
-            cfg = TrainingConfig(**self.config_overrides).for_serving_dir(mp)
-            trainer = Trainer(config=cfg, device=self.device)
+            cfg = (TrainingConfig.from_yaml(self.params, **self.config_overrides)
+                   if self.params else TrainingConfig(**self.config_overrides))
+            cfg = cfg.for_serving_dir(mp)
+            trainer = Trainer(config=cfg, device=self.device, mesh=self.mesh)
             trainer.load(mp, train_state=False)
             self._trainer, self._key = trainer, key
         return self._trainer

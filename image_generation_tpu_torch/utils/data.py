@@ -28,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["DataSource", "load_mnist", "prepare_images", "get_dataset", "permuted_epoch"]
+__all__ = ["DataSource", "load_mnist", "mnist_pool_size", "prepare_images", "get_dataset",
+           "permuted_epoch"]
 
 
 @dataclass
@@ -45,6 +46,20 @@ def _read_idx(path: Path) -> np.ndarray:
         ndim = magic & 0xFF
         dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
         return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+
+def mnist_pool_size() -> int:
+    """The length of the pool ``load_mnist(None)`` would give, reading only
+    the IDX header when raw MNIST is on disk (60k images that need not be
+    loaded to be counted); otherwise the offline pool is loaded and
+    counted."""
+    idx = _find("train-images-idx3-ubyte", "train-images-idx3-ubyte.gz")
+    if idx is not None:
+        opener = gzip.open if idx.suffix == ".gz" else open
+        with opener(idx, "rb") as f:
+            f.read(4)  # magic
+            return struct.unpack(">I", f.read(4))[0]  # first dim = N
+    return len(load_mnist(None).images)
 
 
 def _find(*names: str) -> Optional[Path]:

@@ -6,7 +6,10 @@ built by the same sequence of ``add_edge`` calls as the JAX package's
 networkx graphs, so nodes, each node's neighbours and ``edges()`` come out
 in the same order (the latent-graph selection, ``utils/subgraph.py``,
 depends on that order).  Graph-level metadata (``family``, ``rows``,
-``columns``, ``tile``) is kept; the plotting positions are not ported.
+``columns``, ``tile``) is kept, and each generator stores every node's 2-D
+plotting position in ``Graph.pos`` with the JAX package's arithmetic (its
+networkx ``pos`` node attributes); ``graph_layout`` normalises them to the
+unit square.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ __all__ = [
     "pegasus_graph",
     "zephyr_graph",
     "graph_for_qpu",
+    "graph_layout",
     "QPU_TOPOLOGIES",
 ]
 
@@ -34,11 +38,15 @@ QPU_TOPOLOGIES = {
 
 class Graph:
     """Undirected simple graph as an insertion-ordered adjacency dict, with
-    the iteration order of ``networkx.Graph`` for the operations used here."""
+    the iteration order of ``networkx.Graph`` for the operations used here.
+    ``pos`` maps a node to its plotting position (networkx's ``pos`` node
+    attribute), set by the generators; the copies below carry none (no
+    selected latent graph is laid out)."""
 
     def __init__(self, **attrs):
         self.adj: Dict[int, Dict[int, None]] = {}
         self.graph = dict(attrs)
+        self.pos: Dict[int, Tuple[float, float]] = {}
 
     def add_node(self, n: int) -> None:
         if n not in self.adj:
@@ -143,6 +151,13 @@ def chimera_graph(m: int, n: Optional[int] = None, t: int = 4) -> Graph:
                     g.add_edge(idx(i, j, 0, k), idx(i + 1, j, 0, k))
                 if j + 1 < n:
                     g.add_edge(idx(i, j, 1, k), idx(i, j + 1, 1, k))
+    # plotting coordinates: the t qubits of each orientation spread inside
+    # the cell, vertical qubits as columns and horizontal ones as rows
+    for i in range(m):
+        for j in range(n):
+            for k in range(t):
+                g.pos[idx(i, j, 0, k)] = (j + 0.15 + 0.7 * k / max(t - 1, 1), -(i + 0.5))
+                g.pos[idx(i, j, 1, k)] = (j + 0.5, -(i + 0.15 + 0.7 * k / max(t - 1, 1)))
     return g
 
 
@@ -199,6 +214,13 @@ def pegasus_graph(
             if not any(nbr // per_u != node // per_u for nbr in g.neighbors(node))
         ]
         g.remove_nodes_from(dead)
+    for node in g.nodes():  # plotting coordinates: the segment midpoint
+        node_, z = divmod(node, zmax)
+        node_, k = divmod(node_, 12)
+        u, w = divmod(node_, m)
+        axis = 12 * w + k
+        center = 12 * z + (shifts_v[k] if u == 0 else shifts_h[k]) + 5.5
+        g.pos[node] = (axis, -center) if u == 0 else (center, -axis)
     return g
 
 
@@ -238,6 +260,14 @@ def zephyr_graph(m: int, t: int = 4) -> Graph:
                         for kv in range(t):
                             for kh in range(t):
                                 g.add_edge(idx(0, wv, kv, jv, zv), idx(1, wh, kh, jh, zh))
+    for node in g.nodes():  # plotting coordinates: segment midpoint, wires fanned
+        node_, z = divmod(node, m)
+        node_, j = divmod(node_, 2)
+        node_, k = divmod(node_, t)
+        u, w = divmod(node_, W)
+        axis = w + 0.08 * (k - (t - 1) / 2)
+        center = 2 * z + j + 1
+        g.pos[node] = (axis, -center) if u == 0 else (center, -axis)
     return g
 
 
@@ -254,3 +284,21 @@ def graph_for_qpu(qpu: str, **overrides) -> Graph:
     if family == "chimera":
         return chimera_graph(size, **overrides)
     raise ValueError(f"unknown topology family: {family}")
+
+
+def graph_layout(graph: Graph) -> dict:
+    """2-D plotting positions normalised to the unit square: the
+    generators' ``pos`` when every node has one, else the spring layout
+    (``utils/layout.py``), in node order (the JAX function's)."""
+    pos = {n: graph.pos[n] for n in graph.adj if n in graph.pos}
+    if len(pos) != graph.number_of_nodes():
+        from image_generation_tpu_torch.utils.layout import spring_layout
+
+        pos = spring_layout(graph, seed=0)
+    xs = [p[0] for p in pos.values()]
+    ys = [p[1] for p in pos.values()]
+    x0, x1 = min(xs), max(xs)
+    y0, y1 = min(ys), max(ys)
+    sx = (x1 - x0) or 1.0
+    sy = (y1 - y0) or 1.0
+    return {n: ((x - x0) / sx, (y - y0) / sy) for n, (x, y) in pos.items()}

@@ -248,7 +248,10 @@ def test_serving_path_imports_no_jax_or_host_extras():
         "image_generation_tpu_torch.samplers.persistent, image_generation_tpu_torch.samplers.factory, "
         "image_generation_tpu_torch.utils.sampleset, image_generation_tpu_torch.app.cli, "
         "image_generation_tpu_torch.app.files, image_generation_tpu_torch.app.figures, "
-        "image_generation_tpu_torch.app.diagram, image_generation_tpu_torch.app.ui_config; "
+        "image_generation_tpu_torch.app.diagram, image_generation_tpu_torch.app.ui_config, "
+        "image_generation_tpu_torch.app.server, image_generation_tpu_torch.app.render, "
+        "image_generation_tpu_torch.app.evaluate, image_generation_tpu_torch.utils.topology, "
+        "image_generation_tpu_torch.utils.layout; "
         "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn', 'PIL', "
         "'image_generation_tpu') if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )
