@@ -229,13 +229,39 @@ epoch each, at full width).  Phases:
     its defaults (2,048 images, 256 reads, 4 rounds): K1-f32 launched,
     every metric finite, ``image_mmd`` beside its floor and noise (the
     card's pool is synthetic digits, not ``runs/generation_quality.json``'s).
+29. the rest of training. (a)-(b), in a fresh process as phase 26: a
+    flagship epoch in the gumbel latent mode (``GUMBEL_TAU=0.7``): K1-f32
+    only, no plain sweep version on a CUDA tensor, the relaxed spins of a
+    batch in [-1, 1] (f32 tanh rounds to +-1 beyond |x| ~ 9), finite
+    losses; then the scaled PT configuration (phase 13's) seven epochs
+    under each DVAE Adam moment lever (f32, ``ADAM_MOMENT_DTYPE="bfloat16"``,
+    ``ADAM_FACTORED_NU="on"``, both): K3-bf16-dE launched and K1 never,
+    finite losses, the optimizer's state bytes, the peak device memory and
+    the step median after the first epoch (24 steps), the levers' state
+    below 0.55 of the one they halve.
+    (c) the flagship on 4 processes sharing cuda:0 (gloo), on the (2, 2)
+    mesh ``Trainer()`` picks in that world and on (4, 1): one plain and
+    one 8-rung PT epoch each, data-parallel batches and chains split over
+    the mesh; on every rank K1-f32 (K1-f32-dE) on its 64 (512) rows exactly
+    as often as the one-process epochs of phases 8 and 9 launched them, no
+    plain sweep version on a CUDA tensor, the losses equal and the DVAE
+    and GRBM parameters bit-equal across ranks; the same for a plain epoch
+    of 254 chains, which do not tile 4 ranks (``sampler_impl`` ``torch`` as
+    JAX's ``xla``, K1-f32 on each rank's 127 or 254 rows), and its
+    ``sample_spins(10)``: K1-f32 on 5 or 10 rows, the same spins on every
+    rank; one step fed the same
+    uniforms on the mesh and in one process within the JAX package's
+    tolerances for its sharded step (MSE 1e-4, loss 1e-3, < 0.5 % spins,
+    parameters 5e-4); each rank's step median and the collectives' host
+    seconds (not a multi-GPU measurement).
 
 Each path (serving, plain training, PT training, scaled training, the K2
 steps, scaled serving, the 2,048-latent training, resume and serving, the
 flagship bf16 / int8 epochs, on every rank the graph-sharded epoch,
 its sampling, its dense steps and the P32 sweeps, the 1,280-latent
-training, PT training and serving, each CLI command, and the server's lone
-requests, burst, generate job and the evaluation) runs with the
+training, PT training and serving, each CLI command, the server's lone
+requests, burst, generate job and the evaluation, the gumbel epoch, each
+Adam lever's scaled epoch and on every rank each data-axis epoch) runs with the
 launch counters set to 0 just before it and read just after.  The line before
 the last is a JSON object describing the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -251,6 +277,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -399,12 +426,11 @@ def read_counts(gibbs_cuda, gibbs_hbm_cuda) -> dict:
             **gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda.launches}
 
 
-def timed_epoch(trainer, label: str, card: str, require_fall: bool = True):
-    """One epoch, a CUDA-synchronised host clock around every step:
-    (the epoch's statistics, the median step after 4 warm-up steps).
-    Raises unless the losses are finite and, with ``require_fall``, the
-    last 8 steps' MSE is below the first 8's."""
-    times, last, stats = [], [0.0], {}
+def _epoch_step_times(trainer, stats: Optional[dict] = None, epochs: int = 1) -> list:
+    """``epochs`` epochs (``train_init`` then ``train``) with a
+    CUDA-synchronised host clock around every step; returns the step times
+    (s) and puts the last epoch's statistics into ``stats``."""
+    times, last = [], [0.0]
 
     def on_batch(_epoch, _done, _nb):
         torch.cuda.synchronize()
@@ -412,11 +438,21 @@ def timed_epoch(trainer, label: str, card: str, require_fall: bool = True):
         times.append(now - last[0])
         last[0] = now
 
-    trainer.train_init(1)
+    trainer.train_init(epochs)
     torch.cuda.synchronize()
     last[0] = time.perf_counter()
-    trainer.train(1, batch_cb=on_batch, epoch_chunks=trainer.n_batches,
-                  epoch_cb=lambda _e, st: stats.update(st))
+    trainer.train(epochs, batch_cb=on_batch, epoch_chunks=trainer.n_batches,
+                  epoch_cb=lambda _e, st: (stats if stats is not None else {}).update(st))
+    return times
+
+
+def timed_epoch(trainer, label: str, card: str, require_fall: bool = True):
+    """One epoch, a CUDA-synchronised host clock around every step:
+    (the epoch's statistics, the median step after 4 warm-up steps).
+    Raises unless the losses are finite and, with ``require_fall``, the
+    last 8 steps' MSE is below the first 8's."""
+    stats = {}
+    times = _epoch_step_times(trainer, stats)
     mses = trainer.losses["mse_losses"]
     med = float(np.median(times[4:]))
     print(f"[{label}] {len(mses)} steps on '{trainer.data_source.origin}' data: loss finite "
@@ -834,11 +870,14 @@ def main() -> int:
     sharded = graph_sharded_phases(dev, card)
     cli27 = run_in_fresh_process(_cli_child)
     server28 = run_in_fresh_process(_server_child)
+    leftovers29 = run_in_fresh_process(_leftovers_child)
+    data29 = data_axis_phase(card, {"gibbs": gibbs_counts, "pt": pt_counts})
 
     print(card_line())
     paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts,
              **scaled["paths"], **k1_dtypes["paths"], **sharded["paths"],
-             **latents1280["paths"], **cli27["paths"], **server28["paths"]}
+             **latents1280["paths"], **cli27["paths"], **server28["paths"],
+             **leftovers29["paths"], **data29["paths"]}
     print(json.dumps({"kernels": [
         {
             "name": "gibbs_sparse (K1-f32)",
@@ -3007,6 +3046,326 @@ def _sum_counts(counts) -> dict:
 # a 12-spin test graph: a ring plus chords (unique, no self-loops)
 SMALL_EDGES = [(i, (i + 1) % 12) for i in range(12)] + [(i, i + 4) for i in range(0, 8, 2)] + [
     (1, 6), (3, 10), (5, 11)]
+
+
+# phase 29: the training leftovers (the gumbel mode, the Adam moment
+# levers) and the mesh's data axis
+ADAM_LEVERS = (("f32", {}), ("bf16", dict(ADAM_MOMENT_DTYPE="bfloat16")),
+               ("factored", dict(ADAM_FACTORED_NU="on")),
+               ("both", dict(ADAM_MOMENT_DTYPE="bfloat16", ADAM_FACTORED_NU="on")))
+GUMBEL = dict(LATENT_TO_DISCRETE="gumbel", GUMBEL_TAU=0.7)
+# the levers' step times: the median of the steps after the first epoch
+LEVER_EPOCHS = 7
+DATA_AXIS_MESHES = ((2, 2), (4, 1))
+# a chain count that does not tile 4 ranks: the JAX package drops to its
+# XLA sweep, the port runs K1 on each rank's rows at the sweeps asked for
+UNTILED_READS = 254
+UNTILED_SAMPLES = 10
+DATA_AXIS_RANKS = 4
+# the JAX package's own tolerances for its sharded step (tests/test_sharding.py:106-130)
+SHARDED_STEP = dict(mse_rtol=1e-4, loss_rtol=1e-3, spins_differing=0.005, params_atol=5e-4)
+
+
+def _leftovers_child(_rank: int, out_path: str) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = leftovers_phase(torch.device("cuda", 0), card_line())
+    Path(out_path).write_text(json.dumps(result))
+
+
+
+
+def leftovers_phase(dev, card: str) -> dict:
+    """Phase 29 (a)-(b): a flagship epoch in the gumbel latent mode through
+    K1-f32, then the scaled PT configuration (phase 13's) one epoch under
+    each Adam moment lever, with the DVAE optimizer's state bytes, the peak
+    device memory and the step median.  Returns each path's launch counts
+    and the levers' numbers."""
+    import gc
+
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.training.optim import AdamMoments, optimizer_state_bytes
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    plain: dict = {}
+    _count_plain_on_card(plain)
+    paths: dict = {}
+
+    # (b) the gumbel mode at the flagship's width
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+    gum = Trainer(TrainingConfig(**GUMBEL), device=dev)
+    _stats, med = timed_epoch(gum, "29b", card, require_fall=False)
+    counts = paths["train_gumbel"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    with torch.no_grad():
+        _, spins, _ = gum.dvae.train()(gum.images[:gum.config.BATCH_SIZE], gum.config.N_REPLICAS,
+                                       g)
+    inside = float((spins.abs() < 1).float().mean())
+    print(f"[29b] gumbel (tau {gum.config.GUMBEL_TAU}) flagship epoch: launches {counts}, plain "
+          f"sweeps on the card {plain}; a batch's relaxed spins {tuple(spins.shape)} in "
+          f"[{float(spins.min()):.6f}, {float(spins.max()):.6f}], {inside:.6f} of them strictly "
+          f"inside (-1, 1) (f32 tanh rounds to +-1 beyond |x| ~ 9); step median "
+          f"{med * 1e3:.3f} ms  [{card}]", flush=True)
+    check(set(counts) == {"K1-f32"} and counts["K1-f32"] > 0,
+          f"[29b] the gumbel epoch left K1-f32: {counts}")
+    check(not plain, "[29b] a plain sweep version ran on a CUDA tensor")
+    check(bool((spins.abs() <= 1).all()) and inside > 0.5,
+          "[29b] the gumbel spins are not relaxed values in [-1, 1]")
+    del gum
+    torch.cuda.empty_cache()
+
+    # (a) the scaled PT configuration under each Adam moment lever
+    levers = {}
+    for name, lever in ADAM_LEVERS:
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        plain.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(TrainingConfig(**SCALED, **lever), device=dev)
+        times = _epoch_step_times(tr, epochs=LEVER_EPOCHS)
+        counts = paths[f"scaled_adam_{name}"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        warm = tr.n_batches
+        opt = tr.state.dvae_opt
+        losses = tr.losses["dvae_losses"]
+        w = tr.state.dvae._decoder.increase_latent_dim.weight
+        levers[name] = dict(
+            optimizer=type(opt).__name__, state_bytes=optimizer_state_bytes(opt),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            step_ms=float(np.median(times[warm:])) * 1e3, steps=len(times), losses=losses,
+            step_spread_ms=[float(np.min(times[warm:])) * 1e3, float(np.max(times[warm:])) * 1e3],
+            dense_moments=sorted(k for k, v in opt.state[w].items() if torch.is_tensor(v)),
+            mu_dtype=str(opt.state[w]["exp_avg"].dtype))
+        lv = levers[name]
+        print(f"[29a] scaled PT, Adam {name} ({lv['optimizer']}; the 127M dense layer's state "
+              f"{lv['dense_moments']}, mu {lv['mu_dtype']}): DVAE optimizer state "
+              f"{lv['state_bytes'] / 1e6:.3f} MB, peak device memory "
+              f"{lv['peak_bytes'] / 2**30:.3f} GiB, step median {lv['step_ms']:.3f} ms over "
+              f"steps {warm + 1}-{len(times)} (min {lv['step_spread_ms'][0]:.3f}, max "
+              f"{lv['step_spread_ms'][1]:.3f}; first epoch "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in times[:warm])} ms); losses of epoch 1 "
+              f"{[round(x, 5) for x in losses[:warm]]}, last {round(losses[-1], 5)}; launches "
+              f"{counts}  [{card}]", flush=True)
+        check(bool(np.isfinite(losses).all()), f"[29a] {name}: losses not finite")
+        check(counts.get("K3-bf16-dE", 0) > 0 and not any(k.startswith("K1") for k in counts),
+              f"[29a] {name}: scaled PT training left K3-bf16-dE: {counts}")
+        check(not plain, f"[29a] {name}: a plain sweep version ran on a CUDA tensor")
+        check((lv["optimizer"] == "Adam") == (name == "f32")
+              and (name == "f32" or isinstance(opt, AdamMoments)), f"[29a] {name}: optimizer")
+        del tr, opt, w
+        gc.collect()
+        torch.cuda.empty_cache()
+    b = {k: v["state_bytes"] for k, v in levers.items()}
+    check(b["bf16"] < 0.55 * b["f32"] and b["factored"] < 0.55 * b["f32"]
+          and b["both"] < 0.55 * b["bf16"], f"[29a] the levers did not shrink the moments: {b}")
+    return {"paths": paths, "levers": levers, "gumbel_inside": inside}
+
+
+def _data_axis_rank(rank: int, world: int, port: int, out_dir: str, shape, expect) -> None:
+    """One rank of phase 29 (c): joins the gloo world on cuda:0, trains the
+    flagship one plain epoch, one of ``UNTILED_READS`` chains (then samples
+    ``UNTILED_SAMPLES``) and one 8-rung PT epoch on the ``shape`` mesh (the
+    (2, 2) one as ``Trainer()``'s default), records each K1 launch's rows,
+    the losses and a digest of the replicated parameters, then takes one
+    fed step on the mesh and the same step in one process and compares
+    them; writes ``out_dir/rank_<rank>.json``."""
+    import copy
+    import hashlib
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.models.decoder import draw_dropout_masks
+    from image_generation_tpu_torch.models.grbm import GRBMParams
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.ops.gibbs import random_spins
+    from image_generation_tpu_torch.parallel.mesh import create_mesh
+    from image_generation_tpu_torch.training import step as tstep
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=300))
+    plain: dict = {}
+    _count_plain_on_card(plain)
+    rows: list = []
+    k1 = tstep.gibbs_sweeps_cuda
+
+    def recorded(hp, coupling, plan, spins, *a, **kw):
+        rows.append(int(spins.shape[0]))
+        return k1(hp, coupling, plan, spins, *a, **kw)
+
+    tstep.gibbs_sweeps_cuda = recorded
+    try:
+        out = {}
+        mesh = None if tuple(shape) == (2, 2) else create_mesh(shape=shape, backend="gloo")
+        for sampler, kw in (("gibbs", {}), ("untiled", dict(NUM_READS=UNTILED_READS)),
+                            ("pt", dict(SAMPLER="pt"))):
+            reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+            plain.clear()
+            rows.clear()
+            t = Trainer(TrainingConfig(**kw), device=dev, mesh="auto" if mesh is None else mesh)
+            mesh = t.mesh
+            comm0 = mesh.comm_seconds
+            times = _epoch_step_times(t)
+            counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+            h = hashlib.sha256()
+            for v in list(t.dvae.state_dict().values()) + [t.grbm_params.linear,
+                                                           t.grbm_params.quadratic]:
+                h.update(v.detach().cpu().numpy().tobytes())
+            out[sampler] = dict(
+                mesh=list(mesh.shape), impl=t.fns.sampler_impl, rows_axes=list(t.fns.train_rows.axes),
+                counts=counts, rows=sorted(set(rows)), plain=dict(plain), digest=h.hexdigest(),
+                losses=t.losses["dvae_losses"], step_ms=float(np.median(times[4:])) * 1e3,
+                comm_s=mesh.comm_seconds - comm0, epoch_s=float(sum(times)),
+                chains=list(t.state.chains.shape))
+            if sampler == "untiled":  # a sample call whose count does not tile the mesh
+                reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+                rows.clear()
+                spins = t.sample_spins(UNTILED_SAMPLES)
+                out["sample"] = dict(
+                    counts=read_counts(gibbs_cuda, gibbs_hbm_cuda), rows=sorted(set(rows)),
+                    plain=dict(plain), shape=list(spins.shape),
+                    digest=hashlib.sha256(spins.cpu().numpy().tobytes()).hexdigest(),
+                    pm1=bool(((spins == 1) | (spins == -1)).all()))
+        # one fed step on the mesh against the same step in one process
+        cfg = TrainingConfig()
+        fns_m = tstep.make_train_fns(cfg, t.graph, 10, t.plan, device=dev, mesh=mesh)
+        fns_1 = tstep.make_train_fns(cfg, t.graph, 10, t.plan, device=dev, mesh=None)
+
+        def gen(seed):
+            g_ = torch.Generator(device=dev)
+            g_.manual_seed(seed)
+            return g_
+
+        dvae = fns_1.new_dvae()
+        tstep._flax_init_(dvae, torch.Generator().manual_seed(29))
+        grbm = t.graph.init_params(gen(29), device=dev)
+        chains = random_spins(gen(30), t.plan, cfg.NUM_READS, dev)
+        g = gen(31)
+        n_img = cfg.BATCH_SIZE * cfg.N_REPLICAS
+        feed = tstep.StepFeed(
+            sweeps1=torch.rand((cfg.GIBBS_SWEEPS, cfg.NUM_READS, t.plan.n_pad), generator=g,
+                               device=dev),
+            sweeps2=torch.rand((cfg.GIBBS_SWEEPS, cfg.NUM_READS, t.plan.n_pad), generator=g,
+                               device=dev),
+            spin_uniforms=torch.rand((cfg.BATCH_SIZE, cfg.N_REPLICAS, cfg.N_LATENTS),
+                                     generator=g, device=dev),
+            dropout_masks=draw_dropout_masks(n_img, g, dev))
+        st_m = fns_m.state_from(copy.deepcopy(dvae), GRBMParams(grbm.linear.clone(),
+                                                                grbm.quadratic.clone()),
+                                chains, gen(32), burn_in=False)
+        st_1 = fns_1.state_from(dvae, grbm, chains, gen(32), burn_in=False)
+        images = t.images[:cfg.BATCH_SIZE]
+        m1 = fns_1.step_body(st_1, images, 0, feed)
+        mm = fns_m.step_body(st_m, images, 0, feed)
+        n_loc = st_m.chains.shape[0]
+        lo = fns_m.train_rows.index * n_loc
+        p_err = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(st_m.dvae.parameters(),
+                                                                st_1.dvae.parameters()))
+        out["fed_step"] = dict(
+            mse=[float(mm.mse), float(m1.mse)], loss=[float(mm.dvae_loss), float(m1.dvae_loss)],
+            nll=[float(mm.nll), float(m1.nll)],
+            spins_differing=float((st_m.chains != st_1.chains[lo:lo + n_loc]).float().mean()),
+            params_max_abs=p_err,
+            grbm_max_abs=float((st_m.grbm_params.quadratic - st_1.grbm_params.quadratic)
+                               .abs().max()))
+        (Path(out_dir) / f"rank_{rank}.json").write_text(json.dumps(out))
+    finally:
+        tstep.gibbs_sweeps_cuda = k1
+        dist.destroy_process_group()
+
+
+def data_axis_phase(card: str, expect: dict) -> dict:
+    """Phase 29 (c): the flagship on four gloo processes sharing cuda:0, on
+    a (2, 2) and a (4, 1) mesh, one plain and one 8-rung PT epoch each: on
+    every rank K1-f32 (under PT K1-f32-dE, and K1-f32 for the burn-in) on
+    its 64 (512) rows as often as the one-process epoch of phase 8 (9)
+    launched them (``expect``: those epochs' counts), no plain sweep version on a
+    CUDA tensor, the losses equal and the parameters bit-equal on all
+    ranks; a plain epoch and a ``sample_spins`` call whose chain counts do
+    not tile the mesh (``UNTILED_READS``, ``UNTILED_SAMPLES``) through K1
+    on each rank's rows, no plain sweep on the card; one fed step agreeing
+    with the one-process step within the CPU test's tolerance (the JAX
+    package's for its sharded step).  A real
+    distributed run, but not a multi-GPU measurement: gloo stages every
+    collective through the host."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    paths, report = {}, {}
+    for shape in DATA_AXIS_MESHES:
+        label = f"{shape[0]}x{shape[1]}"
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        sys.stdout.flush()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_data_axis_") as tmp:
+            mp.start_processes(_data_axis_rank,
+                               args=(DATA_AXIS_RANKS, port, tmp, shape, expect),
+                               nprocs=DATA_AXIS_RANKS, join=True, start_method="spawn")
+            ranks = [json.loads((Path(tmp) / f"rank_{r}.json").read_text())
+                     for r in range(DATA_AXIS_RANKS)]
+        untiled_rows = UNTILED_READS // (shape[0] if UNTILED_READS % shape[0] == 0 else 1)
+        for sampler, n_rows, impl in (("gibbs", 64, "cuda_vmem_sharded"),
+                                      ("untiled", untiled_rows, "torch"),
+                                      ("pt", 512, "cuda_vmem_sharded")):
+            r0 = ranks[0][sampler]
+            want = expect["pt" if sampler == "pt" else "gibbs"]
+            for r, res in enumerate(ranks):
+                x = res[sampler]
+                print(f"[29c] mesh {label} {sampler} rank {r}: {x['impl']}, chains over "
+                      f"{x['rows_axes']} {x['chains']}, launches {x['counts']} on rows "
+                      f"{x['rows']}, plain sweeps on the card {x['plain']}; step median "
+                      f"{x['step_ms']:.3f} ms, epoch {x['epoch_s']:.3f} s of which "
+                      f"collectives {x['comm_s']:.3f} s (gloo, 4 processes on one card: not a "
+                      f"multi-GPU measurement)  [{card}]", flush=True)
+                check(x["mesh"] == list(shape), f"[29c] rank {r} trained on mesh {x['mesh']}")
+                check(x["impl"] == impl, f"[29c] {label} {sampler} rank {r}: {x['impl']}")
+                check(x["counts"] == want and x["rows"] == [n_rows],
+                      f"[29c] {label} {sampler} rank {r}: {x['counts']} on rows {x['rows']}, "
+                      f"the one-process epoch launched {want}")
+                check(not x["plain"], f"[29c] {label} rank {r}: a plain sweep ran on the card")
+                check(bool(np.isfinite(x["losses"]).all()) and x["losses"] == r0["losses"],
+                      f"[29c] {label} {sampler}: the losses differ across ranks")
+                check(x["digest"] == r0["digest"],
+                      f"[29c] {label} {sampler}: the replicated parameters differ across ranks")
+            paths[f"data_axis_{label}_{sampler}"] = _sum_counts([x[sampler]["counts"]
+                                                                 for x in ranks])
+        sample_rows = UNTILED_SAMPLES // (shape[0] if UNTILED_SAMPLES % shape[0] == 0 else 1)
+        for r, res in enumerate(ranks):
+            x = res["sample"]
+            print(f"[29c] mesh {label} rank {r}: sample_spins({UNTILED_SAMPLES}) (does not tile "
+                  f"the mesh): launches {x['counts']} on rows {x['rows']}, plain sweeps on the "
+                  f"card {x['plain']}, spins {x['shape']}", flush=True)
+            check(set(x["counts"]) == {"K1-f32"} and x["counts"]["K1-f32"] > 0
+                  and x["rows"] == [sample_rows] and not x["plain"],
+                  f"[29c] {label} rank {r}: sample_spins({UNTILED_SAMPLES}) left K1 on "
+                  f"{sample_rows} rows: {x}")
+            check(x["shape"][0] == UNTILED_SAMPLES and x["pm1"]
+                  and x["digest"] == ranks[0]["sample"]["digest"],
+                  f"[29c] {label} rank {r}: the samples are not the same +-1 spins on all ranks")
+        paths[f"data_axis_{label}_sample"] = _sum_counts([x["sample"]["counts"] for x in ranks])
+        for r, res in enumerate(ranks):
+            f = res["fed_step"]
+            print(f"[29c] mesh {label} rank {r}: one fed step against one process: mse "
+                  f"{f['mse']}, loss {f['loss']}, nll {f['nll']}, chain spins differing "
+                  f"{f['spins_differing']:.6f}, DVAE params max|diff| {f['params_max_abs']:.3e}, "
+                  f"GRBM {f['grbm_max_abs']:.3e}", flush=True)
+            check(abs(f["mse"][0] - f["mse"][1]) <= SHARDED_STEP["mse_rtol"] * abs(f["mse"][1])
+                  and abs(f["loss"][0] - f["loss"][1])
+                  <= SHARDED_STEP["loss_rtol"] * abs(f["loss"][1])
+                  and f["spins_differing"] < SHARDED_STEP["spins_differing"]
+                  and f["params_max_abs"] <= SHARDED_STEP["params_atol"],
+                  f"[29c] {label} rank {r}: the fed step disagrees with one process: {f}")
+        report[label] = ranks
+    return {"paths": paths, "report": report}
 
 
 if __name__ == "__main__":

@@ -38,8 +38,6 @@ import sys
 import time
 from pathlib import Path
 
-_MESH_TODO = "ROADMAP.md queue 1 item 7"
-
 
 def _config_overrides(args):
     """Map parsed CLI args to TrainingConfig field overrides."""
@@ -126,31 +124,38 @@ def _parse_pt_betas(spec):
 def parse_mesh(spec):
     """``--mesh`` value → Mesh | None | "auto" (the Trainer's sentinel).
 
-    'off' → None (one device); 'auto' → the initialised world, if any;
-    '1xP' → the (1, P) graph-sharded mesh over an initialised world of P
-    ranks (``parallel.mesh.create_mesh``).  A device count or a data axis
-    above 1 is not ported yet."""
+    'off' → None (one device); 'auto' → the initialised world, if any; a
+    count ('8') → the JAX default-shaped mesh over an initialised world of
+    that many ranks; RxG ('2x4') → the explicit (data × graph) layout
+    (``parallel.mesh.create_mesh``; the graph axis carries the chains, or
+    under ``GRAPH_SHARDED`` the coupling)."""
     if spec == "off":
         return None
     if spec in (None, "auto"):
         return spec
-    rows, sep, cols = str(spec).lower().partition("x")
+    import torch.distributed as dist
+
+    from image_generation_tpu_torch.parallel.mesh import create_mesh, default_shape
+
     try:
-        rows, cols = int(rows), int(cols) if sep else None
+        s = str(spec).lower()
+        if "x" in s:
+            rows, cols = (int(x) for x in s.split("x"))
+            if rows < 1 or cols < 1:
+                raise ValueError("axis sizes must be >= 1")
+            shape = (rows, cols)
+        else:
+            n = int(s)
+            if n < 1:
+                raise ValueError("device count must be >= 1")
+            shape = default_shape(n)
     except ValueError as e:
         raise SystemExit(
             f"--mesh must be 'auto', 'off', a device count, or RxG (e.g. 1x8); got {spec!r} ({e})"
         )
-    if cols is None or rows != 1 or cols < 1:
-        raise SystemExit(f"--mesh {spec}: only 'auto', 'off' and 1xP (the graph-sharded mesh) "
-                         f"are ported; a device count or a data axis is not yet ({_MESH_TODO})")
-    import torch.distributed as dist
-
-    from image_generation_tpu_torch.parallel.mesh import create_mesh
-
     backend = dist.get_backend() if dist.is_available() and dist.is_initialized() else "nccl"
     try:
-        return create_mesh(shape=(rows, cols), backend=backend)
+        return create_mesh(shape=shape, backend=backend)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"--mesh {spec}: {e}")
 

@@ -9,17 +9,40 @@ keeps the ``nn.BatchNorm2d`` module only for its parameters and buffers
 normalisation out by hand with Flax's formulas; evaluation uses the
 running averages through ``F.batch_norm``.  It computes in f32 whatever
 the input type, as the JAX models do.
+
+Data-parallel training (``global_batch_stats``): each rank holds a slice of
+the global batch, and the batch statistics are those of the global batch,
+as GSPMD computes them in the JAX package: the slices' sums of x and x²
+are summed over the mesh's data axis by a differentiable all-reduce, so
+each rank's gradient also reaches the other slices' activations.
 """
 
 from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["batch_norm", "MOMENTUM"]
+__all__ = ["batch_norm", "global_batch_stats", "MOMENTUM"]
 
 MOMENTUM = 0.9  # Flax's: weight of the old running average
+_GLOBAL = threading.local()  # this thread's (sum over the data axis, slices)
+
+
+@contextmanager
+def global_batch_stats(reduce_sum, n_slices: int):
+    """Within the block, training-mode statistics are over the global
+    batch: ``reduce_sum`` (differentiable) sums a tensor over the
+    ``n_slices`` equal slices of the batch the ranks hold."""
+    prev = getattr(_GLOBAL, "reduce", None)
+    _GLOBAL.reduce = (reduce_sum, n_slices)
+    try:
+        yield
+    finally:
+        _GLOBAL.reduce = prev
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:
@@ -32,8 +55,15 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor
                             False, 0.0, bn.eps)
     # Flax's statistics and normalisation, in its order of operations:
     # var = max(E[x²] − E[x]², 0), y = (x − mean)·(rsqrt(var + eps)·scale) + bias
-    mean = x.mean((0, 2, 3))
-    var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+    reduce = getattr(_GLOBAL, "reduce", None)
+    if reduce is None:
+        mean, mean2 = x.mean((0, 2, 3)), (x * x).mean((0, 2, 3))
+    else:
+        reduce_sum, n_slices = reduce
+        n = x.numel() // x.shape[1] * n_slices
+        sums = reduce_sum(torch.stack([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))])) / n
+        mean, mean2 = sums[0], sums[1]
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(MOMENTUM).add_((1 - MOMENTUM) * mean)
         bn.running_var.mul_(MOMENTUM).add_((1 - MOMENTUM) * var)

@@ -26,9 +26,17 @@ from torch import nn
 
 from image_generation_tpu_torch.models.batchnorm import batch_norm
 
-__all__ = ["Decoder", "DROPOUT_RATE"]
+__all__ = ["Decoder", "DROPOUT_RATE", "draw_dropout_masks"]
 
 DROPOUT_RATE = 0.2
+CHANNELS = (128, 64, 32, 1)  # the four dropout layers' channels
+
+
+def draw_dropout_masks(n: int, generator: Optional[torch.Generator], device):
+    """The four (n, C) Dropout2d multipliers ``Decoder.forward`` draws in
+    training for n = B·R images, in its order."""
+    return [(torch.rand((n, c), generator=generator, device=device) >= DROPOUT_RATE).float()
+            / (1.0 - DROPOUT_RATE) for c in CHANNELS]
 
 
 class Decoder(nn.Module):
@@ -60,6 +68,8 @@ class Decoder(nn.Module):
             raise ValueError(f"decoder expects (B, R, n_latents); got {tuple(z.shape)}")
         b, r, n = z.shape
         x = self.increase_latent_dim(z).reshape(b * r, n, 2, 2)
+        if self.training and dropout_masks is None:
+            dropout_masks = draw_dropout_masks(b * r, generator, x.device)
         i_drop = 0
         for layer in self.convtrans:
             if isinstance(layer, nn.BatchNorm2d):
@@ -68,13 +78,7 @@ class Decoder(nn.Module):
                     x = x.to(act_dtype)
             elif isinstance(layer, nn.Dropout2d):
                 if self.training:
-                    if dropout_masks is not None:
-                        mask = dropout_masks[i_drop]
-                    else:
-                        keep = torch.rand(x.shape[:2], generator=generator,
-                                          device=x.device) >= DROPOUT_RATE
-                        mask = keep.float() / (1.0 - DROPOUT_RATE)
-                    x = x * mask.to(x.dtype)[:, :, None, None]
+                    x = x * dropout_masks[i_drop].to(x.dtype)[:, :, None, None]
                 i_drop += 1
             elif isinstance(layer, nn.LeakyReLU):
                 x = F.leaky_relu(x, 0.01)

@@ -478,6 +478,7 @@ def pt_round(
     uniforms: Optional[torch.Tensor] = None,
     swap_uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     aux: Optional[dict] = None,
+    ladder=None,
 ):
     """One parallel-tempering round: ``sweeps_per_round`` Gibbs sweeps at
     every temperature, then replica exchange between adjacent rungs (even
@@ -500,6 +501,13 @@ def pt_round(
     ``aux``: optional dict of per-replica (T, C) payloads, permuted by the
     same accepted swaps (``pt_tune.round_trip_count``'s replica labels).
 
+    ``ladder`` (``parallel.mesh.LadderShard``): the ladder is split over
+    ranks, and ``spins_p``, ``energies``, ``aux`` and the returned spins and
+    energies are this rank's rungs [t0, t1) (``uniforms`` its rows); the
+    swap decisions come from the gathered energies, the same on every
+    rank, and the rungs at the slice's edges are exchanged with the
+    neighbouring ranks.
+
     Returns spins; ``(spins, energies)`` with ``return_energies``;
     ``(spins, energies, accept)`` with ``return_accept``, where ``accept``
     is the (T−1,) per-pair mean analytic acceptance E[min(1, e^{Δβ·ΔE})];
@@ -512,8 +520,9 @@ def pt_round(
             return gibbs_sweeps_reference(h_, c_, plan, s_, n_, beta_, generator=g,
                                           uniforms=uniforms, track_delta_e=track_delta_e)
     betas = torch.as_tensor(betas, dtype=torch.float32, device=dev)
+    t0, t1 = (0, t_dim) if ladder is None else (ladder.t0, ladder.t1)
     flat = spins_p.reshape(t_dim * c_dim, n_pad)
-    beta_per_chain = betas.repeat_interleave(c_dim)
+    beta_per_chain = betas[t0:t1].repeat_interleave(c_dim)
     if energies is not None:
         flat, de = sweeps_fn(generator, hp, coupling_p, flat, sweeps_per_round,
                              beta_per_chain, uniforms=uniforms, track_delta_e=True)
@@ -524,6 +533,9 @@ def pt_round(
     s = flat.reshape(t_dim, c_dim, n_pad)
     if energies is None:
         e = (energies_fn or ising_energies)(hp, coupling_p, s)
+    if ladder is not None:
+        e = ladder.gather(e)
+        t_dim = ladder.t_dim
 
     d_beta = (betas[:-1] - betas[1:])[:, None]
     pairs = torch.arange(t_dim - 1, device=dev) % 2
@@ -541,15 +553,28 @@ def pt_round(
         swap_next = torch.cat([accept, pad], 0)  # row t ↔ t+1
         swap_prev = torch.cat([pad, accept], 0)  # row t ↔ t−1
 
-        def permute(x):
-            m_next = swap_next.reshape(swap_next.shape + (1,) * (x.ndim - 2))
-            m_prev = swap_prev.reshape(swap_prev.shape + (1,) * (x.ndim - 2))
-            return torch.where(m_next, torch.roll(x, -1, 0),
-                               torch.where(m_prev, torch.roll(x, 1, 0), x))
+        def permute(x, rungs, up=None, down=None):
+            """The rows of x (rungs [a, b) of the ladder) after the swaps;
+            ``up`` / ``down`` are rungs b and a − 1 where they lie on other
+            ranks (on one device ``torch.roll`` brings them in)."""
+            a, b = rungs
+            m_next = swap_next[a:b].reshape((b - a, c_dim) + (1,) * (x.ndim - 2))
+            m_prev = swap_prev[a:b].reshape(m_next.shape)
+            nxt = torch.cat([x[1:], x[:1] if up is None else up[None]], 0)
+            prv = torch.cat([x[-1:] if down is None else down[None], x[:-1]], 0)
+            return torch.where(m_next, nxt, torch.where(m_prev, prv, x))
 
-        s, e = permute(s), permute(e)
-        if aux is not None:
-            aux = {k: permute(v) for k, v in aux.items()}
+        e = permute(e, (0, t_dim))
+        if ladder is None:
+            s = permute(s, (0, t_dim))
+            if aux is not None:
+                aux = {k: permute(v, (0, t_dim)) for k, v in aux.items()}
+        else:
+            s = permute(s, (t0, t1), *ladder.neighbours(s, parity))
+            if aux is not None:
+                aux = {k: permute(v, (t0, t1), *ladder.neighbours(v, parity))
+                       for k, v in aux.items()}
+    e = e[t0:t1]
     if aux is not None:
         return (s, e, aux, acc) if return_accept else (s, e, aux)
     if return_accept:
@@ -570,13 +595,16 @@ def pt_sample(
     sweeps_fn=None,
     energies_fn=None,
     feed=None,
+    ladder=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A full parallel-tempering run from optional ``init_spins``
     (T, C, n_pad): the ladder energies are computed once (by
     ``energies_fn``, as in ``pt_round``) and carried through every round.
     ``feed``: one (sweep uniforms, (even, odd) swap uniforms) pair per
     round, replacing that round's draws (``pt_round``'s ``uniforms`` and
-    ``swap_uniforms``).  Returns ((C, n_pad) samples at ``betas[-1]``, the
+    ``swap_uniforms``).  ``ladder``: the ladder is split over ranks
+    (``pt_round``), ``init_spins`` is this rank's rungs and so is the
+    returned ladder.  Returns ((C, n_pad) samples at ``betas[-1]``, the
     (T, C, n_pad) ladder)."""
     t_dim = int(torch.as_tensor(betas).shape[0])
     if init_spins is None:
@@ -588,5 +616,5 @@ def pt_sample(
         u, w = (None, None) if feed is None else feed[i]
         s, e = pt_round(generator, hp, coupling_p, plan, s, betas, sweeps_per_round,
                         sweeps_fn=sweeps_fn, energies=e, return_energies=True,
-                        energies_fn=energies_fn, uniforms=u, swap_uniforms=w)
-    return s[-1], s
+                        energies_fn=energies_fn, uniforms=u, swap_uniforms=w, ladder=ladder)
+    return (s[-1] if ladder is None else ladder.target(s)), s

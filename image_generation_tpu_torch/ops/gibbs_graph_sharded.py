@@ -180,6 +180,7 @@ def gibbs_sweeps_graph_sharded(
     track_delta_e: bool = False,
     matmul_dtype=None,
     use_kernel: bool = True,
+    row0: int = 0,
 ):
     """``n_sweeps`` colored block-Gibbs sweeps, one class span at a time,
     with the graph split over ``mesh``'s graph axis; every rank of it calls
@@ -195,6 +196,8 @@ def gibbs_sweeps_graph_sharded(
     graph rank 0's seed is broadcast); otherwise the plain update draws
     each span's uniforms from ``generator``.  ``matmul_dtype`` rounds an f32 coupling
     to that dtype in the products and sets the spin carry's dtype.
+    ``row0``: the global chain row of this rank's first row (its data
+    row's slice of the chains), which keys K4's Philox counter.
     Returns this rank's new (C, L) f32 spins, or (spins, ΔE) with
     ``track_delta_e``, ΔE (C,) the same on every rank."""
     from image_generation_tpu_torch.ops.gibbs_cuda import draw_seed
@@ -217,7 +220,6 @@ def gibbs_sweeps_graph_sharded(
     carry = torch.int8 if quant else (matmul_dtype or spins_loc.dtype)
     beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
     beta_col = beta_t.reshape(-1, 1) if beta_t.ndim else beta_t
-    row0 = mesh.data_index * c_loc  # global chain row of this rank's row 0
     seed = None
     if uniforms is None and generator is None:
         if not use_kernel:

@@ -111,6 +111,7 @@ def gibbs_sweeps_hbm_cuda(
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[torch.Tensor] = None,
     track_delta_e: bool = False,
+    round_up: bool = True,
 ):
     """``round_sweeps(n_sweeps)`` colored block-Gibbs sweeps through K2 (a
     dense f32 / bf16 coupling or a ``QuantCoupling``) or K3 (a
@@ -126,9 +127,11 @@ def gibbs_sweeps_hbm_cuda(
     coupling ``permuted_model`` builds (and ``pack_coupling`` packs) is.
     A CPU ``spins_p`` runs the gather's plain version; a CUDA one launches
     the kernel, and anything it does not take raises (there is no other
-    kernel to fall back to).
+    kernel to fall back to).  ``round_up=False`` runs exactly ``n_sweeps``:
+    the counterpart of the JAX package's XLA sweep, which a mesh whose
+    chains do not tile it falls back to.
     """
-    n_run = round_sweeps(n_sweeps)
+    n_run = round_sweeps(n_sweeps) if round_up else n_sweeps
     _check_fed(uniforms, n_run, *spins_p.shape)
     kernel = "K3" if isinstance(coupling_p, BlockSparseCoupling) else "K2"
     return gibbs_sweeps_sparse(

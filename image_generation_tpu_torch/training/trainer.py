@@ -18,13 +18,17 @@ is resolved at ``train_init`` and ``load`` by a swap-acceptance probe of
 the model the sampler will run (``ops/pt_tune.size_ladder``), through the
 sweep dispatch.
 
-On a mesh (``mesh=``, ``parallel/mesh.py``) every rank of the world runs
-its own Trainer with the same config and seed: ``GRAPH_SHARDED`` splits
-the coupling rows and chain columns over the graph axis
-(``training/step.py``), the DVAE and the GRBM are replicated (cuDNN is
-set deterministic, so every rank computes the same bits), ``save`` writes
-on rank 0 only, and ``sample_spins`` samples through the partitioned
-sampler.  Native checkpoints of a sharded state are not ported yet.
+On a mesh (``mesh=``, ``parallel/mesh.py``; by default ``"auto"``: the
+initialised ``torch.distributed`` world in the JAX default shape, or one
+device) every rank of the world runs its own Trainer with the same config
+and seed.  Each step trains this rank's slice of the global batch along
+the data axis (when the batch tiles it), the chains are split over the
+mesh (``GRAPH_SHARDED`` splits the coupling rows and chain columns over
+the graph axis instead; ``training/step.py``), the DVAE and the GRBM are
+replicated (cuDNN is set deterministic, so every rank computes the same
+bits), ``save`` writes on rank 0 only, and ``sample_spins`` samples
+through the partitioned sampler.  Native checkpoints of a sharded state
+are not ported yet.
 
 The trainer runs on the card unless it is given ``device="cpu"``; with no
 card visible a CUDA trainer raises.  The dataset lives on the trainer's
@@ -76,11 +80,12 @@ class TrainingError(Exception):
 
 class Trainer:
     def __init__(self, config: Optional[TrainingConfig] = None, device="cuda",
-                 seed: Optional[int] = None, mesh=None):
+                 seed: Optional[int] = None, mesh="auto"):
         """``device`` is where everything runs (the card unless ``"cpu"``);
         ``seed`` replaces ``RANDOM_SEED`` for the trainer's random streams;
-        ``mesh``: None (one device), a ``Mesh``, or ``"auto"``
-        (``parallel.mesh.auto_mesh``: the initialised world, or None)."""
+        ``mesh``: ``"auto"`` (``parallel.mesh.auto_mesh``: the initialised
+        world, or None on one rank or without a process group), None (one
+        device) or a ``Mesh``."""
         config = config if config is not None else TrainingConfig()
         self.config = config
         self.qpu = config.QPU
@@ -238,7 +243,8 @@ class Trainer:
         if not self._init_done:
             raise TrainingError("Initialization required before training.")
         images = batch[0] if isinstance(batch, (tuple, list)) else batch
-        metrics = self.fns.step_body(self.state, images.to(self.device), epoch)
+        images = images.to(self.device)
+        metrics = self.fns.step_body(self.state, images, epoch)
         mse = float(metrics.mse)
         self.losses["mse_losses"].append(mse)
         self.losses["dvae_losses"].append(float(metrics.dvae_loss))
@@ -371,7 +377,7 @@ class Trainer:
             return save_model_dir(file_path, self.dvae, self.grbm_params, self.graph,
                                   parameters, losses)
         out = None
-        if self.mesh.graph_index == 0:
+        if self.mesh.rank == 0:
             out = save_model_dir(file_path, self.dvae, self.grbm_params, self.graph,
                                  parameters, losses)
         self.mesh.barrier()
@@ -451,7 +457,7 @@ class Trainer:
         cfg = self.config
         self.fns = make_sample_fns(cfg, graph, self.plan, self.device, mesh=self.mesh)
         dvae = DVAE(self.n_latents, cfg.LATENT_TO_DISCRETE,
-                    dtype=getattr(torch, cfg.COMPUTE_DTYPE))
+                    dtype=getattr(torch, cfg.COMPUTE_DTYPE), gumbel_tau=cfg.GUMBEL_TAU)
         dvae.load_state_dict(dvae_sd)
         self.dvae = dvae.to(self.device).eval()
         self.grbm_params = grbm_params

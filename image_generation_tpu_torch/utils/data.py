@@ -22,14 +22,14 @@ import os
 import struct
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = ["DataSource", "load_mnist", "mnist_pool_size", "prepare_images", "get_dataset",
-           "permuted_epoch"]
+           "epoch_batches", "permuted_epoch"]
 
 
 @dataclass
@@ -161,6 +161,22 @@ def get_dataset(image_size: int = 32, dataset_size: Optional[int] = None,
     """Device images (N, S, S, 1) and the source they came from."""
     src = load_mnist(dataset_size)
     return prepare_images(src, image_size, binarize, device), src
+
+
+def epoch_batches(images: torch.Tensor, batch_size: int,
+                  generator: Optional[torch.Generator],
+                  drop_last: bool = True) -> Iterator[torch.Tensor]:
+    """Shuffled batches of a device-resident dataset, one epoch: one
+    permutation drawn on the images' device, then slices of the permuted
+    tensor (the ``DataLoader(shuffle=True, drop_last=True)`` equivalent);
+    without ``drop_last`` one more batch covers the rest, its start moved
+    back to keep ``batch_size`` images (the JAX dynamic slice clamps it)."""
+    n = images.shape[0]
+    shuffled = images[torch.randperm(n, generator=generator, device=images.device)]
+    n_batches = n // batch_size if drop_last else -(-n // batch_size)
+    for i in range(n_batches):
+        start = min(i * batch_size, n - batch_size)
+        yield shuffled[start:start + batch_size]
 
 
 def permuted_epoch(images: torch.Tensor, batch_size: int,

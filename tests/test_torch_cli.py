@@ -132,11 +132,24 @@ def test_parse_pt_betas_matches_jax(tmp_path):
 
 
 def test_parse_mesh_ports_one_by_p_only():
+    """Every --mesh form parses as the JAX CLI's does: 'off', 'auto', a
+    device count and RxG, each shape as JAX lays it out; without an
+    initialised world a mesh form says so, a malformed one is refused."""
+    from image_generation_tpu.app import cli as jcli
+    from image_generation_tpu_torch.parallel import mesh as tmesh
+
     assert cli.parse_mesh("off") is None and cli.parse_mesh("auto") == "auto"
-    for spec, words in (("8", "item 7"), ("2x4", "item 7"), ("1x2", "not initialised"),
-                        ("1xq", "must be")):
+    for spec, words in (("8", "not initialised"), ("2x4", "not initialised"),
+                        ("1x2", "not initialised"), ("1xq", "must be"), ("0", "must be")):
         with pytest.raises(SystemExit, match=words):
             cli.parse_mesh(spec)
+    shapes = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tmesh, "create_mesh", lambda shape, backend: shapes.append(shape))
+        for spec in ("8", "2x4", "4x1", "1x8", "2"):
+            cli.parse_mesh(spec)
+    assert shapes == [jcli.parse_mesh(spec).devices.shape
+                      for spec in ("8", "2x4", "4x1", "1x8", "2")]
 
 
 def test_parse_mesh_builds_the_graph_mesh_of_an_initialised_world():
@@ -373,7 +386,7 @@ def test_tune_ladder_measures_through_the_graph_sharded_layout(tiny_model):
     partitioned ones, each rank holds half the coupling's rows, and both
     ranks arrive at the same ascending ladder ending at 1.0;
     ``sample_sampleset`` there takes the graph-sharded branch."""
-    from test_torch_graph_sharded import run_ranks
+    from torch_ranks import run_ranks
     from image_generation_tpu_torch.training.trainer import Trainer
 
     cfg = TrainingConfig(N_LATENTS=32, NUM_READS=8, BATCH_SIZE=16, DATASET_SIZE=32,

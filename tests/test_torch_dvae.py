@@ -19,7 +19,12 @@ from image_generation_tpu.io.checkpoint import load_model_dir as jax_load_model_
 from image_generation_tpu.models.dvae import DVAE as JaxDVAE
 from image_generation_tpu_torch.io.checkpoint import load_model_dir
 from image_generation_tpu_torch.io.torch_pth import dvae_state_dict_from_jax, grbm_from_jax
-from image_generation_tpu_torch.models.dvae import DVAE, heaviside_spins, spins_straight_through
+from image_generation_tpu_torch.models.dvae import (
+    DVAE,
+    gumbel_spins,
+    heaviside_spins,
+    spins_straight_through,
+)
 
 MODEL = Path(__file__).resolve().parent.parent / "runs" / "models" / "tpu_digits_40_epochs"
 ATOL = 1e-4
@@ -92,8 +97,14 @@ def test_spin_modes():
     s = spins_straight_through(torch.full((1, 512), 0.5), 64, g)
     assert s.shape == (1, 64, 512) and set(s.unique().tolist()) <= {-1.0, 1.0}
     assert abs(float((s == 1).float().mean()) - float(torch.sigmoid(torch.tensor(1.0)))) < 0.02
-    with pytest.raises(NotImplementedError):
-        DVAE(16, "gumbel")
+    r = gumbel_spins(torch.full((2, 512), 0.5), 4, g, tau=0.7)
+    # relaxed: in [-1, 1], and only noise far out in the tail rounds tanh to ±1 in f32
+    assert r.shape == (2, 4, 512) and bool((r.abs() <= 1).all())
+    assert float((r.abs() < 1).float().mean()) > 0.95
+    assert abs(float((r > 0).float().mean()) - float(torch.sigmoid(torch.tensor(1.0)))) < 0.03
+    assert DVAE(16, "gumbel", gumbel_tau=0.7).gumbel_tau == 0.7
+    with pytest.raises(ValueError, match="Invalid Mode"):
+        DVAE(16, "softmax")
 
 
 def test_dvae_state_dict_from_jax_gives_same_decode():

@@ -21,10 +21,6 @@ the chain rule of tests/test_torch_gibbs.py (≥ 98 % bit-identical) and the
 NLL 1e-5.
 """
 
-import threading
-import uuid
-from datetime import timedelta
-
 import jax
 import jax.numpy as jnp
 import networkx as nx
@@ -68,6 +64,7 @@ from image_generation_tpu_torch.training.step import (
 )
 from image_generation_tpu_torch.training.trainer import Trainer
 from test_torch_training import SMALL, _images, _step_feed, _t, graphs, jax_capture  # noqa: F401
+from torch_ranks import run_ranks
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -77,33 +74,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def run_ranks(n_ranks: int, fn):
-    """``fn(mesh)`` on ``n_ranks`` threads, each the graph rank of a
-    (1, n_ranks) mesh over its own gloo group; returns the results in rank
-    order and re-raises the first failure."""
-    store, prefix = dist.HashStore(), uuid.uuid4().hex
-    out, errors = [None] * n_ranks, []
-
-    def work(rank):
-        try:
-            pg = dist.ProcessGroupGloo(dist.PrefixStore(prefix, store), rank, n_ranks,
-                                       timedelta(seconds=60))
-            out[rank] = fn(Mesh((1, n_ranks), graph_index=rank, graph_group=pg,
-                                backend="gloo"))
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            errors.append(e)
-
-    threads = [threading.Thread(target=work, args=(r,)) for r in range(n_ranks)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(120)
-    if errors:
-        raise errors[0]
-    assert not any(t.is_alive() for t in threads), "a rank hung"
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -366,12 +336,12 @@ def test_row_block_model_and_shard_train_state(medium):
     lo, hi = mesh.window(tplan.n_pad)
     ladder = torch.ones((3, 5, tplan.n_pad))
     st = shard_train_state(SimpleNamespace(chains=ladder, sampler_coupling=quantize_coupling(a)),
-                           mesh)
+                           mesh, graph_sharded=True)
     assert st.chains.shape == (3, 5, hi - lo) and isinstance(st.sampler_coupling, QuantCoupling)
     assert torch.equal(st.sampler_coupling.q, quantize_coupling(a).q[lo:hi])
     with pytest.raises(ValueError, match="rebuild"):
         shard_train_state(SimpleNamespace(chains=ladder, sampler_coupling=pack_coupling(
-            tplan, a, 16)), mesh)
+            tplan, a, 16)), mesh, graph_sharded=True)
 
 
 # ---------------------------------------------------------------------------
@@ -439,9 +409,9 @@ _GRID = dict(N_LATENTS=2025, NUM_READS=64, BATCH_SIZE=4, N_REPLICAS=2, GIBBS_SWE
 @pytest.mark.parametrize("gs", ["on", "auto"])
 def test_dispatch_matches_jax(grid45, gs, dtype, bs, row_seed):
     """``sampler_impl`` against JAX ``make_train_fns(mesh=(1, 4),
-    USE_PALLAS="on")``, ``xla`` spelled ``torch``; at "auto" the grid's
-    coupling is far below 2 GiB, so JAX picks its chain-sharded kernels,
-    which the port refuses."""
+    USE_PALLAS="on")``, ``pallas`` spelled ``cuda`` and ``xla`` ``torch``;
+    at "auto" the grid's coupling is far below 2 GiB, so JAX picks its
+    chain-sharded kernels, and so does the port."""
     jg, jplan, tg, tplan = grid45
     kw = dict(_GRID, GRAPH_SHARDED=gs, SAMPLER_MATMUL_DTYPE=dtype, SWEEP_BLOCK_SPARSE=bs,
               PLRNG_ROW_SEED=row_seed)
@@ -450,20 +420,16 @@ def test_dispatch_matches_jax(grid45, gs, dtype, bs, row_seed):
         jfns = jstep.make_train_fns(JaxConfig(**kw, USE_PALLAS=pallas), jg, 10, jplan,
                                     mesh=jmesh)
         cfg = TrainingConfig(**kw, USE_PALLAS=pallas)
-        if gs == "auto":
-            assert not jfns.graph_sharded
-            with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-                make_sample_fns(cfg, tg, tplan, device="cpu", mesh=_fake_mesh())
-            continue
         fns = make_sample_fns(cfg, tg, tplan, device="cpu", mesh=_fake_mesh())
-        assert jfns.graph_sharded and fns.graph_sharded
-        assert fns.sampler_impl == jfns.sampler_impl.replace("xla", "torch")
+        assert fns.graph_sharded == jfns.graph_sharded == (gs == "on")
+        assert fns.sampler_impl == jfns.sampler_impl.replace("pallas", "cuda").replace(
+            "xla", "torch")
 
 
 def test_graph_sharded_errors(grid45, medium):
     """The JAX package's refusals: "on" with no mesh, a graph axis that
-    does not tile n_pad, a chunk larger than a row shard; a mesh with a
-    data axis is the next slice."""
+    does not tile n_pad, a chunk larger than a row shard; a mesh whose
+    axes lack their process groups."""
     _jg, _jplan, tg, tplan = grid45
     with pytest.raises(ValueError, match="no multi-device mesh"):
         make_sample_fns(TrainingConfig(GRAPH_SHARDED="on"), tg, tplan, device="cpu")
@@ -474,8 +440,13 @@ def test_graph_sharded_errors(grid45, medium):
         make_sample_fns(TrainingConfig(**dict(_GRID, GRAPH_SHARDED="on", SWEEP_BLOCK_SPARSE="on",
                                               SWEEP_BS_CHUNK=1024)),
                         tg, tplan, device="cpu", mesh=_fake_mesh())
-    with pytest.raises(NotImplementedError, match="data > 1"):
+    with pytest.raises(ValueError, match="data axis"):
         Mesh((2, 2), graph_group=object())
+    with pytest.raises(ValueError, match="world group"):
+        Mesh((2, 2), graph_group=object(), data_group=object())
+    m = Mesh((2, 2), data_index=1, graph_index=0, graph_group=object(), data_group=object(),
+             world_group=object())
+    assert (m.data, m.graph, m.size, m.rank) == (2, 2, 4, 2)
     _g, _jp, mplan, hp, a, _h, _j = medium
     with pytest.raises(ValueError, match="does not tile"):
         tgs.gibbs_sweeps_graph_sharded(_t(hp), _t(a), mplan, _t(np.ones((2, mplan.n_pad),
@@ -486,7 +457,7 @@ def test_graph_sharded_errors(grid45, medium):
 def test_create_and_auto_mesh_over_an_initialised_world(tmp_path):
     """``auto_mesh`` is None without a process group and on a world of one
     rank (a Trainer then runs on one device); ``create_mesh`` takes the
-    world's ranks, defaults to (1, world) and refuses a shape that does not
+    world's ranks, defaults to JAX's shape ((1, 1) here) and refuses a shape that does not
     cover the world."""
     from image_generation_tpu_torch.parallel.mesh import auto_mesh, create_mesh
 

@@ -40,7 +40,8 @@ from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import (
     span_update_window,
     span_update_window_reference,
 )
-from test_torch_graph_sharded import _form, medium, run_ranks  # noqa: F401
+from test_torch_graph_sharded import _form, medium  # noqa: F401
+from torch_ranks import run_ranks
 from test_torch_training import _t
 
 

@@ -95,14 +95,19 @@ def test_trainer_samples_spins(trainer):
     pytest.param({"GRAPH_SHARDED": "on"}, "mesh", id="overrides4-mesh"),
 ])
 def test_unported_sampler_paths_raise(trainer, overrides, missing):
-    """The graph-sharded sampler runs on a mesh of one data row; a mesh
-    with a data axis (data-parallel batches, the PT ladder over 'data')
-    is not ported yet."""
+    """The graph-sharded sampler on a (2, 2) mesh: the graph axis splits
+    the coupling, the data axis the chain rows (the JAX layout); a mesh
+    whose data axis has no process group is refused."""
     from image_generation_tpu_torch.parallel.mesh import Mesh
 
-    with pytest.raises(NotImplementedError, match=missing):
-        make_sample_fns(TrainingConfig(**overrides), trainer.graph, trainer.plan, device="cpu",
-                        mesh=Mesh((2, 2), graph_group=object()))
+    del missing  # the graph-sharded path needs a mesh; it now runs on one with a data axis
+    with pytest.raises(ValueError, match="data axis of size > 1 needs its process group"):
+        Mesh((2, 2), graph_group=object())
+    fns = make_sample_fns(TrainingConfig(**overrides), trainer.graph, trainer.plan, device="cpu",
+                          mesh=Mesh((2, 2), data_index=1, graph_group=object(),
+                                    data_group=object(), world_group=object()))
+    assert fns.graph_sharded and fns.sampler_impl == "torch_graph_sharded+plrng"
+    assert fns.train_rows.axes == ("data",) and fns.train_rows.index == 1
 
 
 def test_unresolved_auto_ladder_is_refused(trainer):
@@ -251,7 +256,7 @@ def test_serving_path_imports_no_jax_or_host_extras():
         "image_generation_tpu_torch.app.diagram, image_generation_tpu_torch.app.ui_config, "
         "image_generation_tpu_torch.app.server, image_generation_tpu_torch.app.render, "
         "image_generation_tpu_torch.app.evaluate, image_generation_tpu_torch.utils.topology, "
-        "image_generation_tpu_torch.utils.layout; "
+        "image_generation_tpu_torch.utils.layout, image_generation_tpu_torch.training.optim; "
         "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn', 'PIL', "
         "'image_generation_tpu') if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )

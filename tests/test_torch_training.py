@@ -259,8 +259,35 @@ def test_dvae_training_forward_matches_jax(jax_capture, mode):
 
 
 def test_dvae_gumbel_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="gumbel"):
-        DVAE(32, "gumbel")
+    """The gumbel mode against JAX ``gumbel_spins``: the uniform map is
+    JAX's ``uniform(minval, maxval)`` bit for bit (an affine map of the
+    unit draw, not a clamp), the relaxed spins and their gradient from the
+    same uniforms within 1e-6 (the gradient 1e-5, or 5e-6 where tanh
+    saturates); an unknown mode raises JAX's ValueError."""
+    from image_generation_tpu_torch.models.dvae import gumbel_spins, gumbel_uniforms
+
+    key, shape = jax.random.PRNGKey(3), (8, 2, 32)
+    unit = np.asarray(jax.random.uniform(key, shape))
+    ref_u = np.asarray(jax.random.uniform(key, shape, minval=1e-6, maxval=1.0 - 1e-6))
+    np.testing.assert_array_equal(gumbel_uniforms(_t(unit)).numpy(), ref_u)
+    logits = np.random.default_rng(4).normal(size=(8, 32)).astype(np.float32)
+    w = np.random.default_rng(5).normal(size=shape).astype(np.float32)
+    jv, jg = jax.value_and_grad(
+        lambda x: (jdvae.gumbel_spins(x, 2, key, 0.7) * w).sum())(jnp.asarray(logits))
+    x = _t(logits).requires_grad_(True)
+    out = gumbel_spins(x, 2, None, tau=0.7, uniforms=_t(ref_u))
+    (out * _t(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(jdvae.gumbel_spins(jnp.asarray(logits), 2, key, 0.7)),
+                               rtol=0, atol=1e-6)
+    # near saturation 1 − tanh² cancels to f32's ulp of 1 (×2/τ·|w| ≈ 10)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg), rtol=1e-5, atol=5e-6)
+    with pytest.raises(ValueError) as theirs:
+        jdvae.DVAE(n_latents=32, latent_to_discrete="softmax").init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 1)))
+    with pytest.raises(ValueError) as ours:
+        DVAE(32, "softmax")
+    assert str(ours.value) == str(theirs.value)
 
 
 # ---------------------------------------------------------------------------
