@@ -254,6 +254,26 @@ epoch each, at full width).  Phases:
     tolerances for its sharded step (MSE 1e-4, loss 1e-3, < 0.5 % spins,
     parameters 5e-4); each rank's step median and the collectives' host
     seconds (not a multi-GPU measurement).
+30. the scaled configuration on the data axis (4 processes sharing cuda:0,
+    gloo; a rehearsal of the mesh, not a multi-GPU measurement). (a) the
+    scaled PT configuration (phase 13's, 4,096 images: 4 steps) one epoch
+    on (2, 2) and on (4, 1): its decoder's Linear(5640 -> 22560)
+    column-sharded, a quarter of it and of its Adam moments a rank; per
+    rank the layer's bytes, the DVAE optimizer's state bytes, the peak
+    device memory, K3-bf16 1 (burn-in) + K3-bf16-dE 5 on 512 rows, the
+    step median and the collectives' host seconds; the losses equal, the
+    replicated parameters and the gathered layer bit-equal on every rank,
+    no plain sweep on the card.  (b) one fed step on (4, 1) against the
+    same step in one process within phase 29's tolerances.  (c) ``save``
+    on (2, 2): ``dvae.pth`` holds the gathered layer; one process serves
+    it through K3-int8.  (d) ``save_native`` on (2, 2): the global state
+    in the one-device schema; restored on (2, 2), over the (4, 1) run's
+    state and in one process, equal to the file bit for bit; the resumed
+    (2, 2) run equal to the uninterrupted one.  (e) the flagship with
+    ``PT_NUM_BETAS="auto"`` on (2, 2): the same ladder on every rank, the
+    K1-f32-dE probe on each.  (f) ``parallel/dryrun.py --ranks 4`` on the
+    card.  (g) with 4 cards, (a) again over NCCL, one card a rank;
+    otherwise the line ``[30g] nccl: not run (1 card)``.
 
 Each path (serving, plain training, PT training, scaled training, the K2
 steps, scaled serving, the 2,048-latent training, resume and serving, the
@@ -261,8 +281,10 @@ flagship bf16 / int8 epochs, on every rank the graph-sharded epoch,
 its sampling, its dense steps and the P32 sweeps, the 1,280-latent
 training, PT training and serving, each CLI command, the server's lone
 requests, burst, generate job and the evaluation, the gumbel epoch, each
-Adam lever's scaled epoch and on every rank each data-axis epoch) runs with the
-launch counters set to 0 just before it and read just after.  The line before
+Adam lever's scaled epoch, on every rank each data-axis epoch, each scaled
+mesh epoch and the fed step, the mesh-saved model's request, the auto
+ladder on the mesh) runs with the launch counters set to 0 just before it
+and read just after; the dry run's ranks count their own.  The line before
 the last is a JSON object describing the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises.
 """
@@ -872,12 +894,13 @@ def main() -> int:
     server28 = run_in_fresh_process(_server_child)
     leftovers29 = run_in_fresh_process(_leftovers_child)
     data29 = data_axis_phase(card, {"gibbs": gibbs_counts, "pt": pt_counts})
+    mesh30 = scaled_mesh_phase(card)
 
     print(card_line())
     paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts,
              **scaled["paths"], **k1_dtypes["paths"], **sharded["paths"],
              **latents1280["paths"], **cli27["paths"], **server28["paths"],
-             **leftovers29["paths"], **data29["paths"]}
+             **leftovers29["paths"], **data29["paths"], **mesh30["paths"]}
     print(json.dumps({"kernels": [
         {
             "name": "gibbs_sparse (K1-f32)",
@@ -3366,6 +3389,466 @@ def data_axis_phase(card: str, expect: dict) -> dict:
                   f"[29c] {label} rank {r}: the fed step disagrees with one process: {f}")
         report[label] = ranks
     return {"paths": paths, "report": report}
+
+
+# phase 30: the scaled PT configuration on the data axis with the
+# column-sharded dense layer, native checkpoints and the auto ladder on a
+# mesh, the multi-rank dry run, NCCL
+MESH30_RANKS = 4
+MESH30_MESHES = ((2, 2), (4, 1))
+SCALED_MESH = dict(SCALED, DATASET_SIZE=4096)
+DENSE_KEY = "_decoder.increase_latent_dim.weight"
+
+
+def _digest(obj, h=None):
+    """A sha256 over a nest of dicts, lists and tensors (their dtype and
+    bytes), keys in sorted order: equal digests, equal state bit for bit."""
+    import hashlib
+
+    top = h is None
+    h = hashlib.sha256() if top else h
+    if isinstance(obj, dict):
+        for k in sorted(obj, key=str):
+            h.update(repr(k).encode())
+            _digest(obj[k], h)
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            _digest(x, h)
+    elif torch.is_tensor(obj):
+        t = obj.detach().cpu().contiguous().reshape(-1)
+        h.update(f"{t.dtype}{tuple(obj.shape)}".encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    else:
+        h.update(repr(obj).encode())
+    return h.hexdigest() if top else h
+
+
+def _state_digest(payload: dict) -> str:
+    """The digest of a native checkpoint dict's state: every field, the
+    optimizers' per-parameter state without their hyperparameters (the LR
+    is set again before every step)."""
+    return _digest({k: (v["state"] if k in ("dvae_opt", "grbm_opt") else v)
+                    for k, v in payload.items()})
+
+
+def _timed_epoch_steps(trainer, epoch: int) -> list:
+    """One epoch (``train_epoch``) with a CUDA-synchronised host clock
+    around every step; returns the step times (s)."""
+    times, last = [], [0.0]
+
+    def on_batch(_done, _nb):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    trainer.train_epoch(epoch, batch_cb=on_batch, n_chunks=trainer.n_batches)
+    return times
+
+
+def _mesh30_rank(rank: int, world: int, port: int, out_dir: str, backend: str,
+                 full: bool) -> None:
+    """One rank of phase 30: joins the world (gloo on cuda:0, or NCCL on
+    cuda:<rank>), builds the (2, 2) and (4, 1) meshes and trains the scaled
+    PT configuration one epoch on each (a); with ``full`` also saves the
+    model (c) and a native checkpoint (d) on (2, 2), trains on, resumes on
+    (2, 2) and (4, 1), takes one fed step on (4, 1) against one process
+    (b) and resolves the flagship's auto ladder on (2, 2) (e).  Writes
+    ``out_dir/rank_<rank>.json``."""
+    import copy
+    import gc
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.io import native_ckpt
+    from image_generation_tpu_torch.models.decoder import draw_dropout_masks
+    from image_generation_tpu_torch.models.grbm import GRBMParams
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.parallel.dense import gather_large_dense
+    from image_generation_tpu_torch.parallel.mesh import create_mesh
+    from image_generation_tpu_torch.training import step as tstep
+    from image_generation_tpu_torch.training.optim import optimizer_state_bytes
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    nccl = backend == "nccl"
+    torch.cuda.set_device(rank if nccl else 0)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=600))
+    plain: dict = {}
+    _count_plain_on_card(plain)
+    rows: list = []
+    k3 = tstep.gibbs_sweeps_hbm_cuda
+
+    def recorded(hp, coupling, plan, spins, *a, **kw):
+        rows.append(int(spins.shape[0]))
+        return k3(hp, coupling, plan, spins, *a, **kw)
+
+    work = Path(out_dir)
+    cfg = TrainingConfig(**SCALED_MESH)
+
+    def gen(seed):
+        g_ = torch.Generator(device=dev)
+        g_.manual_seed(seed)
+        return g_
+
+    def reset():
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        plain.clear()
+        rows.clear()
+
+    def payload(t):
+        return native_ckpt.global_payload(t.state, t.fns,
+                                          {"seed_stream": t._seeds.bit_generator.state})
+
+    def free():  # after the caller dropped its references
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def scaled_epoch(t, epochs):
+        """(a): train_init(epochs) then epoch 0, with every count and byte."""
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t.train_init(epochs)
+        peak_init = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        comm0, calls0 = t.mesh.comm_seconds, t.mesh.comm_calls
+        times = _timed_epoch_steps(t, 0)
+        counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        layer = t.dvae._decoder.increase_latent_dim
+        whole = gather_large_dense(t.dvae)[DENSE_KEY]
+        opt = t.state.dvae_opt
+        rep = {k: v for k, v in t.dvae.state_dict().items() if k != DENSE_KEY}
+        return dict(
+            mesh=list(t.mesh.shape), backend=t.mesh.backend, impl=t.fns.sampler_impl,
+            chains=list(t.state.chains.shape), rows_axes=list(t.fns.train_rows.axes),
+            counts=counts, rows=sorted(set(rows)),
+            plain=dict(plain), layer=type(layer).__name__, layer_shape=list(layer.weight.shape),
+            layer_bytes=layer.weight.numel() * layer.weight.element_size(),
+            whole_bytes=whole.numel() * whole.element_size(),
+            moments={k: list(v.shape) for k, v in opt.state[layer.weight].items()
+                     if torch.is_tensor(v) and v.ndim},
+            opt_bytes=optimizer_state_bytes(opt), peak_init=peak_init,
+            peak=torch.cuda.max_memory_allocated(), losses=t.losses["dvae_losses"][-len(times):],
+            steps_ms=[x * 1e3 for x in times], step_ms=float(np.median(times[1:])) * 1e3,
+            comm_s=t.mesh.comm_seconds - comm0, comm_calls=t.mesh.comm_calls - calls0,
+            replicated=_digest([rep, t.grbm_params.linear, t.grbm_params.quadratic]),
+            whole=_digest(whole))
+
+    tstep.gibbs_sweeps_hbm_cuda = recorded
+    try:
+        meshes = {f"{d}x{g}": create_mesh(shape=(d, g), backend=backend)
+                  for d, g in MESH30_MESHES}
+        out: dict = {"rank": rank}
+        # (a) on (2, 2), then (c) save, (d) a native checkpoint and the run on
+        t = Trainer(cfg, device=dev, mesh=meshes["2x2"])
+        out["2x2"] = scaled_epoch(t, 2 if full else 1)
+        graph, plan, images = t.graph, t.plan, t.images[:cfg.BATCH_SIZE].clone()
+        if full:
+            t.save(work / "model")
+            ck = t.save_native(work / "ck")
+            if rank == 0:
+                out["file"] = _state_digest(native_ckpt.load_payload(work / "ck",
+                                                                     map_location="cpu"))
+                out["file_bytes"] = ck.stat().st_size
+            reset()
+            t.train_epoch(1)
+            out["uninterrupted"] = dict(state=_state_digest(payload(t)), losses=t.losses)
+            del t
+            free()
+            r = Trainer(cfg, device=dev, mesh=meshes["2x2"])
+            reset()
+            t0 = time.perf_counter()
+            r.resume_native(work / "ck", 2)
+            restore_s = time.perf_counter() - t0
+            restored = _state_digest(payload(r))
+            ran: list = []
+            r.train(2, epoch_cb=lambda e, _s: ran.append(e))
+            out["resumed_2x2"] = dict(restored=restored, state=_state_digest(payload(r)),
+                                      losses=r.losses, epochs=ran, restore_s=restore_s,
+                                      counts=read_counts(gibbs_cuda, gibbs_hbm_cuda))
+            del r
+        else:
+            del t
+        free()
+        # (a) on (4, 1), and (d) the (2, 2) checkpoint restored over its state
+        t = Trainer(cfg, device=dev, mesh=meshes["4x1"])
+        out["4x1"] = scaled_epoch(t, 2 if full else 1)
+        if full:
+            t.resume_native(work / "ck", 2)
+            out["restored_4x1"] = _state_digest(payload(t))
+        del t
+        free()
+        if full:
+            # (b) one fed step on (4, 1) against the same step in one process
+            mesh = meshes["4x1"]
+            fns_m = tstep.make_train_fns(cfg, graph, 10, plan, device=dev, mesh=mesh)
+            dvae = fns_m.new_dvae()
+            tstep._flax_init_(dvae, torch.Generator().manual_seed(30))
+            grbm = graph.init_params(gen(30), device=dev)
+            chains = fns_m.new_chains(gen(31))
+            g = gen(32)
+            t_dim, c_dim = cfg.PT_NUM_BETAS, cfg.NUM_READS
+            sw = (cfg.GIBBS_SWEEPS, t_dim * c_dim, plan.n_pad)
+
+            def swaps():
+                return tuple(torch.rand((t_dim - 1, c_dim), generator=g, device=dev)
+                             for _ in range(2))
+
+            feed = tstep.StepFeed(
+                sweeps1=torch.rand(sw, generator=g, device=dev), swaps1=swaps(),
+                sweeps2=torch.rand(sw, generator=g, device=dev), swaps2=swaps(),
+                spin_uniforms=torch.rand((cfg.BATCH_SIZE, cfg.N_REPLICAS, cfg.N_LATENTS),
+                                         generator=g, device=dev),
+                dropout_masks=draw_dropout_masks(cfg.BATCH_SIZE * cfg.N_REPLICAS, g, dev))
+            st_m = fns_m.state_from(copy.deepcopy(dvae), GRBMParams(grbm.linear.clone(),
+                                                                    grbm.quadratic.clone()),
+                                    chains, gen(33), burn_in=False)
+            reset()
+            mm = fns_m.step_body(st_m, images, 0, feed)
+            fed_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+            sd_m = gather_large_dense(st_m.dvae)
+            chains_m = fns_m.unlocal(st_m.chains)
+            out["fed_counts"] = fed_counts
+            out["fed_rows"] = sorted(set(rows))
+            if rank == 0:
+                fns_1 = tstep.make_train_fns(cfg, graph, 10, plan, device=dev)
+                st_1 = fns_1.state_from(dvae, grbm, chains, gen(33), burn_in=False)
+                m1 = fns_1.step_body(st_1, images, 0, feed)
+                sd_1 = st_1.dvae.state_dict()
+                out["fed_step"] = dict(
+                    mse=[float(mm.mse), float(m1.mse)],
+                    loss=[float(mm.dvae_loss), float(m1.dvae_loss)],
+                    nll=[float(mm.nll), float(m1.nll)],
+                    spins_differing=float((chains_m != st_1.chains).float().mean()),
+                    params_max_abs=max(float((sd_m[k].float() - v.float()).abs().max())
+                                       for k, v in sd_1.items() if v.is_floating_point()),
+                    layer_max_abs=float((sd_m[DENSE_KEY] - sd_1[DENSE_KEY]).abs().max()),
+                    grbm_max_abs=float((st_m.grbm_params.quadratic
+                                        - st_1.grbm_params.quadratic).abs().max()))
+                del st_1, fns_1, sd_1
+            del st_m, sd_m, dvae, chains_m, feed
+            free()
+            mesh.barrier()
+            # (e) the flagship's auto ladder on (2, 2)
+            reset()
+            a = Trainer(TrainingConfig(SAMPLER="pt", PT_NUM_BETAS="auto"), device=dev,
+                        mesh=meshes["2x2"])
+            a.train_init(1)
+            out["auto"] = dict(counts=read_counts(gibbs_cuda, gibbs_hbm_cuda),
+                               betas=list(a.config.PT_BETAS), info=a.pt_auto_info,
+                               chains=list(a.state.chains.shape), plain=dict(plain))
+            del a
+            free()
+        (work / f"rank_{rank}.json").write_text(json.dumps(out))
+        meshes["2x2"].barrier()
+    finally:
+        tstep.gibbs_sweeps_hbm_cuda = k3
+        dist.destroy_process_group()
+
+
+def _spawn_mesh30(work: Path, backend: str, full: bool) -> list:
+    """Phase 30's four ranks as spawned processes; returns their results."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    sys.stdout.flush()
+    mp.start_processes(_mesh30_rank, args=(MESH30_RANKS, port, str(work), backend, full),
+                       nprocs=MESH30_RANKS, join=True, start_method="spawn")
+    return [json.loads((work / f"rank_{r}.json").read_text()) for r in range(MESH30_RANKS)]
+
+
+def _check_mesh_epochs(ranks: list, card: str, tag: str) -> dict:
+    """(a) on each mesh: per rank the sharded layer's bytes, the optimizer
+    state, peak memory, K3 launches and rows, step median and collectives;
+    fails unless losses are equal, the replicated parameters and the
+    gathered layer bit-equal on every rank, and no plain sweep ran on the
+    card.  Returns each mesh's summed launch counts."""
+    paths = {}
+    for label in ("2x2", "4x1"):
+        r0 = ranks[0][label]
+        for r, res in enumerate(ranks):
+            x = res[label]
+            print(f"[{tag}] scaled PT on mesh {label} ({x['backend']}) rank {r}: {x['impl']}, "
+                  f"chains {x['chains']} over {x['rows_axes']}; dense layer {x['layer']} "
+                  f"{x['layer_shape']} = {x['layer_bytes'] / 1e6:.3f} MB f32 of "
+                  f"{x['whole_bytes'] / 1e6:.3f} MB whole, its moments {x['moments']}; DVAE "
+                  f"optimizer state {x['opt_bytes'] / 1e6:.3f} MB; peak device memory "
+                  f"{x['peak'] / 2**30:.3f} GiB in the epoch ({x['peak_init'] / 2**30:.3f} "
+                  f"through train_init); launches {x['counts']} on rows {x['rows']}; plain sweeps "
+                  f"on the card {x['plain']}; steps {[round(v, 3) for v in x['steps_ms']]} ms, "
+                  f"median of steps 2-{len(x['steps_ms'])} {x['step_ms']:.3f} ms; collectives "
+                  f"{x['comm_s']:.3f} s in {x['comm_calls']} calls; losses "
+                  f"{[round(v, 6) for v in x['losses']]}  [{card}]", flush=True)
+            check(x["mesh"] == [int(v) for v in label.split("x")],
+                  f"[{tag}] rank {r} trained on mesh {x['mesh']}")
+            check(x["impl"] == "cuda_hbm_sharded+bs", f"[{tag}] {label} rank {r}: {x['impl']}")
+            check(x["layer"] == "ColumnShardedLinear" and x["layer_shape"] == [5640, 5640]
+                  and 4 * x["layer_bytes"] == x["whole_bytes"],
+                  f"[{tag}] {label} rank {r}: the dense layer is not a quarter a rank")
+            check(all(v[0] == 5640 for v in x["moments"].values() if len(v) == 2),
+                  f"[{tag}] {label} rank {r}: the moments are not the rank's rows")
+            check(x["counts"] == {"K3-bf16": 1, "K3-bf16-dE": 5} and x["rows"] == [512],
+                  f"[{tag}] {label} rank {r}: {x['counts']} on rows {x['rows']}, not K3-bf16 1 "
+                  "+ K3-bf16-dE 5 on 512 rows")
+            check(not x["plain"], f"[{tag}] {label} rank {r}: a plain sweep ran on the card")
+            check(bool(np.isfinite(x["losses"]).all()) and x["losses"] == r0["losses"],
+                  f"[{tag}] {label}: the losses differ across ranks")
+            check(x["replicated"] == r0["replicated"],
+                  f"[{tag}] {label}: the replicated parameters differ across ranks")
+            check(x["whole"] == r0["whole"],
+                  f"[{tag}] {label}: the gathered dense layer differs across ranks")
+        paths[f"scaled_mesh_{label}" + ("_nccl" if r0["backend"] == "nccl" else "")] = \
+            _sum_counts([x[label]["counts"] for x in ranks])
+    return paths
+
+
+def scaled_mesh_phase(card: str) -> dict:
+    """Phase 30 (a)-(g) (the module docstring).  A real distributed run,
+    but on one card a rehearsal of the mesh, not a multi-GPU measurement:
+    gloo stages every collective through the host."""
+    from image_generation_tpu_torch.app.warm import WarmGenerator
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.io import native_ckpt
+    from image_generation_tpu_torch.io.torch_pth import load_state_dict
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    dev = torch.device("cuda", 0)
+    flagship = TrainingConfig()
+    for qpu, n in ((SCALED["QPU"], SCALED["N_LATENTS"]), (flagship.QPU, flagship.N_LATENTS)):
+        cached_latent_graph(qpu, n, flagship.RANDOM_SEED)  # built once, read by every rank
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh30_"))
+    try:
+        t0 = time.perf_counter()
+        ranks = _spawn_mesh30(work, "gloo", True)
+        print(f"[30] 4 ranks (gloo, 4 processes on cuda:0) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        paths = _check_mesh_epochs(ranks, card, "30a")
+        # (b) the fed step
+        f = ranks[0]["fed_step"]
+        print(f"[30b] one fed scaled PT step on (4, 1) against one process: mse {f['mse']}, "
+              f"loss {f['loss']}, nll {f['nll']}, chain spins differing "
+              f"{f['spins_differing']:.6f}, DVAE params max|diff| {f['params_max_abs']:.3e} "
+              f"(the sharded layer {f['layer_max_abs']:.3e}), GRBM {f['grbm_max_abs']:.3e}; "
+              f"launches a rank {[x['fed_counts'] for x in ranks]} on rows "
+              f"{ranks[0]['fed_rows']}", flush=True)
+        check(abs(f["mse"][0] - f["mse"][1]) <= SHARDED_STEP["mse_rtol"] * abs(f["mse"][1])
+              and abs(f["loss"][0] - f["loss"][1]) <= SHARDED_STEP["loss_rtol"] * abs(f["loss"][1])
+              and f["spins_differing"] < SHARDED_STEP["spins_differing"]
+              and f["params_max_abs"] <= SHARDED_STEP["params_atol"],
+              f"[30b] the fed step on the mesh disagrees with one process: {f}")
+        check(all(x["fed_counts"].get("K3-bf16-dE", 0) == 2 for x in ranks)
+              and ranks[0]["fed_rows"] == [512], "[30b] the fed step left K3-bf16-dE on 512 rows")
+        paths["scaled_mesh_fed_step"] = _sum_counts([x["fed_counts"] for x in ranks])
+        # (c) the model saved on (2, 2), served by one process through K3-int8
+        model = work / "model"
+        saved = load_state_dict(model / "dvae.pth")[DENSE_KEY]
+        check(tuple(saved.shape) == (22560, 5640), f"[30c] dvae.pth's layer is {saved.shape}")
+        check(_digest(saved) == ranks[0]["2x2"]["whole"],
+              "[30c] dvae.pth does not hold the gathered dense layer")
+        w = WarmGenerator(work, device=dev)
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        t0 = time.perf_counter()
+        imgs = w.serve(model)["images"]
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        counts = paths["mesh_saved_served"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        impl = w._trainer.fns.sampler_impl
+        print(f"[30c] saved on (2, 2): dvae.pth's dense layer {tuple(saved.shape)} equals the "
+              f"gathered one; served by one process: {impl}, launches {counts}, 256 images in "
+              f"{serve_ms:.3f} ms (first request: the model's load included)  [{card}]",
+              flush=True)
+        check(impl == "cuda_hbm+int8+bs" and counts.get("K3-int8", 0) >= 1,
+              f"[30c] the mesh-saved model was not served through K3-int8: {impl} {counts}")
+        check(imgs.shape == (256, 32, 32, 1) and bool(np.isfinite(imgs).all())
+              and imgs.min() >= 0.0 and imgs.max() <= 1.0, "[30c] served images")
+        del w, saved
+        torch.cuda.empty_cache()
+        # (d) native checkpoints across topologies
+        one = Trainer(TrainingConfig(**SCALED_MESH), device=dev, mesh=None)
+        one.resume_native(work / "ck", 2)
+        one_digest = _state_digest(native_ckpt.global_payload(
+            one.state, one.fns, {"seed_stream": one._seeds.bit_generator.state}))
+        del one
+        torch.cuda.empty_cache()
+        file_digest = ranks[0]["file"]
+        un, re = ranks[0]["uninterrupted"], ranks[0]["resumed_2x2"]
+        print(f"[30d] native checkpoint saved on (2, 2): {ranks[0]['file_bytes'] / 1e6:.3f} MB, "
+              f"the one-device schema; restored on (2, 2) / (4, 1) / one process equal to the "
+              f"file: {[x['resumed_2x2']['restored'] == file_digest for x in ranks]} / "
+              f"{[x['restored_4x1'] == file_digest for x in ranks]} / "
+              f"{one_digest == file_digest}; resumed on (2, 2) (epochs {re['epochs']}, restore "
+              f"{re['restore_s']:.3f} s) equal to the uninterrupted run: "
+              f"{[x['resumed_2x2']['state'] == x['uninterrupted']['state'] for x in ranks]}",
+              flush=True)
+        for r, x in enumerate(ranks):
+            check(x["resumed_2x2"]["restored"] == file_digest
+                  and x["restored_4x1"] == file_digest,
+                  f"[30d] rank {r}: the restored global state differs from the file")
+            check(x["resumed_2x2"]["state"] == x["uninterrupted"]["state"]
+                  and x["resumed_2x2"]["losses"] == x["uninterrupted"]["losses"]
+                  and x["resumed_2x2"]["epochs"] == [1],
+                  f"[30d] rank {r}: the resumed run differs from the uninterrupted one")
+            check(x["uninterrupted"]["state"] == un["state"],
+                  "[30d] the global state differs across ranks")
+        check(one_digest == file_digest, "[30d] one process restored another state")
+        # (e) the auto ladder on (2, 2)
+        a0 = ranks[0]["auto"]
+        for r, x in enumerate(ranks):
+            a = x["auto"]
+            print(f"[30e] flagship PT_NUM_BETAS='auto' on (2, 2) rank {r}: {a['info']}, ladder "
+                  f"{[round(b, 5) for b in a['betas']]}, chains {a['chains']}; launches "
+                  f"{a['counts']}, plain sweeps on the card {a['plain']}", flush=True)
+            check(a["betas"] == a0["betas"] and a["info"] == a0["info"],
+                  f"[30e] rank {r} froze another ladder")
+            check(a["counts"].get("K1-f32-dE", 0) > 0 and not a["plain"],
+                  f"[30e] rank {r}: the probe did not launch K1-f32-dE: {a['counts']}")
+        paths["auto_ladder_mesh"] = _sum_counts([x["auto"]["counts"] for x in ranks])
+        # (f) the dry run on 4 ranks on the card
+        out = work / "dryrun.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "image_generation_tpu_torch.parallel.dryrun",
+                               "--ranks", "4", "--out", str(out)], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        dry_s = time.perf_counter() - t0
+        line = [x for x in proc.stdout.splitlines() if x.startswith("dryrun")]
+        report = json.loads(out.read_text()) if out.exists() else {"ranks": []}
+        dry_counts = paths["dryrun"] = _sum_counts([x["launches"] for x in report["ranks"]])
+        print(f"[30f] parallel/dryrun.py --ranks 4 on the card: exit {proc.returncode} in "
+              f"{dry_s:.1f} s; launches {dry_counts}; {line[-1] if line else proc.stderr[-2000:]}",
+              flush=True)
+        check(proc.returncode == 0 and line and line[-1].startswith("dryrun ok"),
+              "[30f] the dry run failed")
+        check(all(x["device"].startswith("cuda") for x in report["ranks"])
+              and dry_counts.get("K1-f32", 0) > 0 and dry_counts.get("K4", 0) > 0,
+              f"[30f] the dry run did not run K1 and K4 on the card: {dry_counts}")
+        # (g) NCCL, one card a rank
+        cards = torch.cuda.device_count()
+        if cards >= MESH30_RANKS:
+            nccl_dir = work / "nccl"
+            nccl_dir.mkdir()
+            t0 = time.perf_counter()
+            nranks = _spawn_mesh30(nccl_dir, "nccl", False)
+            print(f"[30g] nccl, {MESH30_RANKS} processes on cuda:0-{MESH30_RANKS - 1}, in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            paths.update(_check_mesh_epochs(nranks, card, "30g"))
+        else:
+            print(f"[30g] nccl: not run ({cards} card{'s' if cards > 1 else ''})", flush=True)
+        return {"paths": paths, "ranks": ranks}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -24,10 +24,13 @@ feedback-optimizes the parallel-tempering ladder for a model's GRBM
 accepts ``--pt-betas <json|comma list>`` (implies ``--sampler pt``).
 
 ``--mesh``: 'auto' (the default) uses the initialised ``torch.distributed``
-world (one device when there is none), 'off' one device, '1xP' the
-(1, P) graph-sharded mesh over an initialised world of P ranks; other
-layouts are not ported yet (ROADMAP.md queue 1 item 7).  ``--params``
-reads a YAML file and needs PyYAML.
+world (one device when there is none), 'off' one device, a count ('4')
+the JAX default shape over an initialised world of that many ranks, and
+RxG ('2x2', '1x4') the explicit (data × graph) layout; every rank of the
+world runs the same command.  Any config trains on any of them, the
+scaled one too (its outsized dense layer is column-sharded over the
+mesh, ``parallel/dense.py``).  ``--params`` reads a YAML file and needs
+PyYAML.
 """
 
 from __future__ import annotations
@@ -413,7 +416,8 @@ def build_parser():
     common.add_argument(
         "--mesh", default="auto",
         help="'auto' (the initialised torch.distributed world, the default), 'off' (one "
-        "device), or '1xP' (the graph-sharded mesh over P ranks)",
+        "device), a rank count (e.g. 4: the default (data, graph) shape), or RxG "
+        "(e.g. 2x2, 1x4: data x graph)",
     )
     common.add_argument(
         "--graph-sharded", default=None, choices=["auto", "on", "off"],
@@ -421,11 +425,11 @@ def build_parser():
     )
     common.add_argument(
         "--adam-moment-dtype", default=None, choices=["float32", "bfloat16"],
-        help="storage dtype of the DVAE Adam moments (bfloat16 is not ported)",
+        help="storage dtype of the DVAE Adam moments",
     )
     common.add_argument(
         "--adam-factored-nu", default=None, choices=["on", "off"],
-        help="factored second moments of large 2-D DVAE params (not ported)",
+        help="factored second moments of large 2-D DVAE params",
     )
     common.add_argument(
         "--sampler-matmul-dtype", default=None,

@@ -29,9 +29,10 @@ __all__ = [
 ]
 
 
-def save_model_dir(path, dvae: torch.nn.Module, grbm_params: GRBMParams,
+def save_model_dir(path, dvae, grbm_params: GRBMParams,
                    graph: GRBMGraph, parameters: dict, losses: dict) -> Path:
-    """Write a model directory in the reference's format."""
+    """Write a model directory in the reference's format; ``dvae`` is the
+    module or its state dict."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     save_state_dict(path / "dvae.pth", dvae_state_dict(dvae))

@@ -50,11 +50,12 @@ def save_state_dict(path, sd: Dict[str, torch.Tensor]) -> None:
     torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()}, path)
 
 
-def dvae_state_dict(dvae: torch.nn.Module) -> Dict[str, torch.Tensor]:
+def dvae_state_dict(dvae) -> Dict[str, torch.Tensor]:
     """The DVAE's ``dvae.pth`` tensors (its state dict on the CPU, f32,
-    ``num_batches_tracked`` 0 as the JAX writer stores it)."""
+    ``num_batches_tracked`` 0 as the JAX writer stores it); ``dvae`` is the
+    module or its state dict."""
     sd = {}
-    for k, v in dvae.state_dict().items():
+    for k, v in (dvae if isinstance(dvae, dict) else dvae.state_dict()).items():
         if k.endswith("num_batches_tracked"):
             sd[k] = torch.zeros((), dtype=torch.int64)
         else:

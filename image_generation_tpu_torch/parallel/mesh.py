@@ -22,7 +22,10 @@ Which axes split the chain rows is ``chain_row_axes``: the JAX
 The DVAE, the GRBM, their optimizers and the fields h are replicated:
 every rank computes the same step from the same random draws (every
 rank's generators are seeded alike), and the collectives give every rank
-the same bytes.
+the same bytes.  The exception is an outsized dense layer, which is
+column-sharded over the whole mesh with its Adam moments, on every mesh
+of more than one rank (``parallel/dense.py``, the JAX
+``_shard_large_dense``).
 
 Collectives go through the axis groups' own methods (``allreduce``,
 ``allgather``, ``broadcast``, ``send`` / ``recv``), so a ``Mesh`` works over
@@ -33,11 +36,6 @@ ranks that share a card (NCCL refuses two ranks on one device); under
 gloo, gathers and point-to-point exchanges of CUDA tensors go through the
 host.  Each collective's host time is summed in ``comm_seconds`` /
 ``comm_calls``.
-
-Not ported: the column-sharded placement of outsized dense layers (JAX
-``_shard_large_dense``, the scaled config's 127M-parameter decoder
-layer): a DVAE with such a leaf on a mesh larger than one raises
-``NotImplementedError`` (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -48,6 +46,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from image_generation_tpu_torch.parallel.dense import DENSE_MIN_ELEMS, shard_large_dense
+
 __all__ = [
     "Mesh",
     "create_mesh",
@@ -57,10 +57,9 @@ __all__ = [
     "shard_batch",
     "shard_epoch_batches",
     "shard_train_state",
+    "shard_large_dense",
     "DENSE_MIN_ELEMS",
 ]
-
-DENSE_MIN_ELEMS = 1 << 23  # the JAX shard_train_state's dense_min_elems
 
 
 @dataclass(eq=False)
@@ -199,12 +198,25 @@ class Mesh:
                  recvs: Sequence[Tuple[int, torch.Tensor]], axis) -> None:
         """Point to point over ``axis``: send each ``(peer, tensor)`` of
         ``sends`` and receive into each ``(peer, tensor)`` of ``recvs``, all
-        posted before any is waited on (peers are ``axis`` ranks)."""
-        group, _, _ = self.axis(axis)
+        posted before any is waited on (peers are ``axis`` ranks).  They are
+        posted peer by peer in ascending order, and with each peer the lower
+        of the two ranks sends first: NCCL runs one pair's operations in the
+        order they were posted, so two ranks that both sent first would each
+        wait for the other's receive."""
+        group, _, me = self.axis(axis)
         t0 = time.perf_counter()
-        out = [(self._host(t), t) for _, t in recvs]
-        works = [group.send([self._host(t)], peer, 0) for peer, t in sends]
-        works += [group.recv([buf], peer, 0) for (peer, _), (buf, _) in zip(recvs, out)]
+        works, held, out = [], [], []
+        for peer in sorted({p for p, _ in sends} | {p for p, _ in recvs}):
+            to = [(True, t) for p, t in sends if p == peer]
+            back = [(False, t) for p, t in recvs if p == peer]
+            for is_send, t in (to + back if me < peer else back + to):
+                buf = self._host(t)
+                if is_send:
+                    held.append(buf)  # a host copy must outlive its send
+                    works.append(group.send([buf], peer, 0))
+                else:
+                    out.append((buf, t))
+                    works.append(group.recv([buf], peer, 0))
         for w in works:
             w.wait()
         for buf, t in out:
@@ -413,60 +425,44 @@ def shard_train_state(state, mesh: Mesh, graph_sharded: bool = False,
     shard count, so a single-device ``BlockSparseCoupling`` (or a packed
     shard of another mesh) is refused: rebuild the cache
     (``fns.rebuild_cache``).  The carried ladder energies follow the
-    ladder's rows.  Everything else is replicated and stays as it is.  On
-    a mesh that does not graph-shard, a 2-D DVAE parameter of at least
-    ``dense_min_elems`` elements (the JAX column-sharded dense layer)
-    raises ``NotImplementedError``; the graph-sharded path replicates it,
-    as it always has."""
+    ladder's rows.  On every mesh, graph-sharded or not, a DVAE dense layer
+    of at least ``dense_min_elems`` elements whose output features tile the
+    mesh is column-sharded with its optimizer moments
+    (``parallel.dense.shard_large_dense``).  Everything else is replicated
+    and stays as it is."""
     from image_generation_tpu_torch.ops.block_sparse import BlockSparseCoupling
     from image_generation_tpu_torch.ops.block_sparse_sharded import (
         ShardedBlockSparseCoupling,
     )
     from image_generation_tpu_torch.ops.quant import QuantCoupling
 
-    if not graph_sharded:
-        refuse_large_dense(getattr(state, "dvae", None), mesh, dense_min_elems)
     rows = int(state.chains.shape[0])
     _, n_shards, index = mesh.axis(chain_row_axes(rows, mesh, graph_sharded))
     per = rows // n_shards
     state.chains = state.chains[index * per:(index + 1) * per].contiguous()
     if getattr(state, "chain_energies", torch.zeros(0)).numel():
         state.chain_energies = state.chain_energies[index * per:(index + 1) * per].contiguous()
-    if not graph_sharded:
-        return state
-    n_pad = state.chains.shape[-1]
-    lo, hi = mesh.window(n_pad)
-    state.chains = state.chains[..., lo:hi].contiguous()
-    cp = state.sampler_coupling
-    if isinstance(cp, ShardedBlockSparseCoupling):
-        if cp.n_shards != mesh.graph or cp.shard != mesh.graph_index:
+    if graph_sharded:
+        n_pad = state.chains.shape[-1]
+        lo, hi = mesh.window(n_pad)
+        state.chains = state.chains[..., lo:hi].contiguous()
+        cp = state.sampler_coupling
+        if isinstance(cp, ShardedBlockSparseCoupling):
+            if cp.n_shards != mesh.graph or cp.shard != mesh.graph_index:
+                raise ValueError(
+                    f"packed sampler coupling was built for shard {cp.shard} of "
+                    f"{cp.n_shards}, this rank is {mesh.graph_index} of {mesh.graph}: "
+                    "rebuild the sampler cache"
+                )
+        elif isinstance(cp, BlockSparseCoupling):
             raise ValueError(
-                f"packed sampler coupling was built for shard {cp.shard} of "
-                f"{cp.n_shards}, this rank is {mesh.graph_index} of {mesh.graph}: "
-                "rebuild the sampler cache"
+                "single-device packed coupling in graph-sharded state: rebuild the "
+                "sampler cache (fns.rebuild_cache)"
             )
-    elif isinstance(cp, BlockSparseCoupling):
-        raise ValueError(
-            "single-device packed coupling in graph-sharded state: rebuild the "
-            "sampler cache (fns.rebuild_cache)"
-        )
-    elif isinstance(cp, QuantCoupling):
-        state.sampler_coupling = QuantCoupling(cp.q[lo:hi].contiguous(), cp.scale)
-    else:
-        state.sampler_coupling = cp[lo:hi].contiguous()
+        elif isinstance(cp, QuantCoupling):
+            state.sampler_coupling = QuantCoupling(cp.q[lo:hi].contiguous(), cp.scale)
+        else:
+            state.sampler_coupling = cp[lo:hi].contiguous()
+    shard_large_dense(getattr(state, "dvae", None), mesh, dense_min_elems,
+                      opt=getattr(state, "dvae_opt", None))
     return state
-
-
-def refuse_large_dense(dvae, mesh: Optional[Mesh], min_elems: int = DENSE_MIN_ELEMS) -> None:
-    """Raise ``NotImplementedError`` when a 2-D DVAE parameter reaches
-    ``min_elems`` on a mesh larger than one: the JAX package column-shards
-    it over the mesh (``_shard_large_dense``), which is not ported."""
-    if mesh is None or mesh.size == 1 or dvae is None:
-        return
-    for name, p in dvae.named_parameters():
-        if p.ndim == 2 and p.numel() >= min_elems:
-            raise NotImplementedError(
-                f"the DVAE's {name} ({tuple(p.shape)}, {p.numel()} elements) is a dense "
-                f"layer the JAX package column-shards over the mesh (_shard_large_dense); "
-                f"that placement is not ported yet: ROADMAP.md queue 1 item 7"
-            )

@@ -20,6 +20,15 @@ Orientation: the JAX factors follow the flax kernel ``(in, out)``, so its
 meaning (length ``in``, the mean over the weight's axis 0) and ``col``
 has length ``out``, so ``mean(row)`` is the same vector's mean.
 
+A column-sharded parameter (``parallel/dense.py``: this rank holds a
+block of the weight's rows, the output features) keeps its moments'
+rows: μ and a dense ν are elementwise and run on the block as they are;
+a factored ν's ``col`` is the block's, and its ``row``, a mean over the
+output axis, sums g² over every rank's rows (an all-reduce over the mesh)
+and divides by the whole weight's row count, so ``row`` and ``mean(row)``
+are the same on every rank.  Whether ν is factored is decided on the
+whole parameter's size, as JAX decides it on the global leaf.
+
 Memory: XLA fuses the upcast, the EMA and the outer product and never
 materialises them.  Here the update runs over row chunks of at most
 ``_CHUNK_ELEMS`` elements with stock ops, and ``mean(row)`` is taken once
@@ -76,8 +85,10 @@ class AdamMoments(torch.optim.Optimizer):
         self.factored_nu_min_size = factored_nu_min_size
 
     def factored(self, p: torch.Tensor) -> bool:
+        shard = getattr(p, "column_shard", None)
+        numel = p.numel() if shard is None else shard.rows * p.shape[1]
         return (self.factored_nu_min_size is not None and p.ndim == 2
-                and p.numel() >= self.factored_nu_min_size)
+                and numel >= self.factored_nu_min_size)
 
     def _init_state(self, p: torch.Tensor) -> dict:
         dtype = self.moment_dtype or p.dtype
@@ -149,7 +160,11 @@ class AdamMoments(torch.optim.Optimizer):
                 g2 = torch.square(g_chunk(a, b))
                 row_sum += g2.sum(0)
                 col_mean[a:b] = g2.mean(1)
-            st["nu_row"].mul_(b2).add_((1.0 - b2) * (row_sum / n_rows))
+            shard = getattr(p, "column_shard", None)
+            if shard is not None:  # the mean over every rank's rows
+                shard.mesh.all_reduce(row_sum, axis=("data", "graph"))
+            whole_rows = n_rows if shard is None else shard.rows
+            st["nu_row"].mul_(b2).add_((1.0 - b2) * (row_sum / whole_rows))
             st["nu_col"].mul_(b2).add_((1.0 - b2) * col_mean)
             mean = st["nu_row"].mean()
             denom_scale = torch.where(mean > 0, mean, torch.ones_like(mean))

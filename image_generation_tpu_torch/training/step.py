@@ -40,8 +40,9 @@ grid), holds its column window of the chains, sweeps through
 ``ops/gibbs_graph_sharded.py`` (one all-reduce per class span, the update
 in kernel K4), computes ladder energies there too, and all-gathers the
 target rung's columns where the loss and the NLL statistics read the
-samples.  The DVAE, the GRBM and their optimizers are replicated: every
-rank computes the same step from the same draws.
+samples.  The DVAE (but for an outsized dense layer, below), the GRBM and
+their optimizers are replicated: every rank computes the same step from
+the same draws.
 
 The data axis (``parallel/mesh.py``): on a mesh that does not graph-shard,
 each rank sweeps its own chain rows through the kernel (the JAX
@@ -49,6 +50,13 @@ chain-sharded kernels) and the PT ladder's rungs are split over the ranks;
 each data row trains on its slice of the batch, and the step reproduces
 by hand what GSPMD gives the JAX step: BatchNorm, the MSE and the MMD
 over the global batch, and the DVAE gradient summed over the data axis.
+
+On every mesh of more than one rank, graph-sharded or not, an outsized
+DVAE dense layer (the scaled config's Linear(5640 → 22560)) is
+column-sharded over the whole mesh with its optimizer moments
+(``parallel/dense.py``, the JAX ``_shard_large_dense``): its product
+gathers what it needs inside the layer, and its weight's gradient is
+whole on each rank, so the data axis's all-reduce leaves it out.
 
 The DVAE's optimizer is ``torch.optim.Adam`` unless ``ADAM_MOMENT_DTYPE``
 or ``ADAM_FACTORED_NU`` asks for ``training/optim.py``'s ``AdamMoments``.
@@ -92,10 +100,14 @@ from image_generation_tpu_torch.ops.gibbs_cuda import gibbs_sweeps_cuda, selects
 from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
 from image_generation_tpu_torch.ops.mmd import GaussianKernel, mmd_loss
 from image_generation_tpu_torch.ops.quant import quantize_coupling
+from image_generation_tpu_torch.parallel.dense import (
+    DENSE_MIN_ELEMS,
+    rows_split_over_data,
+    shard_large_dense,
+)
 from image_generation_tpu_torch.parallel.mesh import (
     AllGatherRows,
     AllReduceSum,
-    refuse_large_dense,
     shard_batch,
     shard_epoch_batches,
 )
@@ -374,6 +386,18 @@ class SampleFns:
             spins = spins[..., lo:hi]
         return spins.contiguous()
 
+    def unlocal(self, part: torch.Tensor, rows: Optional[RowShard] = None,
+                columns: bool = True) -> torch.Tensor:
+        """The whole tensor from every rank's ``local`` part (collective):
+        the ranks' slices of the leading axis gathered, and under graph
+        sharding (with ``columns``) their column windows."""
+        rows = self.train_rows if rows is None else rows
+        if columns and self.graph_sharded:
+            part = self.mesh.all_gather(part, dim=-1)
+        if rows.n > 1:
+            part = self.mesh.all_gather(part, dim=0, axis=rows.axes)
+        return part
+
     def ladder(self, rows: RowShard, t_dim: int):
         """The PT ladder's split (``parallel.mesh.LadderShard``), or None
         when this rank holds every rung."""
@@ -609,8 +633,9 @@ class TrainStepFns(SampleFns):
     ``rebuild_sampler``, the LR schedules, and the sampler functions."""
 
     def __init__(self, cfg: TrainingConfig, graph: GRBMGraph, plan: GibbsPlan,
-                 device, total_steps: int, mesh=None):
+                 device, total_steps: int, mesh=None, dense_min_elems: Optional[int] = None):
         super().__init__(cfg, graph, plan, device, mesh)
+        self.dense_min_elems = DENSE_MIN_ELEMS if dense_min_elems is None else dense_min_elems
         self.kernel = GaussianKernel(n_kernels=cfg.N_KERNELS)
         self.dvae_lr = geomspace_lr(cfg.AUTOENCODER_INITIAL_LR, cfg.AUTOENCODER_FINAL_LR,
                                     total_steps)
@@ -679,11 +704,10 @@ class TrainStepFns(SampleFns):
         """A state around given weights and whole chains (and their whole
         ladder energies) with fresh optimizers, cut to this rank's part of
         them on a mesh (``local``); ``burn_in`` runs ``GIBBS_BURN_IN`` sweeps
-        under the model first.  A DVAE with a dense layer the JAX package
-        would column-shard over a chain-sharded mesh raises
-        (``parallel.mesh.refuse_large_dense``)."""
-        if not self.graph_sharded:
-            refuse_large_dense(dvae, self.mesh)
+        under the model first.  On a mesh, ``dvae``'s outsized dense layers
+        are column-sharded in place first (``parallel.dense.shard_large_dense``
+        at ``dense_min_elems``), so the optimizer holds their blocks."""
+        shard_large_dense(dvae, self.mesh, self.dense_min_elems)
         hp, coupling_p = self.build_sampler_model(grbm_params)
         if chain_energies is not None and chain_energies.numel():
             chain_energies = self.local(chain_energies[..., None])[..., 0]
@@ -749,7 +773,7 @@ class TrainStepFns(SampleFns):
         spin_u, masks = feed.spin_uniforms, feed.dropout_masks
         if dp:
             spin_u, masks = self._global_draws(g, images, spin_u, masks)
-            with global_batch_stats(self._data_sum, self.mesh.data):
+            with global_batch_stats(self._data_sum, self.mesh.data), rows_split_over_data():
                 _logits, spins, recon = dvae(images, cfg.N_REPLICAS, g, spin_uniforms=spin_u,
                                              dropout_masks=masks)
         else:
@@ -822,8 +846,11 @@ class TrainStepFns(SampleFns):
 
     def _sum_gradients(self, dvae: DVAE) -> None:
         """Sum the DVAE gradient over the data axis in one all-reduce (the
-        ranks of one data row hold the same slice and are not summed)."""
-        grads = [p.grad for p in dvae.parameters() if p.grad is not None]
+        ranks of one data row hold the same slice and are not summed).  A
+        column-sharded weight's gradient is whole already and is left
+        out."""
+        grads = [p.grad for p in dvae.parameters()
+                 if p.grad is not None and getattr(p, "column_shard", None) is None]
         flat = self.mesh.all_reduce(torch.cat([g_.reshape(-1) for g_ in grads]), axis="data")
         i = 0
         for g_ in grads:
@@ -860,15 +887,17 @@ class TrainStepFns(SampleFns):
 
 def make_train_fns(cfg: TrainingConfig, graph: GRBMGraph, total_steps: int,
                    plan: Optional[GibbsPlan] = None, device="cuda",
-                   mesh=None) -> TrainStepFns:
+                   mesh=None, dense_min_elems: Optional[int] = None) -> TrainStepFns:
     """Training functions for a config and coupling graph on ``device``
     (the card unless ``device="cpu"``), graph-sharded over ``mesh`` as
     ``make_sample_fns`` says; ``total_steps`` = epochs × batches fixes the
-    LR schedules."""
+    LR schedules.  ``dense_min_elems``: the size from which a DVAE dense
+    layer is column-sharded over a mesh (the JAX ``shard_train_state``
+    keyword; ``parallel.dense.DENSE_MIN_ELEMS`` by default)."""
     device = resolve_device(device)
     if plan is None:
         plan = build_plan(graph)
-    return TrainStepFns(cfg, graph, plan, device, total_steps, mesh)
+    return TrainStepFns(cfg, graph, plan, device, total_steps, mesh, dense_min_elems)
 
 
 def train_state_from_jax(fns: TrainStepFns, state, seed: int = 0) -> TrainState:

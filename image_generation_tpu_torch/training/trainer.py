@@ -26,9 +26,15 @@ the data axis (when the batch tiles it), the chains are split over the
 mesh (``GRAPH_SHARDED`` splits the coupling rows and chain columns over
 the graph axis instead; ``training/step.py``), the DVAE and the GRBM are
 replicated (cuDNN is set deterministic, so every rank computes the same
-bits), ``save`` writes on rank 0 only, and ``sample_spins`` samples
-through the partitioned sampler.  Native checkpoints of a sharded state
-are not ported yet.
+bits) but for an outsized dense layer, which is column-sharded over the
+mesh with its moments (``parallel/dense.py``), ``save`` gathers that
+layer on every rank and writes on rank 0 only, ``sample_spins`` samples
+through the partitioned sampler, and generation decodes through the
+sharded layer on every rank.  Native checkpoints are topology-independent
+(``io/native_ckpt.py``): every rank takes part in ``save_native``, rank
+0 writes the global state in the one-device schema, and ``resume_native``
+restores such a file on any mesh or on one device.  The auto ladder's
+probe runs on every rank alike, from the trainer's shared seeds.
 
 The trainer runs on the card unless it is given ``device="cpu"``; with no
 card visible a CUDA trainer raises.  The dataset lives on the trainer's
@@ -208,9 +214,10 @@ class Trainer:
             return
         # the probe builds a dense replicated coupling (> 2 GiB in f32 is the
         # beyond-one-device size, as in the JAX package) and has no
-        # graph-sharded route, so a mesh is refused too
-        if (cfg.GRAPH_SHARDED == "on" or self.plan.n_pad ** 2 * 4 > 2 << 30
-                or self.mesh is not None):
+        # graph-sharded route.  On a mesh every rank runs the one-device
+        # probe alike (the same seeds, the same kernel on the same inputs),
+        # so every rank freezes the same ladder.
+        if cfg.GRAPH_SHARDED == "on" or self.plan.n_pad ** 2 * 4 > 2 << 30:
             raise ValueError(
                 "PT_NUM_BETAS='auto' cannot probe a beyond-HBM (graph-sharded) model at "
                 "init; run the tune-pt CLI command (which measures through the "
@@ -355,8 +362,9 @@ class Trainer:
     def save(self, file_path, n_epochs: Optional[int] = None,
              old_losses: Optional[dict] = None):
         """Write the model directory; ``old_losses`` (tune mode) is
-        prepended to this run's loss history.  On a mesh only rank 0
-        writes (the weights are replicated), and every rank waits for it."""
+        prepended to this run's loss history.  On a mesh every rank calls
+        it: the column-sharded dense layers are gathered whole
+        (collective), rank 0 writes, and every rank waits for it."""
         cfg = self.config
         losses = self.losses
         if old_losses:
@@ -376,9 +384,12 @@ class Trainer:
         if self.mesh is None:
             return save_model_dir(file_path, self.dvae, self.grbm_params, self.graph,
                                   parameters, losses)
+        from image_generation_tpu_torch.parallel.dense import gather_large_dense
+
+        dvae_sd = gather_large_dense(self.dvae)
         out = None
         if self.mesh.rank == 0:
-            out = save_model_dir(file_path, self.dvae, self.grbm_params, self.graph,
+            out = save_model_dir(file_path, dvae_sd, self.grbm_params, self.graph,
                                  parameters, losses)
         self.mesh.barrier()
         return out if out is not None else Path(file_path)
@@ -388,15 +399,19 @@ class Trainer:
         weights, optimizers, chains and ladder energies, ``pt_betas``,
         ``opt_step``, the state's generator and the trainer's seed stream)
         under ``directory/step_<opt_step>.pt``, the loss history beside it
-        as ``losses_step_<opt_step>.json``.  Returns the checkpoint's path."""
+        as ``losses_step_<opt_step>.json``.  Returns the checkpoint's path.
+        On a mesh every rank calls it, and rank 0 writes the global state
+        (``io/native_ckpt.py``)."""
         from image_generation_tpu_torch.io.native_ckpt import save_train_state
 
         if not self._init_done:
             raise TrainingError("Initialization required before saving the train state.")
-        self._refuse_native_on_mesh()
-        path = save_train_state(directory, self.state,
+        path = save_train_state(directory, self.state, fns=self.fns,
                                 extra={"seed_stream": self._seeds.bit_generator.state})
-        (path.parent / f"losses_{path.stem}.json").write_text(json.dumps(self.losses))
+        if self.mesh is None or self.mesh.rank == 0:
+            (path.parent / f"losses_{path.stem}.json").write_text(json.dumps(self.losses))
+        if self.mesh is not None:  # no rank resumes before the history is written
+            self.mesh.barrier()
         return path
 
     def resume_native(self, directory, n_epochs: int) -> int:
@@ -405,19 +420,21 @@ class Trainer:
         native checkpoint under ``directory`` over the fresh state (the
         sampler cache is rebuilt from the restored GRBM), its loss history
         and seed stream; the next ``train`` starts at the epoch the run
-        stopped in.  Returns the restored ``opt_step``."""
+        stopped in.  The checkpoint may come from any mesh or one device; on
+        a mesh each rank keeps its part.  Returns the restored
+        ``opt_step``."""
         from image_generation_tpu_torch.io.native_ckpt import (
             latest_step,
             load_payload,
             restore_payload,
         )
 
-        self._refuse_native_on_mesh()
         if not self._init_done or self._n_epochs != n_epochs:
             self.train_init(n_epochs)
         step = latest_step(directory)
         payload = load_payload(directory, step, map_location=self.device)
-        self.state = restore_payload(payload, self.state, rebuild_cache=self.fns.rebuild_cache)
+        self.state = restore_payload(payload, self.state, rebuild_cache=self.fns.rebuild_cache,
+                                     fns=self.fns)
         self.dvae, self.grbm_params = self.state.dvae, self.state.grbm_params
         seeds = payload["extra"].get("seed_stream")
         if seeds is not None:
@@ -427,13 +444,6 @@ class Trainer:
             self.losses = json.loads(losses.read_text())
         self._resume_start_epoch = self.state.opt_step // max(self.n_batches, 1)
         return self.state.opt_step
-
-    def _refuse_native_on_mesh(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "native checkpoints of a mesh's sharded train state are not ported yet "
-                "(ROADMAP.md queue 1 item 7); save() writes the model directory"
-            )
 
     def load(self, file_path, train_state: bool = True) -> None:
         """Load a reference-format model directory for sampling (and for

@@ -18,6 +18,8 @@ bounds; across ranks the losses and the replicated parameters are equal
 bit for bit.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,9 +36,12 @@ from image_generation_tpu.utils import data as jdata
 from image_generation_tpu.utils.subgraph import select_latent_graph
 from image_generation_tpu.utils.topology import chimera_graph
 from image_generation_tpu_torch.config import TrainingConfig
+from image_generation_tpu_torch.io import native_ckpt
 from image_generation_tpu_torch.models import grbm as tgrbm
 from image_generation_tpu_torch.ops import gibbs as tgibbs
+from image_generation_tpu_torch.parallel import dense as tdense
 from image_generation_tpu_torch.parallel import mesh as tmesh
+from image_generation_tpu_torch.training import step as tstep
 from image_generation_tpu_torch.training.step import make_train_fns, train_state_from_jax
 from image_generation_tpu_torch.training.trainer import Trainer
 from image_generation_tpu_torch.utils import data as tdata
@@ -392,8 +397,10 @@ def test_trainer_on_a_data_axis_mesh(tmp_path):
     ``save`` on rank 0, ``sample_spins`` equal on every rank, with a
     ``num_reads`` that does not tile the mesh too, and an epoch of 6
     chains, which do not tile it (``torch`` as JAX's ``xla``; the kernel's
-    wrapper on each data row's 3 chains); native checkpoints refuse the mesh; a DVAE
-    whose dense layer JAX would column-shard is refused; on one rank
+    wrapper on each data row's 3 chains); ``save_native`` on the mesh writes
+    the global state (the whole chains); ``shard_train_state`` with
+    ``dense_min_elems=4096`` cuts a whole one-process state to this rank's
+    chains and column-shards its dense layer with its moments; on one rank
     ``mesh="auto"`` is no mesh."""
     base = dict(N_LATENTS=32, NUM_READS=8, BATCH_SIZE=8, DATASET_SIZE=16, N_REPLICAS=2,
                 GIBBS_SWEEPS=2, GIBBS_BURN_IN=2, QPU="Advantage2_prototype",
@@ -412,14 +419,28 @@ def test_trainer_on_a_data_axis_mesh(tmp_path):
                         {k: v.clone() for k, v in t.dvae.state_dict().items()},
                         t.grbm_params.linear.detach().clone()))
         path = t.save(tmp_path / "m")
-        with pytest.raises(NotImplementedError, match="native"):
-            t.save_native(tmp_path / "ckpt")
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            tmesh.shard_train_state(t.state, mesh, dense_min_elems=4096)
-        return res, path
+        native = t.save_native(tmp_path / "ckpt")
+        assert native_ckpt.load_payload(tmp_path / "ckpt")["chains"].shape[0] == 6
+        # a whole one-process state, one step in (so Adam has moments), cut
+        # to this rank's part with the dense layer sharded
+        fns1 = make_train_fns(t.config, t.graph, 10, t.plan, device="cpu")
+        whole = fns1.init(5)
+        fns1.step_body(whole, t.images[:8], 0)
+        w, mu = (whole.dvae._decoder.increase_latent_dim.weight.detach().clone(),
+                 whole.dvae_opt.state[whole.dvae._decoder.increase_latent_dim.weight][
+                     "exp_avg"].clone())
+        chains = whole.chains.clone()
+        st = tmesh.shard_train_state(whole, mesh, dense_min_elems=4096)
+        layer = st.dvae._decoder.increase_latent_dim
+        lo = mesh.rank * 32
+        assert isinstance(layer, tdense.ColumnShardedLinear)
+        assert torch.equal(layer.weight, w[lo:lo + 32])
+        assert torch.equal(st.dvae_opt.state[layer.weight]["exp_avg"], mu[lo:lo + 32])
+        assert torch.equal(st.chains, chains[3 * mesh.data_index:3 * mesh.data_index + 3])
+        return res, path, native
 
     outs = run_ranks(4, rank, (2, 2))
-    for (res, path) in outs:
+    for (res, path, native) in outs:
         for k, (impl, stats, s8, s10, sd, lin) in enumerate(res):
             ref = outs[0][0][k]
             assert impl == ("torch" if k == 2 else "cuda_vmem_sharded")
@@ -430,7 +451,7 @@ def test_trainer_on_a_data_axis_mesh(tmp_path):
             for name, v in sd.items():
                 assert torch.equal(v, ref[4][name]), name
             assert torch.equal(lin, ref[5])
-        assert path == tmp_path / "m"
+        assert path == tmp_path / "m" and native == tmp_path / "ckpt" / "step_00000002.pt"
     assert sorted(p.name for p in (tmp_path / "m").iterdir()) == [
         "dvae.pth", "grbm.pth", "losses.json", "parameters.json"]
     assert Trainer(TrainingConfig(**base), device="cpu").mesh is None
@@ -462,3 +483,119 @@ def test_graph_sharded_trainer_with_a_data_axis(sampler):
         assert chains == ((4, n_pad // 2) if sampler == "gibbs" else (1, 8, n_pad // 2))
         assert np.isfinite(mse) and mse == outs[0][2]
         assert spins.shape == (6, 32) and torch.equal(spins, outs[0][3])
+
+
+# ---------------------------------------------------------------------------
+# native checkpoints and the auto ladder on a mesh
+# ---------------------------------------------------------------------------
+
+NATIVE = dict(N_LATENTS=32, NUM_READS=8, BATCH_SIZE=8, DATASET_SIZE=16, N_REPLICAS=2,
+              GIBBS_SWEEPS=2, GIBBS_BURN_IN=2, QPU="Advantage2_prototype",
+              COMPUTE_DTYPE="float32", SAMPLER="pt", PT_NUM_BETAS=4, ADAM_FACTORED_NU="on")
+
+
+def _payloads_equal(a: dict, b: dict) -> None:
+    """Two checkpoint dicts hold the same state, bit for bit."""
+    assert a.keys() == b.keys()
+    for k in a["dvae"]:
+        assert torch.equal(a["dvae"][k], b["dvae"][k]), k
+    for opt in ("dvae_opt", "grbm_opt"):
+        sa, sb = a[opt]["state"], b[opt]["state"]
+        assert sa.keys() == sb.keys()
+        for i in sa:
+            assert sa[i].keys() == sb[i].keys()
+            for k in sa[i]:
+                assert torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(sb[i][k])), (opt, k)
+    for k in ("grbm_linear", "grbm_quadratic", "chains", "chain_energies", "pt_betas",
+              "generator"):
+        assert torch.equal(a[k], b[k]), k
+    assert a["opt_step"] == b["opt_step"] and a["extra"] == b["extra"]
+
+
+def test_native_checkpoints_across_topologies(tmp_path, monkeypatch):
+    """A 4-rung PT run with the dense layer column-sharded and a factored ν
+    saved on (2, 2) after one epoch: the file is the global state in the
+    one-device schema (the whole layer and its μ / ν factors, the whole
+    ladder); resumed on (4, 1) and on one device the gathered global state
+    equals the file bit for bit; resumed on (2, 2) and trained on, it
+    equals the uninterrupted run."""
+    monkeypatch.setattr(tstep, "DENSE_MIN_ELEMS", 4096)
+    monkeypatch.setattr(tstep, "_FACTORED_NU_MIN", 4096)
+    cfg = TrainingConfig(**NATIVE)
+    ck = tmp_path / "ck"
+
+    def uninterrupted(mesh):
+        t = Trainer(cfg, device="cpu", mesh=mesh)
+        t.train_init(2)
+        t.train_epoch(0)
+        t.save_native(ck)
+        t.train_epoch(1)
+        return native_ckpt.global_payload(t.state, t.fns), t.losses
+
+    def resumed(mesh):
+        t = Trainer(cfg, device="cpu", mesh=mesh)
+        assert t.resume_native(ck, n_epochs=2) == 2
+        # a copy: the payload's tensors are the live state's, which training moves
+        restored = copy.deepcopy(native_ckpt.global_payload(
+            t.state, t.fns, {"seed_stream": t._seeds.bit_generator.state}))
+        ran = []
+        t.train(2, epoch_cb=lambda e, _s: ran.append(e))
+        assert ran == [1]
+        return restored, native_ckpt.global_payload(t.state, t.fns), t.losses
+
+    full = run_ranks(4, uninterrupted, (2, 2))
+    saved = native_ckpt.load_payload(ck)
+    layer = saved["dvae"]["_decoder.increase_latent_dim.weight"]
+    assert layer.shape == (128, 32) and saved["chains"].shape[:2] == (4, 8)
+    fac = [v for v in saved["dvae_opt"]["state"].values() if "nu_col" in v]
+    assert len(fac) == 1  # the one 2-D leaf of 4,096 elements and more
+    fac = fac[0]
+    assert fac["exp_avg"].shape == (128, 32) and fac["nu_col"].shape == (128,)
+    assert fac["nu_row"].shape == (32,) and "exp_avg_sq" not in fac
+    for shape in ((4, 1), None):
+        if shape is None:
+            outs = [resumed(None)]
+        else:
+            outs = run_ranks(4, resumed, shape)
+        for restored, _after, _losses in outs:
+            _payloads_equal(restored, saved)
+    again = run_ranks(4, resumed, (2, 2))
+    for (want, losses), (_restored, got, got_losses) in zip(full, again):
+        _payloads_equal(got, want)
+        assert got_losses == losses
+
+
+def test_auto_ladder_on_a_mesh_matches_jax():
+    """``PT_NUM_BETAS="auto"`` on (2, 2) ranks: every rank probes alike and
+    freezes the same ladder, and trains with it; for the same model the
+    probe on the mesh (rank 0's) gives JAX's trainer on a (2, 2) CPU mesh
+    its ``num_betas``."""
+    from image_generation_tpu.config import TrainingConfig as JaxConfig
+    from image_generation_tpu.training import trainer as jtrainer
+
+    kw = dict(N_LATENTS=32, NUM_READS=8, BATCH_SIZE=8, DATASET_SIZE=16, N_REPLICAS=2,
+              GIBBS_SWEEPS=2, GIBBS_BURN_IN=2, QPU="Advantage2_prototype",
+              COMPUTE_DTYPE="float32", SAMPLER="pt", PT_NUM_BETAS="auto")
+    jt = jtrainer.Trainer(config=JaxConfig(**kw), mesh=_jmesh((2, 2)))
+    jt.setup()
+    # couplings of 2: a probe barrier near 0.68, 3 rungs (T = ⌈Λ / 0.5⌉ + 1)
+    model = jt.graph.init_params(jax.random.PRNGKey(4), scale=2.0)
+    jt._resolve_auto_ladder(model)
+
+    def rank(mesh):
+        t = Trainer(TrainingConfig(**kw), device="cpu", mesh=mesh)
+        t.train_init(1)
+        trained = (t.config.PT_BETAS, t.pt_auto_info["num_betas"], t.train_epoch(0)["mse"])
+        if mesh.rank:
+            return trained, None
+        probe = Trainer(TrainingConfig(**kw), device="cpu", mesh=mesh)
+        probe.setup()
+        probe._resolve_auto_ladder(tgrbm.GRBMParams(_t(model.linear), _t(model.quadratic)))
+        return trained, probe.pt_auto_info
+
+    outs = run_ranks(4, rank, (2, 2))
+    (betas0, n0, mse0), info0 = outs[0]
+    assert n0 == len(betas0) and np.isfinite(mse0)
+    for (betas, n, mse), _info in outs:
+        assert betas == betas0 and n == n0 and mse == mse0
+    assert info0["num_betas"] == jt.pt_auto_info["num_betas"] > 2

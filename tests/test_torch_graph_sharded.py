@@ -45,6 +45,7 @@ from image_generation_tpu.training import step as jstep
 from image_generation_tpu.utils.subgraph import select_latent_graph
 from image_generation_tpu.utils.topology import zephyr_graph
 from image_generation_tpu_torch.config import TrainingConfig
+from image_generation_tpu_torch.io import native_ckpt
 from image_generation_tpu_torch.models import grbm as tgrbm
 from image_generation_tpu_torch.ops import block_sparse_sharded as tbss
 from image_generation_tpu_torch.ops import gibbs as tgibbs
@@ -528,7 +529,8 @@ def test_trainer_graph_sharded_epoch_save_and_sample(tmp_path):
     """``Trainer(mesh=...)`` with ``GRAPH_SHARDED="on"`` on 2 ranks: an
     epoch through the partitioned sampler (a packed int8 coupling at chunk
     16), ``save`` on rank 0 only, ``sample_spins`` equal on every rank;
-    native checkpoints refuse a mesh."""
+    ``save_native`` writes the whole ladder (every rank's column window)
+    and ``resume_native`` on the mesh gives each rank its window back."""
     cfg = TrainingConfig(N_LATENTS=32, NUM_READS=8, BATCH_SIZE=8, DATASET_SIZE=16, N_REPLICAS=2,
                          GIBBS_SWEEPS=2, GIBBS_BURN_IN=2, QPU="Advantage2_prototype",
                          SAMPLER="pt", PT_NUM_BETAS=2, SAMPLER_MATMUL_DTYPE="int8",
@@ -541,8 +543,15 @@ def test_trainer_graph_sharded_epoch_save_and_sample(tmp_path):
         stats = t.train_epoch(0)
         path = t.save(tmp_path / "m")
         spins = t.sample_spins(6, 2)
-        with pytest.raises(NotImplementedError, match="native"):
-            t.save_native(tmp_path / "ckpt")
+        t.save_native(tmp_path / "ckpt")
+        whole = native_ckpt.load_payload(tmp_path / "ckpt")["chains"]
+        assert whole.shape == (2, 8, t.plan.n_pad)
+        assert torch.equal(t.fns.local(whole), t.state.chains)
+        back = Trainer(cfg, device="cpu", mesh=mesh)
+        back.resume_native(tmp_path / "ckpt", n_epochs=1)
+        assert torch.equal(back.state.chains, t.state.chains)
+        assert torch.equal(back.state.chain_energies, t.state.chain_energies)
+        assert type(back.state.sampler_coupling) is type(t.state.sampler_coupling)
         return t.fns.sampler_impl, stats, spins, type(t.state.sampler_coupling).__name__, path
 
     outs = run_ranks(2, rank)

@@ -4,7 +4,9 @@ layout and the model topology figures, without networkx, on the CPU.
 The JAX package (networkx graphs, ``nx.spring_layout``) is the oracle:
 the generators' positions are equal bit for bit for every entry of
 ``QPU_TOPOLOGIES``; ``graph_layout`` within 1e-12; the spring layout
-within 1e-9 of ``nx.spring_layout(g, seed=0)`` (the same numpy steps);
+within 1e-9 of ``nx.spring_layout(g, seed=0)`` (the same numpy steps;
+from 500 nodes the same scipy L-BFGS-B minimisation of the same energy,
+equal bit for bit here and held to the same 1e-9);
 ``model_topology_figure`` of both shipped checkpoints (the physical-
 coordinate branch for ``tpu_digits_40_epochs``, the spring-layout branch
 for ``tpu_digits_10_epochs``, which has no ``physical_nodes``), with and
@@ -89,14 +91,60 @@ def test_graph_layout_without_positions_uses_the_spring_layout():
     assert max(max(abs(got[k][0] - want[k][0]), abs(got[k][1] - want[k][1])) for k in want) <= 1e-9
 
 
+def _max_err(got, want):
+    assert list(got) == list(want)
+    return max(float(np.abs(np.asarray(got[k]) - want[k]).max()) for k in want)
+
+
 def test_spring_layout_refuses_the_energy_method():
-    """From 500 nodes networkx switches to its scipy "energy" method."""
+    """From 500 nodes networkx switches to its scipy "energy" method, which
+    the port now runs too (no refusal): the whole Zephyr(4) fabric (576
+    nodes, with its coordinates, which the layout does not read) within
+    1e-9 of networkx; 499 nodes stay on the force method."""
     g = ttopo.zephyr_graph(4)  # 576 nodes
     assert g.number_of_nodes() >= 500
-    with pytest.raises(NotImplementedError, match="energy"):
-        spring_layout(g, seed=0)
+    jg = jtopo.zephyr_graph(4)
+    assert _max_err(spring_layout(g, seed=0), nx.spring_layout(jg, seed=0)) <= 1e-9
     small = _port_graph(499, [(i, i + 1) for i in range(498)])
-    assert len(spring_layout(small, seed=0, iterations=1)) == 499
+    want = nx.spring_layout(_nx_graph(499, [(i, i + 1) for i in range(498)]), seed=0,
+                            iterations=1)
+    assert _max_err(spring_layout(small, seed=0, iterations=1), want) <= 1e-9
+
+
+def _zephyr_512():
+    """A 512-node subgraph of Zephyr(4) without positions, relabelled 0..511."""
+    g = jtopo.zephyr_graph(4)
+    keep = list(g.nodes())[:512]
+    index = {v: i for i, v in enumerate(keep)}
+    return 512, [(index[u], index[v]) for u, v in g.subgraph(keep).edges()]
+
+
+def test_energy_spring_layout_matches_networkx_on_512_nodes():
+    n, edges = _zephyr_512()
+    want = nx.spring_layout(_nx_graph(n, edges), seed=0)
+    assert _max_err(spring_layout(_port_graph(n, edges), seed=0), want) <= 1e-9
+
+
+def test_model_topology_figure_of_a_512_latent_checkpoint(tmp_path):
+    """A checkpoint without ``physical_nodes`` whose graph has 512 nodes:
+    the figure's spring-layout branch through the energy method, against
+    the JAX package's figure."""
+    import json
+
+    import torch
+
+    from image_generation_tpu_torch.io.torch_pth import grbm_state_dict, save_state_dict
+    from image_generation_tpu_torch.models.grbm import GRBMGraph, GRBMParams
+
+    n, edges = _zephyr_512()
+    graph = GRBMGraph(n=n, edge_i=np.array([u for u, _ in edges]),
+                      edge_j=np.array([v for _, v in edges]))
+    params = GRBMParams(torch.zeros(n), torch.zeros(len(edges)))
+    save_state_dict(tmp_path / "grbm.pth", grbm_state_dict(params, graph))
+    (tmp_path / "parameters.json").write_text(json.dumps({"n_latents": n}))
+    values = np.where(np.random.default_rng(5).random(n) > 0.5, 1.0, -1.0).tolist()
+    _assert_figures_match(jax_model_figure(tmp_path, values),
+                          figures.model_topology_figure(tmp_path, values))
 
 
 def _assert_figures_match(want, got):

@@ -363,7 +363,9 @@ def test_auto_ladder_refuses_a_beyond_one_device_plan_as_jax(monkeypatch):
     """``PT_NUM_BETAS="auto"`` on one device with a P32-sized plan (n_pad
     23,936: a 2.29 GB f32 coupling, over the 2 GiB line): both packages
     raise ``ValueError`` naming ``tune-pt`` before anything is built (the
-    JAX reference ``trainer.py:181``)."""
+    JAX reference ``trainer.py:181``).  Below the line a mesh is no longer
+    refused, as in the JAX package: every rank builds the one-device
+    probe."""
     from types import SimpleNamespace
 
     from image_generation_tpu.config import TrainingConfig as JaxConfig
@@ -383,7 +385,16 @@ def test_auto_ladder_refuses_a_beyond_one_device_plan_as_jax(monkeypatch):
         t.plan, t.graph = plan, graph
         with pytest.raises(ValueError, match="tune-pt"):
             t._resolve_auto_ladder()
-    tt.plan = SimpleNamespace(n_pad=768)  # below the line: only a mesh is refused
+    tt.plan = SimpleNamespace(n_pad=768)  # below the line, on a mesh: probed
     tt.mesh = object()
-    with pytest.raises(ValueError, match="tune-pt"):
+
+    class Probed(Exception):
+        pass
+
+    def probe(*_a, **kw):
+        assert "mesh" not in kw  # the one-device probe, on every rank alike
+        raise Probed
+
+    monkeypatch.setattr(ttrainer, "make_sample_fns", probe)
+    with pytest.raises(Probed):
         tt._resolve_auto_ladder()
