@@ -272,8 +272,26 @@ epoch each, at full width).  Phases:
     (2, 2) run equal to the uninterrupted one.  (e) the flagship with
     ``PT_NUM_BETAS="auto"`` on (2, 2): the same ladder on every rank, the
     K1-f32-dE probe on each.  (f) ``parallel/dryrun.py --ranks 4`` on the
-    card.  (g) with 4 cards, (a) again over NCCL, one card a rank;
-    otherwise the line ``[30g] nccl: not run (1 card)``.
+    card.
+31. training on a launched world, one card a rank over NCCL.  (a) the CLI
+    ``train --epochs 1`` at the flagship's defaults (``--dataset-size
+    4096``) under ``python -m torch.distributed.run --nproc-per-node 1``
+    (each rank runs this script with ``--cli-rank``, which calls
+    ``cli.main`` as ``-m image_generation_tpu_torch.app.cli`` does, with
+    the counters and a clock at every step): the rank on cuda:0 in an NCCL
+    world of 1 (``parallel.mesh.init_world``), K1-f32 as often as phase
+    27's ``train``, no plain sweep on the card, the workdir's files and
+    the progress lines written once.  With 2 or more cards (4 where there
+    are 4), one card a rank: (b) phase 30 (a) over NCCL on (2, 1), or on
+    (2, 2) and (4, 1), with each rank's K3 time a launch (CUDA events);
+    (c) phase 23's graph-sharded epoch on (1, n): K4 once a (sweep, owned
+    span), its time a launch, the losses and the (gathered) parameters
+    equal on every rank; (d) (a) on every card (``--mesh auto``: the JAX
+    default shape), K1-f32 as often on every rank, the losses and
+    parameters equal.  Each prints every rank's step median, the
+    collectives' seconds from CUDA events and their share of the epoch,
+    and the peak memory.  With one card the line ``[31b-d] not run (1
+    card)``.  ``python3 chip_smoke.py --phase 31`` runs this phase alone.
 
 Each path (serving, plain training, PT training, scaled training, the K2
 steps, scaled serving, the 2,048-latent training, resume and serving, the
@@ -283,7 +301,8 @@ training, PT training and serving, each CLI command, the server's lone
 requests, burst, generate job and the evaluation, the gumbel epoch, each
 Adam lever's scaled epoch, on every rank each data-axis epoch, each scaled
 mesh epoch and the fed step, the mesh-saved model's request, the auto
-ladder on the mesh) runs with the launch counters set to 0 just before it
+ladder on the mesh, the CLI under the launcher, and with several cards
+each NCCL epoch) runs with the launch counters set to 0 just before it
 and read just after; the dry run's ranks count their own.  The line before
 the last is a JSON object describing the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -895,12 +914,15 @@ def main() -> int:
     leftovers29 = run_in_fresh_process(_leftovers_child)
     data29 = data_axis_phase(card, {"gibbs": gibbs_counts, "pt": pt_counts})
     mesh30 = scaled_mesh_phase(card)
+    expect = cli27["paths"]["cli_train"].get("K1-f32", 0)
+    launch31 = {"cli_launcher_1": launcher_phase(card, 1, expect, "31a"),
+                **multi_card_phase(card, expect)}
 
     print(card_line())
     paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts,
              **scaled["paths"], **k1_dtypes["paths"], **sharded["paths"],
              **latents1280["paths"], **cli27["paths"], **server28["paths"],
-             **leftovers29["paths"], **data29["paths"], **mesh30["paths"]}
+             **leftovers29["paths"], **data29["paths"], **mesh30["paths"], **launch31}
     print(json.dumps({"kernels": [
         {
             "name": "gibbs_sparse (K1-f32)",
@@ -2520,43 +2542,75 @@ def reset_launch_counts() -> None:
     SWEEPS[0] = 0
 
 
-def _gs_rank(rank: int, world: int, port: int, out_dir: str, task: str, task_arg) -> None:
-    """One rank of the graph-sharded phases: joins the gloo world on
-    cuda:0, builds the (1, world) mesh, runs ``task`` and writes its
-    result to ``out_dir/<task>_<rank>.json``."""
+def _init_rank(rank: int, world: int, port: int, backend: str, timeout_s: int) -> torch.device:
+    """Join a spawned world: gloo with every rank on cuda:0, or NCCL with
+    rank r on cuda:r, bound to it as ``parallel.mesh.init_world`` binds a
+    launched rank.  Returns the rank's card."""
     from datetime import timedelta
 
     import torch.distributed as dist
 
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    kw = dict(device_id=dev) if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=timeout_s), **kw)
+    return dev
+
+
+def _gs_rank(rank: int, world: int, port: int, out_dir: str, task: str, task_arg,
+             backend: str = "gloo") -> None:
+    """One rank of the graph-sharded phases: joins the world (gloo on
+    cuda:0, or NCCL on cuda:<rank>), builds the (1, world) mesh, runs
+    ``task`` and writes its result to ``out_dir/<task>_<rank>.json``."""
+    import torch.distributed as dist
+
     from image_generation_tpu_torch.parallel.mesh import create_mesh
 
-    torch.cuda.set_device(0)
     count_sweeps()
     torch.backends.cuda.matmul.allow_tf32 = False  # not inherited from the parent
     torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
-                            rank=rank, timeout=timedelta(seconds=300))
+    _init_rank(rank, world, port, backend, 300)
     try:
-        mesh = create_mesh(shape=(1, world), backend="gloo")
-        result = {"scaled": _gs_scaled, "p32": _gs_p32}[task](mesh, task_arg)
+        mesh = create_mesh(shape=(1, world), backend=backend)
+        result = {"scaled": _gs_scaled, "p32": _gs_p32, "epoch": _gs_epoch_task}[task](
+            mesh, task_arg)
         (Path(out_dir) / f"{task}_{rank}.json").write_text(json.dumps(result))
     finally:
         dist.destroy_process_group()
 
 
-def _gs_scaled(mesh, model_dir: str) -> dict:
-    """Phase 23 on one rank: the scaled model trained one epoch with its
-    graph split over the mesh, saved, sampled; the fed cross-check against
-    the single-device K3; two dense steps."""
+class EventTimes:
+    """Each call's time on the card: a CUDA event pair on the current
+    stream around it, read (``ms``) after the run."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def around(self, fn, *a, **kw):
+        a0, b0 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a0.record()
+        out = fn(*a, **kw)
+        b0.record()
+        self.pairs.append((a0, b0))
+        return out
+
+    def clear(self) -> None:
+        self.pairs.clear()
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a0.elapsed_time(b0) for a0, b0 in self.pairs]
+
+
+def _gs_epoch(mesh):
+    """The scaled model trained one epoch with its graph split over the
+    mesh (phase 23's epoch): returns (trainer, its counts, times,
+    collectives and peak memory)."""
     from image_generation_tpu_torch.config import TrainingConfig
-    from image_generation_tpu_torch.models.grbm import scaled_ising
-    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
-    from image_generation_tpu_torch.ops.gibbs import permuted_model
-    from image_generation_tpu_torch.ops.gibbs_graph_sharded import gibbs_sweeps_graph_sharded
-    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
     from image_generation_tpu_torch.training.trainer import Trainer
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", torch.cuda.current_device())
     cfg = TrainingConfig(**GS_SCALED)
     tr = Trainer(cfg, device=dev, mesh=mesh)
     tr.setup()
@@ -2593,6 +2647,39 @@ def _gs_scaled(mesh, model_dir: str) -> dict:
         "coupling_bytes": stored_bytes(cp), "n_batches": tr.n_batches, "sweeps": sweeps,
         "owned": owned_spans(plan, lo, hi),
     }
+    return tr, out
+
+
+def _gs_epoch_task(mesh, _arg) -> dict:
+    """Phase 31 (c) on one rank: phase 23's epoch, with K4's launches timed
+    by CUDA events and a digest of the replicated parameters."""
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded_cuda import SpanWindowUpdate
+    from image_generation_tpu_torch.parallel.dense import gather_large_dense
+
+    k4 = EventTimes()
+    call = SpanWindowUpdate.__call__
+    SpanWindowUpdate.__call__ = lambda self, *a, **kw: k4.around(call, self, *a, **kw)
+    tr, out = _gs_epoch(mesh)
+    out["k4_ms"] = k4.ms()
+    whole = gather_large_dense(tr.dvae)
+    out["replicated"] = _digest([whole, tr.grbm_params.linear, tr.grbm_params.quadratic])
+    return out
+
+
+def _gs_scaled(mesh, model_dir: str) -> dict:
+    """Phase 23 on one rank: the scaled model trained one epoch with its
+    graph split over the mesh, saved, sampled; the fed cross-check against
+    the single-device K3; two dense steps."""
+    from image_generation_tpu_torch.models.grbm import scaled_ising
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+    from image_generation_tpu_torch.ops.gibbs import permuted_model
+    from image_generation_tpu_torch.ops.gibbs_graph_sharded import gibbs_sweeps_graph_sharded
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    tr, out = _gs_epoch(mesh)
+    dev, cfg, plan, st = tr.device, tr.config, tr.plan, tr.state
+    cp, (lo, hi) = st.sampler_coupling, mesh.window(tr.plan.n_pad)
     reset_launch_counts()
     tr.save(model_dir)
     spins = tr.sample_spins(64)
@@ -2696,19 +2783,25 @@ def _gs_p32(mesh, graph) -> dict:
     return out
 
 
-def _spawn_ranks(task: str, task_arg, out_dir: Path) -> list:
-    """Run ``task`` on GS_RANKS processes on cuda:0 (gloo) and return each
-    rank's result; an exception in any rank fails the run."""
+def _free_port() -> int:
     import socket
-
-    import torch.multiprocessing as mp
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    mp.start_processes(_gs_rank, args=(GS_RANKS, port, str(out_dir), task, task_arg),
-                       nprocs=GS_RANKS, join=True, start_method="spawn")
-    return [json.loads((out_dir / f"{task}_{r}.json").read_text()) for r in range(GS_RANKS)]
+        return sock.getsockname()[1]
+
+
+def _spawn_ranks(task: str, task_arg, out_dir: Path, backend: str = "gloo",
+                 world: int = GS_RANKS) -> list:
+    """Run ``task`` on ``world`` processes (gloo on cuda:0, or NCCL one
+    card a rank) and return each rank's result; an exception in any rank
+    fails the run."""
+    import torch.multiprocessing as mp
+
+    sys.stdout.flush()
+    mp.start_processes(_gs_rank, args=(world, _free_port(), str(out_dir), task, task_arg,
+                                       backend), nprocs=world, join=True, start_method="spawn")
+    return [json.loads((out_dir / f"{task}_{r}.json").read_text()) for r in range(world)]
 
 
 def graph_sharded_phases(dev, card: str) -> dict:
@@ -3449,17 +3542,17 @@ def _timed_epoch_steps(trainer, epoch: int) -> list:
 
 
 def _mesh30_rank(rank: int, world: int, port: int, out_dir: str, backend: str,
-                 full: bool) -> None:
+                 full: bool, shapes=MESH30_MESHES) -> None:
     """One rank of phase 30: joins the world (gloo on cuda:0, or NCCL on
-    cuda:<rank>), builds the (2, 2) and (4, 1) meshes and trains the scaled
-    PT configuration one epoch on each (a); with ``full`` also saves the
-    model (c) and a native checkpoint (d) on (2, 2), trains on, resumes on
-    (2, 2) and (4, 1), takes one fed step on (4, 1) against one process
-    (b) and resolves the flagship's auto ladder on (2, 2) (e).  Writes
+    cuda:<rank>), builds the ``shapes`` meshes ((2, 2) and (4, 1) on 4
+    ranks) and trains the scaled PT configuration one epoch on each (a);
+    with ``full`` (4 ranks) also saves the model (c) and a native
+    checkpoint (d) on (2, 2), trains on, resumes on (2, 2) and (4, 1),
+    takes one fed step on (4, 1) against one process (b) and resolves the
+    flagship's auto ladder on (2, 2) (e).  Writes
     ``out_dir/rank_<rank>.json``."""
     import copy
     import gc
-    from datetime import timedelta
 
     import torch.distributed as dist
 
@@ -3474,21 +3567,18 @@ def _mesh30_rank(rank: int, world: int, port: int, out_dir: str, backend: str,
     from image_generation_tpu_torch.training.optim import optimizer_state_bytes
     from image_generation_tpu_torch.training.trainer import Trainer
 
-    nccl = backend == "nccl"
-    torch.cuda.set_device(rank if nccl else 0)
-    dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=world,
-                            rank=rank, timeout=timedelta(seconds=600))
+    dev = _init_rank(rank, world, port, backend, 600)
     plain: dict = {}
     _count_plain_on_card(plain)
     rows: list = []
+    k3_events = EventTimes()
     k3 = tstep.gibbs_sweeps_hbm_cuda
 
     def recorded(hp, coupling, plan, spins, *a, **kw):
         rows.append(int(spins.shape[0]))
-        return k3(hp, coupling, plan, spins, *a, **kw)
+        return k3_events.around(k3, hp, coupling, plan, spins, *a, **kw)
 
     work = Path(out_dir)
     cfg = TrainingConfig(**SCALED_MESH)
@@ -3502,6 +3592,7 @@ def _mesh30_rank(rank: int, world: int, port: int, out_dir: str, backend: str,
         reset_counts(gibbs_cuda, gibbs_hbm_cuda)
         plain.clear()
         rows.clear()
+        k3_events.clear()
 
     def payload(t):
         return native_ckpt.global_payload(t.state, t.fns,
@@ -3520,6 +3611,7 @@ def _mesh30_rank(rank: int, world: int, port: int, out_dir: str, backend: str,
         torch.cuda.reset_peak_memory_stats()
         comm0, calls0 = t.mesh.comm_seconds, t.mesh.comm_calls
         times = _timed_epoch_steps(t, 0)
+        comm_s = t.mesh.comm_seconds - comm0
         counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
         layer = t.dvae._decoder.increase_latent_dim
         whole = gather_large_dense(t.dvae)[DENSE_KEY]
@@ -3537,115 +3629,118 @@ def _mesh30_rank(rank: int, world: int, port: int, out_dir: str, backend: str,
             opt_bytes=optimizer_state_bytes(opt), peak_init=peak_init,
             peak=torch.cuda.max_memory_allocated(), losses=t.losses["dvae_losses"][-len(times):],
             steps_ms=[x * 1e3 for x in times], step_ms=float(np.median(times[1:])) * 1e3,
-            comm_s=t.mesh.comm_seconds - comm0, comm_calls=t.mesh.comm_calls - calls0,
+            comm_s=comm_s, comm_calls=t.mesh.comm_calls - calls0, k3_ms=k3_events.ms(),
             replicated=_digest([rep, t.grbm_params.linear, t.grbm_params.quadratic]),
             whole=_digest(whole))
 
     tstep.gibbs_sweeps_hbm_cuda = recorded
     try:
-        meshes = {f"{d}x{g}": create_mesh(shape=(d, g), backend=backend)
-                  for d, g in MESH30_MESHES}
+        meshes = {f"{d}x{g}": create_mesh(shape=(d, g), backend=backend) for d, g in shapes}
         out: dict = {"rank": rank}
+        if not full:  # (a) alone, on each mesh
+            for label, mesh in meshes.items():
+                t = Trainer(cfg, device=dev, mesh=mesh)
+                out[label] = scaled_epoch(t, 1)
+                del t
+                free()
+            (work / f"rank_{rank}.json").write_text(json.dumps(out))
+            next(iter(meshes.values())).barrier()
+            return
         # (a) on (2, 2), then (c) save, (d) a native checkpoint and the run on
         t = Trainer(cfg, device=dev, mesh=meshes["2x2"])
-        out["2x2"] = scaled_epoch(t, 2 if full else 1)
+        out["2x2"] = scaled_epoch(t, 2)
         graph, plan, images = t.graph, t.plan, t.images[:cfg.BATCH_SIZE].clone()
-        if full:
-            t.save(work / "model")
-            ck = t.save_native(work / "ck")
-            if rank == 0:
-                out["file"] = _state_digest(native_ckpt.load_payload(work / "ck",
-                                                                     map_location="cpu"))
-                out["file_bytes"] = ck.stat().st_size
-            reset()
-            t.train_epoch(1)
-            out["uninterrupted"] = dict(state=_state_digest(payload(t)), losses=t.losses)
-            del t
-            free()
-            r = Trainer(cfg, device=dev, mesh=meshes["2x2"])
-            reset()
-            t0 = time.perf_counter()
-            r.resume_native(work / "ck", 2)
-            restore_s = time.perf_counter() - t0
-            restored = _state_digest(payload(r))
-            ran: list = []
-            r.train(2, epoch_cb=lambda e, _s: ran.append(e))
-            out["resumed_2x2"] = dict(restored=restored, state=_state_digest(payload(r)),
-                                      losses=r.losses, epochs=ran, restore_s=restore_s,
-                                      counts=read_counts(gibbs_cuda, gibbs_hbm_cuda))
-            del r
-        else:
-            del t
+        t.save(work / "model")
+        ck = t.save_native(work / "ck")
+        if rank == 0:
+            out["file"] = _state_digest(native_ckpt.load_payload(work / "ck",
+                                                                 map_location="cpu"))
+            out["file_bytes"] = ck.stat().st_size
+        reset()
+        t.train_epoch(1)
+        out["uninterrupted"] = dict(state=_state_digest(payload(t)), losses=t.losses)
+        del t
+        free()
+        r = Trainer(cfg, device=dev, mesh=meshes["2x2"])
+        reset()
+        t0 = time.perf_counter()
+        r.resume_native(work / "ck", 2)
+        restore_s = time.perf_counter() - t0
+        restored = _state_digest(payload(r))
+        ran: list = []
+        r.train(2, epoch_cb=lambda e, _s: ran.append(e))
+        out["resumed_2x2"] = dict(restored=restored, state=_state_digest(payload(r)),
+                                  losses=r.losses, epochs=ran, restore_s=restore_s,
+                                  counts=read_counts(gibbs_cuda, gibbs_hbm_cuda))
+        del r
         free()
         # (a) on (4, 1), and (d) the (2, 2) checkpoint restored over its state
         t = Trainer(cfg, device=dev, mesh=meshes["4x1"])
-        out["4x1"] = scaled_epoch(t, 2 if full else 1)
-        if full:
-            t.resume_native(work / "ck", 2)
-            out["restored_4x1"] = _state_digest(payload(t))
+        out["4x1"] = scaled_epoch(t, 2)
+        t.resume_native(work / "ck", 2)
+        out["restored_4x1"] = _state_digest(payload(t))
         del t
         free()
-        if full:
-            # (b) one fed step on (4, 1) against the same step in one process
-            mesh = meshes["4x1"]
-            fns_m = tstep.make_train_fns(cfg, graph, 10, plan, device=dev, mesh=mesh)
-            dvae = fns_m.new_dvae()
-            tstep._flax_init_(dvae, torch.Generator().manual_seed(30))
-            grbm = graph.init_params(gen(30), device=dev)
-            chains = fns_m.new_chains(gen(31))
-            g = gen(32)
-            t_dim, c_dim = cfg.PT_NUM_BETAS, cfg.NUM_READS
-            sw = (cfg.GIBBS_SWEEPS, t_dim * c_dim, plan.n_pad)
+        # (b) one fed step on (4, 1) against the same step in one process
+        mesh = meshes["4x1"]
+        fns_m = tstep.make_train_fns(cfg, graph, 10, plan, device=dev, mesh=mesh)
+        dvae = fns_m.new_dvae()
+        tstep._flax_init_(dvae, torch.Generator().manual_seed(30))
+        grbm = graph.init_params(gen(30), device=dev)
+        chains = fns_m.new_chains(gen(31))
+        g = gen(32)
+        t_dim, c_dim = cfg.PT_NUM_BETAS, cfg.NUM_READS
+        sw = (cfg.GIBBS_SWEEPS, t_dim * c_dim, plan.n_pad)
 
-            def swaps():
-                return tuple(torch.rand((t_dim - 1, c_dim), generator=g, device=dev)
-                             for _ in range(2))
+        def swaps():
+            return tuple(torch.rand((t_dim - 1, c_dim), generator=g, device=dev)
+                         for _ in range(2))
 
-            feed = tstep.StepFeed(
-                sweeps1=torch.rand(sw, generator=g, device=dev), swaps1=swaps(),
-                sweeps2=torch.rand(sw, generator=g, device=dev), swaps2=swaps(),
-                spin_uniforms=torch.rand((cfg.BATCH_SIZE, cfg.N_REPLICAS, cfg.N_LATENTS),
-                                         generator=g, device=dev),
-                dropout_masks=draw_dropout_masks(cfg.BATCH_SIZE * cfg.N_REPLICAS, g, dev))
-            st_m = fns_m.state_from(copy.deepcopy(dvae), GRBMParams(grbm.linear.clone(),
-                                                                    grbm.quadratic.clone()),
-                                    chains, gen(33), burn_in=False)
-            reset()
-            mm = fns_m.step_body(st_m, images, 0, feed)
-            fed_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
-            sd_m = gather_large_dense(st_m.dvae)
-            chains_m = fns_m.unlocal(st_m.chains)
-            out["fed_counts"] = fed_counts
-            out["fed_rows"] = sorted(set(rows))
-            if rank == 0:
-                fns_1 = tstep.make_train_fns(cfg, graph, 10, plan, device=dev)
-                st_1 = fns_1.state_from(dvae, grbm, chains, gen(33), burn_in=False)
-                m1 = fns_1.step_body(st_1, images, 0, feed)
-                sd_1 = st_1.dvae.state_dict()
-                out["fed_step"] = dict(
-                    mse=[float(mm.mse), float(m1.mse)],
-                    loss=[float(mm.dvae_loss), float(m1.dvae_loss)],
-                    nll=[float(mm.nll), float(m1.nll)],
-                    spins_differing=float((chains_m != st_1.chains).float().mean()),
-                    params_max_abs=max(float((sd_m[k].float() - v.float()).abs().max())
-                                       for k, v in sd_1.items() if v.is_floating_point()),
-                    layer_max_abs=float((sd_m[DENSE_KEY] - sd_1[DENSE_KEY]).abs().max()),
-                    grbm_max_abs=float((st_m.grbm_params.quadratic
-                                        - st_1.grbm_params.quadratic).abs().max()))
-                del st_1, fns_1, sd_1
-            del st_m, sd_m, dvae, chains_m, feed
-            free()
-            mesh.barrier()
-            # (e) the flagship's auto ladder on (2, 2)
-            reset()
-            a = Trainer(TrainingConfig(SAMPLER="pt", PT_NUM_BETAS="auto"), device=dev,
-                        mesh=meshes["2x2"])
-            a.train_init(1)
-            out["auto"] = dict(counts=read_counts(gibbs_cuda, gibbs_hbm_cuda),
-                               betas=list(a.config.PT_BETAS), info=a.pt_auto_info,
-                               chains=list(a.state.chains.shape), plain=dict(plain))
-            del a
-            free()
+        feed = tstep.StepFeed(
+            sweeps1=torch.rand(sw, generator=g, device=dev), swaps1=swaps(),
+            sweeps2=torch.rand(sw, generator=g, device=dev), swaps2=swaps(),
+            spin_uniforms=torch.rand((cfg.BATCH_SIZE, cfg.N_REPLICAS, cfg.N_LATENTS),
+                                     generator=g, device=dev),
+            dropout_masks=draw_dropout_masks(cfg.BATCH_SIZE * cfg.N_REPLICAS, g, dev))
+        st_m = fns_m.state_from(copy.deepcopy(dvae), GRBMParams(grbm.linear.clone(),
+                                                                grbm.quadratic.clone()),
+                                chains, gen(33), burn_in=False)
+        reset()
+        mm = fns_m.step_body(st_m, images, 0, feed)
+        fed_counts = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        sd_m = gather_large_dense(st_m.dvae)
+        chains_m = fns_m.unlocal(st_m.chains)
+        out["fed_counts"] = fed_counts
+        out["fed_rows"] = sorted(set(rows))
+        if rank == 0:
+            fns_1 = tstep.make_train_fns(cfg, graph, 10, plan, device=dev)
+            st_1 = fns_1.state_from(dvae, grbm, chains, gen(33), burn_in=False)
+            m1 = fns_1.step_body(st_1, images, 0, feed)
+            sd_1 = st_1.dvae.state_dict()
+            out["fed_step"] = dict(
+                mse=[float(mm.mse), float(m1.mse)],
+                loss=[float(mm.dvae_loss), float(m1.dvae_loss)],
+                nll=[float(mm.nll), float(m1.nll)],
+                spins_differing=float((chains_m != st_1.chains).float().mean()),
+                params_max_abs=max(float((sd_m[k].float() - v.float()).abs().max())
+                                   for k, v in sd_1.items() if v.is_floating_point()),
+                layer_max_abs=float((sd_m[DENSE_KEY] - sd_1[DENSE_KEY]).abs().max()),
+                grbm_max_abs=float((st_m.grbm_params.quadratic
+                                    - st_1.grbm_params.quadratic).abs().max()))
+            del st_1, fns_1, sd_1
+        del st_m, sd_m, dvae, chains_m, feed
+        free()
+        mesh.barrier()
+        # (e) the flagship's auto ladder on (2, 2)
+        reset()
+        a = Trainer(TrainingConfig(SAMPLER="pt", PT_NUM_BETAS="auto"), device=dev,
+                    mesh=meshes["2x2"])
+        a.train_init(1)
+        out["auto"] = dict(counts=read_counts(gibbs_cuda, gibbs_hbm_cuda),
+                           betas=list(a.config.PT_BETAS), info=a.pt_auto_info,
+                           chains=list(a.state.chains.shape), plain=dict(plain))
+        del a
+        free()
         (work / f"rank_{rank}.json").write_text(json.dumps(out))
         meshes["2x2"].barrier()
     finally:
@@ -3653,29 +3748,29 @@ def _mesh30_rank(rank: int, world: int, port: int, out_dir: str, backend: str,
         dist.destroy_process_group()
 
 
-def _spawn_mesh30(work: Path, backend: str, full: bool) -> list:
-    """Phase 30's four ranks as spawned processes; returns their results."""
-    import socket
-
+def _spawn_mesh30(work: Path, backend: str, full: bool, shapes=MESH30_MESHES) -> list:
+    """Phase 30's ranks (as many as each of ``shapes`` holds) as spawned
+    processes; returns their results."""
     import torch.multiprocessing as mp
 
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+    world = shapes[0][0] * shapes[0][1]
     sys.stdout.flush()
-    mp.start_processes(_mesh30_rank, args=(MESH30_RANKS, port, str(work), backend, full),
-                       nprocs=MESH30_RANKS, join=True, start_method="spawn")
-    return [json.loads((work / f"rank_{r}.json").read_text()) for r in range(MESH30_RANKS)]
+    mp.start_processes(_mesh30_rank, args=(world, _free_port(), str(work), backend, full,
+                                           shapes), nprocs=world, join=True,
+                       start_method="spawn")
+    return [json.loads((work / f"rank_{r}.json").read_text()) for r in range(world)]
 
 
-def _check_mesh_epochs(ranks: list, card: str, tag: str) -> dict:
+def _check_mesh_epochs(ranks: list, card: str, tag: str, shapes=MESH30_MESHES) -> dict:
     """(a) on each mesh: per rank the sharded layer's bytes, the optimizer
     state, peak memory, K3 launches and rows, step median and collectives;
     fails unless losses are equal, the replicated parameters and the
     gathered layer bit-equal on every rank, and no plain sweep ran on the
     card.  Returns each mesh's summed launch counts."""
     paths = {}
-    for label in ("2x2", "4x1"):
+    world = len(ranks)
+    rows = SCALED["PT_NUM_BETAS"] * SCALED["NUM_READS"] // world  # the ladder's, a rank
+    for label in (f"{d}x{g}" for d, g in shapes):
         r0 = ranks[0][label]
         for r, res in enumerate(ranks):
             x = res[label]
@@ -3685,22 +3780,28 @@ def _check_mesh_epochs(ranks: list, card: str, tag: str) -> dict:
                   f"{x['whole_bytes'] / 1e6:.3f} MB whole, its moments {x['moments']}; DVAE "
                   f"optimizer state {x['opt_bytes'] / 1e6:.3f} MB; peak device memory "
                   f"{x['peak'] / 2**30:.3f} GiB in the epoch ({x['peak_init'] / 2**30:.3f} "
-                  f"through train_init); launches {x['counts']} on rows {x['rows']}; plain sweeps "
+                  f"through train_init); launches {x['counts']} on rows {x['rows']}, K3 "
+                  f"{np.median(x['k3_ms']):.4f} ms a launch (median of {len(x['k3_ms'])}, CUDA "
+                  f"events); plain sweeps "
                   f"on the card {x['plain']}; steps {[round(v, 3) for v in x['steps_ms']]} ms, "
                   f"median of steps 2-{len(x['steps_ms'])} {x['step_ms']:.3f} ms; collectives "
-                  f"{x['comm_s']:.3f} s in {x['comm_calls']} calls; losses "
+                  f"{x['comm_s']:.3f} s in {x['comm_calls']} calls "
+                  f"({'CUDA events' if x['backend'] == 'nccl' else 'host clock'}), "
+                  f"{x['comm_s'] / (sum(x['steps_ms']) / 1e3):.1%} of the epoch; losses "
                   f"{[round(v, 6) for v in x['losses']]}  [{card}]", flush=True)
             check(x["mesh"] == [int(v) for v in label.split("x")],
                   f"[{tag}] rank {r} trained on mesh {x['mesh']}")
             check(x["impl"] == "cuda_hbm_sharded+bs", f"[{tag}] {label} rank {r}: {x['impl']}")
-            check(x["layer"] == "ColumnShardedLinear" and x["layer_shape"] == [5640, 5640]
-                  and 4 * x["layer_bytes"] == x["whole_bytes"],
-                  f"[{tag}] {label} rank {r}: the dense layer is not a quarter a rank")
-            check(all(v[0] == 5640 for v in x["moments"].values() if len(v) == 2),
+            out_rows = 4 * SCALED["N_LATENTS"] // world  # the layer's, a rank
+            check(x["layer"] == "ColumnShardedLinear"
+                  and x["layer_shape"] == [out_rows, SCALED["N_LATENTS"]]
+                  and world * x["layer_bytes"] == x["whole_bytes"],
+                  f"[{tag}] {label} rank {r}: the dense layer is not 1/{world} a rank")
+            check(all(v[0] == out_rows for v in x["moments"].values() if len(v) == 2),
                   f"[{tag}] {label} rank {r}: the moments are not the rank's rows")
-            check(x["counts"] == {"K3-bf16": 1, "K3-bf16-dE": 5} and x["rows"] == [512],
+            check(x["counts"] == {"K3-bf16": 1, "K3-bf16-dE": 5} and x["rows"] == [rows],
                   f"[{tag}] {label} rank {r}: {x['counts']} on rows {x['rows']}, not K3-bf16 1 "
-                  "+ K3-bf16-dE 5 on 512 rows")
+                  f"+ K3-bf16-dE 5 on {rows} rows")
             check(not x["plain"], f"[{tag}] {label} rank {r}: a plain sweep ran on the card")
             check(bool(np.isfinite(x["losses"]).all()) and x["losses"] == r0["losses"],
                   f"[{tag}] {label}: the losses differ across ranks")
@@ -3834,22 +3935,224 @@ def scaled_mesh_phase(card: str) -> dict:
         check(all(x["device"].startswith("cuda") for x in report["ranks"])
               and dry_counts.get("K1-f32", 0) > 0 and dry_counts.get("K4", 0) > 0,
               f"[30f] the dry run did not run K1 and K4 on the card: {dry_counts}")
-        # (g) NCCL, one card a rank
-        cards = torch.cuda.device_count()
-        if cards >= MESH30_RANKS:
-            nccl_dir = work / "nccl"
-            nccl_dir.mkdir()
-            t0 = time.perf_counter()
-            nranks = _spawn_mesh30(nccl_dir, "nccl", False)
-            print(f"[30g] nccl, {MESH30_RANKS} processes on cuda:0-{MESH30_RANKS - 1}, in "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
-            paths.update(_check_mesh_epochs(nranks, card, "30g"))
-        else:
-            print(f"[30g] nccl: not run ({cards} card{'s' if cards > 1 else ''})", flush=True)
         return {"paths": paths, "ranks": ranks}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 31: training on a launched world, one card a rank over NCCL
+NCCL_MESHES = {2: ((2, 1),), 4: ((2, 2), (4, 1))}  # phase 30 (a)'s meshes by card count
+LAUNCH_ARGS = ["train", "--name", "flag", "--epochs", "1", "--progress-chunks", "32"] + CLI_DATA
+# K1-f32 launches of phase 27's ``train`` a rank, which ``--phase 31`` runs
+# without (the full run reads it from phase 27)
+CLI_TRAIN_K1 = 38
+
+
+def cli_rank(out_dir: str, argv: list) -> int:
+    """One rank of phase 31's CLI under the launcher (``python -m
+    torch.distributed.run ... chip_smoke.py --cli-rank OUT_DIR <cli args>``):
+    ``cli.main(<cli args>)``, the entry ``-m image_generation_tpu_torch.app.cli``
+    runs, with the launch counters, a clock at every step (the CLI's
+    batch callback to ``Trainer.train``, one a step with ``--progress-chunks``
+    the steps of an epoch) and the world ``init_world`` started recorded; writes
+    ``OUT_DIR/rank_<rank>.json``."""
+    import torch.distributed as dist
+
+    from image_generation_tpu_torch.app import cli
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.parallel import mesh as pmesh
+    from image_generation_tpu_torch.training.trainer import Trainer
+
+    world, clock, epoch = {}, [], {}
+    init_world, train, train_epoch = pmesh.init_world, Trainer.train, Trainer.train_epoch
+
+    def recorded_world(device="cuda"):
+        dev = init_world(device)
+        world.update(backend=dist.get_backend(), size=dist.get_world_size(),
+                     rank=dist.get_rank(), device=str(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        return dev
+
+    def timed_train(self, *a, batch_cb=None, **kw):
+        def cb(*x):
+            torch.cuda.synchronize()
+            clock.append(time.perf_counter())
+            batch_cb(*x)
+        return train(self, *a, batch_cb=cb, **kw)
+
+    def recorded_epoch(self, *a, **kw):
+        m = self.mesh
+        comm0, calls0 = (m.comm_seconds, m.comm_calls) if m else (0.0, 0)
+        torch.cuda.synchronize()
+        clock.append(time.perf_counter())
+        out = train_epoch(self, *a, **kw)
+        epoch.update(comm_s=m.comm_seconds - comm0 if m else 0.0,
+                     comm_calls=m.comm_calls - calls0 if m else 0)
+        return out
+
+    pmesh.init_world, Trainer.train, Trainer.train_epoch = (recorded_world, timed_train,
+                                                            recorded_epoch)
+    plain: dict = {}
+    _count_plain_on_card(plain)
+    reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+    t = cli.main(argv)
+    steps = np.diff(clock) * 1e3
+    whole = t.dvae.state_dict()  # the flagship's dense layer is not sharded
+    Path(out_dir, f"rank_{world.get('rank', 0)}.json").write_text(json.dumps(dict(
+        world=world, device=str(t.device), current=torch.cuda.current_device(),
+        mesh=list(t.mesh.shape) if t.mesh else None, impl=t.fns.sampler_impl,
+        counts=read_counts(gibbs_cuda, gibbs_hbm_cuda), plain=plain, losses=t.losses,
+        replicated=_digest([whole, t.grbm_params.linear, t.grbm_params.quadratic]),
+        steps_ms=steps.tolist(), step_ms=float(np.median(steps[1:])),
+        peak=torch.cuda.max_memory_allocated(t.device), **epoch)))
+    return 0
+
+
+def launcher_phase(card: str, nproc: int, expect: int, tag: str) -> dict:
+    """Phase 31 (a) / (d): ``train --epochs 1`` at the flagship's defaults
+    (``--dataset-size 4096``) under ``python -m torch.distributed.run
+    --nproc-per-node nproc``, ``--mesh auto``: every rank on its own card
+    in an NCCL world of ``nproc``, K1-f32 launched ``expect`` times a rank
+    (phase 27's ``train``), the ranks' losses and parameters equal, the
+    workdir's files written once.  Returns the summed launch counts."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_launch_"))
+    try:
+        out = work / "ranks"
+        out.mkdir()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+               "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+               str(ROOT / "chip_smoke.py"), "--cli-rank", str(out),
+               "--workdir", str(work / "w"), *LAUNCH_ARGS]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-6000:], flush=True)
+        check(proc.returncode == 0, f"[{tag}] the launched CLI exited {proc.returncode}")
+        ranks = [json.loads((out / f"rank_{r}.json").read_text()) for r in range(nproc)]
+        w = work / "w"
+        missing = [f for f in CLI_COMMANDS[0][2] if not (w / f).is_file()]
+        metrics = (w / "generated_json" / "metrics.jsonl").read_text().splitlines()
+        models = sorted(p.name for p in (w / "models").iterdir())
+        said = [proc.stdout.count(x) for x in ("training: ", "epoch 1/1:", "saved: ")]
+        print(f"[{tag}] {' '.join(LAUNCH_ARGS)} under torch.distributed.run --nproc-per-node "
+              f"{nproc}: exit {proc.returncode} in {secs:.1f} s host; files {len(metrics)} "
+              f"metrics record(s), models {models}, banner / epoch / saved lines {said}",
+              flush=True)
+        check(not missing, f"[{tag}] missing {missing}")
+        check(len(metrics) == 1 and models == ["flag"] and said == [1, 1, 1],
+              f"[{tag}] the workdir's files or the progress were not written once")
+        r0 = ranks[0]
+        for r, x in enumerate(ranks):
+            print(f"[{tag}] rank {r}: world {x['world']}, device {x['device']} (current "
+                  f"{x['current']}), mesh {x['mesh']}, {x['impl']}; launches {x['counts']}; plain "
+                  f"sweeps on the card {x['plain']}; step median {x['step_ms']:.3f} ms (steps "
+                  f"2-{len(x['steps_ms'])}); collectives {x.get('comm_s', 0.0):.4f} s in "
+                  f"{x.get('comm_calls', 0)} calls (CUDA events), "
+                  f"{x.get('comm_s', 0.0) / (sum(x['steps_ms']) / 1e3):.1%} of the epoch; peak "
+                  f"memory {x['peak'] / 2**30:.3f} GiB  [{card}]", flush=True)
+            check(x["world"] == dict(backend="nccl", size=nproc, rank=r, device=f"cuda:{r}")
+                  and x["device"] == f"cuda:{r}" and x["current"] == r,
+                  f"[{tag}] rank {r} did not run on cuda:{r} in an NCCL world of {nproc}")
+            check(x["counts"] == {"K1-f32": expect},
+                  f"[{tag}] rank {r}: launches {x['counts']}, not K1-f32 x {expect}")
+            check(not x["plain"], f"[{tag}] rank {r}: a plain sweep ran on the card")
+            check(bool(np.isfinite(x["losses"]["dvae_losses"]).all())
+                  and x["losses"] == r0["losses"] and x["replicated"] == r0["replicated"],
+                  f"[{tag}] rank {r}: the losses or parameters differ across ranks")
+        return _sum_counts([x["counts"] for x in ranks])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def multi_card_phase(card: str, expect: int) -> dict:
+    """Phase 31 (b)-(d), one card a rank over NCCL on every card there is
+    (2, or 4 when there are 4): (b) phase 30 (a) on each mesh of
+    ``NCCL_MESHES``, (c) phase 23's graph-sharded epoch on (1, cards), (d)
+    the CLI under the launcher.  Returns the launch counts of each path."""
+    from image_generation_tpu_torch.config import TrainingConfig
+    from image_generation_tpu_torch.ops.gibbs import build_plan
+    from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[31b-d] not run ({cards} card{'s' if cards != 1 else ''})", flush=True)
+        return {}
+    world = 4 if cards >= 4 else 2
+    shapes = NCCL_MESHES[world]
+    graph, _ = cached_latent_graph(SCALED["QPU"], SCALED["N_LATENTS"],
+                                   TrainingConfig().RANDOM_SEED)
+    plan = build_plan(graph)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    try:
+        t0 = time.perf_counter()
+        ranks = _spawn_mesh30(work, "nccl", False, shapes)
+        print(f"[31b] nccl, {world} processes on cuda:0-{world - 1}, in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        paths = _check_mesh_epochs(ranks, card, "31b", shapes)
+        t0 = time.perf_counter()
+        res = _spawn_ranks("epoch", None, work, "nccl", world)
+        print(f"[31c] nccl, {world} processes on cuda:0-{world - 1}, mesh (1, {world}), in "
+              f"{time.perf_counter() - t0:.1f} s: {res[0]['impl']}, chains {res[0]['chains']} "
+              f"a rank; coupling {res[0]['coupling']}", flush=True)
+        l_loc = plan.n_pad // world
+        for r, x in enumerate(res):
+            steps = np.array(x["step_s"]) * 1e3
+            print(f"[31c] rank {r}: window {x['window']}; losses {x['losses']}; launches "
+                  f"{x['counts']} ({x['sweeps']} sweeps x {len(x['owned'])} owned spans), K4 "
+                  f"{np.median(x['k4_ms']) * 1e3:.2f} us a launch (median of {len(x['k4_ms'])}, "
+                  f"CUDA events); step "
+                  f"times (ms) {', '.join(f'{v:.3f}' for v in steps)}, median of steps 2-"
+                  f"{len(steps)} {float(np.median(steps[1:])):.3f} ms; collectives "
+                  f"{x['comm_calls']} calls, {x['comm_s']:.3f} s (CUDA events) of the "
+                  f"{x['epoch_s']:.3f} s epoch ({x['comm_s'] / x['epoch_s']:.1%}); peak memory "
+                  f"{x['peak_gib']:.3f} GiB  [{card}]", flush=True)
+            check(x["impl"] == "torch_graph_sharded+plrng+bs",
+                  f"[31c] rank {r}: sampler {x['impl']}")
+            check(x["window"] == [r * l_loc, (r + 1) * l_loc] and x["chains"][-1] == l_loc,
+                  f"[31c] rank {r}: window {x['window']}, chains {x['chains']}")
+            check(len(x["losses"]) == x["n_batches"] and bool(np.isfinite(x["losses"]).all())
+                  and x["losses"] == res[0]["losses"] and x["mse"] == res[0]["mse"],
+                  "[31c] the ranks' losses differ or are not finite")
+            check(x["replicated"] == res[0]["replicated"],
+                  "[31c] the parameters differ across ranks")
+            check(x["counts"].get("K4", 0) == x["sweeps"] * len(x["owned"]) > 0
+                  and not any(k.startswith(("K1", "K2", "K3")) for k in x["counts"]),
+                  f"[31c] rank {r}: launches {x['counts']}, not K4 once a (sweep, owned span)")
+        paths[f"train_scaled_sharded_nccl_{world}"] = _sum_counts([x["counts"] for x in res])
+        paths[f"cli_launcher_{world}"] = launcher_phase(card, world, expect, "31d")
+        return paths
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase31_main() -> int:
+    """``python3 chip_smoke.py --phase 31``: phase 31 alone, for a machine
+    with several cards.  The kernels are built once, then (a) runs on one
+    card and (b)-(d) on every card, K1-f32 expected ``CLI_TRAIN_K1`` times
+    a rank.  The last line is ``{"ok": true, ...}``; any failure raises."""
+    from image_generation_tpu_torch.ops.cuda_build import load_libraries
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"[31] card: {card}; devices {torch.cuda.device_count()}", flush=True)
+    load_libraries()
+    paths = {"cli_launcher_1": launcher_phase(card, 1, CLI_TRAIN_K1, "31a"),
+             **multi_card_phase(card, CLI_TRAIN_K1)}
+    print(card)
+    print(json.dumps({"paths": paths}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:] == ["--phase", "31"]:
+        sys.exit(phase31_main())
     sys.exit(main())

@@ -23,20 +23,33 @@ feedback-optimizes the parallel-tempering ladder for a model's GRBM
 (``ops/pt_tune.py``) and writes ``<model>/pt_betas.json``; every command
 accepts ``--pt-betas <json|comma list>`` (implies ``--sampler pt``).
 
-``--mesh``: 'auto' (the default) uses the initialised ``torch.distributed``
-world (one device when there is none), 'off' one device, a count ('4')
-the JAX default shape over an initialised world of that many ranks, and
-RxG ('2x2', '1x4') the explicit (data × graph) layout; every rank of the
-world runs the same command.  Any config trains on any of them, the
-scaled one too (its outsized dense layer is column-sharded over the
-mesh, ``parallel/dense.py``).  ``--params`` reads a YAML file and needs
-PyYAML.
+Several cards: start the command under the launcher, one process a card,
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m image_generation_tpu_torch.app.cli train --name m --mesh 2x2
+
+and ``main`` starts each rank's world from the launcher's environment
+(``parallel.mesh.init_world``: NCCL, rank bound to card ``LOCAL_RANK``;
+gloo under ``--platform cpu``).  Every rank runs the same command and the
+same steps; rank 0 alone writes the workdir's files (the figures,
+``problem_details.json``, the metrics log, the model directory, a
+``--profile`` trace) and prints progress.
+
+``--mesh``: 'auto' (the default) uses the world (the launcher's, in the
+JAX default shape; one device without a launcher or on a world of one),
+'off' one device, a count ('4') the JAX default shape over a world of
+that many ranks, and RxG ('2x2', '1x4') the explicit (data × graph)
+layout.  Any config trains on any of them, the scaled one too (its
+outsized dense layer is column-sharded over the mesh,
+``parallel/dense.py``).  ``--params`` reads a YAML file and needs PyYAML.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -98,7 +111,7 @@ def _build_trainer(args, for_load: bool = False, serving_model_dir=None):
         # the generation surface: at-scale checkpoints default to the int8
         # sampler, as warm serving resolves them
         cfg = cfg.for_serving_dir(serving_model_dir)
-    return Trainer(config=cfg, device=_device(args),
+    return Trainer(config=cfg, device=getattr(args, "device", None) or _device(args),
                    mesh=parse_mesh(getattr(args, "mesh", "auto")))
 
 
@@ -163,6 +176,20 @@ def parse_mesh(spec):
         raise SystemExit(f"--mesh {spec}: {e}")
 
 
+def _writes(args) -> bool:
+    """Whether this process writes files: True but on a launched rank
+    other than 0 (``main``), which runs the same steps and writes nothing."""
+    return getattr(args, "writes", True)
+
+
+def _run_files(args):
+    """The workdir's ``RunFiles``; its writers no-ops where this process
+    does not write (``UnwrittenRunFiles``)."""
+    from image_generation_tpu_torch.app.files import RunFiles, UnwrittenRunFiles
+
+    return (RunFiles if _writes(args) else UnwrittenRunFiles)(args.workdir)
+
+
 def _write_details(trainer, files, epoch=None, n_epochs=None, mse=None, stats=None):
     """problem_details.json with the reference's display headers (QPU /
     Epoch / Batch Size / Latents / both learning rates / the current MSE)
@@ -198,9 +225,7 @@ def _write_details(trainer, files, epoch=None, n_epochs=None, mse=None, stats=No
 
 
 def _attach_files(trainer, args):
-    from image_generation_tpu_torch.app.files import RunFiles
-
-    files = RunFiles(args.workdir)
+    files = _run_files(args)
     files.clean()
     _write_details(trainer, files)
     return files
@@ -216,7 +241,7 @@ def _write_diagram_assets(trainer, files, gen):
     files.write_latent_qpu(gen["latents"][0])
     if ui_config.GENERATE_NEW_MODEL_DIAGRAM:
         example = trainer.images[ui_config.EXAMPLE_IMAGE_INDEX]
-        generate_model_diagram(trainer, example, files.root / "assets" / "model_diagram")
+        generate_model_diagram(trainer, example, files.diagram_dir)
 
 
 def _print_epoch(e, n_epochs, stats):
@@ -235,12 +260,10 @@ def _epoch_artifacts(trainer, files, epoch, stats, n_epochs):
 
 
 def cmd_train(args):
-    from image_generation_tpu_torch.training.observability import MetricsLog
-
     trainer = _build_trainer(args)
     trainer.train_init(args.epochs)
     files = _attach_files(trainer, args)
-    metrics = MetricsLog(Path(args.workdir) / "generated_json" / "metrics.jsonl")
+    metrics = files.metrics_log()
     print(
         f"training: qpu={trainer.qpu} latents={trainer.n_latents} "
         f"edges={trainer.graph.n_edges} data={trainer.data_source.origin} "
@@ -270,6 +293,7 @@ def cmd_train(args):
     out = Path(args.workdir) / "models" / args.name
     trainer.save(out, n_epochs=args.epochs)
     print(f"saved: {out}")
+    return trainer
 
 
 def _model_path(args) -> Path:
@@ -295,6 +319,7 @@ def cmd_generate(args):
                       trainer.losses["mse_losses"], trainer.losses["dvae_losses"])
     print(f"generated {gen['images'].shape[0]} images → "
           f"{files.dir / 'generated_epoch_0.json'}")
+    return trainer
 
 
 def cmd_refresh(args):
@@ -302,15 +327,15 @@ def cmd_refresh(args):
     training or generation job (the reference's on-model-switch refresh)."""
     from image_generation_tpu_torch.app import ui_config
     from image_generation_tpu_torch.app.diagram import generate_model_diagram
-    from image_generation_tpu_torch.app.files import RunFiles
 
     trainer = _build_trainer(args, for_load=True)
     trainer.load(_model_path(args))
-    files = RunFiles(args.workdir)  # no clean(): keep prior epoch figures
+    files = _run_files(args)  # no clean(): keep prior epoch figures
     example = trainer.images[ui_config.EXAMPLE_IMAGE_INDEX]
-    out = generate_model_diagram(trainer, example, Path(args.workdir) / "assets" / "model_diagram")
+    out = generate_model_diagram(trainer, example, files.diagram_dir)
     _write_details(trainer, files)
     print(f"refreshed model diagram for {args.model}: {sorted(out)}")
+    return trainer
 
 
 def cmd_tune(args):
@@ -333,6 +358,7 @@ def cmd_tune(args):
     trainer.save(out, n_epochs=old_params.get("n_epochs", 0) + args.epochs,
                  old_losses=old_losses)
     print(f"saved: {out}")
+    return trainer
 
 
 def tune_ladder(trainer, seed: int = 0, n_iters: int = 3, n_chains: int = 256,
@@ -371,6 +397,8 @@ def cmd_tune_pt(args):
     model_dir = _model_path(args)
     trainer.load(model_dir)
     tuned, diag0, diag1 = tune_ladder(trainer, args.seed, args.iters, args.chains, verbose=True)
+    if not _writes(args):
+        return trainer
     out_path = model_dir / "pt_betas.json"
     out_path.write_text(json.dumps({
         "betas": [float(b) for b in tuned],
@@ -383,6 +411,7 @@ def cmd_tune_pt(args):
     ladder = ",".join(f"{b:.5g}" for b in tuned)
     print(f"saved: {out_path}")
     print(f"use with: --pt-betas {out_path}  (or --pt-betas {ladder})")
+    return trainer
 
 
 def cmd_models(args):
@@ -554,11 +583,35 @@ def parse_serving_args(extra_cli):
 
 
 def main(argv=None):
+    """Run one command; returns what it returns (the trainer, where it
+    builds one).  Under a launcher (``python -m torch.distributed.run``)
+    this process's world is started first (``parallel.mesh.init_world``)
+    and ended after the command.  Rank 0 alone writes files and prints:
+    a rank above it runs the same command and steps with its writers
+    no-ops (``_run_files``), no ``--profile`` trace and its stdout dropped."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    rank = None
+    if hasattr(args, "platform"):  # every command that builds a trainer
+        import torch.distributed as dist
+
+        from image_generation_tpu_torch.parallel.mesh import init_world
+
+        args.device = init_world(_device(args))
+        rank = None if args.device is None else dist.get_rank()
+    if rank:
+        args.writes, args.profile = False, None
     t0 = time.perf_counter()
-    args.fn(args)
-    print(f"done in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+    try:
+        with open(os.devnull, "w") if rank else contextlib.nullcontext() as quiet, \
+                contextlib.redirect_stdout(quiet or sys.stdout):
+            out = args.fn(args)
+    finally:
+        if rank is not None:
+            dist.destroy_process_group()
+    if not rank:
+        print(f"done in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+    return out
 
 
 if __name__ == "__main__":

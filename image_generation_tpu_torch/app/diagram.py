@@ -80,16 +80,15 @@ def generate_model_diagram(trainer, example_image, out_dir="assets/model_diagram
     """Run the example through the pipeline stages and write the assets.
 
     Returns the asset paths.  ``example_image``: (H, W, 1) in [0, 1], a
-    tensor or an array."""
-    out_dir = Path(out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    tensor or an array.  ``out_dir`` None: the pass runs (its draw from
+    the trainer's seed stream, and on a mesh its collectives, as on the
+    rank that writes) and nothing is written; returns {}."""
+    from image_generation_tpu_torch.parallel.dense import ColumnShardedLinear
+
     dvae = trainer.dvae.eval()
     x = torch.as_tensor(np.asarray(example_image.cpu() if hasattr(example_image, "cpu")
                                    else example_image), dtype=torch.float32,
                         device=trainer.device)[None]  # (1, H, W, 1)
-
-    save_png(x[0].cpu().numpy(), out_dir / "step_1_input.png")
-
     with torch.inference_mode():
         logits, spins, recon = dvae(x, 1, trainer._next_generator())
         n = trainer.n_latents
@@ -98,10 +97,17 @@ def generate_model_diagram(trainer, example_image, out_dir="assets/model_diagram
         latent_img = np.zeros((side * side,), np.float32)
         latent_img[:n] = torch.sigmoid(2.0 * logits[0]).cpu().numpy()
         s0 = spins[0, 0]
-        # the decoder's first stage: its 2×2 feature map per latent
+        # the decoder's first stage: its 2×2 feature map per latent (a
+        # column-sharded layer's weight gathered whole first)
         lin = dvae._decoder.increase_latent_dim
-        feat = (s0 @ lin.weight.T.float() + lin.bias.float()).cpu().numpy()
+        weight = lin.shard.gather(lin.weight) if isinstance(lin, ColumnShardedLinear) else lin.weight
+        feat = (s0 @ weight.T.float() + lin.bias.float()).cpu().numpy()
         out = torch.clamp(recon[0, 0], 0, 1).cpu().numpy()
+    if out_dir is None:
+        return {}
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    save_png(x[0].cpu().numpy(), out_dir / "step_1_input.png")
     save_png(latent_img.reshape(side, side), out_dir / "step_2_encode.png")
     with open(out_dir / "latent_encoded.json", "w") as f:
         json.dump([float(v) for v in s0.cpu().numpy()], f)

@@ -15,7 +15,7 @@ from typing import Optional
 
 from image_generation_tpu_torch.app.figures import imshow_figure, loss_figure, write_figure
 
-__all__ = ["RunFiles", "JSON_FILE_DIR", "list_models"]
+__all__ = ["RunFiles", "UnwrittenRunFiles", "JSON_FILE_DIR", "list_models"]
 
 JSON_FILE_DIR = "generated_json"
 MODELS_DIR = "models"
@@ -27,6 +27,7 @@ class RunFiles:
     def __init__(self, root: str | Path = ".", json_dir: str = JSON_FILE_DIR):
         self.root = Path(root)
         self.dir = self.root / json_dir
+        self.diagram_dir = self.root / "assets" / "model_diagram"
         self.dir.mkdir(parents=True, exist_ok=True)
 
     # -- lifecycle ----------------------------------------------------
@@ -35,6 +36,12 @@ class RunFiles:
         if self.dir.exists():
             shutil.rmtree(self.dir)
         self.dir.mkdir(parents=True, exist_ok=True)
+
+    def metrics_log(self):
+        """The run's ``observability.MetricsLog`` (``metrics.jsonl``)."""
+        from image_generation_tpu_torch.training.observability import MetricsLog
+
+        return MetricsLog(self.dir / "metrics.jsonl")
 
     # -- per-epoch artifacts (callback_helpers.py:192-219) -------------
     def write_epoch(
@@ -98,13 +105,13 @@ class RunFiles:
 
     # -- model-diagram latent vectors (demo_callbacks.py:149-159) ------
     def write_latent_encoded(self, spins) -> None:
-        (self.root / "assets" / "model_diagram").mkdir(parents=True, exist_ok=True)
-        with open(self.root / "assets" / "model_diagram" / "latent_encoded.json", "w") as f:
+        self.diagram_dir.mkdir(parents=True, exist_ok=True)
+        with open(self.diagram_dir / "latent_encoded.json", "w") as f:
             json.dump([float(v) for v in spins], f)
 
     def write_latent_qpu(self, spins) -> None:
-        (self.root / "assets" / "model_diagram").mkdir(parents=True, exist_ok=True)
-        with open(self.root / "assets" / "model_diagram" / "latent_qpu.json", "w") as f:
+        self.diagram_dir.mkdir(parents=True, exist_ok=True)
+        with open(self.diagram_dir / "latent_qpu.json", "w") as f:
             json.dump([float(v) for v in spins], f)
 
     # -- reader side (what the UI process does) ------------------------
@@ -136,6 +143,38 @@ class RunFiles:
             except ValueError:
                 pass
         return latest
+
+
+class UnwrittenRunFiles(RunFiles):
+    """``RunFiles`` of a process that writes nothing (a mesh rank other
+    than 0): the same paths, every writer a no-op, no metrics log and no
+    diagram directory, so the CLI runs one command body on every rank."""
+
+    def __init__(self, root: str | Path = ".", json_dir: str = JSON_FILE_DIR):
+        self.root = Path(root)
+        self.dir = self.root / json_dir
+        self.diagram_dir = None
+
+    def metrics_log(self):
+        return None
+
+    def clean(self) -> None:
+        pass
+
+    def write_epoch(self, *args, **kwargs) -> None:
+        pass
+
+    def write_problem_details(self, *args, **kwargs) -> None:
+        pass
+
+    def write_progress(self, *args, **kwargs) -> None:
+        pass
+
+    def write_latent_encoded(self, spins) -> None:
+        pass
+
+    def write_latent_qpu(self, spins) -> None:
+        pass
 
 
 def list_models(workdir: str | Path) -> list[dict]:

@@ -49,9 +49,9 @@ carries.
 
 ``ising_energies_graph_sharded`` computes E = h·s + ½ sᵀAs for (C, L) or
 (T, C, L) spins: this rank's partial S@A over all n_pad columns,
-all-reduced (where the JAX package used a reduce_scatter; gloo does not
-take one on CUDA tensors, and the numbers are the same), its own columns
-kept, and one all-reduce of the per-chain sums.  No rank ever holds an
+reduce-scattered over the graph axis so each rank gets the sum at its own
+columns (the JAX ``psum_scatter``; int8 partials in int32, scaled out
+after), and one all-reduce of the per-chain sums.  No rank ever holds an
 (n_pad, n_pad) tensor.
 """
 
@@ -136,23 +136,22 @@ def _span_products(coupling, s_own, plan: GibbsPlan, span, matmul_dtype):
     return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
 
 
+def _wire(partial: torch.Tensor, coupling) -> torch.Tensor:
+    """Partial products as they go over the wire: int8 partials (exact
+    integers) as int32, so their sum comes back exact; others as they
+    are."""
+    return torch.round(partial).to(torch.int32) if _is_quant(coupling) else partial
+
+
 def _all_reduce_products(partial: torch.Tensor, coupling, mesh) -> torch.Tensor:
-    """The all-reduced products: int8 partials (exact integers) go over
-    the wire, and come back, as int32; K4 scales them out."""
-    if _is_quant(coupling):
-        return mesh.all_reduce(torch.round(partial).to(torch.int32))
-    return mesh.all_reduce(partial)
+    """The all-reduced products (int32 for int8 partials; K4 scales them
+    out)."""
+    return mesh.all_reduce(_wire(partial, coupling))
 
 
 def _scale_out(total: torch.Tensor, coupling) -> torch.Tensor:
-    """All-reduced products in real units: int8 totals times the scale."""
+    """Summed products in real units: int8 totals times the scale."""
     return total.to(torch.float32) * coupling.scale if _is_quant(coupling) else total
-
-
-def _reduce_products(partial: torch.Tensor, coupling, mesh) -> torch.Tensor:
-    """The all-reduced products in real units (scaled out after the
-    collective)."""
-    return _scale_out(_all_reduce_products(partial, coupling, mesh), coupling)
 
 
 def plain_update(fields: torch.Tensor, beta_col, generator=None,
@@ -271,8 +270,9 @@ def ising_energies_graph_sharded(hp: torch.Tensor, coupling_loc, spins_loc: torc
                                  mesh, matmul_dtype=None) -> torch.Tensor:
     """E(s) = h·s + ½ sᵀAs for this rank's (..., n_pad / graph) spin
     columns, any number of leading dims ((C, L) chains or the (T, C, L)
-    ladder); every rank gets the whole energies.  One all-reduce of the
-    partial S@A and one of the per-chain sums."""
+    ladder); every rank gets the whole energies.  One reduce-scatter of
+    the partial S@A (this rank's columns of the sum) and one all-reduce of
+    the per-chain sums."""
     l_loc = spins_loc.shape[-1]
     n_pad = l_loc * mesh.graph
     lo, hi = mesh.window(n_pad)
@@ -288,6 +288,6 @@ def ising_energies_graph_sharded(hp: torch.Tensor, coupling_loc, spins_loc: torc
         partial = torch.cat(parts, 1)
     else:
         partial = _dense_products(coupling_loc, flat, 0, n_pad, matmul_dtype)
-    sa_loc = _reduce_products(partial, coupling_loc, mesh)[:, lo:hi]
+    sa_loc = _scale_out(mesh.reduce_scatter(_wire(partial, coupling_loc), dim=-1), coupling_loc)
     e_part = flat @ hp[lo:hi] + 0.5 * (flat * sa_loc).sum(-1)
     return mesh.all_reduce(e_part).reshape(lead)

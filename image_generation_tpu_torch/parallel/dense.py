@@ -33,8 +33,9 @@ Its product (``_ColumnShardedMatmul``):
 
 Under bf16 autocast the product keeps autocast's casts (bf16 operands,
 f32 accumulation, a bf16 output), and the partial input gradients are
-summed in f32.  Under gloo the gathers of CUDA tensors go through the
-host (``Mesh.all_gather``), counted in ``Mesh.comm_seconds``.
+summed in f32.  The gathers and the sum are ``Mesh`` collectives, counted
+in ``Mesh.comm_seconds``: card to card under NCCL; through the host under
+gloo only (``Mesh.all_gather`` stages a CUDA tensor there).
 
 Across the boundary the layer is whole: ``gather_large_dense`` (collective)
 gives a state dict with every sharded weight whole, bit for bit, under the

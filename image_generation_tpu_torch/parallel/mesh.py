@@ -28,18 +28,27 @@ of more than one rank (``parallel/dense.py``, the JAX
 ``_shard_large_dense``).
 
 Collectives go through the axis groups' own methods (``allreduce``,
-``allgather``, ``broadcast``, ``send`` / ``recv``), so a ``Mesh`` works over
-groups made by ``torch.distributed.new_group`` and over ones made directly
-(the CPU tests' threaded ``ProcessGroupGloo``).  The backend is the
-caller's choice: NCCL with one card per rank (the default), or gloo for
-ranks that share a card (NCCL refuses two ranks on one device); under
-gloo, gathers and point-to-point exchanges of CUDA tensors go through the
-host.  Each collective's host time is summed in ``comm_seconds`` /
-``comm_calls``.
+``allgather``, ``_reduce_scatter_base``, ``broadcast``, ``send`` /
+``recv``), so a ``Mesh`` works over groups made by
+``torch.distributed.new_group`` and over ones made directly (the CPU
+tests' threaded ``ProcessGroupGloo``).  The backend is the caller's
+choice: NCCL with one card per rank (the default), or gloo for ranks that
+share a card (NCCL refuses two ranks on one device).  Under NCCL every
+collective runs card to card; under gloo alone, gathers, reduce-scatters
+and point-to-point exchanges of CUDA tensors go through the host.
+``comm_calls`` counts the collectives and ``comm_seconds`` sums their
+time: under NCCL from a CUDA event pair on the current stream around each
+one (read, with one synchronize, when ``comm_seconds`` is read), under
+gloo on the host clock.
+
+``init_world`` starts a process's world from a launcher's environment
+(``python -m torch.distributed.run``): NCCL with the rank bound to card
+``LOCAL_RANK``, or gloo on the CPU.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
@@ -52,6 +61,7 @@ __all__ = [
     "Mesh",
     "create_mesh",
     "auto_mesh",
+    "init_world",
     "chain_row_axes",
     "LadderShard",
     "shard_batch",
@@ -70,7 +80,9 @@ class Mesh:
     graph axis (the ranks of its data row) and data axis (the ranks of
     its graph column), None for an axis of size 1; ``world_group``: all
     ranks of the mesh (needed when both axes exceed 1, otherwise the
-    larger axis's group).  ``backend``: the groups' backend."""
+    larger axis's group).  ``backend``: the groups' backend.  ``device``:
+    this rank's card under NCCL (the current CUDA device when None), where
+    ``barrier`` puts its value."""
 
     shape: Tuple[int, int]
     data_index: int = 0
@@ -79,8 +91,10 @@ class Mesh:
     backend: str = "nccl"
     data_group: object = None
     world_group: object = None
-    comm_seconds: float = field(default=0.0, repr=False)
+    device: Optional[torch.device] = None
     comm_calls: int = field(default=0, repr=False)
+    _comm_s: float = field(default=0.0, init=False, repr=False)
+    _events: list = field(default_factory=list, init=False, repr=False)
 
     def __post_init__(self):
         self.shape = tuple(int(x) for x in self.shape)
@@ -141,10 +155,44 @@ class Mesh:
         raise ValueError(f"unknown mesh axes {axes}")
 
     # ---- collectives ---------------------------------------------------
-    def _timed(self, work_fn):
-        t0 = time.perf_counter()
-        work_fn().wait()
-        self.comm_seconds += time.perf_counter() - t0
+    @property
+    def comm_seconds(self) -> float:
+        """The collectives' time so far (s).  Under NCCL the pending event
+        pairs are summed here, after one wait for the last of them."""
+        if self._events:
+            self._events[-1][1].synchronize()
+            self._fold(len(self._events))
+        return self._comm_s
+
+    @comm_seconds.setter
+    def comm_seconds(self, value: float) -> None:
+        self._events.clear()
+        self._comm_s = float(value)
+
+    def _fold(self, n: int) -> None:
+        self._comm_s += sum(a.elapsed_time(b) for a, b in self._events[:n]) / 1e3
+        del self._events[:n]
+
+    def _timed(self, post, t: torch.Tensor) -> None:
+        """Run ``post()`` (which posts a collective of ``t``'s and waits
+        for it), timed: under NCCL by an event pair on the current stream,
+        which the wait has made follow the collective; otherwise by the
+        host clock."""
+        if self.backend == "nccl" and t.is_cuda:
+            stream = torch.cuda.current_stream(t.device)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record(stream)
+            post()
+            b.record(stream)
+            self._events.append((a, b))
+            if len(self._events) >= 512:  # fold what has finished, without a wait
+                done = next((i for i, (_, e) in enumerate(self._events) if not e.query()),
+                            len(self._events))
+                self._fold(done)
+        else:
+            t0 = time.perf_counter()
+            post()
+            self._comm_s += time.perf_counter() - t0
         self.comm_calls += 1
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum", axis="graph") -> torch.Tensor:
@@ -158,7 +206,7 @@ class Mesh:
         opts = dist.AllreduceOptions()
         opts.reduceOp = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         t = t.contiguous()
-        self._timed(lambda: group.allreduce([t], opts))
+        self._timed(lambda: group.allreduce([t], opts).wait(), t)
         return t
 
     def _host(self, t: torch.Tensor) -> torch.Tensor:
@@ -175,8 +223,28 @@ class Mesh:
             return t
         src = self._host(t)
         parts = [torch.empty_like(src) for _ in range(size)]
-        self._timed(lambda: group.allgather([parts], [src]))
+        self._timed(lambda: group.allgather([parts], [src]).wait(), src)
         return torch.cat(parts, dim=dim).to(t.device)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = -1, axis="graph") -> torch.Tensor:
+        """This rank's window of ``t`` summed over ``axis``: ``dim`` cut
+        into ``axis``-size equal windows, window ``index`` of the sum (the
+        JAX ``psum_scatter(..., tiled=True)``).  The collective runs on a
+        copy whose scattered dimension leads (each rank's window one
+        contiguous block); under gloo a CUDA tensor goes through the host."""
+        group, size, _ = self.axis(axis)
+        if size == 1:
+            return t
+        import torch.distributed as dist
+
+        n = t.shape[dim]
+        if n % size:
+            raise ValueError(f"dimension {dim} ({n}) does not split over {size} ranks")
+        src = self._host(t.movedim(dim, 0))
+        out = src.new_empty((n // size, *src.shape[1:]))
+        self._timed(lambda: group._reduce_scatter_base(
+            out, src, dist.ReduceScatterOptions()).wait(), src)
+        return out.to(t.device).movedim(0, dim).contiguous()
 
     def broadcast(self, t: torch.Tensor, src: int = 0, axis="graph") -> torch.Tensor:
         """``t`` of ``axis`` rank ``src`` on every ``axis`` rank, in
@@ -189,7 +257,7 @@ class Mesh:
         buf = self._host(t)
         opts = dist.BroadcastOptions()
         opts.rootRank, opts.rootTensor = src, 0
-        self._timed(lambda: group.broadcast([buf], opts))
+        self._timed(lambda: group.broadcast([buf], opts).wait(), buf)
         if buf is not t:
             t.copy_(buf)
         return t
@@ -204,32 +272,39 @@ class Mesh:
         order they were posted, so two ranks that both sent first would each
         wait for the other's receive."""
         group, _, me = self.axis(axis)
-        t0 = time.perf_counter()
-        works, held, out = [], [], []
-        for peer in sorted({p for p, _ in sends} | {p for p, _ in recvs}):
-            to = [(True, t) for p, t in sends if p == peer]
-            back = [(False, t) for p, t in recvs if p == peer]
-            for is_send, t in (to + back if me < peer else back + to):
-                buf = self._host(t)
-                if is_send:
-                    held.append(buf)  # a host copy must outlive its send
-                    works.append(group.send([buf], peer, 0))
-                else:
-                    out.append((buf, t))
-                    works.append(group.recv([buf], peer, 0))
-        for w in works:
-            w.wait()
+        held, out = [], []
+
+        def post():
+            works = []
+            for peer in sorted({p for p, _ in sends} | {p for p, _ in recvs}):
+                to = [(True, t) for p, t in sends if p == peer]
+                back = [(False, t) for p, t in recvs if p == peer]
+                for is_send, t in (to + back if me < peer else back + to):
+                    buf = self._host(t)
+                    if is_send:
+                        held.append(buf)  # a host copy must outlive its send
+                        works.append(group.send([buf], peer, 0))
+                    else:
+                        out.append((buf, t))
+                        works.append(group.recv([buf], peer, 0))
+            for w in works:
+                w.wait()
+
+        self._timed(post, (list(sends) + list(recvs))[0][1])
         for buf, t in out:
             if buf is not t:
                 t.copy_(buf)
-        self.comm_seconds += time.perf_counter() - t0
-        self.comm_calls += 1
 
     def barrier(self) -> None:
-        """Wait until every rank of the mesh is here (an all-reduce of one
-        value, on the card under NCCL)."""
-        self.all_reduce(torch.zeros(1, device="cuda" if self.backend == "nccl" else "cpu"),
-                        axis=("data", "graph"))
+        """Wait until every rank of the mesh is here: an all-reduce of one
+        value (on this rank's card under NCCL), read on the host, so the
+        host waits too (under NCCL a collective's ``wait`` holds back only
+        the card's stream)."""
+        if self.backend == "nccl":
+            dev = self.device or torch.device("cuda", torch.cuda.current_device())
+        else:
+            dev = torch.device("cpu")
+        self.all_reduce(torch.zeros(1, device=dev), axis=("data", "graph")).item()
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +375,10 @@ class LadderShard:
         before = torch.empty_like(x[0]) if down else None
         sends = [(self.index + 1, x[-1])] * up + [(self.index - 1, x[0])] * down
         recvs = [(self.index + 1, after)] * up + [(self.index - 1, before)] * down
+        # both ends of a pair post its send and receive in one order, the
+        # lower rank's send first (``Mesh.exchange``): NCCL runs one pair's
+        # operations in the order they were posted, so two ranks that both
+        # sent first would each wait for the other's receive
         if sends:
             self.mesh.exchange(sends, recvs, self.axes)
         return after, before
@@ -355,8 +434,9 @@ def create_mesh(shape: Optional[Sequence[int]] = None, backend: str = "nccl") ->
             data_group = grp
     if min(shape) > 1:
         world_group = dist.new_group(list(range(world)), backend=backend)
+    device = torch.device("cuda", torch.cuda.current_device()) if backend == "nccl" else None
     return Mesh(shape, data_index=d, graph_index=g, graph_group=graph_group,
-                backend=backend, data_group=data_group, world_group=world_group)
+                backend=backend, data_group=data_group, world_group=world_group, device=device)
 
 
 def auto_mesh() -> Optional[Mesh]:
@@ -369,6 +449,49 @@ def auto_mesh() -> Optional[Mesh]:
     if not dist.is_available() or not dist.is_initialized() or dist.get_world_size() == 1:
         return None
     return create_mesh(backend=dist.get_backend())
+
+
+LAUNCHER_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK")  # set by torch.distributed.run
+
+
+def init_world(device="cuda") -> Optional[torch.device]:
+    """Start this process's ``torch.distributed`` world from a launcher's
+    environment (``python -m torch.distributed.run``: ``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK``, and ``MASTER_ADDR`` / ``MASTER_PORT`` for the
+    rendezvous) and return this rank's device; None, with nothing done,
+    when the variables are not set or a world is already initialised.
+
+    On the card (``device`` "cuda") the rank is bound to card
+    ``LOCAL_RANK``, one card a rank: ``torch.cuda.set_device`` and an NCCL
+    world initialised on that card (``device_id``).  A ``LOCAL_RANK``
+    beyond the visible cards raises: ranks never share a card here and
+    never fall back to gloo.  On the CPU (``device`` "cpu") the world is
+    gloo.  A world of one rank starts too, and ``auto_mesh`` then gives
+    None, as the JAX ``auto_mesh`` does on one device."""
+    import torch.distributed as dist
+
+    if (not all(v in os.environ for v in LAUNCHER_VARS) or not dist.is_available()
+            or dist.is_initialized()):
+        return None
+    world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    local = int(os.environ["LOCAL_RANK"])
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        dist.init_process_group("gloo", init_method="env://", world_size=world, rank=rank)
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"a launched rank runs on 'cuda' or 'cpu', not {dev}")
+    cards = torch.cuda.device_count()
+    if local >= cards:
+        raise RuntimeError(
+            f"LOCAL_RANK {local} needs card {local}, but {cards} card(s) are visible: one card "
+            f"a rank, so at most {cards} rank(s) on this host (--nproc-per-node)"
+        )
+    dev = torch.device("cuda", local)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method="env://", world_size=world, rank=rank,
+                            device_id=dev)
+    return dev
 
 
 # ---------------------------------------------------------------------------

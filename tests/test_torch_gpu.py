@@ -25,6 +25,7 @@ to 99.9 %.  K4's ΔE is summed in one fixed order, so repeated launches on
 the same inputs give the same ΔE bit for bit.
 """
 
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1528,3 +1529,167 @@ def test_column_sharded_layer_on_the_card_under_4_gloo_processes(dev, tmp_path):
                                ("dw", got["dw"], ref.weight.grad), ("db", got["db"], ref.bias.grad)):
                 b = b.cpu()
                 assert float((a - b).abs().max()) <= tol * float(b.abs().max()), (dtype, name, r)
+
+
+# ---------------------------------------------------------------------------
+# NCCL, one card a rank: 2 processes started as the launcher starts them
+# ---------------------------------------------------------------------------
+
+NCCL_RANKS = 2
+LADDER = dict(t_dim=8, chains=256, sweeps=16, rounds=6)
+
+
+def _ladder_inputs(plan, dev):
+    """The fed draws of ``LADDER``'s PT rounds, the same in every process:
+    per round the sweeps' (sweeps, T·C, n_pad) uniforms and the two swap
+    passes' (T − 1, C) ones."""
+    g = torch.Generator().manual_seed(16)
+    t, c = LADDER["t_dim"], LADDER["chains"]
+    s0 = torch.where(torch.rand((t, c, plan.n_pad), generator=g) < 0.5, 1.0, -1.0)
+    feed = [(torch.rand((LADDER["sweeps"], t * c, plan.n_pad), generator=g),
+             tuple(torch.rand((t - 1, c), generator=g) for _ in range(2)))
+            for _ in range(LADDER["rounds"])]
+    return s0.to(dev), [(u.to(dev), tuple(w.to(dev) for w in ws)) for u, ws in feed]
+
+
+def _pt_ladder(plan, hp, a, s0, feed, ladder=None):
+    """``LADDER["rounds"]`` PT rounds through K1-ΔE with the fed draws from
+    ``s0``, no host sync between them; ``ladder`` splits the rungs over
+    ranks (the rank's rungs of ``s0``, its rows of the uniforms).  The
+    first energies are the whole ladder's product, and every launch has
+    one shape, so the split changes no sum."""
+    from image_generation_tpu_torch.ops.gibbs import ising_energies, pt_round
+
+    t0, t1 = (0, LADDER["t_dim"]) if ladder is None else (ladder.t0, ladder.t1)
+    betas = torch.linspace(0.2, 1.0, LADDER["t_dim"], device=s0.device)
+    lo, hi = t0 * LADDER["chains"], t1 * LADDER["chains"]
+
+    def sweeps(_g, h, c, x, n, beta, uniforms=None, track_delta_e=False):
+        return gibbs_cuda.gibbs_sweeps_cuda(h, c, plan, x, n, beta, uniforms=uniforms,
+                                            track_delta_e=track_delta_e, _shape=(4, 256))
+
+    s, e = s0[t0:t1].contiguous(), ising_energies(hp, a, s0)[t0:t1]
+    for u, w in feed:
+        s, e = pt_round(None, hp, a, plan, s, betas, LADDER["sweeps"], sweeps_fn=sweeps,
+                        energies=e, return_energies=True,
+                        uniforms=u[:, lo:hi].contiguous(), swap_uniforms=w,
+                        ladder=ladder)
+    return s, e
+
+
+def _nccl_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of ``NCCL_RANKS`` processes, its world started by
+    ``init_world`` from the launcher's variables (rank r on cuda:r, NCCL):
+    the PT ladder split over the ranks on the data axis, the collectives'
+    clock on a known-size all-reduce, and ``reduce_scatter`` on the
+    card."""
+    import os
+
+    import torch.distributed as dist
+
+    from image_generation_tpu_torch.parallel.mesh import LadderShard, create_mesh, init_world
+
+    os.environ.update(WORLD_SIZE=str(NCCL_RANKS), RANK=str(rank), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dev = init_world("cuda")
+    try:
+        out = dict(device=str(dev), current=torch.cuda.current_device(),
+                   backend=dist.get_backend())
+        # the ladder split over the data axis, exchanged point to point
+        _, params, graph, _, _ = load_model_dir(MODEL, dev)
+        plan = build_plan(graph)
+        hp, a = permuted_model(plan, *scaled_ising(params, 0.05, (-4.0, 4.0), (-1.0, 1.0)))
+        mesh = create_mesh(shape=(NCCL_RANKS, 1))
+        ladder = LadderShard(mesh, ("data",), LADDER["t_dim"])
+        s0, feed = _ladder_inputs(plan, dev)
+        s, e = _pt_ladder(plan, hp, a, s0, feed, ladder)
+        out["ladder"] = ladder.gather(s).cpu()
+        out["energies"] = ladder.gather(e).cpu()
+        # the collectives' clock: a 256 MB all-reduce, timed by the mesh and
+        # by the test's own events around a direct all-reduce of the same size
+        x = torch.ones(64 << 20, device=dev)
+        stream = torch.cuda.current_stream(dev)
+        direct = []
+        for _ in range(3):
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record(stream)
+            dist.all_reduce(x)
+            t1.record(stream)
+            t1.synchronize()
+            direct.append(t0.elapsed_time(t1) / 1e3)
+        mesh.comm_seconds, calls = 0.0, mesh.comm_calls
+        host0 = time.perf_counter()
+        mesh.all_reduce(x, axis="data")
+        out["host_s"] = time.perf_counter() - host0
+        out.update(comm_s=mesh.comm_seconds, comm_calls=mesh.comm_calls - calls,
+                   direct_s=min(direct), bytes=x.numel() * 4)
+        # reduce_scatter against the all-reduce's slice, f32 and int32
+        g = torch.Generator(device=dev).manual_seed(rank)
+        rs = []
+        for dtype in (torch.float32, torch.int32):
+            for shape, dim in (((3, 5, 8 * NCCL_RANKS), -1), ((4 * NCCL_RANKS, 6), 0)):
+                t = torch.randint(-50, 50, shape, generator=g, device=dev).to(dtype)
+                whole = mesh.all_reduce(t.clone(), axis="data")
+                n = shape[dim] // NCCL_RANKS
+                got = mesh.reduce_scatter(t, dim=dim, axis="data")
+                rs.append(bool(torch.equal(got, whole.narrow(dim, rank * n, n)))
+                          and got.is_cuda and got.dtype == dtype)
+        out["reduce_scatter"] = rs
+        torch.save(out, f"{out_dir}/rank_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def nccl_ranks(dev, tmp_path_factory):
+    if torch.cuda.device_count() < NCCL_RANKS:
+        pytest.skip(f"needs {NCCL_RANKS} CUDA devices (one a rank under NCCL)")
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from image_generation_tpu_torch.ops.cuda_build import load_libraries
+
+    load_libraries()  # built once here; the ranks load it
+    out = tmp_path_factory.mktemp("nccl")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.start_processes(_nccl_rank, args=(port, str(out)), nprocs=NCCL_RANKS, join=True,
+                       start_method="spawn")
+    return [torch.load(out / f"rank_{r}.pt") for r in range(NCCL_RANKS)]
+
+
+def test_nccl_ranks_each_on_its_card(nccl_ranks):
+    for r, res in enumerate(nccl_ranks):
+        assert res["device"] == f"cuda:{r}" and res["current"] == r and res["backend"] == "nccl"
+
+
+def test_nccl_ladder_exchange_equals_one_card(dev, nccl_ranks):
+    """The NCCL fault's reproducer: the PT ladder split over 2 cards on the
+    data axis, its edge rungs exchanged point to point between rounds of
+    K1-ΔE sweeps with no host sync, equals the one-card ladder on the same
+    draws bit for bit (each chain's sweeps are the same kernel on the same
+    row, the swaps the same decisions from the same energies)."""
+    _, params, graph, _, _ = load_model_dir(MODEL, dev)
+    plan = build_plan(graph)
+    hp, a = permuted_model(plan, *scaled_ising(params, 0.05, (-4.0, 4.0), (-1.0, 1.0)))
+    s0, feed = _ladder_inputs(plan, dev)
+    s, e = _pt_ladder(plan, hp, a, s0, feed)
+    for res in nccl_ranks:
+        assert torch.equal(res["ladder"], s.cpu())
+        assert torch.equal(res["energies"], e.cpu())
+
+
+def test_nccl_comm_seconds_come_from_the_card(nccl_ranks):
+    """Under NCCL ``comm_seconds`` is the collective's time on the card (CUDA
+    events), not the host's posting: for a 256 MB all-reduce at least 0.8
+    of the fastest of three direct all-reduces timed by events."""
+    for res in nccl_ranks:
+        assert res["comm_calls"] == 1
+        assert res["comm_s"] >= 0.8 * res["direct_s"] > 0.0, res
+
+
+def test_nccl_reduce_scatter_on_the_card(nccl_ranks):
+    for res in nccl_ranks:
+        assert res["reduce_scatter"] == [True] * 4

@@ -245,14 +245,16 @@ def test_philox_moments_match_exact():
 # energies, quantization, packing
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("axis", [2, 4])
 @pytest.mark.parametrize("lead", [(8,), (3, 4)])
 @pytest.mark.parametrize("form", ["dense", "bf16", "int8", "packed", "packed_int8"])
-def test_energies_match_jax(medium, form, lead):
+def test_energies_match_jax(medium, form, lead, axis):
     """(C, n) chains and the (T, C, n) ladder on every coupling form, at
-    graph axis 4."""
+    graph axis 2 and 4: the port's reduce-scatter of the partial S@A
+    (``Mesh.reduce_scatter``) against the JAX ``psum_scatter``."""
     _jg, jplan, tplan, hp, a, _h, _j = medium
     spins = np.random.default_rng(1).choice([-1.0, 1.0], lead + (tplan.n_pad,)).astype(np.float32)
-    jmesh = jcreate_mesh(4, shape=(1, 4))
+    jmesh = jcreate_mesh(axis, shape=(1, axis))
     mm = jnp.bfloat16 if form == "bf16" else None
     ref = jax.jit(lambda c, s: jgs.ising_energies_graph_sharded(
         jnp.asarray(hp), c, s, jmesh, matmul_dtype=mm))(
@@ -266,7 +268,7 @@ def test_energies_match_jax(medium, form, lead):
         return tgs.ising_energies_graph_sharded(_t(hp), c, _t(spins[..., lo:hi]), mesh,
                                                 matmul_dtype=torch.bfloat16 if mm else None)
 
-    outs = run_ranks(4, rank)
+    outs = run_ranks(axis, rank)
     for e in outs:
         assert tuple(e.shape) == lead
         np.testing.assert_allclose(e.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
