@@ -292,6 +292,28 @@ epoch each, at full width).  Phases:
     collectives' seconds from CUDA events and their share of the epoch,
     and the peak memory.  With one card the line ``[31b-d] not run (1
     card)``.  ``python3 chip_smoke.py --phase 31`` runs this phase alone.
+32. every visible card from one command, with no launcher.  (a) on one
+    card (``CUDA_VISIBLE_DEVICES`` cut to the first, in a spawned process):
+    ``train --epochs 1`` at the flagship's defaults with ``--mesh auto``
+    runs in this process, no rank started and no world, K1-f32 as often as
+    phase 27's ``train``; ``train --mesh 2x1`` exits non-zero naming 2 ranks
+    and 1 card; the warm server with ``--mesh auto`` starts no follower and
+    serves a request through K1.  With 2 or more cards: (b) the same
+    ``train`` through ``cli.main`` with no launcher (``chip_smoke.py
+    --self-launch``, the ranks running ``--cli-rank``): a rank on every
+    card in the default shape, the checks of phase 31 (d), and the losses
+    bit-equal to phase 31 (d)'s launched run where it ran as many ranks;
+    (c) the one-card warm generator's mean pixel on 10 requests, then the
+    web app with ``--warm-generate`` on every card (the server rank 0 of
+    an NCCL world with a follower on each other card): 10 lone
+    ``/api/generate_now`` requests and a burst of 16 over HTTP, K1 once a
+    dispatch on every card at k·256/n rows (the followers report their
+    launches at "stop"), 256 images a request, the mean pixel within 0.01
+    of the one-card one, a ``/api/train`` job on every card, a second job
+    cancelled with no rank left (``/proc`` and ``nvidia-smi``), and no
+    follower after ``shutdown``.  With one card the line ``[32b-c] not run
+    (1 card)``.  ``python3 chip_smoke.py --phase 32`` runs this phase alone
+    (with several cards after phase 31 (d)).
 
 Each path (serving, plain training, PT training, scaled training, the K2
 steps, scaled serving, the 2,048-latent training, resume and serving, the
@@ -301,9 +323,11 @@ training, PT training and serving, each CLI command, the server's lone
 requests, burst, generate job and the evaluation, the gumbel epoch, each
 Adam lever's scaled epoch, on every rank each data-axis epoch, each scaled
 mesh epoch and the fed step, the mesh-saved model's request, the auto
-ladder on the mesh, the CLI under the launcher, and with several cards
-each NCCL epoch) runs with the launch counters set to 0 just before it
-and read just after; the dry run's ranks count their own.  The line before
+ladder on the mesh, the CLI under the launcher, the one-card CLI and
+server of phase 32, and with several cards each NCCL epoch, the
+self-launched CLI and each part of the every-card server) runs with the
+launch counters set to 0 just before it and read just after; the dry
+run's ranks and the server's followers count their own.  The line before
 the last is a JSON object describing the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises.
 """
@@ -915,14 +939,17 @@ def main() -> int:
     data29 = data_axis_phase(card, {"gibbs": gibbs_counts, "pt": pt_counts})
     mesh30 = scaled_mesh_phase(card)
     expect = cli27["paths"]["cli_train"].get("K1-f32", 0)
+    launched31: list = []
     launch31 = {"cli_launcher_1": launcher_phase(card, 1, expect, "31a"),
-                **multi_card_phase(card, expect)}
+                **multi_card_phase(card, expect, launched31)}
+    every32 = every_card_phase(card, expect, launched31)
 
     print(card_line())
     paths = {"serving": serving_counts, "train_gibbs": gibbs_counts, "train_pt": pt_counts,
              **scaled["paths"], **k1_dtypes["paths"], **sharded["paths"],
              **latents1280["paths"], **cli27["paths"], **server28["paths"],
-             **leftovers29["paths"], **data29["paths"], **mesh30["paths"], **launch31}
+             **leftovers29["paths"], **data29["paths"], **mesh30["paths"], **launch31,
+             **every32}
     print(json.dumps({"kernels": [
         {
             "name": "gibbs_sparse (K1-f32)",
@@ -2133,6 +2160,7 @@ PLAIN_SWEEPS = ("gibbs_sweeps_reference", "gibbs_sweeps_kernel_reference",
 
 
 def _cli_child(_rank: int, out_path: str) -> None:
+    _one_card()
     result = cli_phase(card_line())
     Path(out_path).write_text(json.dumps(result))
 
@@ -2237,6 +2265,7 @@ SERVER_EXTRA = ["--dataset-size", "4096"]  # the jobs' and the warm trainer's da
 
 
 def _server_child(_rank: int, out_path: str) -> None:
+    _one_card()
     result = server_phase(card_line())
     Path(out_path).write_text(json.dumps(result))
 
@@ -3961,6 +3990,7 @@ def cli_rank(out_dir: str, argv: list) -> int:
     from image_generation_tpu_torch.app import cli
     from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
     from image_generation_tpu_torch.parallel import mesh as pmesh
+    from image_generation_tpu_torch.training import step as tstep
     from image_generation_tpu_torch.training.trainer import Trainer
 
     world, clock, epoch = {}, [], {}
@@ -3992,6 +4022,14 @@ def cli_rank(out_dir: str, argv: list) -> int:
 
     pmesh.init_world, Trainer.train, Trainer.train_epoch = (recorded_world, timed_train,
                                                             recorded_epoch)
+    rows: dict = {}
+    k1 = tstep.gibbs_sweeps_cuda
+
+    def recorded_k1(hp, coupling, plan, spins, *a, **kw):
+        rows[spins.shape[0]] = rows.get(spins.shape[0], 0) + 1
+        return k1(hp, coupling, plan, spins, *a, **kw)
+
+    tstep.gibbs_sweeps_cuda = recorded_k1
     plain: dict = {}
     _count_plain_on_card(plain)
     reset_counts(gibbs_cuda, gibbs_hbm_cuda)
@@ -4001,28 +4039,46 @@ def cli_rank(out_dir: str, argv: list) -> int:
     Path(out_dir, f"rank_{world.get('rank', 0)}.json").write_text(json.dumps(dict(
         world=world, device=str(t.device), current=torch.cuda.current_device(),
         mesh=list(t.mesh.shape) if t.mesh else None, impl=t.fns.sampler_impl,
-        counts=read_counts(gibbs_cuda, gibbs_hbm_cuda), plain=plain, losses=t.losses,
+        counts=read_counts(gibbs_cuda, gibbs_hbm_cuda), rows=rows, plain=plain, losses=t.losses,
         replicated=_digest([whole, t.grbm_params.linear, t.grbm_params.quadratic]),
         steps_ms=steps.tolist(), step_ms=float(np.median(steps[1:])),
         peak=torch.cuda.max_memory_allocated(t.device), **epoch)))
     return 0
 
 
-def launcher_phase(card: str, nproc: int, expect: int, tag: str) -> dict:
+def launcher_phase(card: str, nproc: int, expect: int, tag: str,
+                   keep: Optional[list] = None) -> dict:
     """Phase 31 (a) / (d): ``train --epochs 1`` at the flagship's defaults
     (``--dataset-size 4096``) under ``python -m torch.distributed.run
-    --nproc-per-node nproc``, ``--mesh auto``: every rank on its own card
-    in an NCCL world of ``nproc``, K1-f32 launched ``expect`` times a rank
-    (phase 27's ``train``), the ranks' losses and parameters equal, the
-    workdir's files written once.  Returns the summed launch counts."""
+    --nproc-per-node nproc``, ``--mesh auto`` (``cli_ranks_phase``).
+    Returns the summed launch counts; the ranks' results go to ``keep``."""
+    def cmd(out: Path, work: Path) -> list:
+        return [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+                "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+                str(ROOT / "chip_smoke.py"), "--cli-rank", str(out),
+                "--workdir", str(work), *LAUNCH_ARGS]
+
+    return cli_ranks_phase(card, cmd, nproc, expect, tag,
+                           f"under torch.distributed.run --nproc-per-node {nproc}", keep)
+
+
+def cli_ranks_phase(card: str, make_cmd, nproc: int, expect: int, tag: str, how: str,
+                    keep: Optional[list] = None) -> dict:
+    """The CLI's ``train --epochs 1`` at the flagship's defaults on
+    ``nproc`` ranks, each running ``cli_rank``, started by the command
+    ``make_cmd(rank_dir, workdir)``: every rank on its own card in an NCCL
+    world of ``nproc``, the mesh in the JAX default shape, K1-f32 launched
+    ``expect`` times a rank (phase 27's ``train``), most often on 256 / nproc
+    rows, the ranks' losses and parameters equal, the workdir's files and
+    progress lines written once.  Returns the summed launch counts; the
+    ranks' results go to ``keep``."""
+    from image_generation_tpu_torch.parallel.mesh import default_shape
+
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_launch_"))
     try:
         out = work / "ranks"
         out.mkdir()
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
-               "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
-               str(ROOT / "chip_smoke.py"), "--cli-rank", str(out),
-               "--workdir", str(work / "w"), *LAUNCH_ARGS]
+        cmd = make_cmd(out, work / "w")
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
         secs = time.perf_counter() - t0
@@ -4035,8 +4091,8 @@ def launcher_phase(card: str, nproc: int, expect: int, tag: str) -> dict:
         metrics = (w / "generated_json" / "metrics.jsonl").read_text().splitlines()
         models = sorted(p.name for p in (w / "models").iterdir())
         said = [proc.stdout.count(x) for x in ("training: ", "epoch 1/1:", "saved: ")]
-        print(f"[{tag}] {' '.join(LAUNCH_ARGS)} under torch.distributed.run --nproc-per-node "
-              f"{nproc}: exit {proc.returncode} in {secs:.1f} s host; files {len(metrics)} "
+        print(f"[{tag}] {' '.join(LAUNCH_ARGS)} {how}: exit {proc.returncode} in "
+              f"{secs:.1f} s host; files {len(metrics)} "
               f"metrics record(s), models {models}, banner / epoch / saved lines {said}",
               flush=True)
         check(not missing, f"[{tag}] missing {missing}")
@@ -4045,7 +4101,8 @@ def launcher_phase(card: str, nproc: int, expect: int, tag: str) -> dict:
         r0 = ranks[0]
         for r, x in enumerate(ranks):
             print(f"[{tag}] rank {r}: world {x['world']}, device {x['device']} (current "
-                  f"{x['current']}), mesh {x['mesh']}, {x['impl']}; launches {x['counts']}; plain "
+                  f"{x['current']}), mesh {x['mesh']}, {x['impl']}; launches {x['counts']}, "
+                  f"K1 rows {x['rows']}; plain "
                   f"sweeps on the card {x['plain']}; step median {x['step_ms']:.3f} ms (steps "
                   f"2-{len(x['steps_ms'])}); collectives {x.get('comm_s', 0.0):.4f} s in "
                   f"{x.get('comm_calls', 0)} calls (CUDA events), "
@@ -4054,22 +4111,30 @@ def launcher_phase(card: str, nproc: int, expect: int, tag: str) -> dict:
             check(x["world"] == dict(backend="nccl", size=nproc, rank=r, device=f"cuda:{r}")
                   and x["device"] == f"cuda:{r}" and x["current"] == r,
                   f"[{tag}] rank {r} did not run on cuda:{r} in an NCCL world of {nproc}")
+            check(x["mesh"] == (list(default_shape(nproc)) if nproc > 1 else None),
+                  f"[{tag}] rank {r}: mesh {x['mesh']}, not the default shape of {nproc}")
             check(x["counts"] == {"K1-f32": expect},
                   f"[{tag}] rank {r}: launches {x['counts']}, not K1-f32 x {expect}")
+            rows = {int(k): v for k, v in x["rows"].items()}
+            check(max(rows, key=rows.get) == 256 // nproc,
+                  f"[{tag}] rank {r}: K1 rows {rows}, mostly not 256 / {nproc}")
             check(not x["plain"], f"[{tag}] rank {r}: a plain sweep ran on the card")
             check(bool(np.isfinite(x["losses"]["dvae_losses"]).all())
                   and x["losses"] == r0["losses"] and x["replicated"] == r0["replicated"],
                   f"[{tag}] rank {r}: the losses or parameters differ across ranks")
+        if keep is not None:
+            keep.extend(ranks)
         return _sum_counts([x["counts"] for x in ranks])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def multi_card_phase(card: str, expect: int) -> dict:
+def multi_card_phase(card: str, expect: int, keep: Optional[list] = None) -> dict:
     """Phase 31 (b)-(d), one card a rank over NCCL on every card there is
     (2, or 4 when there are 4): (b) phase 30 (a) on each mesh of
     ``NCCL_MESHES``, (c) phase 23's graph-sharded epoch on (1, cards), (d)
-    the CLI under the launcher.  Returns the launch counts of each path."""
+    the CLI under the launcher (its ranks' results go to ``keep``).
+    Returns the launch counts of each path."""
     from image_generation_tpu_torch.config import TrainingConfig
     from image_generation_tpu_torch.ops.gibbs import build_plan
     from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
@@ -4120,10 +4185,460 @@ def multi_card_phase(card: str, expect: int) -> dict:
                   and not any(k.startswith(("K1", "K2", "K3")) for k in x["counts"]),
                   f"[31c] rank {r}: launches {x['counts']}, not K4 once a (sweep, owned span)")
         paths[f"train_scaled_sharded_nccl_{world}"] = _sum_counts([x["counts"] for x in res])
-        paths[f"cli_launcher_{world}"] = launcher_phase(card, world, expect, "31d")
+        paths[f"cli_launcher_{world}"] = launcher_phase(card, world, expect, "31d", keep)
         return paths
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# phase 32: every visible card from one command, with no launcher
+SERVER32_LONE = 10  # lone requests, to the one-card and the every-card server
+SERVER32_MEAN_ATOL = 0.01  # the mean pixel of the two servers' images
+
+
+def _one_card() -> None:
+    """Keep this process to the first visible card: phases 27, 28 and 32
+    (a) are one-card phases wherever they run (on one card this changes
+    nothing).  Called before anything touches CUDA."""
+    import os
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES",
+                                                        "0").split(",")[0]
+
+
+def _follower_pids(pid: int) -> list:
+    """The processes below ``pid`` that ``multiprocessing`` spawned (a warm
+    server's followers)."""
+    from image_generation_tpu_torch.app.server import _alive, _descendants
+
+    out = []
+    for p in _descendants(pid):
+        try:
+            cmd = Path(f"/proc/{p}/cmdline").read_bytes()
+        except OSError:
+            continue
+        if b"spawn_main" in cmd and _alive(p):
+            out.append(p)
+    return out
+
+
+def _rank_pids(pid: int) -> list:
+    """The processes below ``pid`` that a launcher started as ranks."""
+    from image_generation_tpu_torch.app.server import _alive, _descendants
+
+    out = []
+    for p in _descendants(pid):
+        try:
+            env = Path(f"/proc/{p}/environ").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        if any(e.startswith(b"LOCAL_RANK=") for e in env) and _alive(p):
+            out.append(p)
+    return out
+
+
+def _card_pids() -> set:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def _one_card_child(_rank: int, out_path: str) -> None:
+    _one_card()
+    result = one_card_phase(card_line())
+    Path(out_path).write_text(json.dumps(result))
+
+
+def one_card_phase(card: str) -> dict:
+    """Phase 32 (a), on one card: ``cli train`` at the flagship's defaults
+    with ``--mesh auto`` and no launcher runs in this process (no rank
+    started, no world), K1-f32 as often as phase 27's ``train``; ``--mesh
+    2x1`` exits non-zero with both counts; the warm server with ``--mesh
+    auto`` starts no follower and serves a request through K1.  Returns
+    the launch counts of each path."""
+    import os
+
+    import torch.distributed as dist
+
+    from image_generation_tpu_torch.app import cli
+    from image_generation_tpu_torch.app import server as srvmod
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+
+    check(torch.cuda.device_count() == 1, "[32a] more than one card visible")
+    started: list = []
+    launch = cli.launch_ranks
+    cli.launch_ranks = lambda argv, n: started.append(n) or launch(argv, n)
+    plain: dict = {}
+    _count_plain_on_card(plain)
+    paths, times = {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_one_card_"))
+    srv = None
+    try:
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        t0 = time.perf_counter()
+        t = cli.main(["--workdir", str(work / "w"), *LAUNCH_ARGS])
+        torch.cuda.synchronize()
+        times["cli_train_s"] = time.perf_counter() - t0
+        counts = paths["cli_train_auto_one_card"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        print(f"[32a] {' '.join(LAUNCH_ARGS)} with --mesh auto, no launcher, one card: "
+              f"{times['cli_train_s']:.3f} s host in this process (ranks started: {started}, "
+              f"world {dist.is_initialized()}, device {t.device}, mesh {t.mesh}); launches "
+              f"{counts}; plain sweeps on the card {plain}  [{card}]", flush=True)
+        check(not started and not dist.is_initialized() and t.mesh is None
+              and t.device.type == "cuda", "[32a] the one-card CLI did not run in this process")
+        check(counts == {"K1-f32": CLI_TRAIN_K1} and not plain,
+              f"[32a] launches {counts}, not K1-f32 x {CLI_TRAIN_K1}; plain {plain}")
+        check((work / "w" / "models" / "flag" / "dvae.pth").is_file(), "[32a] no model saved")
+
+        proc = subprocess.run(
+            [sys.executable, "-m", "image_generation_tpu_torch.app.cli", "--workdir",
+             str(work / "x"), "train", "--name", "x", "--mesh", "2x1"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300, env=dict(os.environ))
+        said = proc.stderr.strip().splitlines()[-1:] if proc.stderr else []
+        print(f"[32a] train --mesh 2x1 on one card: exit {proc.returncode}, {said}", flush=True)
+        check(proc.returncode != 0 and "asks for 2 ranks" in proc.stderr
+              and "1 card(s) are visible" in proc.stderr and not (work / "x" / "models").exists(),
+              "[32a] --mesh 2x1 on one card did not exit with both counts")
+
+        shutil.copytree(ROOT / "runs" / "models" / SERVER_MODELS[0],
+                        work / "models" / SERVER_MODELS[0])
+        srv = srvmod.make_server(work, port=0, extra_cli=SERVER_EXTRA, warm_generate=True)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        port = srv.server_address[1]
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        status, body = _http(port, "/api/generate_now", {"model": SERVER_MODELS[0]})
+        counts = paths["server_auto_one_card"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        followers = _follower_pids(os.getpid())
+        print(f"[32a] the warm server with --mesh auto on one card: world "
+              f"{srv.warm.world}, followers {followers}; one request: {status}, launches "
+              f"{counts}  [{card}]", flush=True)
+        check(srv.warm.world is None and not followers and not dist.is_initialized(),
+              "[32a] the one-card warm server started a world")
+        check(status == 200 and counts == {"K1-f32": 1},
+              f"[32a] the request: {status}, launches {counts}")
+    finally:
+        cli.launch_ranks = launch
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(work, ignore_errors=True)
+    return {"paths": paths, "times": times}
+
+
+def self_launch(out_dir: str, argv: list) -> int:
+    """``chip_smoke.py --self-launch OUT_DIR <cli args>``: the CLI as a user
+    starts it (``cli.main``, no launcher), its ranks running ``cli_rank``
+    (writing ``OUT_DIR/rank_<rank>.json``) in place of the bare CLI."""
+    from image_generation_tpu_torch.app import cli
+
+    cli.RANK_ENTRY = (str(ROOT / "chip_smoke.py"), "--cli-rank", out_dir)
+    out = cli.main(argv)
+    return out if isinstance(out, int) else 0
+
+
+def self_launch_phase(card: str, expect: int, launched: list) -> dict:
+    """Phase 32 (b), on every card: ``train --epochs 1`` at the flagship's
+    defaults with ``--mesh auto`` and no launcher (``self_launch``): the
+    checks of phase 31 (d) (``cli_ranks_phase``), and with as many ranks
+    as phase 31 (d) (``launched``, its ranks) the losses bit-equal to that
+    run's.  Returns the launch counts."""
+    n = torch.cuda.device_count()
+
+    def cmd(out: Path, work: Path) -> list:
+        return [sys.executable, str(ROOT / "chip_smoke.py"), "--self-launch", str(out),
+                "--workdir", str(work), *LAUNCH_ARGS]
+
+    ranks: list = []
+    counts = cli_ranks_phase(card, cmd, n, expect, "32b",
+                             f"with --mesh auto and no launcher on {n} cards", ranks)
+    if len(launched) == n:
+        same = [x["losses"] == y["losses"] for x, y in zip(ranks, launched)]
+        print(f"[32b] losses bit-equal to phase 31 (d)'s launched run, rank by rank: {same}",
+              flush=True)
+        check(all(same), "[32b] the self-launched losses differ from the launched run's")
+    else:
+        print(f"[32b] phase 31 (d) ran {len(launched)} ranks, not {n}: no comparison",
+              flush=True)
+    return counts
+
+
+def _every_card_server_child(_rank: int, out_path: str) -> None:
+    result = every_card_server_phase(card_line())
+    Path(out_path).write_text(json.dumps(result))
+
+
+def _pixel_moments(images: list) -> tuple:
+    x = np.concatenate([np.asarray(i, np.float64).reshape(-1) for i in images])
+    return float(x.mean()), float(x.std())
+
+
+def every_card_server_phase(card: str) -> dict:
+    """Phase 32 (c), on every card: the one-card warm generator's mean pixel
+    on ``SERVER32_LONE`` requests; then ``make_server(warm_generate=True)``
+    with ``--mesh auto``, rank 0 of an NCCL world of every card with a
+    follower on each other card: ``SERVER32_LONE`` lone ``POST
+    /api/generate_now`` requests and a burst of 16 over HTTP, K1 once a
+    dispatch on every card at k·256/n rows (the followers report their
+    launches at "stop"), 256 images a request, the mean pixel within
+    ``SERVER32_MEAN_ATOL`` of the one-card one; a ``POST /api/train`` job
+    (one epoch of 4,096) on every card; a second job cancelled with no
+    rank left; after ``shutdown`` no follower alive.  Returns the launch
+    counts of each path and the host times."""
+    import os
+
+    from image_generation_tpu_torch.app import server as srvmod
+    from image_generation_tpu_torch.app.warm import WarmGenerator
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+    from image_generation_tpu_torch.parallel.mesh import default_shape
+    from image_generation_tpu_torch.training import step as tstep
+    from image_generation_tpu_torch.utils.grid import make_grid
+
+    n = torch.cuda.device_count()
+    plain: dict = {}
+    _count_plain_on_card(plain)
+    rows: list = []
+    k1 = tstep.gibbs_sweeps_cuda
+
+    def recorded_k1(hp, coupling, plan, spins, *a, **kw):
+        rows.append(spins.shape[0])
+        return k1(hp, coupling, plan, spins, *a, **kw)
+
+    tstep.gibbs_sweeps_cuda = recorded_k1
+    served: list = []
+    serve = WarmGenerator.serve
+
+    def recorded_serve(self, *a, **kw):
+        out = serve(self, *a, **kw)
+        served.append(out["images"])
+        return out
+
+    paths, times = {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_every_card_"))
+    srv = None
+    try:
+        shutil.copytree(ROOT / "runs" / "models" / SERVER_MODELS[0],
+                        work / "models" / SERVER_MODELS[0])
+        model_dir = work / "models" / SERVER_MODELS[0]
+        one = WarmGenerator(work, config_overrides={"DATASET_SIZE": 4096}, device="cuda",
+                            mesh=None)
+        one.serve(model_dir)
+        one_images = [one.serve(model_dir)["images"] for _ in range(SERVER32_LONE)]
+        one_moments = _pixel_moments(one_images)
+        del one
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        srv = srvmod.make_server(work, port=0, extra_cli=SERVER_EXTRA, warm_generate=True)
+        times["server_start_s"] = time.perf_counter() - t0
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        port = srv.server_address[1]
+        warm, world = srv.warm, srv.warm.world
+        followers = world.pids if world is not None else []
+        print(f"[32c] the warm server with --mesh auto on {n} cards: started in "
+              f"{times['server_start_s']:.3f} s (rank 0: "
+              f"{world.start_s if world is not None else None}); device {warm.device}, mesh "
+              f"{warm.mesh.shape if warm.mesh else None}, followers {followers} (alive "
+              f"{sorted(_follower_pids(os.getpid()))})  [{card}]", flush=True)
+        check(world is not None and world.n == n and len(followers) == n - 1
+              and sorted(_follower_pids(os.getpid())) == sorted(followers)
+              and str(warm.device) == "cuda:0"
+              and tuple(warm.mesh.shape) == default_shape(n) and warm.mesh.backend == "nccl",
+              f"[32c] the server is not rank 0 of an NCCL world of {n} in the default shape")
+        model = {"model": SERVER_MODELS[0]}
+        coal = warm._coalescer
+        grid_256 = make_grid(np.zeros((256, 32, 32, 1)), nrow=16).shape[:2]
+
+        def generate_now():
+            t = time.perf_counter()
+            status, body = _http(port, "/api/generate_now", model)
+            rt = (time.perf_counter() - t) * 1e3
+            check(status == 200, f"[32c] /api/generate_now answered {status}: {body[:200]!r}")
+            resp = json.loads(body)
+            shape = _check_figure(resp["figure"], "generate_now")
+            check(shape == grid_256, f"[32c] generate_now grid {shape}, not 256 images")
+            return rt, resp
+
+        WarmGenerator.serve = recorded_serve
+        first_ms, _ = generate_now()  # loads the model on every rank
+        plain.clear()
+        rows.clear()
+        served.clear()
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        d0 = coal.dispatches
+        lone = [generate_now() for _ in range(SERVER32_LONE)]
+        counts = paths[f"server_{n}_cards_lone"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        n_disp = coal.dispatches - d0
+        lone_rows = list(rows)
+        moments = _pixel_moments(served)
+        check(counts == {"K1-f32": n_disp} and n_disp == SERVER32_LONE
+              and lone_rows == [256 // n] * SERVER32_LONE,
+              f"[32c] lone requests: launches {counts}, dispatches {n_disp}, rows {lone_rows}")
+        check(all(i.shape == (256, 32, 32, 1) and np.isfinite(i).all() for i in served),
+              "[32c] a request did not give 256 finite images")
+        times["lone_roundtrip_ms"] = float(np.median([rt for rt, _ in lone]))
+        times["lone_latency_ms"] = float(np.median([r["latency_ms"] for _, r in lone]))
+        times["first_request_ms"] = first_ms
+        print(f"[32c] {SERVER32_LONE} lone requests (256 images each): median round trip "
+              f"{times['lone_roundtrip_ms']:.3f} ms, server latency_ms "
+              f"{times['lone_latency_ms']:.3f} ms (first {first_ms:.3f} ms); rank 0's K1 "
+              f"launches {counts} on rows {sorted(set(lone_rows))}; mean pixel "
+              f"{moments[0]:.5f} (std {moments[1]:.5f}), one card {one_moments[0]:.5f} (std "
+              f"{one_moments[1]:.5f})  [{card}]", flush=True)
+        check(abs(moments[0] - one_moments[0]) <= SERVER32_MEAN_ATOL,
+              f"[32c] mean pixel {moments[0]} against the one-card {one_moments[0]}")
+
+        t0 = time.perf_counter()
+        warmed = warm.warm_buckets(model_dir, 16)
+        torch.cuda.synchronize()
+        times["warm_buckets_s"] = time.perf_counter() - t0
+        rows.clear()
+        reset_counts(gibbs_cuda, gibbs_hbm_cuda)
+        d0, s0 = coal.dispatches, coal.served
+        burst: list = [None] * 16
+        threads = [threading.Thread(target=lambda i=i: burst.__setitem__(i, generate_now()))
+                   for i in range(16)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        times["burst16_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        check(all(b is not None for b in burst), "[32c] a burst request did not finish")
+        counts = paths[f"server_{n}_cards_burst16"] = read_counts(gibbs_cuda, gibbs_hbm_cuda)
+        n_disp = coal.dispatches - d0
+        batched = [r["batched"] for _, r in burst]
+        groups = [k for k in sorted(set(batched)) for _ in range(batched.count(k) // k)]
+        check(coal.served - s0 == 16 and counts == {"K1-f32": n_disp} and n_disp < 16
+              and len(groups) == n_disp,
+              f"[32c] burst of 16: launches {counts}, dispatches {n_disp}, batched {batched}")
+        check(sorted(rows) == sorted(k * 256 // n for k in groups),
+              f"[32c] burst rows {rows}: not k·256/{n} for the groups {groups}")
+        times["burst16_dispatches"] = n_disp
+        times["burst16_roundtrip_median_ms"] = float(np.median([rt for rt, _ in burst]))
+        check(not plain, f"[32c] a plain sweep version ran on a CUDA tensor: {plain}")
+        print(f"[32c] group sizes 1-16 warmed in {times['warm_buckets_s']:.3f} s; a burst of "
+              f"16 in {times['burst16_wall_ms']:.3f} ms over {n_disp} dispatches (groups "
+              f"{groups}, rank 0's K1 rows {sorted(rows)}), median round trip "
+              f"{times['burst16_roundtrip_median_ms']:.3f} ms  [{card}]", flush=True)
+        dispatches = coal.dispatches + len(warmed)  # every dispatch since the start
+
+        t0 = time.perf_counter()
+        status, body = _http(port, "/api/train", {"name": "web_flag", "epochs": 1})
+        check(status == 200 and json.loads(body)["started"], f"[32c] /api/train: {body!r}")
+        job = srv.jobs.proc.pid
+        seen: set = set()
+        while srv.jobs.running():
+            seen.update(_rank_pids(job))
+            time.sleep(0.2)
+        state = _wait_job(port, "train")
+        times["train_job_s"] = time.perf_counter() - t0
+        print(f"[32c] POST /api/train (256 latents, 1 epoch of 4,096): {state['job']} in "
+              f"{times['train_job_s']:.3f} s; rank processes seen {len(seen)}  [{card}]",
+              flush=True)
+        check(state["job"] == {"state": "done", "kind": "train", "rc": 0} and len(seen) == n,
+              f"[32c] the train job: {state}, {len(seen)} rank processes, not {n}")
+        check((work / "models" / "web_flag" / "dvae.pth").is_file(), "[32c] no web_flag/dvae.pth")
+
+        status, body = _http(port, "/api/train", {"name": "web_cancel", "epochs": 100})
+        check(json.loads(body)["started"], "[32c] the job to cancel did not start")
+        job = srv.jobs.proc.pid
+        deadline = time.perf_counter() + 300
+        while len(_rank_pids(job)) < n and time.perf_counter() < deadline:
+            check(srv.jobs.running(), "[32c] the job to cancel ended by itself")
+            time.sleep(0.2)
+        procs = [job] + srvmod._descendants(job)
+        ranks = _rank_pids(job)
+        check(len(ranks) == n, f"[32c] the job to cancel has {len(ranks)} ranks, not {n}")
+        time.sleep(5.0)  # every rank on its card
+        on_cards = _card_pids() & set(ranks)
+        t0 = time.perf_counter()
+        cancelled = json.loads(_http(port, "/api/cancel", {})[1])
+        while any(srvmod._alive(p) for p in procs) and time.perf_counter() - t0 < 10:
+            time.sleep(0.1)
+        gone_s = time.perf_counter() - t0
+        left = [p for p in procs if srvmod._alive(p)]
+        left_on_cards = _card_pids() & set(procs)
+        state = _wait_job(port, "cancel")
+        print(f"[32c] a second train job cancelled with {len(ranks)} ranks up ({len(on_cards)} "
+              f"seen on the cards by nvidia-smi): {cancelled}, {state['job']}; every process "
+              f"of the job gone after {gone_s:.3f} s, left {left}, on the cards "
+              f"{sorted(left_on_cards)}  [{card}]", flush=True)
+        check(cancelled == {"cancelled": True} and state["job"]["state"] == "failed"
+              and not left and not left_on_cards, "[32c] a rank outlived the cancel")
+
+        t0 = time.perf_counter()
+        srv.shutdown()
+        times["shutdown_s"] = time.perf_counter() - t0
+        reports = world.reports
+        alive = [p for p in followers if srvmod._alive(p)] + _follower_pids(os.getpid())
+        print(f"[32c] shutdown in {times['shutdown_s']:.3f} s; followers' reports {reports}; "
+              f"rank 0's dispatches {dispatches}; followers alive {alive}  [{card}]",
+              flush=True)
+        check(not alive and times["shutdown_s"] < 30.0,
+              f"[32c] followers alive after shutdown: {alive}, or it took "
+              f"{times['shutdown_s']:.1f} s (a follower killed at the join's limit)")
+        check(len(reports) == n - 1 and all(
+            r["ops"]["serve"] == dispatches and r["launches"] == {"K1-f32": dispatches}
+            for r in reports),
+            f"[32c] the followers did not launch K1 once a dispatch ({dispatches}): {reports}")
+        for r in reports:
+            paths[f"server_{n}_cards_rank_{r['rank']}"] = r["launches"]
+        srv.server_close()
+        srv = None
+    finally:
+        tstep.gibbs_sweeps_cuda = k1
+        WarmGenerator.serve = serve
+        if srv is not None:
+            if srv.jobs.running():
+                srv.jobs.cancel()
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(work, ignore_errors=True)
+    return {"paths": paths, "times": times}
+
+
+def every_card_phase(card: str, expect: int, launched: list) -> dict:
+    """Phase 32: (a) in a fresh process on one card; with 2 or more cards
+    (b) the self-launched CLI and (c) the warm server on every card.
+    Returns the launch counts of each path."""
+    paths = dict(run_in_fresh_process(_one_card_child)["paths"])
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[32b-c] not run ({cards} card{'s' if cards != 1 else ''})", flush=True)
+        return paths
+    paths[f"cli_self_launch_{cards}"] = self_launch_phase(card, expect, launched)
+    paths.update(run_in_fresh_process(_every_card_server_child)["paths"])
+    return paths
+
+
+def phase32_main() -> int:
+    """``python3 chip_smoke.py --phase 32``: phase 32 alone.  The kernels
+    are built once; with several cards phase 31 (d) runs first, whose
+    launched run (b) is held against.  The last line is ``{"ok": true,
+    ...}``; any failure raises."""
+    from image_generation_tpu_torch.ops.cuda_build import load_libraries
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    card = card_line()
+    cards = torch.cuda.device_count()
+    print(f"[32] card: {card}; devices {cards}", flush=True)
+    load_libraries()
+    launched: list = []
+    paths = {}
+    if cards >= 2:
+        world = 4 if cards >= 4 else 2
+        paths[f"cli_launcher_{world}"] = launcher_phase(card, world, CLI_TRAIN_K1, "31d",
+                                                        launched)
+    paths.update(every_card_phase(card, CLI_TRAIN_K1, launched))
+    print(card)
+    print(json.dumps({"paths": paths}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
 
 
 def phase31_main() -> int:
@@ -4153,6 +4668,10 @@ def phase31_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-rank"]:
         sys.exit(cli_rank(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--self-launch"]:
+        sys.exit(self_launch(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:] == ["--phase", "31"]:
         sys.exit(phase31_main())
+    if sys.argv[1:] == ["--phase", "32"]:
+        sys.exit(phase32_main())
     sys.exit(main())

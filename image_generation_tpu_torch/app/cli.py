@@ -23,25 +23,29 @@ feedback-optimizes the parallel-tempering ladder for a model's GRBM
 (``ops/pt_tune.py``) and writes ``<model>/pt_betas.json``; every command
 accepts ``--pt-betas <json|comma list>`` (implies ``--sampler pt``).
 
-Several cards: start the command under the launcher, one process a card,
-
-  python -m torch.distributed.run --nproc-per-node 4 \
-      -m image_generation_tpu_torch.app.cli train --name m --mesh 2x2
-
-and ``main`` starts each rank's world from the launcher's environment
+Several cards: one command uses every visible card, as the JAX CLI's
+``--mesh auto`` uses every local chip.  ``main`` starts the ranks itself,
+one process a card, through ``torch.distributed.run``'s API (the launch
+``python -m torch.distributed.run --standalone --nproc-per-node N -m
+image_generation_tpu_torch.app.cli <argv>`` makes), passes rank 0's output
+through and exits with the ranks' code; ``CUDA_VISIBLE_DEVICES`` limits
+the cards.  Each rank's world starts from the launcher's environment
 (``parallel.mesh.init_world``: NCCL, rank bound to card ``LOCAL_RANK``;
-gloo under ``--platform cpu``).  Every rank runs the same command and the
-same steps; rank 0 alone writes the workdir's files (the figures,
-``problem_details.json``, the metrics log, the model directory, a
-``--profile`` trace) and prints progress.
+gloo under ``--platform cpu``), and a started rank never starts ranks of
+its own.  The command may also be started under the launcher by hand.
+Every rank runs the same command and the same steps; rank 0 alone writes
+the workdir's files (the figures, ``problem_details.json``, the metrics
+log, the model directory, a ``--profile`` trace) and prints progress.
 
-``--mesh``: 'auto' (the default) uses the world (the launcher's, in the
-JAX default shape; one device without a launcher or on a world of one),
-'off' one device, a count ('4') the JAX default shape over a world of
-that many ranks, and RxG ('2x2', '1x4') the explicit (data × graph)
-layout.  Any config trains on any of them, the scaled one too (its
-outsized dense layer is column-sharded over the mesh,
-``parallel/dense.py``).  ``--params`` reads a YAML file and needs PyYAML.
+``--mesh``: 'auto' (the default) every visible card in the JAX default
+shape (the CPU: one device; under a launcher its world), 'off' one
+device, a count ('4') that many ranks in the JAX default shape, and RxG
+('2x2', '1x4') the explicit (data × graph) layout
+(``parallel.mesh.local_world_size``).  On the card a count above the
+visible cards exits with both counts.  Any config trains on any of them,
+the scaled one too (its outsized dense layer is column-sharded over the
+mesh, ``parallel/dense.py``).  ``--params`` reads a YAML file and needs
+PyYAML.
 """
 
 from __future__ import annotations
@@ -137,6 +141,18 @@ def _parse_pt_betas(spec):
         )
 
 
+def _spec_shape(spec):
+    """``parallel.mesh.spec_shape`` with the CLI's message for a bad value."""
+    from image_generation_tpu_torch.parallel.mesh import spec_shape
+
+    try:
+        return spec_shape(spec)
+    except ValueError as e:
+        raise SystemExit(
+            f"--mesh must be 'auto', 'off', a device count, or RxG (e.g. 1x8); got {spec!r} ({e})"
+        )
+
+
 def parse_mesh(spec):
     """``--mesh`` value → Mesh | None | "auto" (the Trainer's sentinel).
 
@@ -144,32 +160,21 @@ def parse_mesh(spec):
     count ('8') → the JAX default-shaped mesh over an initialised world of
     that many ranks; RxG ('2x4') → the explicit (data × graph) layout
     (``parallel.mesh.create_mesh``; the graph axis carries the chains, or
-    under ``GRAPH_SHARDED`` the coupling)."""
+    under ``GRAPH_SHARDED`` the coupling).  A count of one outside a world
+    is one device, as the JAX one-device mesh."""
     if spec == "off":
         return None
     if spec in (None, "auto"):
         return spec
     import torch.distributed as dist
 
-    from image_generation_tpu_torch.parallel.mesh import create_mesh, default_shape
+    from image_generation_tpu_torch.parallel.mesh import create_mesh
 
-    try:
-        s = str(spec).lower()
-        if "x" in s:
-            rows, cols = (int(x) for x in s.split("x"))
-            if rows < 1 or cols < 1:
-                raise ValueError("axis sizes must be >= 1")
-            shape = (rows, cols)
-        else:
-            n = int(s)
-            if n < 1:
-                raise ValueError("device count must be >= 1")
-            shape = default_shape(n)
-    except ValueError as e:
-        raise SystemExit(
-            f"--mesh must be 'auto', 'off', a device count, or RxG (e.g. 1x8); got {spec!r} ({e})"
-        )
-    backend = dist.get_backend() if dist.is_available() and dist.is_initialized() else "nccl"
+    shape = _spec_shape(spec)
+    in_world = dist.is_available() and dist.is_initialized()
+    if shape == (1, 1) and not in_world:
+        return None
+    backend = dist.get_backend() if in_world else "nccl"
     try:
         return create_mesh(shape=shape, backend=backend)
     except (RuntimeError, ValueError) as e:
@@ -444,9 +449,9 @@ def build_parser():
                         help="'cpu' runs on the CPU; the default is the CUDA card")
     common.add_argument(
         "--mesh", default="auto",
-        help="'auto' (the initialised torch.distributed world, the default), 'off' (one "
-        "device), a rank count (e.g. 4: the default (data, graph) shape), or RxG "
-        "(e.g. 2x2, 1x4: data x graph)",
+        help="'auto' (every visible card, one process a card, the default; one device on "
+        "the CPU), 'off' (one device), a rank count (e.g. 4: the default (data, graph) "
+        "shape), or RxG (e.g. 2x2, 1x4: data x graph)",
     )
     common.add_argument(
         "--graph-sharded", default=None, choices=["auto", "on", "off"],
@@ -582,21 +587,85 @@ def parse_serving_args(extra_cli):
     return args
 
 
+# what each rank that ``main`` starts runs, after the launcher's options
+RANK_ENTRY = ("-m", "image_generation_tpu_torch.app.cli")
+
+
+def launch_ranks(argv, n: int) -> int:
+    """Run ``argv`` on ``n`` ranks of this host, one process a rank, through
+    ``torch.distributed.run``'s API: the launch ``python -m
+    torch.distributed.run --standalone --nproc-per-node n`` + ``RANK_ENTRY``
+    + ``argv`` makes, with the package importable from the ranks' working
+    directory.  The ranks inherit this process's output.  Returns 0, or the
+    exit code of the first rank that failed; SIGTERM or SIGINT here stops
+    every rank (the launcher's handlers, restored afterwards)."""
+    import signal
+    import threading
+
+    from torch.distributed.elastic.multiprocessing.api import SignalException
+    from torch.distributed.elastic.multiprocessing.errors import ChildFailedError
+    from torch.distributed.run import parse_args, run
+
+    handled = (signal.SIGTERM, signal.SIGINT, signal.SIGHUP, signal.SIGQUIT)
+    handlers = {s: signal.getsignal(s) for s in handled}
+    path = os.environ.get("PYTHONPATH")
+    pkg_root = str(Path(__file__).resolve().parents[2])
+    os.environ["PYTHONPATH"] = pkg_root + (os.pathsep + path if path else "")
+    try:
+        run(parse_args(["--standalone", "--nproc-per-node", str(n), *RANK_ENTRY, *argv]))
+        return 0
+    except ChildFailedError as e:
+        rank, failure = e.get_first_failure()
+        print(f"rank {rank} of {n} failed (exit code {failure.exitcode})", file=sys.stderr)
+        return failure.exitcode or 1
+    except SignalException as e:
+        return 128 + int(e.sigval)
+    finally:
+        if path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = path
+        if threading.current_thread() is threading.main_thread():  # only it may set them
+            for s, h in handlers.items():
+                signal.signal(s, h)
+
+
 def main(argv=None):
     """Run one command; returns what it returns (the trainer, where it
-    builds one).  Under a launcher (``python -m torch.distributed.run``)
-    this process's world is started first (``parallel.mesh.init_world``)
-    and ended after the command.  Rank 0 alone writes files and prints:
-    a rank above it runs the same command and steps with its writers
-    no-ops (``_run_files``), no ``--profile`` trace and its stdout dropped."""
+    builds one).
+
+    A command that builds a trainer, with no launcher around it, whose
+    ``--mesh`` asks for more than one rank (``parallel.mesh
+    .local_world_size``: 'auto' every visible card) starts those ranks
+    (``launch_ranks``) and returns 0, or exits with the first failed
+    rank's code; this process then opens no card and builds no trainer.
+    In a launched rank (``python -m torch.distributed.run``, or a rank
+    started so) this process's world is started first
+    (``parallel.mesh.init_world``) and ended after the command.  Rank 0
+    alone writes files and prints: a rank above it runs the same command
+    and steps with its writers no-ops (``_run_files``), no ``--profile``
+    trace and its stdout dropped."""
     ap = build_parser()
     args = ap.parse_args(argv)
     rank = None
     if hasattr(args, "platform"):  # every command that builds a trainer
         import torch.distributed as dist
 
-        from image_generation_tpu_torch.parallel.mesh import init_world
+        from image_generation_tpu_torch.parallel.mesh import (
+            init_world, launched, local_world_size,
+        )
 
+        if not launched():
+            _spec_shape(args.mesh)  # a bad value exits with the CLI's message
+            try:
+                n = local_world_size(args.mesh, _device(args))
+            except RuntimeError as e:
+                raise SystemExit(str(e))
+            if n > 1:
+                rc = launch_ranks(sys.argv[1:] if argv is None else list(argv), n)
+                if rc:
+                    raise SystemExit(rc)
+                return rc
         args.device = init_world(_device(args))
         rank = None if args.device is None else dist.get_rank()
     if rank:

@@ -8,14 +8,21 @@ Port of ``image_generation_tpu/app/server.py`` on the standard library
   * every figure rendered server-side (``app/render.py``): the page's
     script only swaps ``<img>`` sources and ``innerHTML``;
   * train / generate / tune / refresh run as separate OS processes of the
-    port's CLI (``python -m image_generation_tpu_torch.app.cli``), and
-    ``/api/cancel`` terminates the running one;
+    port's CLI (``python -m image_generation_tpu_torch.app.cli``), each in
+    a session of its own; the CLI starts a rank on every card its
+    ``--mesh`` asks for ('auto': every visible card), and ``/api/cancel``
+    stops the job and every rank of it;
   * with ``--warm-generate``, ``POST /api/generate`` and the coalescing
     ``POST /api/generate_now`` are served in-process by a resident
     ``WarmGenerator`` on the device the pass-through flags name: the card
     unless ``--platform cpu``; with no card visible the server does not
-    start.  A request that fails on the card answers 500 (``generate_now``)
-    or ``failed`` (``/api/state``); it is never served on the CPU instead;
+    start.  Where ``--mesh`` asks for several ranks ('auto': every visible
+    card) the server is rank 0 of a world with a follower process on each
+    other card, and every dispatch samples on every card
+    (``app.warm.make_warm_generator``); shutting the server down stops
+    them.  A request that fails on the card answers 500 (``generate_now``)
+    or ``failed`` (``/api/state``); it is never served on the CPU instead,
+    nor on fewer cards;
   * the page polls ``/api/...`` every 500 ms, reading the ``generated_json/``
     files the jobs write;
   * model and file names must match ``^[\\w-]+$`` (400 otherwise), which
@@ -31,6 +38,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -55,6 +63,60 @@ def valid_name(name) -> bool:
     path separators, '..', absolute paths, and empty names, so a validated
     name can be safely joined under workdir/models."""
     return isinstance(name, str) and bool(_NAME_RE.match(name))
+
+
+def _descendants(pid: int) -> list:
+    """The pids of every process below ``pid``, from ``/proc`` (none where
+    it cannot be read)."""
+    children: dict = {}
+    try:
+        entries = os.listdir("/proc")
+    except OSError:
+        return []
+    for d in entries:
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        children.setdefault(ppid, []).append(int(d))
+    out, todo = [], [pid]
+    while todo:
+        for c in children.get(todo.pop(), []):
+            out.append(c)
+            todo.append(c)
+    return out
+
+
+def _alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie, which holds no card, does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def _stop_job(proc: subprocess.Popen, ranks: list, grace_s: float = 10.0) -> None:
+    """After SIGTERM to a job's group: kill, after ``grace_s``, whatever of
+    the job and its ranks still runs (the ranks sit in sessions of their
+    own, where the group's signal does not reach; the CLI stops them on
+    SIGTERM)."""
+    deadline = time.monotonic() + grace_s
+    try:
+        proc.wait(timeout=grace_s)
+    except subprocess.TimeoutExpired:
+        pass
+    while any(_alive(p) for p in ranks) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    for pid in ([proc.pid] if proc.poll() is None else []) + [p for p in ranks if _alive(p)]:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    proc.poll()
 
 
 class JobManager:
@@ -88,10 +150,14 @@ class JobManager:
             # the job runs with the workdir as cwd; make the package
             # importable from there regardless of installation
             pkg_root = str(Path(__file__).resolve().parents[2])
-            env = dict(os.environ)
+            # a job starts its own ranks: it is no rank of this server's world
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                                "MASTER_PORT")}
             env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
             self._thread = self._thread_state = self._thread_error = None
-            self.proc = subprocess.Popen(cmd, cwd=str(self.workdir), env=env)
+            self.proc = subprocess.Popen(cmd, cwd=str(self.workdir), env=env,
+                                         start_new_session=True)
             self.kind = kind
             return True
 
@@ -117,10 +183,18 @@ class JobManager:
             return True
 
     def cancel(self) -> bool:
+        """Stop the running CLI job and every rank it started: SIGTERM to
+        the job's session group (the CLI stops its ranks on it), then,
+        after a grace period, SIGKILL to whatever of them still runs."""
         with self.lock:
             if self.proc is None or self.proc.poll() is not None:
                 return False  # idle, finished, or an uninterruptible thread job
-            self.proc.terminate()
+            ranks = _descendants(self.proc.pid)
+            try:
+                os.killpg(self.proc.pid, signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+            threading.Thread(target=_stop_job, args=(self.proc, ranks), daemon=True).start()
             return True
 
     def status(self) -> dict:
@@ -526,9 +600,10 @@ def make_server(
     warm = None
     if warm_generate:
         from image_generation_tpu_torch.app.cli import (
-            _config_overrides, _device, parse_mesh, parse_serving_args,
+            _config_overrides, _device, _spec_shape, parse_serving_args,
         )
-        from image_generation_tpu_torch.app.warm import WarmGenerator
+        from image_generation_tpu_torch.app.warm import make_warm_generator
+        from image_generation_tpu_torch.parallel.mesh import local_world_size
 
         # the warm trainer honours the same extra_cli flags every
         # subprocess job receives (e.g. --sampler-matmul-dtype int8), so
@@ -536,10 +611,14 @@ def make_server(
         sargs = parse_serving_args(extra)
         overrides = _config_overrides(sargs)
         overrides.update(warm_overrides or {})
-        warm = WarmGenerator(
-            workdir, config_overrides=overrides, device=_device(sargs),
-            params=sargs.params, mesh=parse_mesh(sargs.mesh),
-            serve_max_batch=sargs.serve_max_batch,
+        _spec_shape(sargs.mesh)  # a bad value exits with the CLI's message
+        try:  # more ranks than cards exits with both counts
+            local_world_size(sargs.mesh, _device(sargs))
+        except RuntimeError as e:
+            raise SystemExit(str(e))
+        warm = make_warm_generator(
+            workdir, device=_device(sargs), mesh=sargs.mesh, config_overrides=overrides,
+            params=sargs.params, serve_max_batch=sargs.serve_max_batch,
             serve_window_ms=sargs.serve_window_ms,
         )
 
@@ -837,6 +916,12 @@ def make_server(
         # overflows it and later connects get RST.  64 covers any burst the
         # coalescer's max_batch can drain in a couple of dispatches.
         request_queue_size = 64
+
+        def shutdown(self):
+            """Stop serving, then the warm followers, if any."""
+            super().shutdown()
+            if warm is not None:
+                warm.close()
 
     server = _Server((host, port), Handler)
     server.jobs = jobs  # for tests/embedding

@@ -16,12 +16,36 @@ padding to a power-of-two bucket would only add work here.
 the CLI's ``generate`` writes it.  The resident trainer is loaded without
 the dataset and train state (``Trainer.load(train_state=False)``);
 ``generate`` adds them on first use (``Trainer.load_train_state``).
+
+Several cards (``make_warm_generator``, as the JAX ``WarmGenerator(mesh=
+"auto")`` samples on every local chip): where the ``--mesh`` value asks
+for n > 1 ranks (``parallel.mesh.local_world_size``: 'auto' every visible
+card) and no launcher started this process, the serving process becomes
+rank 0 of a world of n ranks (NCCL, one card a rank; gloo on the CPU) and
+starts n − 1 follower processes (``WarmWorld``).  Every operation on the
+device (load a model, serve k requests, write a ``generate`` job) runs on
+every rank in lockstep: rank 0 rings each follower's doorbell (a pipe,
+which waits without a timeout while the server idles and closes when
+rank 0 is gone), broadcasts a small header (the operation and its
+integers; a model path by ``broadcast_object_list``), and every rank runs
+the same calls, whose collectives are bounded by the world's timeout.
+The sampler splits the k·NUM_READS chains over the ranks and returns the
+whole on every rank (``SampleFns.sample_fn``); every rank decodes the
+whole batch (the same calls on every rank, as a decoder whose dense layer
+is column-sharded over the mesh needs), rank 0 answers, and followers
+write no files.  A follower that is gone fails the next dispatch, and
+every one after it: the server never serves on fewer cards.
 """
 
 from __future__ import annotations
 
+import atexit
+import os
+import signal
+import socket
 import threading
 import time
+import traceback
 from pathlib import Path
 from typing import Optional
 
@@ -126,7 +150,7 @@ class _Coalescer:
 class WarmGenerator:
     def __init__(self, workdir, config_overrides: Optional[dict] = None,
                  device="cuda", mesh="auto", params=None, serve_max_batch: int = 16,
-                 serve_window_ms: float = 5.0):
+                 serve_window_ms: float = 5.0, world: Optional["WarmWorld"] = None):
         """``config_overrides``: TrainingConfig field overrides for the
         serving trainer (the checkpoint's parameters.json still decides
         N_LATENTS).  ``device``: where the trainer runs (the card unless
@@ -138,12 +162,15 @@ class WarmGenerator:
         CLI's ``_build_trainer`` applies it.
         ``serve_max_batch`` / ``serve_window_ms``: the most requests
         folded into one dispatch, and the batching window the leader
-        waits before each drain."""
+        waits before each drain.  ``world``: the followers this process
+        leads as rank 0 (``make_warm_generator``), told every device
+        operation before this process runs it."""
         self.workdir = Path(workdir)
         self.config_overrides = dict(config_overrides or {})
         self.device = resolve_device(device)
         self.mesh = mesh
         self.params = params
+        self.world = world
         self.lock = threading.Lock()
         self._trainer = None
         self._key = None  # (resolved model dir, dvae.pth mtime_ns)
@@ -152,37 +179,68 @@ class WarmGenerator:
             window_s=serve_window_ms / 1e3,
         )
 
+    def _load(self, model_path) -> Trainer:
+        mp = Path(model_path)
+        cfg = (TrainingConfig.from_yaml(self.params, **self.config_overrides)
+               if self.params else TrainingConfig(**self.config_overrides))
+        cfg = cfg.for_serving_dir(mp)
+        trainer = Trainer(config=cfg, device=self.device, mesh=self.mesh)
+        trainer.load(mp, train_state=False)
+        return trainer
+
     def _trainer_for(self, model_path):
         mp = Path(model_path)
         key = (str(mp.resolve()), (mp / "dvae.pth").stat().st_mtime_ns)
         if self._key != key:
-            cfg = (TrainingConfig.from_yaml(self.params, **self.config_overrides)
-                   if self.params else TrainingConfig(**self.config_overrides))
-            cfg = cfg.for_serving_dir(mp)
-            trainer = Trainer(config=cfg, device=self.device, mesh=self.mesh)
-            trainer.load(mp, train_state=False)
-            self._trainer, self._key = trainer, key
+            if self.world is not None:
+                self.world.tell(_LOAD, path=str(mp))
+            self._trainer, self._key = self._run_world_call(self._load, mp), key
         return self._trainer
 
     def generate(self, model_path, sharpen: bool = False) -> None:
         """One generation request written as the CLI's ``generate`` writes
         it: the ``generated_json`` figures and details and the model-diagram
         assets under ``workdir``, assets before the epoch-figure trigger."""
-        from image_generation_tpu_torch.app.cli import _write_details, _write_diagram_assets
         from image_generation_tpu_torch.app.files import RunFiles
 
         with self.lock:
             t = self._trainer_for(model_path)
-            if t.state is None:
-                t.load_train_state()
-            gen = t.generate_output(do_sharpen=sharpen)
-            files = RunFiles(self.workdir)
-            files.clean()
-            _write_details(t, files)
-            rec = t.generate_reconstructed_samples(do_sharpen=sharpen)
-            _write_diagram_assets(t, files, gen)
-            files.write_epoch(0, gen["grid"], rec["grid"],
-                              t.losses["mse_losses"], t.losses["dvae_losses"])
+            if self.world is not None:
+                self.world.tell(_GENERATE, int(sharpen))
+            self._run_world_call(self._generate_on, t, sharpen, RunFiles(self.workdir))
+
+    def _generate_on(self, t: Trainer, sharpen: bool, files) -> None:
+        """``generate``'s device work and writes on one rank (``files``:
+        ``UnwrittenRunFiles`` on a follower)."""
+        from image_generation_tpu_torch.app.cli import _write_details, _write_diagram_assets
+
+        if t.state is None:
+            t.load_train_state()
+        gen = t.generate_output(do_sharpen=sharpen)
+        files.clean()
+        _write_details(t, files)
+        rec = t.generate_reconstructed_samples(do_sharpen=sharpen)
+        _write_diagram_assets(t, files, gen)
+        files.write_epoch(0, gen["grid"], rec["grid"],
+                          t.losses["mse_losses"], t.losses["dvae_losses"])
+
+    def _run_world_call(self, fn, *args):
+        """``fn(*args)`` on this rank; with followers, a failure that left
+        the world out of step (a follower gone, a collective that timed
+        out) fails this dispatch and every later one."""
+        if self.world is None:
+            return fn(*args)
+        try:
+            return fn(*args)
+        except Exception as e:
+            self.world.failed(e)
+            raise
+
+    def close(self) -> list:
+        """Stop the followers, if any (``WarmWorld.close``); returns their
+        reports.  The generator serves no more on several cards."""
+        with self.lock:
+            return [] if self.world is None else self.world.close()
 
     @property
     def stats(self) -> dict:
@@ -224,7 +282,9 @@ class WarmGenerator:
         with self.lock:
             t = self._trainer_for(group[0].group)
             k = len(group)
-            imgs8 = self._serve_fn(t, k)  # (k, reads, S, S, 1)
+            if self.world is not None:
+                self.world.tell(_SERVE, k)
+            imgs8 = self._run_world_call(self._serve_fn, t, k)  # (k, reads, S, S, 1)
         for i, r in enumerate(group):
             r.result = (imgs8[i], k)
 
@@ -244,3 +304,251 @@ class WarmGenerator:
             img8 = torch.round(torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)
             img8 = img8.reshape(k, reads, *img8.shape[1:])
             return img8.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# several cards: rank 0 (the serving process) and its followers
+# ---------------------------------------------------------------------------
+
+_LOAD, _SERVE, _GENERATE, _STOP = 1, 2, 3, 4
+WORLD_TIMEOUT_S = 300.0  # the most a collective of a dispatch waits for a rank
+_WORLD_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def _world_env(rank: int, n: int, port: int) -> dict:
+    return dict(WORLD_SIZE=str(n), RANK=str(rank), LOCAL_RANK=str(rank),
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def _world_mesh(spec):
+    """The ``--mesh`` value's mesh over the started world ('auto': the
+    world in the JAX default shape), made on every rank in one order."""
+    from image_generation_tpu_torch.app.cli import parse_mesh
+    from image_generation_tpu_torch.parallel.mesh import auto_mesh
+
+    mesh = parse_mesh(spec)
+    return auto_mesh() if mesh == "auto" else mesh
+
+
+def _read_header(device) -> tuple:
+    """A follower's side of ``WarmWorld.tell``: (operation, integer, path)."""
+    import torch.distributed as dist
+
+    header = torch.zeros(2, dtype=torch.int64, device=device)
+    dist.broadcast(header, src=0)
+    op, arg = (int(v) for v in header.tolist())
+    path = None
+    if op == _LOAD:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        path = box[0]
+    return op, arg, path
+
+
+def _launch_counts() -> dict:
+    from image_generation_tpu_torch.ops import gibbs_cuda, gibbs_hbm_cuda
+
+    return {**gibbs_cuda.gibbs_sweeps_cuda.launches,
+            **gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda.launches}
+
+
+def _follower(rank: int, n: int, port: int, device: str, mesh_spec, kwargs: dict,
+              timeout_s: float, conn) -> None:
+    """A follower rank: joins the world on card ``rank`` (or the CPU), makes
+    the mesh and a ``WarmGenerator`` as rank 0 made its own, then runs each
+    operation rank 0 tells it until "stop", which it answers with its
+    report (rank, operations run, kernel launches by mode, and the seconds
+    from its start to its world, mesh and generator made).  Ends when rank
+    0 is gone (its pipe closed) too."""
+    import torch.distributed as dist
+
+    from image_generation_tpu_torch.app.files import UnwrittenRunFiles
+    from image_generation_tpu_torch.parallel.mesh import init_world
+
+    t0 = time.perf_counter()
+    signal.signal(signal.SIGINT, signal.SIG_IGN)  # rank 0 stops it, also on Ctrl-C
+    os.environ.update(_world_env(rank, n, port))
+    dev = init_world(device, timeout_s)
+    try:
+        gen = WarmGenerator(device=dev, mesh=_world_mesh(mesh_spec), **kwargs)
+        ops = {"load": 0, "serve": 0, "generate": 0}
+        ready_s = time.perf_counter() - t0
+        while True:
+            try:
+                conn.recv_bytes()  # the doorbell
+            except (EOFError, OSError):
+                return
+            op, arg, path = _read_header(dev)
+            if op == _STOP:
+                conn.send(dict(rank=rank, ops=ops, launches=_launch_counts(), ready_s=ready_s))
+                return
+            try:
+                if op == _LOAD:
+                    gen._trainer = gen._load(path)
+                    ops["load"] += 1
+                elif op == _SERVE:
+                    gen._serve_fn(gen._trainer, arg)
+                    ops["serve"] += 1
+                elif op == _GENERATE:
+                    gen._generate_on(gen._trainer, bool(arg), UnwrittenRunFiles(gen.workdir))
+                    ops["generate"] += 1
+            except Exception:
+                # rank 0 runs the same calls on the same inputs and raised at
+                # the same point; anything else times out there
+                traceback.print_exc()
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class WarmWorld:
+    """Rank 0's side of a warm server on n ranks: starts the n − 1
+    followers (``torch.multiprocessing``, spawn; follower r on card r),
+    joins the world with them (``parallel.mesh.init_world`` on a free
+    localhost port, the launcher's variables set for the call), makes the
+    mesh (``mesh``) and tells the followers each device operation
+    (``tell``).  ``close`` (also at interpreter exit) sends "stop", joins
+    the followers and ends the world."""
+
+    def __init__(self, n: int, device, mesh_spec, kwargs: dict,
+                 timeout_s: float = WORLD_TIMEOUT_S):
+        import torch.multiprocessing as mp
+
+        from image_generation_tpu_torch.parallel.mesh import init_world
+
+        self.n, self.error, self.reports = n, None, None
+        t0 = time.perf_counter()
+        port = _free_port()
+        ctx = mp.get_context("spawn")
+        self.procs, self.conns = [], []
+        for r in range(1, n):
+            ours, theirs = ctx.Pipe()
+            p = ctx.Process(target=_follower, name=f"warm-follower-{r}", daemon=True,
+                            args=(r, n, port, str(device), mesh_spec, kwargs, timeout_s,
+                                  theirs))
+            p.start()
+            theirs.close()
+            self.procs.append(p)
+            self.conns.append(ours)
+        t1 = time.perf_counter()
+        saved = {k: os.environ.get(k) for k in _WORLD_VARS}
+        os.environ.update(_world_env(0, n, port))
+        try:
+            self.device = init_world(device, timeout_s)
+        finally:  # the server's jobs must not see a launcher
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        t2 = time.perf_counter()
+        self.mesh = _world_mesh(mesh_spec)
+        # seconds spent starting the followers, joining the world (rank 0
+        # waits there for every follower to start) and making the mesh
+        self.start_s = dict(spawn=t1 - t0, world=t2 - t1, mesh=time.perf_counter() - t2)
+        atexit.register(self.close)
+
+    @property
+    def pids(self) -> list:
+        return [p.pid for p in self.procs]
+
+    def check(self) -> None:
+        """Raise if the world is stopped or out of step, or a follower is
+        gone."""
+        if self.error is None:
+            gone = [(r, p.exitcode) for r, p in enumerate(self.procs, 1) if not p.is_alive()]
+            if gone:
+                self.error = (f"rank(s) {', '.join(str(r) for r, _ in gone)} gone (exit "
+                              f"code(s) {', '.join(str(c) for _, c in gone)})")
+        if self.error is not None:
+            raise RuntimeError(f"warm serving on {self.n} ranks: {self.error}; the server "
+                               "does not serve on fewer cards")
+
+    def failed(self, e: BaseException) -> None:
+        """After a dispatch raised: a follower gone or a collective's error
+        leaves the world out of step for good."""
+        import torch.distributed as dist
+
+        if self.error is None and isinstance(e, dist.DistError):
+            self.error = f"a collective failed ({type(e).__name__}: {e})"
+        try:
+            self.check()
+        except RuntimeError:
+            pass
+
+    def tell(self, op: int, arg: int = 0, path: Optional[str] = None) -> None:
+        """Ring every follower's doorbell and broadcast the header (and a
+        model path); every rank then runs the operation."""
+        import torch.distributed as dist
+
+        self.check()
+        try:
+            for c in self.conns:
+                c.send_bytes(b"\0")
+            # held until the next header: the broadcast may still read it
+            self._header = torch.tensor([op, arg], dtype=torch.int64, device=self.device)
+            dist.broadcast(self._header, src=0)
+            if path is not None:
+                dist.broadcast_object_list([path], src=0)
+        except Exception as e:
+            self.error = self.error or f"telling the followers failed ({type(e).__name__}: {e})"
+            raise
+
+    def close(self, timeout_s: float = 60.0) -> list:
+        """Send "stop", collect each follower's report (``reports``), end
+        this rank's world while the followers end theirs, and join them;
+        idempotent.  A follower that has not ended within ``timeout_s`` is
+        killed."""
+        import torch.distributed as dist
+
+        if self.reports is not None:
+            return self.reports
+        self.reports = []
+        if self.error is None:
+            try:
+                self.tell(_STOP)
+                for c in self.conns:
+                    if c.poll(timeout_s):
+                        self.reports.append(c.recv())
+            except Exception:
+                traceback.print_exc()
+        for c in self.conns:  # a follower still at its doorbell ends
+            c.close()
+        # under NCCL a rank's destroy_process_group waits for the other
+        # ranks' (each follower's ends it after "stop"): end this rank's
+        # world beside them, not after joining them
+        ender = threading.Thread(target=dist.destroy_process_group, daemon=True)
+        if dist.is_initialized():
+            ender.start()
+        deadline = time.monotonic() + timeout_s
+        for p in self.procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if ender.is_alive():
+            ender.join(timeout_s)
+        self.error = self.error or "stopped"
+        atexit.unregister(self.close)
+        return self.reports
+
+
+def make_warm_generator(workdir, device="cuda", mesh="auto", **kwargs) -> WarmGenerator:
+    """The server's ``WarmGenerator`` for a ``--mesh`` value: on one rank
+    (``parallel.mesh.local_world_size`` 1, or inside a launched world) the
+    generator as it always was; on n > 1 this process becomes rank 0 of a
+    world of n (``WarmWorld``) and the generator serves on every rank."""
+    from image_generation_tpu_torch.app.cli import parse_mesh
+    from image_generation_tpu_torch.parallel.mesh import launched, local_world_size
+
+    n = 1 if launched() else local_world_size(mesh, device)
+    if n == 1:
+        return WarmGenerator(workdir, device=device, mesh=parse_mesh(mesh), **kwargs)
+    world = WarmWorld(n, device, mesh, dict(kwargs, workdir=workdir))
+    return WarmGenerator(workdir, device=world.device, mesh=world.mesh, world=world, **kwargs)

@@ -51,6 +51,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass, field
+from datetime import timedelta
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -454,7 +455,59 @@ def auto_mesh() -> Optional[Mesh]:
 LAUNCHER_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK")  # set by torch.distributed.run
 
 
-def init_world(device="cuda") -> Optional[torch.device]:
+def spec_shape(spec) -> Optional[Tuple[int, int]]:
+    """The (data, graph) shape a ``--mesh`` value names: a rank count ('4')
+    in the JAX default shape (``default_shape``), RxG ('2x2', '1x4') as
+    given; None for 'off' and 'auto', whose shape depends on the devices.
+    Anything else raises ``ValueError``."""
+    if spec in (None, "off", "auto"):
+        return None
+    s = str(spec).lower()
+    if "x" in s:
+        rows, cols = (int(x) for x in s.split("x"))
+        if rows < 1 or cols < 1:
+            raise ValueError("axis sizes must be >= 1")
+        return rows, cols
+    n = int(s)
+    if n < 1:
+        raise ValueError("device count must be >= 1")
+    return default_shape(n)
+
+
+def launched() -> bool:
+    """Whether a launcher started this process as a rank (any of
+    ``LAUNCHER_VARS`` set) or its world is already initialised: such a
+    process joins that world and never starts ranks of its own."""
+    import torch.distributed as dist
+
+    return (any(v in os.environ for v in LAUNCHER_VARS)
+            or (dist.is_available() and dist.is_initialized()))
+
+
+def local_world_size(spec, device="cuda") -> int:
+    """The number of ranks a ``--mesh`` value asks for where no launcher has
+    started a world, one process a rank: 'off' 1; 'auto' every visible card
+    on the card (``torch.cuda.device_count()``, so ``CUDA_VISIBLE_DEVICES``
+    limits it), 1 on the CPU (JAX's CPU device count is a test setting);
+    a count or RxG that many on either.  On the card a count above the
+    visible cards raises, naming both: ranks never share a card and never
+    fall back to gloo (``init_world``)."""
+    if spec == "off":
+        return 1
+    on_card = torch.device(device).type == "cuda"
+    if spec in (None, "auto"):
+        return max(torch.cuda.device_count(), 1) if on_card else 1
+    rows, cols = spec_shape(spec)
+    n = rows * cols
+    if on_card and n > torch.cuda.device_count():
+        raise RuntimeError(
+            f"--mesh {spec} asks for {n} ranks, one card a rank, but "
+            f"{torch.cuda.device_count()} card(s) are visible"
+        )
+    return n
+
+
+def init_world(device="cuda", timeout_s: Optional[float] = None) -> Optional[torch.device]:
     """Start this process's ``torch.distributed`` world from a launcher's
     environment (``python -m torch.distributed.run``: ``WORLD_SIZE``,
     ``RANK``, ``LOCAL_RANK``, and ``MASTER_ADDR`` / ``MASTER_PORT`` for the
@@ -467,7 +520,8 @@ def init_world(device="cuda") -> Optional[torch.device]:
     beyond the visible cards raises: ranks never share a card here and
     never fall back to gloo.  On the CPU (``device`` "cpu") the world is
     gloo.  A world of one rank starts too, and ``auto_mesh`` then gives
-    None, as the JAX ``auto_mesh`` does on one device."""
+    None, as the JAX ``auto_mesh`` does on one device.  ``timeout_s``
+    bounds every collective's wait (the default: ``torch.distributed``'s)."""
     import torch.distributed as dist
 
     if (not all(v in os.environ for v in LAUNCHER_VARS) or not dist.is_available()
@@ -476,8 +530,9 @@ def init_world(device="cuda") -> Optional[torch.device]:
     world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
     local = int(os.environ["LOCAL_RANK"])
     dev = torch.device(device)
+    kw = {} if timeout_s is None else dict(timeout=timedelta(seconds=timeout_s))
     if dev.type == "cpu":
-        dist.init_process_group("gloo", init_method="env://", world_size=world, rank=rank)
+        dist.init_process_group("gloo", init_method="env://", world_size=world, rank=rank, **kw)
         return dev
     if dev.type != "cuda":
         raise ValueError(f"a launched rank runs on 'cuda' or 'cpu', not {dev}")
@@ -490,7 +545,7 @@ def init_world(device="cuda") -> Optional[torch.device]:
     dev = torch.device("cuda", local)
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", init_method="env://", world_size=world, rank=rank,
-                            device_id=dev)
+                            device_id=dev, **kw)
     return dev
 
 

@@ -1693,3 +1693,92 @@ def test_nccl_comm_seconds_come_from_the_card(nccl_ranks):
 def test_nccl_reduce_scatter_on_the_card(nccl_ranks):
     for res in nccl_ranks:
         assert res["reduce_scatter"] == [True] * 4
+
+
+def _nccl_cards() -> None:
+    if torch.cuda.device_count() < NCCL_RANKS:
+        pytest.skip(f"needs {NCCL_RANKS} CUDA devices (one a rank under NCCL)")
+
+
+def test_nccl_self_launched_cli_equals_the_launched_one(dev, tmp_path, monkeypatch):
+    """``train --mesh 2x1`` at a tiny size on 2 cards: the ranks the CLI
+    starts itself (``cli.main`` with no launcher) equal the same command
+    under ``python -m torch.distributed.run`` rank by rank, losses and
+    parameters bit for bit; both NCCL, rank r on cuda:r."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from image_generation_tpu_torch.app import cli
+    from image_generation_tpu_torch.parallel.mesh import LAUNCHER_VARS
+
+    _nccl_cards()
+    root = MODEL.parents[2]
+    rank_script = str(root / "tests" / "torch_launch_rank.py")
+    argv = ["train", "--name", "m", "--epochs", "1", "--mesh", "2x1", "--dataset-size", "64",
+            "--batch-size", "16", "--latents", "32", "--sweeps", "2", "--qpu",
+            "Advantage2_prototype"]
+    for k in LAUNCHER_VARS:
+        monkeypatch.delenv(k, raising=False)
+    runs = {}
+    for how in ("launched", "self"):
+        out = tmp_path / how
+        out.mkdir()
+        args = ["--workdir", str(tmp_path / f"w_{how}"), *argv]
+        if how == "launched":
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+                 "--master-addr", "127.0.0.1", "--master-port", str(port), rank_script,
+                 str(out), *args],
+                cwd=root, env=dict(os.environ), capture_output=True, text=True, timeout=600)
+            assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        else:
+            monkeypatch.setattr(cli, "RANK_ENTRY", (rank_script, str(out)))
+            assert cli.main(args) == 0
+        runs[how] = [json.loads((out / f"rank_{r}.json").read_text()) for r in range(2)]
+    for r, (a, b) in enumerate(zip(runs["launched"], runs["self"])):
+        assert a["device"] == b["device"] == f"cuda:{r}"
+        assert a["mesh"] == b["mesh"] == [2, 1] and a["backend"] == b["backend"] == "nccl"
+        assert a["losses"] == b["losses"] and a["digest"] == b["digest"]
+
+
+def test_nccl_warm_server_launches_k1_on_both_cards(dev, tmp_path):
+    """The warm server with ``--mesh 2x1`` on 2 cards (``tests/
+    torch_warm_leader.py``): rank 0 on cuda:0 of an NCCL world, one
+    dispatch of 2 requests with K1 launched once on each card, 256 images a
+    request, the follower gone after "stop" well within the join's 60 s
+    (NCCL's destroy waits for every rank's: rank 0 ends its world beside
+    the follower); a server whose follower was killed fails the dispatch
+    and the next."""
+    import json
+    import subprocess
+    import sys
+
+    from image_generation_tpu_torch.app.server import _alive
+
+    _nccl_cards()
+    root = MODEL.parents[2]
+    out = tmp_path / "leader"
+    out.mkdir()
+    proc = subprocess.run(
+        [sys.executable, str(root / "tests" / "torch_warm_leader.py"), str(out),
+         str(tmp_path), str(MODEL), "{}", "--mesh", "2x1"],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    got = json.loads((out / "leader.json").read_text())
+    assert got["world"] == dict(backend="nccl", size=2, rank=0, mesh=[2, 1], device="cuda:0")
+    assert got["launches"] == {"K1-f32": 1}
+    for r in got["reports"]:
+        r.pop("ready_s")
+    assert got["reports"] == [dict(rank=1, ops=dict(load=1, serve=1, generate=0),
+                                   launches={"K1-f32": 1})]
+    images = np.load(out / "images.npy")
+    assert images.shape == (2, 256, 32, 32, 1) and images.dtype == np.uint8
+    assert got["stop_s"] < 30.0, got["stop_s"]
+    assert not any(_alive(p) for p in got["pids"] + got["killed"])
+    assert all(e is not None and "rank(s) 1 gone" in e for e in got["errors"])

@@ -36,7 +36,7 @@ import torch.distributed as dist
 from image_generation_tpu_torch.config import TrainingConfig
 from image_generation_tpu_torch.parallel import mesh as tmesh
 from image_generation_tpu_torch.training.trainer import Trainer
-from torch_launch_rank import digest
+from torch_launch_rank import threaded_reference
 from torch_ranks import run_ranks
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -169,13 +169,7 @@ def test_cli_train_under_the_launcher(tmp_path):
     assert proc.stdout.count("training: ") == 1 and proc.stdout.count("saved: ") == 1
     assert proc.stdout.count("epoch 1/1:") == 1
 
-    def rank(mesh):
-        t = Trainer(TrainingConfig(**TINY_CONFIG), device="cpu", mesh=mesh)
-        t.train_init(1)
-        t.train(1, batch_cb=lambda *_: None, epoch_chunks=4)
-        return t.losses, digest(t)
-
-    for losses, dig in run_ranks(2, rank, (2, 1)):
+    for losses, dig in threaded_reference(TINY_CONFIG, (2, 1)):
         assert losses == ranks[0]["losses"] and dig == ranks[0]["digest"]
 
 

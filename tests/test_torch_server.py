@@ -456,7 +456,7 @@ def test_warm_serving_honours_extra_cli(tmp_path):
         srv.server_close()
 
 
-def test_warm_server_with_params_builds_the_clis_config(warm, tmp_path):
+def test_warm_server_with_params_builds_the_clis_config(warm, tmp_path, monkeypatch):
     """``--params`` reaches the warm trainer as the CLI's ``_build_trainer``
     applies it: the YAML under the flag overrides."""
     _, _, work = warm
@@ -475,9 +475,10 @@ def test_warm_server_with_params_builds_the_clis_config(warm, tmp_path):
         assert (served.GIBBS_SWEEPS, served.NUM_READS, served.BATCH_SIZE) == (3, 48, 16)
     finally:
         srv.server_close()
-    with pytest.raises(SystemExit, match="--mesh"):  # a mesh the port cannot run
-        server.make_server(work, port=0, extra_cli=["--mesh", "2x2", "--platform", "cpu"],
-                           warm_generate=True)
+    # a mesh the port cannot run: more ranks than cards (one card a rank)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--mesh 2x2 asks for 4 ranks.* 1 card"):
+        server.make_server(work, port=0, extra_cli=["--mesh", "2x2"], warm_generate=True)
 
 
 def test_warm_server_without_a_card_fails_at_startup(tmp_path):

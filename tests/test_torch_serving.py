@@ -257,7 +257,8 @@ def test_serving_path_imports_no_jax_or_host_extras():
         "image_generation_tpu_torch.app.server, image_generation_tpu_torch.app.render, "
         "image_generation_tpu_torch.app.evaluate, image_generation_tpu_torch.utils.topology, "
         "image_generation_tpu_torch.utils.layout, image_generation_tpu_torch.training.optim, "
-        "image_generation_tpu_torch.parallel.dense, image_generation_tpu_torch.parallel.dryrun; "
+        "image_generation_tpu_torch.parallel.dense, image_generation_tpu_torch.parallel.dryrun, "
+        "torch.distributed.run; "
         "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'networkx', 'sklearn', 'PIL', "
         "'image_generation_tpu') if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )
