@@ -7,7 +7,10 @@ requests that arrive while a dispatch is in flight are queued and served
 together through one fused sample → decode dispatch, their chains folded
 into the chain dimension of one sampler call (chains are iid: request i
 owns rows [i·reads, (i+1)·reads)).  The leader/follower ``_Coalescer`` is
-the JAX package's, unchanged.
+the JAX package's, with the port's spans (``training.observability``): a
+request's ``coalescer.queue`` and ``serve.reply``, a dispatch's
+``serve.dispatch`` (its requests' ids) and, inside ``_serve_fn``,
+``serve.sample`` and ``serve.decode``.
 
 PyTorch runs eagerly and keeps no compiled executable per shape, so a
 group of k requests runs exactly k·NUM_READS chains: the JAX package's
@@ -40,6 +43,7 @@ every one after it: the server never serves on fewer cards.
 from __future__ import annotations
 
 import atexit
+import itertools
 import os
 import signal
 import socket
@@ -53,21 +57,32 @@ import numpy as np
 import torch
 
 from image_generation_tpu_torch.config import TrainingConfig
+from image_generation_tpu_torch.training.observability import record, span, tracing
 from image_generation_tpu_torch.training.trainer import Trainer
 from image_generation_tpu_torch.utils.device import resolve_device
 from image_generation_tpu_torch.utils.grid import make_grid, sharpen as _sharpen
 
 
-class _Request:
-    """One ``serve()`` call waiting for its slice of a fused dispatch."""
+_REQUEST_IDS = itertools.count()
 
-    __slots__ = ("group", "done", "result", "error")
+
+class _Request:
+    """One ``serve()`` call waiting for its slice of a fused dispatch:
+    its id, the clock at its place in the queue (``queued_ns``) and the
+    dispatch that serves it with that dispatch's start, which the leader
+    stamps, for the spans."""
+
+    __slots__ = ("group", "done", "result", "error", "id", "queued_ns", "dispatch",
+                 "dispatch_ns")
 
     def __init__(self, group: str):
         self.group = group
         self.done = False
         self.result = None
         self.error = None
+        self.id = next(_REQUEST_IDS)
+        self.queued_ns = self.dispatch_ns = 0
+        self.dispatch = None
 
 
 class _Coalescer:
@@ -94,6 +109,7 @@ class _Coalescer:
     def submit(self, req: _Request):
         lead = False
         with self._cv:
+            req.queued_ns = time.perf_counter_ns()
             self._pending.append(req)
             while not req.done and self._busy:
                 self._cv.wait()
@@ -122,8 +138,10 @@ class _Coalescer:
                     g = self._pending[0].group
                     group = [r for r in self._pending if r.group == g]
                     group = group[: self.max_batch]
+                    now = time.perf_counter_ns()
                     for r in group:
                         self._pending.remove(r)
+                        r.dispatch, r.dispatch_ns = self.dispatches, now
                 try:
                     self._run_group(group)
                 except Exception as e:  # surfaced to every request of the group
@@ -256,11 +274,14 @@ class WarmGenerator:
         thread."""
         req = _Request(str(Path(model_path).resolve()))
         imgs8, batched = self._coalescer.submit(req)
-        out = imgs8.astype(np.float32) / 255.0
-        if sharpen:
-            out = _sharpen(out)
-        return {"grid": make_grid(out, nrow=16), "images": out,
-                "batched": batched}
+        record("coalescer.queue", req.queued_ns, req.dispatch_ns, request=req.id,
+               dispatch=req.dispatch)
+        with span("serve.reply", request=req.id):
+            out = imgs8.astype(np.float32) / 255.0
+            if sharpen:
+                out = _sharpen(out)
+            return {"grid": make_grid(out, nrow=16), "images": out,
+                    "batched": batched}
 
     def warm_buckets(self, model_path, max_concurrency: int) -> list:
         """Run one dispatch for every group size a burst of up to
@@ -279,9 +300,11 @@ class WarmGenerator:
         """Serve ``group`` (one model) through one fused dispatch.  Each
         request's ``result`` is its raw (reads, S, S, 1) uint8 slice plus
         the batch count."""
-        with self.lock:
+        k = len(group)
+        ids = ({"dispatch": group[0].dispatch, "requests": [r.id for r in group], "k": k}
+               if tracing() else {})
+        with span("serve.dispatch", **ids), self.lock:
             t = self._trainer_for(group[0].group)
-            k = len(group)
             if self.world is not None:
                 self.world.tell(_SERVE, k)
             imgs8 = self._run_world_call(self._serve_fn, t, k)  # (k, reads, S, S, 1)
@@ -296,13 +319,15 @@ class WarmGenerator:
         reads = cfg.NUM_READS
         sweeps = cfg.GIBBS_BURN_IN + cfg.GIBBS_SWEEPS
         with torch.inference_mode():
-            spins = trainer.fns.sample_fn(
-                trainer._next_generator(), trainer.grbm_params,
-                k * reads, sweeps,
-            )  # (k·reads, n)
-            out = trainer.dvae.decode(spins[:, None, :])[:, 0]
-            img8 = torch.round(torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)
-            img8 = img8.reshape(k, reads, *img8.shape[1:])
+            with span("serve.sample"):
+                spins = trainer.fns.sample_fn(
+                    trainer._next_generator(), trainer.grbm_params,
+                    k * reads, sweeps,
+                )  # (k·reads, n)
+            with span("serve.decode"):
+                out = trainer.dvae.decode(spins[:, None, :])[:, 0]
+                img8 = torch.round(torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)
+                img8 = img8.reshape(k, reads, *img8.shape[1:])
             return img8.cpu().numpy()
 
 

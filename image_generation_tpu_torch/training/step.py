@@ -111,6 +111,7 @@ from image_generation_tpu_torch.parallel.mesh import (
     shard_batch,
     shard_epoch_batches,
 )
+from image_generation_tpu_torch.training.observability import span
 from image_generation_tpu_torch.training.schedules import geomspace_lr
 from image_generation_tpu_torch.utils.device import resolve_device
 
@@ -749,81 +750,92 @@ class TrainStepFns(SampleFns):
         cfg = self.config
         feed = feed or StepFeed()
         g = state.generator
+        dev = self.device
         pt_carry = self.pt_mode and cfg.PERSISTENT_CHAINS
+        with span("train.step", device=dev, step=state.opt_step):
+            # ---- negative phase #1, under the cached sampler model ----
+            with span("train.sampler", device=dev):
+                chains_in = state.chains
+                if not cfg.PERSISTENT_CHAINS:
+                    flat = feed.fresh_chains
+                    if flat is None:
+                        flat = random_spins(g, self.plan,
+                                            chains_in[..., 0].numel() * self.train_rows.n,
+                                            self.device)
+                    whole = ((chains_in.shape[0] * self.train_rows.n,)
+                             + tuple(chains_in.shape[1:-1]))
+                    chains_in = self.local(flat.reshape(*whole, -1))
+                chains, chain_e, pt_accept = self.run_sweeps(
+                    g, state.sampler_h, state.sampler_coupling, chains_in, cfg.GIBBS_SWEEPS,
+                    energies=state.chain_energies if pt_carry else None, betas=state.pt_betas,
+                    uniforms=feed.sweeps1, swap_uniforms=feed.swaps1,
+                )
+                samples = self.chain_samples(chains)
 
-        # ---- negative phase #1, under the cached sampler model ----
-        chains_in = state.chains
-        if not cfg.PERSISTENT_CHAINS:
-            flat = feed.fresh_chains
-            if flat is None:
-                flat = random_spins(g, self.plan, chains_in[..., 0].numel() * self.train_rows.n,
-                                    self.device)
-            whole = (chains_in.shape[0] * self.train_rows.n,) + tuple(chains_in.shape[1:-1])
-            chains_in = self.local(flat.reshape(*whole, -1))
-        chains, chain_e, pt_accept = self.run_sweeps(
-            g, state.sampler_h, state.sampler_coupling, chains_in, cfg.GIBBS_SWEEPS,
-            energies=state.chain_energies if pt_carry else None, betas=state.pt_betas,
-            uniforms=feed.sweeps1, swap_uniforms=feed.swaps1,
-        )
-        samples = self.chain_samples(chains)
+            # ---- DVAE forward + MSE + MMD, backward, Adam ----
+            with span("train.forward", device=dev):
+                dvae = state.dvae.train()
+                state.dvae_opt.zero_grad(set_to_none=True)
+                spin_u, masks = feed.spin_uniforms, feed.dropout_masks
+                if dp:
+                    spin_u, masks = self._global_draws(g, images, spin_u, masks)
+                    with global_batch_stats(self._data_sum, self.mesh.data), \
+                            rows_split_over_data():
+                        _logits, spins, recon = dvae(images, cfg.N_REPLICAS, g,
+                                                     spin_uniforms=spin_u, dropout_masks=masks)
+                else:
+                    _logits, spins, recon = dvae(images, cfg.N_REPLICAS, g,
+                                                 spin_uniforms=spin_u, dropout_masks=masks)
+                mse = torch.square(recon - images[:, None]).mean()
+                flat_spins = spins.reshape(-1, spins.shape[-1])
+                if dp:  # this slice's share of the global mean; every slice's spins
+                    mse = mse / self.mesh.data
+                    flat_spins = AllGatherRows.apply(flat_spins, self.mesh, "data")
+                mmd = mmd_loss(flat_spins, samples, self.kernel)
+                loss = mse + mmd
+            with span("train.backward", device=dev):
+                loss.backward()
+                if dp:
+                    mse = self.mesh.all_reduce(mse.detach().clone(), axis="data")
+                    loss = mse + mmd.detach()
+                    self._sum_gradients(dvae)
+            with span("train.optimizer", device=dev):
+                for group in state.dvae_opt.param_groups:
+                    group["lr"] = self.dvae_lr(state.opt_step)
+                state.dvae_opt.step()
 
-        # ---- DVAE forward + MSE + MMD, backward, Adam ----
-        dvae = state.dvae.train()
-        state.dvae_opt.zero_grad(set_to_none=True)
-        spin_u, masks = feed.spin_uniforms, feed.dropout_masks
-        if dp:
-            spin_u, masks = self._global_draws(g, images, spin_u, masks)
-            with global_batch_stats(self._data_sum, self.mesh.data), rows_split_over_data():
-                _logits, spins, recon = dvae(images, cfg.N_REPLICAS, g, spin_uniforms=spin_u,
-                                             dropout_masks=masks)
-        else:
-            _logits, spins, recon = dvae(images, cfg.N_REPLICAS, g, spin_uniforms=spin_u,
-                                         dropout_masks=masks)
-        mse = torch.square(recon - images[:, None]).mean()
-        flat_spins = spins.reshape(-1, spins.shape[-1])
-        if dp:  # this slice's share of the global mean; every slice's spins
-            mse = mse / self.mesh.data
-            flat_spins = AllGatherRows.apply(flat_spins, self.mesh, "data")
-        mmd = mmd_loss(flat_spins, samples, self.kernel)
-        loss = mse + mmd
-        loss.backward()
-        if dp:
-            mse = self.mesh.all_reduce(mse.detach().clone(), axis="data")
-            loss = mse + mmd.detach()
-            self._sum_gradients(dvae)
-        for group in state.dvae_opt.param_groups:
-            group["lr"] = self.dvae_lr(state.opt_step)
-        state.dvae_opt.step()
-
-        # ---- scheduled GRBM update (host integers: no device sync) ----
-        train_grbm = epoch < 6 and state.opt_step % 10 == 0
-        nll = torch.zeros((), device=self.device)
-        if train_grbm:
-            data_spins = flat_spins.detach()
-            chains, chain_e2, _ = self.run_sweeps(
-                g, state.sampler_h, state.sampler_coupling, chains, cfg.GIBBS_SWEEPS,
-                energies=chain_e if self.pt_mode else None, betas=state.pt_betas,
-                uniforms=feed.sweeps2, swap_uniforms=feed.swaps2,
+            # ---- scheduled GRBM update (host integers: no device sync) ----
+            train_grbm = epoch < 6 and state.opt_step % 10 == 0
+            nll = torch.zeros((), device=self.device)
+            if train_grbm:
+                with span("train.grbm_update", device=dev):
+                    data_spins = flat_spins.detach()
+                    chains, chain_e2, _ = self.run_sweeps(
+                        g, state.sampler_h, state.sampler_coupling, chains, cfg.GIBBS_SWEEPS,
+                        energies=chain_e if self.pt_mode else None, betas=state.pt_betas,
+                        uniforms=feed.sweeps2, swap_uniforms=feed.swaps2,
+                    )
+                    model_spins = self.chain_samples(chains)
+                    params = state.grbm_params
+                    nll = nll_value(params, self.graph, data_spins, model_spins)
+                    grads = nll_grads(self.graph, data_spins, model_spins)
+                    params.linear.grad, params.quadratic.grad = grads.linear, grads.quadratic
+                    for group in state.grbm_opt.param_groups:
+                        group["lr"] = self.grbm_lr(state.opt_step)
+                    state.grbm_opt.step()
+                    params.linear.grad = params.quadratic.grad = None
+                    with span("train.sampler_rebuild", device=dev):
+                        state.sampler_h, state.sampler_coupling = self.build_sampler_model(params)
+                        # energies depend on the model: re-anchor under the new one
+                        chain_e = self.compute_energies(state.sampler_h, state.sampler_coupling,
+                                                        chains)
+            state.chains, state.chain_energies = chains, chain_e
+            state.opt_step += 1
+            return StepMetrics(
+                mse=mse.detach(), mmd=mmd.detach(), dvae_loss=loss.detach(), nll=nll.detach(),
+                grbm_trained=torch.full((), float(train_grbm), device=self.device),
+                pt_accept=pt_accept,
             )
-            model_spins = self.chain_samples(chains)
-            params = state.grbm_params
-            nll = nll_value(params, self.graph, data_spins, model_spins)
-            grads = nll_grads(self.graph, data_spins, model_spins)
-            params.linear.grad, params.quadratic.grad = grads.linear, grads.quadratic
-            for group in state.grbm_opt.param_groups:
-                group["lr"] = self.grbm_lr(state.opt_step)
-            state.grbm_opt.step()
-            params.linear.grad = params.quadratic.grad = None
-            state.sampler_h, state.sampler_coupling = self.build_sampler_model(params)
-            # energies depend on the model: re-anchor under the new one
-            chain_e = self.compute_energies(state.sampler_h, state.sampler_coupling, chains)
-        state.chains, state.chain_energies = chains, chain_e
-        state.opt_step += 1
-        return StepMetrics(
-            mse=mse.detach(), mmd=mmd.detach(), dvae_loss=loss.detach(), nll=nll.detach(),
-            grbm_trained=torch.full((), float(train_grbm), device=self.device),
-            pt_accept=pt_accept,
-        )
 
     def _data_sum(self, t: torch.Tensor) -> torch.Tensor:
         return AllReduceSum.apply(t, self.mesh, "data")
@@ -871,7 +883,9 @@ class TrainStepFns(SampleFns):
 
     def rebuild_cache(self, state: TrainState) -> TrainState:
         """Recompute only the cached sampler model from ``grbm_params``."""
-        state.sampler_h, state.sampler_coupling = self.build_sampler_model(state.grbm_params)
+        with span("train.sampler_rebuild", device=self.device):
+            state.sampler_h, state.sampler_coupling = self.build_sampler_model(
+                state.grbm_params)
         return state
 
     def rebuild_sampler(self, state: TrainState) -> TrainState:

@@ -67,6 +67,7 @@ from image_generation_tpu_torch.io.checkpoint import (
 )
 from image_generation_tpu_torch.models.dvae import DVAE
 from image_generation_tpu_torch.ops.gibbs import build_plan
+from image_generation_tpu_torch.training.observability import profile, span
 from image_generation_tpu_torch.training.step import (
     TrainState,
     make_sample_fns,
@@ -277,7 +278,8 @@ class Trainer:
             parts.append(m)
             if batch_cb is not None and k > 1:
                 batch_cb((i + 1) * chunk, nb)
-        metrics = {f: torch.cat([p[f] for p in parts]).cpu().numpy() for f in parts[0]}
+        with span("train.epoch_metrics", epoch=epoch):
+            metrics = {f: torch.cat([p[f] for p in parts]).cpu().numpy() for f in parts[0]}
         mses, totals = metrics["mse"], metrics["dvae_loss"]
         self.losses["mse_losses"].extend(mses.tolist())
         self.losses["dvae_losses"].extend(totals.tolist())
@@ -327,8 +329,6 @@ class Trainer:
         run stopped in, else 0.  That resume hint is consumed by the first
         ``train`` call after ``resume_native`` whether or not it passes
         ``start_epoch``, so a later call starts at 0 again."""
-        from image_generation_tpu_torch.training.observability import profile
-
         if not self._init_done or self._n_epochs != n_epochs:
             self.train_init(n_epochs)
         hint, self._resume_start_epoch = self._resume_start_epoch, 0
