@@ -42,11 +42,32 @@
 // graph's own work is 2 operations a nonzero a chain a sweep (38 MFLOP at
 // the flagship's 256 x 16, well under a microsecond at any peak), and the
 // bytes it must move are the table (122,880 B of f32 words at the
-// flagship) and the spins in and out.  What is left is latency: a sweep
-// is one dependent step per color class (6 at the flagship, 5 on the
-// served checkpoint, 7 on the Pegasus plans), each step deg table loads,
-// deg shared-memory reads, a Philox draw and an expf per (column, chain),
-// then a barrier.
+// flagship) and the spins in and out.  What is left is the work of each
+// update: a sweep is one dependent step per color class (6 at the
+// flagship, 5 on the served checkpoint, 7 on the Pegasus plans), each
+// step deg table loads, deg shared-memory reads, a Philox4x32-10 draw and
+// an expf per (column, chain), then a barrier.  Measured on the served
+// checkpoint's plan (n_pad 640) at 256 k chains x 80 sweeps, a sweep
+// costs about 0.85 us a pass (col_step columns of a span, then the
+// barrier) plus 1.8 ns a (column, chain) update on the busiest SM, which
+// holds two blocks of 1,024 threads when 144 to 256 blocks share 132 SMs
+// (within 9 % of every G's time, 1 to 16, with the live columns below:
+// 0.42, 0.51, 0.63, 1.01 and 1.78 ms a launch; NVIDIA H100 80GB HBM3).
+//
+// So the kernel updates only the columns something reads.  build_plan
+// rounds every block up to 128 columns (the TPU's lanes, kept so that both
+// packages build one plan), and the padding has no couplings: the served
+// plan holds 256 live columns of 640, the fresh flagship plan 256 of 768,
+// the scaled plan 5,640 of 6,016.  For each class span the wrapper passes
+// (c0, live_stop, c1), live_stop the valid stop of the span's last block
+// where no other block of the span has padding and no edge touches it
+// (ops/gibbs_sparse.py live_spans; else c1).  Every sweep updates
+// [c0, live_stop), and the last sweep the whole span: a padding column's
+// field is h alone, so its value after the run is the last sweep's draw
+// whatever came before.  Every column keeps its padded index for the
+// table, h, the spin slot and the Philox counter, so the spins written
+// out, padding included, are the ones a sweep of every column gives, bit
+// for bit.
 //
 // In f32 on the streaming route the same holds.  The 1,280-latent
 // Advantage2_system1 plan (n_pad 1,664, 6 class spans of at most 384
@@ -179,8 +200,10 @@ __global__ void gather_table_kernel(const V* __restrict__ coupling,
   }
 }
 
+// At least two blocks of 1,024 threads an SM: at most 32 registers a
+// thread.  The busiest SM then holds both blocks of a grid of 133 to 264.
 template <typename V, int G>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, 2)
 sparse_sweeps_kernel(const float* __restrict__ spins_in,
                      float* __restrict__ spins_out,
                      const typename Word<V>::T* __restrict__ entry,  // (deg, n_pad)
@@ -189,7 +212,7 @@ sparse_sweeps_kernel(const float* __restrict__ spins_in,
                      const float* __restrict__ uniforms,  // null: Philox
                      const int64_t* __restrict__ seed,    // null: fed
                      float* __restrict__ delta_e,         // null: no carry
-                     const int* __restrict__ spans,       // (c0, c1) per span
+                     const int* __restrict__ spans,       // (c0, live_stop, c1) per span
                      const int n_spans, const int deg, const int n_chains,
                      const int n_pad, const int n_sweeps) {
   extern __shared__ int8_t spins[];  // n_pad x G, chain fastest
@@ -219,11 +242,17 @@ sparse_sweeps_kernel(const float* __restrict__ spins_in,
   }
   __syncthreads();
 
+  // Every sweep updates the live columns [c0, live_stop) of each span; the
+  // last also the padding [live_stop, c1), which has no coupling and no
+  // reader: its field is h alone, so its value after the run is the last
+  // sweep's draw whatever came before, and its energy share is
+  // h * (new - initial), the sum a sweep-by-sweep update would carry.
   const int col_step = n_threads / G;
   for (int sweep = 0; sweep < n_sweeps; ++sweep) {
+    const int bound = sweep == n_sweeps - 1 ? 2 : 1;  // the span's c1 or live_stop
     for (int sp = 0; sp < n_spans; ++sp) {
-      const int c1 = __ldg(spans + 2 * sp + 1);
-      for (int c = __ldg(spans + 2 * sp) + tid / G; c < c1; c += col_step) {
+      const int stop = __ldg(spans + 3 * sp + bound);
+      for (int c = __ldg(spans + 3 * sp) + tid / G; c < stop; c += col_step) {
         typename Word<V>::Acc acc = 0;
         const typename Word<V>::T* e = entry + c;
 #pragma unroll 5
@@ -369,7 +398,11 @@ int gibbs_sparse_word_bytes(int dtype) {
 // the stored coupling (dense or packed panels); nbr, off: the (deg, n_pad)
 // int32 neighbour table (off -1 for an empty slot); entry: (deg, n_pad)
 // scratch for the gathered table, gibbs_sparse_word_bytes(dtype) a slot.
-// spans: device int32, (c0, c1) per color-class span in plan order.  int8:
+// spans: device int32, (c0, live_stop, c1) per color-class span in plan
+// order: the columns [live_stop, c1) must have no coupling (no table
+// entry); only the last sweep updates them.  Their share of delta_e
+// is h[c] * (final - initial) spin, exactly zero for every caller in the
+// package, which holds h at zero on padding (permuted_model).  int8:
 // h and beta in quantized units (h / scale, beta * scale); bf16 and f32:
 // as they are.  uniforms: null, or
 // f32 with at least n_sweeps rows of (n_chains, n_pad); seed: null (fed)

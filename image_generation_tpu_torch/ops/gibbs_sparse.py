@@ -12,9 +12,9 @@ panels.  It replaces ``image_generation_tpu/ops/gibbs_pallas.py``
 they compute: int8 in their quantized units (h / scale, β · scale, ΔE ×
 scale), f32 and bf16 as f32 sums of the exact value × ±1 products.  The
 source is ``csrc/gibbs_sparse.cu``; its header note says what bounds it
-on the H100 (at the flagship's 256 chains × 16 sweeps, not the bytes or
-operations but one dependent step per color class) and how the design
-meets that.  ``ops/cuda_build.py`` builds it beside K4; it is bound here
+on the H100 (not the bytes but the work of each (column, chain) update
+and one barrier a pass over a color class) and how the design meets
+that.  ``ops/cuda_build.py`` builds it beside K4; it is bound here
 with ``ctypes``.
 
 The kernel reads the coupling only at its nonzeros, through a static
@@ -29,9 +29,17 @@ keeps: **the coupling is zero off the plan's edges** (``permuted_model`` /
 ``quantize_coupling`` and ``pack_coupling`` keep zeros zero).  A coupling
 with other nonzeros is sampled as if they were zero.
 
+The kernel sweeps only the live columns of each class span
+(``live_spans``): ``build_plan`` rounds every block up to 128 columns,
+and that padding, with no coupling and nothing reading it, is drawn once,
+in the last sweep, with the same outputs bit for bit.
+
 ``gibbs_sweeps_sparse`` is the wrapper, called by the two routes'
 wrappers; it adds one to the counter and mode name they pass where it
-launches the kernel.  For a tensor on the CPU it runs the plain version,
+launches the kernel, and the columns it updates to
+``gibbs_sweeps_sparse.columns`` (``"live"``: swept every sweep;
+``"padding"``: drawn once; each times chains and sweeps).  For a tensor
+on the CPU it runs the plain version,
 ``gibbs_sweeps_sparse_reference`` (the same words, fields summed per class
 span in the kernel's slot order: exact int32 for int8, f32 for f32 and
 bf16, so the kernel's fields equal it bit for bit); for a CUDA tensor it
@@ -57,6 +65,7 @@ from image_generation_tpu_torch.ops.quant import QuantCoupling
 
 __all__ = [
     "neighbor_table",
+    "live_spans",
     "table_words",
     "launch_shape",
     "supported",
@@ -171,19 +180,49 @@ def neighbor_table(plan: GibbsPlan, chunk: Optional[int] = None) -> Tuple[np.nda
     return nbr, off
 
 
+_live_spans_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def live_spans(plan: GibbsPlan) -> Tuple[Tuple[int, int, int], ...]:
+    """(c0, live_stop, c1) for each color-class span of ``class_spans``:
+    the kernel updates [c0, live_stop) every sweep and the padding
+    [live_stop, c1) only in the last.  live_stop is the valid stop of the
+    span's last block where that block alone has padding and no edge
+    touches it, as in every plan ``build_plan`` makes; otherwise (padding
+    inside a span, or coupled) c1, and the whole span sweeps."""
+    cached = _live_spans_cache.get(plan)
+    if cached is not None:
+        return cached
+    touched = np.zeros(plan.n_pad, bool)
+    touched[np.asarray(plan.perm_edge_i, np.int64)] = True
+    touched[np.asarray(plan.perm_edge_j, np.int64)] = True
+    out = []
+    for c0, c1, b0, b1 in class_spans(plan):
+        stop = plan.blocks[b1 - 1][1]
+        if any(v != e for _s, v, e in plan.blocks[b0:b1 - 1]) or touched[stop:c1].any():
+            stop = c1
+        out.append((c0, stop, c1))
+    _live_spans_cache[plan] = tuple(out)
+    return _live_spans_cache[plan]
+
+
 _table_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _device_table(plan: GibbsPlan, chunk: Optional[int], device):
-    """(nbr, off, spans) on ``device``, built once per (plan, chunk,
-    device): spans is the (n_spans, 2) int32 (c0, c1) of ``class_spans``."""
+    """(nbr, off, spans, (live, padding)) on ``device``, built once per
+    (plan, chunk, device): spans is the (n_spans, 3) int32 of
+    ``live_spans``; live and padding count its swept and once-drawn
+    columns."""
     per_plan = _table_cache.setdefault(plan, {})
     key = (chunk, str(device))
     if key not in per_plan:
         nbr, off = neighbor_table(plan, chunk)
-        spans = [(c0, c1) for c0, c1, _b0, _b1 in class_spans(plan)]
+        spans = live_spans(plan)
+        live = sum(stop - c0 for c0, stop, _c1 in spans)
         per_plan[key] = (torch.from_numpy(nbr).to(device), torch.from_numpy(off).to(device),
-                         torch.tensor(spans, dtype=torch.int32, device=device))
+                         torch.tensor(spans, dtype=torch.int32, device=device),
+                         (live, plan.n_pad - live))
     return per_plan[key]
 
 
@@ -233,7 +272,7 @@ def table_words(coupling_p, plan: GibbsPlan) -> torch.Tensor:
     for bf16, 2³¹ − 1 for f32)."""
     mat, _scale, chunk = _stored(coupling_p, plan)
     _check_word(mat.dtype, plan.n_pad)
-    nbr, off, _spans = _device_table(plan, chunk, mat.device)
+    nbr, off, _spans, _columns = _device_table(plan, chunk, mat.device)
     vals = mat.reshape(-1)[off.clamp(min=0).long()]
     if mat.dtype == torch.int8:
         bits = vals.long() & 0xFF
@@ -284,20 +323,24 @@ def _fits(chains_per_block: int, n_pad: int) -> bool:
     return _dynamic_smem(chains_per_block, n_pad) + _STATIC_SMEM <= _SMEM_LIMIT
 
 
-def _threads(chains_per_block: int) -> int:
-    """Threads per block: 512 (column, chain) pairs a pass for one chain a
-    block, 1,024 for more.  Measured on an NVIDIA H100 80GB HBM3 (700 W)
-    over every G at 512 and 1,024 threads, at 256, 1,024 and 2,048 chains
-    on the 2,048-latent and scaled plans, three runs: with the G of
-    ``launch_shape`` these were within 9 % of the fastest shape in each
-    case.  The flagship's class spans are only 128 columns wide, so at
-    G = 1 three quarters of the 512 threads idle in each class step; yet
-    over every G at 128, 256, 512 and 1,024 threads, at the flagship's
-    K1 shapes (256 and 4,096 chains x 80 sweeps on the served plan, 256
-    and 2,048 x 16 on the fresh one, f32 and bf16), no shape beat this
-    one by more than 10 % in both of two runs (``chip_smoke.py`` phases
-    6, 11 and 21; PERF.md)."""
-    return 512 if chains_per_block == 1 else 1024
+def _threads(chains_per_block: int, widest: int) -> int:
+    """Threads per block: 512 for one chain a block, and for more where a
+    pass of 512 (column, chain) pairs still covers the plan's widest live
+    span (``widest`` columns; G = 2 and 4 on the flagship plans, whose
+    live spans are at most 72 wide); else 1,024, two blocks an SM.
+
+    Measured on an NVIDIA H100 80GB HBM3 (700 W), device time over every G
+    at 512 and 1,024 threads on the served plan at 256·k chains x 80
+    sweeps, k = 1 to 16, two runs each: at G = 2 and 4, 1,024
+    threads idle at least three quarters of their warps at every barrier
+    (a pass is 256 or 512 columns, a live span 72 at most), and 512 were
+    10 to 13 % faster at the G ``launch_shape`` picks (k = 2 and 4); at
+    G = 8 and 16, 512 threads take two passes over the widest spans, and
+    1,024 were as fast or faster.  On the 2,048-latent and scaled plans
+    (spans up to 512 and 1,408 columns) every G of two or more takes
+    1,024, within 9 % of the fastest shape at 256, 1,024 and 2,048 chains
+    (``chip_smoke.py`` phases 6, 11 and 21; PERF.md)."""
+    return 512 if chains_per_block == 1 or 512 // chains_per_block >= widest else 1024
 
 
 def launch_shape(plan: GibbsPlan, n_chains: int, sms: int = _SMS) -> Tuple[int, int]:
@@ -305,13 +348,15 @@ def launch_shape(plan: GibbsPlan, n_chains: int, sms: int = _SMS) -> Tuple[int, 
     grid still makes one full wave of blocks on ``sms`` SMs (the wrapper
     passes its card's count) and whose spins fit shared memory (the
     largest that fits otherwise; G 0 when none does).  On an H100's 132
-    SMs, 256 chains take G = 1 (256 blocks), 1,024 G = 4, 2,048 G = 8."""
+    SMs, 256 chains take G = 1 (256 blocks), 1,024 G = 4, 2,048 G = 8;
+    the threads follow the widest live span (``_threads``)."""
+    widest = max(stop - c0 for c0, stop, _c1 in live_spans(plan))
     fits = [g for g in _CHAINS if _fits(g, plan.n_pad)]
     for g in fits:
         if -(-n_chains // g) >= sms:
-            return g, _threads(g)
+            return g, _threads(g, widest)
     g = fits[-1] if fits else 0
-    return g, _threads(g)
+    return g, _threads(g, widest)
 
 
 def supported(plan: GibbsPlan, n_chains: int, dtype=torch.int8) -> bool:
@@ -416,8 +461,14 @@ def gibbs_sweeps_sparse(
     ``spins_p`` runs the plain version; a CUDA one launches the kernel, and
     anything it does not take raises (a plan wider than the table word, a
     shape that does not fit).  ``count`` = (counter, mode name): the launch
-    adds one there.  ``_shape`` overrides ``launch_shape`` (chains per
-    block, threads) for measuring the kernel."""
+    adds one there, and its live and padding columns times chains times
+    sweeps to ``gibbs_sweeps_sparse.columns``.  ``_shape`` overrides
+    ``launch_shape`` (chains per block, threads) for measuring the kernel.
+
+    The kernel draws each span's padding (``live_spans``) once, with field
+    h, so its share of ΔE is h · (final − initial spin): zero for every
+    caller here, since ``permuted_model`` and ``permuted_model_rows``
+    hold h at zero on padding."""
     if spins_p.device.type == "cpu":
         return gibbs_sweeps_sparse_reference(
             hp, coupling_p, plan, spins_p, n_sweeps, beta,
@@ -442,7 +493,7 @@ def gibbs_sweeps_sparse(
             or threads % 32 or threads % g or not 32 <= threads <= 1024):
         raise ValueError(f"{g} chains of n_pad={n_pad} a block at {threads} threads do not "
                          f"fit the gather sweep kernel")
-    nbr, off, spans = _device_table(plan, chunk, dev)
+    nbr, off, spans, (live, padding) = _device_table(plan, chunk, dev)
     beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
     if beta_t.ndim == 0:
         beta_t = beta_t.expand(n_chains)
@@ -478,6 +529,11 @@ def gibbs_sweeps_sparse(
         raise RuntimeError(f"gibbs_sparse launch failed: {msg} ({err})")
     if count is not None:
         count[0][count[1]] += 1
+    gibbs_sweeps_sparse.columns["live"] += live * n_chains * int(n_sweeps)
+    gibbs_sweeps_sparse.columns["padding"] += padding * n_chains * int(n_sweeps)
     if not track_delta_e:
         return out
     return out, (delta_e * scale if scale is not None else delta_e)
+
+
+gibbs_sweeps_sparse.columns = collections.Counter()

@@ -450,6 +450,146 @@ def test_k1_modes_philox_match_numpy_twin(dev, plan2k, form):
 
 
 # ---------------------------------------------------------------------------
+# the live columns: each span's padding drawn once, bit for bit
+# ---------------------------------------------------------------------------
+
+def _lattice_model(plan, rng, dev, padding_h):
+    """(hp, A): J = ±127/128 on every edge and h a multiple of 1/128, so
+    every field and every ΔE sum is exact in any order in f32, bf16 and
+    int8 (whose scale is then 1/128): the kernel and its plain version
+    agree bit for bit, ΔE included.  ``padding_h``: h nonzero on the
+    padding too (the kernel then carries h · (final − initial) there)."""
+    ei = torch.as_tensor(plan.perm_edge_i, dtype=torch.long, device=dev)
+    ej = torch.as_tensor(plan.perm_edge_j, dtype=torch.long, device=dev)
+    j = torch.tensor(rng.choice([-1.0, 1.0], len(ei)) * 127 / 128, dtype=torch.float32,
+                     device=dev)
+    a = torch.zeros((plan.n_pad, plan.n_pad), dtype=torch.float32, device=dev)
+    a[ei, ej] = j
+    a[ej, ei] = j
+    hp = torch.tensor(rng.integers(-96, 97, plan.n_pad) / 128, dtype=torch.float32, device=dev)
+    if not padding_h:
+        hp[torch.as_tensor(~plan.valid_mask, device=dev)] = 0.0
+    return hp, a
+
+
+@pytest.fixture(scope="module")
+def live_plans(dev):
+    """{name: (plan, hp, A)}: the served checkpoint's plan (256 live columns
+    of 640), h nonzero on its padding, and the fresh flagship training plan
+    (``portbench/configs/flagship.graph.npz``, 256 of 768), h zero there as
+    ``permuted_model`` leaves it; lattice models (``_lattice_model``)."""
+    with np.load(Path(__file__).resolve().parent.parent / "portbench" / "configs"
+                 / "flagship.graph.npz") as z:
+        fresh = GRBMGraph(n=int(z["n"]), edge_i=z["edge_i"], edge_j=z["edge_j"])
+    _, _params, served, _, _ = load_model_dir(MODEL, dev)
+    out = {}
+    for name, graph, padding_h in (("served", served, True), ("flagship", fresh, False)):
+        plan = build_plan(graph)
+        out[name] = (plan, *_lattice_model(plan, np.random.default_rng(plan.n_pad), dev,
+                                           padding_h))
+    assert (out["served"][0].n_pad, out["flagship"][0].n_pad) == (640, 768)
+    return out
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("feed", ["fed", "philox"])
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["served", "flagship"])
+def test_live_columns_match_plain_bit_for_bit(dev, live_plans, name, form, feed, track):
+    """K1-f32 / bf16 / int8, fed or Philox, with and without ΔE, at every G
+    (1 to 16) and 128 to 1,024 threads, 100 chains (a partial last block)
+    per-chain β, 3 sweeps: the kernel sweeps the live columns and draws
+    the padding once; every column, padding included, and ΔE equal the
+    plain version (which sweeps every column every sweep) bit for bit.
+    ``columns`` counts each launch's live and padding columns × chains ×
+    sweeps."""
+    from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse, live_spans
+
+    plan, hp, a = live_plans[name]
+    coupling = _k1_coupling(a, form)
+    chains, sweeps = 100, 3
+    rng = np.random.default_rng(len(name) + 10 * len(form))
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32,
+                      device=dev)
+    beta = torch.tensor(rng.uniform(0.25, 1.0, chains), dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev)
+    if feed == "fed":
+        u = torch.tensor(rng.random((sweeps, chains, plan.n_pad), dtype=np.float32), device=dev)
+    else:
+        g.manual_seed(41)
+        seed = int(gibbs_cuda.draw_seed(g, dev).item())
+        u = torch.tensor(gibbs_cuda.philox_uniforms(seed, sweeps, chains, plan.n_pad),
+                         device=dev)
+    ref = gibbs_sweeps_sparse_reference(hp, coupling, plan, s0, sweeps, beta, uniforms=u,
+                                        track_delta_e=track)
+    live = sum(stop - c0 for c0, stop, _c1 in live_spans(plan))
+    assert live == 256
+    for shape in _k1_shapes():
+        gibbs_sweeps_sparse.columns.clear()
+        g.manual_seed(41)
+        out = gibbs_cuda.gibbs_sweeps_cuda(hp, coupling, plan, s0, sweeps, beta,
+                                           uniforms=u if feed == "fed" else None, generator=g,
+                                           track_delta_e=track, _shape=shape)
+        torch.cuda.synchronize()
+        if track:
+            assert torch.equal(out[0], ref[0]), shape
+            assert torch.equal(out[1], ref[1]), (shape, float((out[1] - ref[1]).abs().max()))
+        else:
+            assert torch.equal(out, ref), shape
+        assert dict(gibbs_sweeps_sparse.columns) == {
+            "live": live * chains * sweeps, "padding": (plan.n_pad - live) * chains * sweeps}
+    # no sweep draws nothing, padding included
+    assert torch.equal(gibbs_cuda.gibbs_sweeps_cuda(hp, coupling, plan, s0, 0, beta,
+                                                    generator=g), s0)
+
+
+@pytest.mark.parametrize("feed", ["fed", "philox"])
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+def test_live_columns_k3_scaled_plan_bit_for_bit(dev, form, feed):
+    """K3 (packed panels at chunk 256) on the scaled plan
+    (``portbench/configs/scaled.graph.npz``: 5,640 live columns of 6,016),
+    the training cell's route, with ΔE and the 8-rung ladder's β, at its
+    default launch shape: spins and ΔE equal the plain version bit for
+    bit on a lattice model."""
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+    from image_generation_tpu_torch.ops.gibbs_hbm_cuda import gibbs_sweeps_hbm_cuda
+    from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse
+
+    with np.load(Path(__file__).resolve().parent.parent / "portbench" / "configs"
+                 / "scaled.graph.npz") as z:
+        graph = GRBMGraph(n=int(z["n"]), edge_i=z["edge_i"], edge_j=z["edge_j"])
+    plan = build_plan(graph)
+    rng = np.random.default_rng(11)
+    hp, a = _lattice_model(plan, rng, dev, False)
+    panels = pack_coupling(plan, _k1_coupling(a, form), 256)
+    chains, sweeps = 256, 4
+    s0 = torch.tensor(rng.choice([-1.0, 1.0], (chains, plan.n_pad)), dtype=torch.float32,
+                      device=dev)
+    beta = _ladder_beta(chains, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(43)
+    if feed == "fed":
+        u = torch.tensor(rng.random((sweeps, chains, plan.n_pad), dtype=np.float32), device=dev)
+    else:
+        probe = torch.Generator(device=dev)
+        probe.set_state(g.get_state())
+        seed = int(gibbs_cuda.draw_seed(probe, dev).item())
+        u = torch.tensor(gibbs_cuda.philox_uniforms(seed, sweeps, chains, plan.n_pad),
+                         device=dev)
+    gibbs_sweeps_sparse.columns.clear()
+    out, de = gibbs_sweeps_hbm_cuda(hp, panels, plan, s0, sweeps, beta,
+                                    uniforms=u if feed == "fed" else None, generator=g,
+                                    track_delta_e=True)
+    ref, de_ref = gibbs_sweeps_sparse_reference(hp, panels, plan, s0, sweeps, beta, uniforms=u,
+                                                track_delta_e=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(de, de_ref), float((de - de_ref).abs().max())
+    assert dict(gibbs_sweeps_sparse.columns) == {"live": 5640 * chains * sweeps,
+                                                 "padding": 376 * chains * sweeps}
+
+
+# ---------------------------------------------------------------------------
 # the streaming kernels K2 (dense) and K3 (packed)
 # ---------------------------------------------------------------------------
 

@@ -24,7 +24,12 @@ summed in f32 in the table's slot order, then h.  These CPU tests hold:
   Gibbs, PT, ``SAMPLER_MATMUL_DTYPE="bfloat16"``) is zero off the plan's
   edges;
 * the cached table holds no values: two couplings on one plan each sample
-  with their own; CPU calls count no launch.
+  with their own; CPU calls count no launch;
+* the live spans the kernel sweeps (``live_spans``): the fresh flagship
+  plan (256 live columns of 768), the scaled plan (5,640 of 6,016), a plan
+  with no padding (the padded spans), hand-built plans with padding inside
+  a span or touched by an edge (the padded span), and the ``columns``
+  counter's counts (a CPU call counts nothing).
 """
 
 from pathlib import Path
@@ -50,6 +55,7 @@ from image_generation_tpu_torch.utils.graph_cache import cached_latent_graph
 
 SEED = 775321899904
 MODEL = Path(__file__).resolve().parent.parent / "runs" / "models" / "tpu_digits_40_epochs"
+GRAPHS = Path(__file__).resolve().parent.parent / "portbench" / "configs"
 CHAIN_RULE = 0.98
 
 
@@ -325,3 +331,109 @@ def test_cpu_calls_count_no_launch(plans, dtype):
     assert not gibbs_cuda.gibbs_sweeps_cuda.launches
     with pytest.raises(TypeError):
         gibbs_cuda.gibbs_sweeps_cuda(hp, a.double(), plan, s0, 1)
+
+
+# ---------------------------------------------------------------------------
+# the live spans
+# ---------------------------------------------------------------------------
+
+def _frozen_plan(name, **kw):
+    """The plan of a benchmark configuration's frozen graph."""
+    with np.load(GRAPHS / f"{name}.graph.npz") as z:
+        graph = tgrbm.GRBMGraph(n=int(z["n"]), edge_i=z["edge_i"], edge_j=z["edge_j"])
+    return tgibbs.build_plan(graph, **kw)
+
+
+def test_live_spans_of_the_flagship_plan():
+    """The fresh flagship plan (``flagship.graph.npz``): six 128-wide class
+    spans holding 63, 62, 70, 44, 14 and 3 live columns; the kernel sweeps
+    those and draws the other 512 once."""
+    plan = _frozen_plan("flagship")
+    spans = gs.live_spans(plan)
+    assert [(c0, c1) for c0, _stop, c1 in spans] == [(128 * i, 128 * i + 128) for i in range(6)]
+    assert [stop - c0 for c0, stop, _c1 in spans] == [63, 62, 70, 44, 14, 3]
+    assert gs._device_table(plan, None, "cpu")[3] == (256, 512)
+
+
+def test_live_spans_of_the_scaled_plan():
+    """The scaled plan (``scaled.graph.npz``, 7 class spans of up to 11
+    blocks): only each span's last block has padding, so 5,640 of its
+    6,016 columns sweep, the panel table's counts alike."""
+    plan = _frozen_plan("scaled")
+    spans = gs.live_spans(plan)
+    assert [(c0, c1) for c0, _stop, c1 in spans] == [
+        (c0, c1) for c0, c1, _b0, _b1 in tgibbs.class_spans(plan)]
+    assert [stop for _c0, stop, _c1 in spans] == [
+        plan.blocks[b1 - 1][1] for _c0, _c1, _b0, b1 in tgibbs.class_spans(plan)]
+    assert sum(stop - c0 for c0, stop, _c1 in spans) == plan.n == 5640
+    assert gs._device_table(plan, 256, "cpu")[3] == (5640, 376)
+
+
+def test_live_spans_without_padding_are_the_padded_spans(plans):
+    """A plan with no padding (``pad_to=1``) sweeps exactly its class spans
+    and draws nothing once; the served checkpoint's plan holds 256 live
+    columns of 640."""
+    plan = _frozen_plan("flagship", pad_to=1)
+    assert plan.n_pad == plan.n
+    assert gs.live_spans(plan) == tuple((c0, c1, c1) for c0, c1, _b0, _b1
+                                        in tgibbs.class_spans(plan))
+    assert gs._device_table(plan, None, "cpu")[3] == (plan.n, 0)
+    served = plans["checkpoint"][1]
+    assert [stop - c0 for c0, stop, _c1 in gs.live_spans(served)] == [72, 68, 67, 37, 12]
+    assert gs._device_table(served, None, "cpu")[3] == (256, 384)
+
+
+def _hand_plan(edges):
+    """Three blocks of 4 columns, the first two one color class (span
+    [0, 8)), the third another (span [8, 12)); 2 live columns a block."""
+    ei, ej = (np.asarray(x, np.int32) for x in zip(*edges))
+    valid = np.zeros(12, bool)
+    valid[[0, 1, 4, 5, 8, 9]] = True
+    return tgibbs.GibbsPlan(n=6, n_pad=12, blocks=((0, 2, 4), (4, 6, 8), (8, 10, 12)),
+                            orig_to_perm=np.flatnonzero(valid).astype(np.int32),
+                            perm_edge_i=ei, perm_edge_j=ej, valid_mask=valid,
+                            block_class=(0, 0, 1))
+
+
+def test_live_spans_keep_padding_inside_a_span_or_coupled():
+    """A hand-built plan whose first span has padding inside it (block 0)
+    keeps that span padded; its second span sweeps its two live columns.
+    An edge touching a padding column keeps that span padded too."""
+    plan = _hand_plan([(0, 8), (1, 9), (4, 8), (5, 9)])
+    assert gs.live_spans(plan) == ((0, 8, 8), (8, 10, 12))
+    assert gs._device_table(plan, None, "cpu")[3] == (10, 2)
+    coupled = _hand_plan([(0, 8), (1, 9), (4, 11)])
+    assert gs.live_spans(coupled) == ((0, 8, 8), (8, 12, 12))
+    assert gs._device_table(coupled, None, "cpu")[3] == (12, 0)
+
+
+def test_launch_threads_follow_the_widest_live_span(plans):
+    """The threads a block: 512 for one chain a block, and for G = 2 and 4
+    on the flagship plans (a pass of 512 covers their widest live span,
+    72 and 70 columns); 1,024 at G = 8 and 16 there, and at every G of two
+    or more on the scaled plan (1,407 columns).  G itself stays the
+    fullest wave's."""
+    shapes = {256: (1, 512), 512: (2, 512), 1024: (4, 512), 2048: (8, 1024), 4096: (16, 1024)}
+    for plan in (plans["checkpoint"][1], _frozen_plan("flagship")):
+        assert {c: gs.launch_shape(plan, c) for c in shapes} == shapes
+    scaled = _frozen_plan("scaled")
+    assert max(stop - c0 for c0, stop, _c1 in gs.live_spans(scaled)) == 1407
+    assert {c: gs.launch_shape(scaled, c) for c in shapes} == {
+        256: (1, 512), 512: (2, 1024), 1024: (4, 1024), 2048: (8, 1024), 4096: (16, 1024)}
+
+
+def test_cpu_calls_count_no_columns(plans):
+    """The ``columns`` counter counts launches only: K1 and the streaming
+    route's calls on CPU tensors (fed, drawn, with ΔE) leave it empty, as
+    they leave ``launches``."""
+    from image_generation_tpu_torch.ops import gibbs_hbm_cuda
+
+    _jplan, plan, models = plans["checkpoint"]
+    hp, a = map(_t, models["own"])
+    s0, u, _beta = map(_t, _inputs(plan, 2, 2, 9))
+    gs.gibbs_sweeps_sparse.columns.clear()
+    gibbs_cuda.gibbs_sweeps_cuda(hp, a, plan, s0, 2, uniforms=u)
+    gibbs_cuda.gibbs_sweeps_cuda(hp, a, plan, s0, 1, generator=torch.Generator().manual_seed(2),
+                                 track_delta_e=True)
+    gibbs_hbm_cuda.gibbs_sweeps_hbm_cuda(hp, a, plan, s0, 2, uniforms=u)
+    assert not gs.gibbs_sweeps_sparse.columns
