@@ -112,7 +112,11 @@
 //     least one full wave of blocks on the card's SMs (on an H100's 132:
 //     256 chains G = 1, 256 blocks; 2,048 chains G = 8) and the spins fit
 //     shared memory, and the threads a block (ops/gibbs_sparse.py
-//     launch_shape).
+//     launch_shape).  On a plan whose live spans are wider than 512
+//     columns (the scaled plan's reach 1,407) one chain fills a block's
+//     passes, and G is 1 at any chain count: its time then grows with the
+//     chains, where a grid of 16-chain blocks costs its busiest SM's two
+//     blocks whether 144 or 256 blocks share the 132 SMs.
 //
 // Plain C interface for ctypes: the wrapper allocates everything (the
 // gathered table too), both kernels launch on the caller's stream, nothing

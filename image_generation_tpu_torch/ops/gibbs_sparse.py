@@ -78,6 +78,8 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _STATIC_SMEM = 32 * 16 * 4  # the energy carry's per-warp partial sums (G ≤ 16)
 _SMS = 132  # streaming multiprocessors of an H100 SXM: launch_shape's default
 _CHAINS = (16, 8, 4, 2, 1)  # chains per thread block the source instantiates
+# live columns beyond which one chain a block keeps a 512-thread block busy (launch_shape)
+_WIDE_SPAN = 512
 # stored value type -> (code of the C entry, bits of the value in a table
 # word, the widest n_pad whose spin positions fit the word's other bits,
 # bytes of the word)
@@ -344,13 +346,27 @@ def _threads(chains_per_block: int, widest: int) -> int:
 
 
 def launch_shape(plan: GibbsPlan, n_chains: int, sms: int = _SMS) -> Tuple[int, int]:
-    """(chains per thread block G, threads per block): the largest G whose
-    grid still makes one full wave of blocks on ``sms`` SMs (the wrapper
-    passes its card's count) and whose spins fit shared memory (the
-    largest that fits otherwise; G 0 when none does).  On an H100's 132
-    SMs, 256 chains take G = 1 (256 blocks), 1,024 G = 4, 2,048 G = 8;
-    the threads follow the widest live span (``_threads``)."""
+    """(chains per thread block G, threads per block).  On a plan whose
+    widest live span is wider than ``_WIDE_SPAN`` columns, G = 1 at any
+    chain count.  Otherwise the largest G whose grid still makes one full
+    wave of blocks on ``sms`` SMs (the wrapper passes its card's count)
+    and whose spins fit shared memory (the largest that fits otherwise; G
+    0 when none does): on an H100's 132 SMs, 256 chains take G = 1 (256
+    blocks), 1,024 G = 4, 2,048 G = 8.  The threads follow the widest live
+    span (``_threads``).
+
+    Measured on an NVIDIA H100 80GB HBM3 (700 W), device time a launch of
+    256·k chains x 80 sweeps, every (G, threads) at k = 1 to 16: on the
+    scaled plan (int8 panels, live spans up to 1,407 columns) one chain a
+    block at 512 threads was the fastest shape or within 1.7 % of it at
+    every k, and its time grows with the chains (2.12 ms at k = 1, 1.68 to
+    1.73 ms a further 256 chains, 27.52 at k = 16), where the wave rule's
+    G = 16 took 28.5 ms at every k from 9 to 16 (PERF.md §6).  On the
+    flagship plans (spans up to 72 columns) one chain a block leaves most
+    threads idle, and the wave rule stays."""
     widest = max(stop - c0 for c0, stop, _c1 in live_spans(plan))
+    if widest > _WIDE_SPAN and _fits(1, plan.n_pad):
+        return 1, _threads(1, widest)
     fits = [g for g in _CHAINS if _fits(g, plan.n_pad)]
     for g in fits:
         if -(-n_chains // g) >= sms:

@@ -64,6 +64,7 @@ or ``ADAM_FACTORED_NU`` asks for ``training/optim.py``'s ``AdamMoments``.
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 from functools import partial
 from typing import List, Optional, Sequence, Tuple
@@ -267,7 +268,16 @@ class SampleFns:
 
     Under either the chains' leading axis (NUM_READS, or the ladder's T)
     is split over ``chain_row_axes``; the PT ladder's replica exchange
-    then crosses ranks at the slices' edges (``parallel.mesh.LadderShard``)."""
+    then crosses ranks at the slices' edges (``parallel.mesh.LadderShard``).
+
+    ``SampleFns.sampler_model`` counts, over every instance, the sampler
+    models built (``"builds"``) and the bytes of their stored couplings
+    (``"bytes"``; on a mesh this rank's part), as the launch counters
+    count launches.  ``sample_fn`` builds one a call, inside the device
+    span ``sampler.build`` (ids ``n_pad`` and ``form``, the stored form:
+    ``int8``, ``bf16`` or ``f32``, with ``+bs`` when packed)."""
+
+    sampler_model = collections.Counter()
 
     def __init__(self, cfg: TrainingConfig, graph: GRBMGraph, plan: GibbsPlan, device,
                  mesh=None):
@@ -318,6 +328,9 @@ class SampleFns:
         else:
             impl = "torch"
         self.sampler_impl = impl + ("+int8" if self.int8 else "") + (
+            "+bs" if self.block_sparse else "")
+        self.stored_form = ("int8" if self.int8 else
+                            "bf16" if self.mm_dtype is not None else "f32") + (
             "+bs" if self.block_sparse else "")
 
     def _graph_sharded(self, cfg: TrainingConfig, plan: GibbsPlan, mesh) -> bool:
@@ -414,6 +427,12 @@ class SampleFns:
         dispatch reads it: quantized, then cast, then packed (the JAX
         order).  Under graph sharding: this rank's row block only, quantized
         at the whole matrix's scale, packed on its shard-local grid."""
+        hp, coupling_p = self._build_sampler_model(grbm_params)
+        SampleFns.sampler_model["builds"] += 1
+        SampleFns.sampler_model["bytes"] += _stored_bytes(coupling_p)
+        return hp, coupling_p
+
+    def _build_sampler_model(self, grbm_params: GRBMParams):
         cfg = self.config
         h, j = scaled_ising(grbm_params, cfg.PREFACTOR, cfg.H_RANGE, cfg.J_RANGE)
         if self.graph_sharded:
@@ -562,7 +581,9 @@ class SampleFns:
         mesh the chains are split as training splits its own
         (``chain_row_axes`` of num_reads, or of T under PT)."""
         cfg = self.config
-        hp, coupling_p = self.build_sampler_model(grbm_params)
+        with span("sampler.build", device=self.device, n_pad=self.plan.n_pad,
+                  form=self.stored_form):
+            hp, coupling_p = self.build_sampler_model(grbm_params)
         if self.pt_mode:
             if uniforms is not None:
                 raise ValueError("fed uniforms are taken by plain Gibbs sampling only")
@@ -585,6 +606,15 @@ class SampleFns:
         spins = self.sweeps_fn(generator, hp, coupling_p, self.local(init_spins, rows),
                                n_sweeps, uniforms=uniforms, rows=rows)
         return self.whole(spins, rows)
+
+
+def _stored_bytes(coupling_p) -> int:
+    """Bytes of a sampler coupling as it is stored: a dense f32 or bf16
+    matrix, a ``QuantCoupling``'s int8 matrix or packed panels (whole or
+    a graph shard's), each with its f32 scale where it has one."""
+    mat = getattr(coupling_p, "panels", getattr(coupling_p, "q", coupling_p))
+    scale = getattr(coupling_p, "scale", None)
+    return mat.numel() * mat.element_size() + (4 if scale is not None else 0)
 
 
 def make_sample_fns(cfg: TrainingConfig, graph: GRBMGraph,

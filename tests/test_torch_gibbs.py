@@ -227,8 +227,10 @@ def test_kernel_gate_and_rows(ckpt):
         assert threads % 32 == 0 and threads % g == 0 and 32 <= threads <= 1024
     # the P32 fabric's width: 16 chains' spins no longer fit shared memory
     wide = tgibbs.GibbsPlan(
-        n=23560, n_pad=23936, blocks=((0, 23560, 23936),), orig_to_perm=np.arange(23560),
-        perm_edge_i=np.zeros(0), perm_edge_j=np.zeros(0), valid_mask=np.ones(23936, bool),
+        n=23936, n_pad=23936,
+        blocks=tuple((128 * i, 128 * (i + 1), 128 * (i + 1)) for i in range(187)),
+        orig_to_perm=np.arange(23936), perm_edge_i=np.zeros(0), perm_edge_j=np.zeros(0),
+        valid_mask=np.ones(23936, bool),
     )
     assert not gibbs_sparse._fits(16, wide.n_pad)
     assert gibbs_sparse.launch_shape(wide, 4096)[0] == 8

@@ -589,6 +589,69 @@ def test_live_columns_k3_scaled_plan_bit_for_bit(dev, form, feed):
                                                  "padding": 376 * chains * sweeps}
 
 
+def _load_reference_philox():
+    """``portbench/reference/gibbs.py``'s Philox draws on the device (the
+    benchmark's plain twin of the kernel's stream), loaded by path."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent.parent / "portbench" / "reference" / "gibbs.py"
+    spec = importlib.util.spec_from_file_location("portbench_reference_gibbs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.philox_uniforms
+
+
+@pytest.mark.parametrize("shape", ["default", "wave"])
+@pytest.mark.parametrize("feed", ["fed", "philox"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+def test_k3_int8_scaled_serving_groups_bit_for_bit(dev, k, feed, shape):
+    """K3-int8 on the scaled plan's packed panels at the coalescer's group
+    sizes, 256·k chains × 80 sweeps at β = 1 (the served 5,640-latent
+    model's dispatch), on couplings at a trained model's size, at the
+    default launch shape (one chain a block) and at the full wave's G = k
+    (1,024 threads): every column of the spins, padding included, equals
+    the plain version's run sweep by sweep on the same draws (fed, or the
+    Philox stream)."""
+    from image_generation_tpu_torch.ops.block_sparse import pack_coupling
+    from image_generation_tpu_torch.ops.gibbs_sparse import gibbs_sweeps_sparse, launch_shape
+    from image_generation_tpu_torch.ops.quant import quantize_coupling
+
+    with np.load(Path(__file__).resolve().parent.parent / "portbench" / "configs"
+                 / "scaled.graph.npz") as z:
+        graph = GRBMGraph(n=int(z["n"]), edge_i=z["edge_i"], edge_j=z["edge_j"])
+    plan = build_plan(graph)
+    rng = np.random.default_rng(2200 + k)
+    h = torch.tensor(rng.normal(0.0, 0.003, graph.n), dtype=torch.float32, device=dev)
+    j = torch.tensor(rng.normal(0.0, 0.004, graph.n_edges), dtype=torch.float32, device=dev)
+    hp, a = permuted_model(plan, h, j)
+    panels = pack_coupling(plan, quantize_coupling(a), 256)
+    chains, sweeps = 256 * k, 80
+    assert launch_shape(plan, chains) == (1, 512)
+    kw = {} if shape == "default" else {"_shape": (k, 512 if k == 1 else 1024)}
+    g = torch.Generator(device=dev)
+    g.manual_seed(2200 + k)
+    s0 = random_spins(g, plan, chains, dev)
+    if feed == "fed":
+        u = torch.rand((sweeps, chains, plan.n_pad), generator=g, device=dev)
+        out = gibbs_sweeps_sparse(hp, panels, plan, s0, sweeps, uniforms=u, **kw)
+    else:
+        probe = torch.Generator(device=dev)
+        probe.set_state(g.get_state())
+        seed = gibbs_cuda.draw_seed(probe, dev)
+        out = gibbs_sweeps_sparse(hp, panels, plan, s0, sweeps, generator=g, **kw)
+        philox = _load_reference_philox()
+        rows = torch.arange(chains, dtype=torch.int64, device=dev)
+    ref = s0
+    for sweep in range(sweeps):
+        u_s = u[sweep:sweep + 1] if feed == "fed" else \
+            philox(seed.reshape(1).expand(chains), rows, plan.n_pad, sweep)[None]
+        # the plain version's padding is drawn every sweep, the kernel's in the
+        # last: the same values after the run
+        ref = gibbs_sweeps_sparse_reference(hp, panels, plan, ref, 1, uniforms=u_s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref), _differing(out, ref)
+
+
 # ---------------------------------------------------------------------------
 # the streaming kernels K2 (dense) and K3 (packed)
 # ---------------------------------------------------------------------------

@@ -161,7 +161,7 @@ def test_warm_serve_spans(tmp_path):
     """Four threads through the coalescer: each request has one
     ``coalescer.queue`` and ``serve.reply``; each dispatch lists its
     requests, they add up to the served count, and its sampler call and
-    decode are its children."""
+    decode are its children, the sampler model's build the sampler call's."""
     w = WarmGenerator(tmp_path, config_overrides=SMALL, device="cpu", serve_window_ms=50)
     w.warm_buckets(MODEL, 1)
     served0, errors = w.stats["served"], []
@@ -198,8 +198,10 @@ def test_warm_serve_spans(tmp_path):
             assert queue[i]["end_ns"] <= r["start_ns"]
     for name in ("serve.sample", "serve.decode"):
         assert sorted(r["parent"] for r in recs[name]) == sorted(r["span"] for r in dispatches)
+    assert (sorted(r["parent"] for r in recs["sampler.build"])
+            == sorted(r["span"] for r in recs["serve.sample"]))
     assert set(recs) == {"coalescer.queue", "serve.reply", "serve.dispatch", "serve.sample",
-                         "serve.decode"}
+                         "sampler.build", "serve.decode"}
 
 
 def test_train_step_spans():

@@ -410,16 +410,16 @@ def test_live_spans_keep_padding_inside_a_span_or_coupled():
 def test_launch_threads_follow_the_widest_live_span(plans):
     """The threads a block: 512 for one chain a block, and for G = 2 and 4
     on the flagship plans (a pass of 512 covers their widest live span,
-    72 and 70 columns); 1,024 at G = 8 and 16 there, and at every G of two
-    or more on the scaled plan (1,407 columns).  G itself stays the
-    fullest wave's."""
+    72 and 70 columns); 1,024 at G = 8 and 16 there, G itself the fullest
+    wave's.  The scaled plan (1,407 columns, wider than a 512-thread pass)
+    takes one chain a block at every chain count."""
     shapes = {256: (1, 512), 512: (2, 512), 1024: (4, 512), 2048: (8, 1024), 4096: (16, 1024)}
     for plan in (plans["checkpoint"][1], _frozen_plan("flagship")):
         assert {c: gs.launch_shape(plan, c) for c in shapes} == shapes
     scaled = _frozen_plan("scaled")
     assert max(stop - c0 for c0, stop, _c1 in gs.live_spans(scaled)) == 1407
-    assert {c: gs.launch_shape(scaled, c) for c in shapes} == {
-        256: (1, 512), 512: (2, 1024), 1024: (4, 1024), 2048: (8, 1024), 4096: (16, 1024)}
+    assert {c: gs.launch_shape(scaled, c) for c in list(shapes) + [2304, 3840]} == {
+        c: (1, 512) for c in list(shapes) + [2304, 3840]}
 
 
 def test_cpu_calls_count_no_columns(plans):

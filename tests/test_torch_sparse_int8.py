@@ -287,22 +287,29 @@ def test_launch_shape_fills_a_wave_and_fits(plans, name, chains):
     """The chains per block G and threads per block: at least one full wave
     of blocks on the 132 SMs, G the largest that keeps one (so fewer
     blocks re-read the table), the spins plus the energy carry's partial
-    sums within 227 KB, the threads a multiple of 32 and of G."""
+    sums within 227 KB, the threads a multiple of 32 and of G; on the
+    scaled plan, whose live spans are wider than a 512-thread pass, one
+    chain a block."""
     _graph, plan = plans[name]
     g, threads = gs.launch_shape(plan, chains)
     assert g in gs._CHAINS and -(-chains // g) >= gs._SMS
-    assert g == 16 or -(-chains // (2 * g)) < gs._SMS
     assert gs._dynamic_smem(g, plan.n_pad) + gs._STATIC_SMEM <= 227 * 1024
     assert threads % 32 == 0 and threads % g == 0 and 32 <= threads <= 1024
     assert gs.supported(plan, chains)
+    if name == "scaled":
+        assert (g, threads) == (1, 512)
+        return
+    assert g == 16 or -(-chains // (2 * g)) < gs._SMS
     assert {256: 1, 1024: 4, 2048: 8}[chains] == g
 
 
 def test_launch_shape_shrinks_for_a_wide_plan():
     """A plan too wide for 16 chains' spins in shared memory (the P32
-    fabric's n_pad 23,936) takes the largest G that fits; below one wave
-    of chains G is 1."""
-    wide = tgibbs.GibbsPlan(n=23560, n_pad=23936, blocks=((0, 23560, 23936),),
+    fabric's n_pad 23,936, here in 128-column blocks) takes the largest G
+    that fits; below one wave of chains G is 1."""
+    wide = tgibbs.GibbsPlan(n=23936, n_pad=23936,
+                            blocks=tuple((128 * i, 128 * (i + 1), 128 * (i + 1))
+                                         for i in range(187)),
                             orig_to_perm=np.zeros(0), perm_edge_i=np.zeros(0, np.int32),
                             perm_edge_j=np.zeros(0, np.int32), valid_mask=np.zeros(23936, bool))
     assert gs.launch_shape(wide, 4096)[0] == 8  # 16 x 23,936 B > 227 KB
@@ -313,10 +320,12 @@ def test_launch_shape_shrinks_for_a_wide_plan():
 def test_launch_shape_follows_the_sm_count(plans, sms, chains, g):
     """The wave rule reads the card's SM count: half an H100's SMs take
     twice the chains a block at 256 chains, a PCIe H100's 114 SMs G = 8
-    at 1,024 chains, twice the SMs half the G at 2,048."""
-    _graph, plan = plans["scaled"]
+    at 1,024 chains, twice the SMs half the G at 2,048.  The scaled plan's
+    one chain a block does not depend on it."""
+    _graph, plan = plans["latents2048"]
     assert gs.launch_shape(plan, chains, sms)[0] == g
     assert -(-chains // g) >= sms
+    assert gs.launch_shape(plans["scaled"][1], chains, sms) == (1, 512)
 
 
 @pytest.mark.parametrize("route", ["K1", "K3"])
